@@ -1,0 +1,77 @@
+"""Carry solver state between ``decomp_tpu`` (JAX) and this package.
+
+A JAX solve's factors warm-start the port, and the port's factors go
+back, as numpy arrays: ``from_numpy(np_tree, device)`` and
+``to_numpy(torch_tree)``. A tree is an array, a scalar, None, or a
+tuple, list, dict or NamedTuple of trees. A NamedTuple whose class name
+matches one of this package's result types (``NMFResult`` from the JAX
+side, say) becomes that type; any other keeps its own class.
+
+The caller converts JAX arrays with ``np.asarray`` (or hands them over
+as they are: anything ``np.asarray`` accepts converts), so this module
+never imports JAX.
+"""
+
+import numpy as np
+import torch
+
+from decomp_tpu_torch.utils import result as _result
+
+_PORT_TYPES = {
+    "NMFResult": _result.NMFResult,
+    "LassoResult": _result.LassoResult,
+    "DictionaryLearningResult": _result.DictionaryLearningResult,
+}
+
+
+def _is_namedtuple(tree) -> bool:
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
+
+
+def _map(fn, tree, leaf_types):
+    if tree is None or isinstance(tree, (bool, int, float, str)):
+        return tree
+    if isinstance(tree, leaf_types):
+        return fn(tree)
+    if _is_namedtuple(tree):
+        cls = _PORT_TYPES.get(type(tree).__name__, type(tree))
+        return cls(*(_map(fn, v, leaf_types) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map(fn, v, leaf_types) for v in tree)
+    if isinstance(tree, dict):
+        return {k: _map(fn, v, leaf_types) for k, v in tree.items()}
+    # Anything else array-like (a JAX array, a numpy scalar).
+    return fn(tree)
+
+
+def _array_to_tensor(a, device, dtype):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: same bits
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+        t = t.view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a, copy=True))
+    if dtype is not None and t.dtype.is_floating_point:
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def from_numpy(tree, device, dtype=None):
+    """numpy (or array-like) leaves -> tensors on ``device``. ``dtype``,
+    when given, applies to floating leaves only (``niter`` stays an
+    integer)."""
+    return _map(lambda a: _array_to_tensor(a, device, dtype), tree,
+                (np.ndarray, np.generic))
+
+
+def _tensor_to_array(t):
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        # numpy has no bfloat16; the f32 widening is exact.
+        t = t.float()
+    return t.cpu().numpy()
+
+
+def to_numpy(tree):
+    """Tensor leaves -> numpy arrays on the host (bf16 widens to f32)."""
+    return _map(_tensor_to_array, tree, (torch.Tensor,))
