@@ -2,10 +2,11 @@
 
 It mirrors ``decomp_tpu``'s layout (``models/``, ``ops/``, ``utils/``) and
 ``solve()`` surface; its CUDA kernels live in ``csrc/`` and are built for
-Hopper (``sm_90a``) on first use. Ported so far: dense multiplicative-update
-NMF (``nmf.solve``, method 'mu', full batch, with ``inner_iter`` and mixed
-precision), whose x update and d statistics run in the hand-written
-kernel ``ops.cuda_mu.mu_stats_dense`` on a CUDA tensor. ``decomp_tpu``
+Hopper (``sm_90a``) on first use. Ported so far: multiplicative-update
+NMF (``nmf.solve``, methods 'mu' and 'kl-mu', full batch, dense or masked,
+with ``inner_iter``, mixed precision and held-out stopping; the
+``nmf.masked_completion`` preset), whose x update and d statistics run in
+the hand-written kernels of ``ops.cuda_mu`` on a CUDA tensor. ``decomp_tpu``
 (JAX) stays the reference the port is tested against; this package never
 imports JAX.
 """

@@ -1,5 +1,5 @@
-"""Public solver families. Only ``nmf`` (dense 'mu') is ported so far;
-lasso and dictionary learning follow (ROADMAP Queue 1)."""
+"""Public solver families. Only ``nmf`` ('mu' and 'kl-mu') is ported so
+far; lasso and dictionary learning follow (ROADMAP Queue 1)."""
 
 from decomp_tpu_torch.models import nmf
 

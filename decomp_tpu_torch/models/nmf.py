@@ -1,21 +1,27 @@
 """Non-negative matrix factorisation by multiplicative updates (counterpart
-of ``decomp_tpu.models.nmf``; dense ``method='mu'`` so far).
+of ``decomp_tpu.models.nmf``).
 
     y ≈ x @ d,  x >= 0, d >= 0
     x <- x * (y @ d.T) / (x @ (d @ d.T) + eps)
     d <- d * (x.T @ y) / ((x.T @ x) @ d + eps)
 
-Full batch, with ``inner_iter`` x refinements per d update and the
-mixed-precision mode (``factor_dtype``: e.g. bf16 data, f32 factors). Two
-paths run the same update: the kernel path (``use_kernel``), whose x
-update and d statistics are one call of ``ops.cuda_mu.mu_stats_dense``
-(a CUDA kernel on a CUDA tensor, its plain twin on a CPU tensor), and the
-composition path of plain torch products.
+Masked variant (mask == 1 observed, 0 missing): ``y`` becomes ``my = mask *
+y`` and every reconstruction ``x @ d`` becomes ``mask * (x @ d)``.
+``method='kl-mu'`` runs the Lee-Seung updates of the generalised KL
+divergence instead. Full batch, with ``inner_iter`` x refinements per d
+update, the mixed-precision mode (``factor_dtype``: e.g. bf16 data, f32
+factors) and held-out stopping (``stop='heldout'``; the
+``masked_completion`` preset). Two paths run the same update: the kernel
+path (``use_kernel``), whose x update and d statistics are one call of an
+``ops.cuda_mu`` kernel (``mu_stats_dense``, ``mu_stats_masked``,
+``kl_stats_dense`` or ``kl_stats_masked``: the CUDA kernel on a CUDA
+tensor, its plain twin on a CPU tensor), and the composition path of
+plain torch products.
 
 Everything runs on ``y``'s device; tensors on another device are refused,
-never moved. Not ported yet, and refused with ``DecompError``: ``mask``,
-methods other than ``'mu'``, ``minibatch``, ``stop='heldout'``,
-``masked_completion`` and ``solve_streaming``.
+never moved. Not ported yet, and refused with ``DecompError``:
+``method='hals'``, ``minibatch``, ``masked_completion(mesh=...)`` and
+``solve_streaming``.
 """
 
 from typing import Optional
@@ -30,11 +36,16 @@ from decomp_tpu_torch.utils.exceptions import DecompError
 from decomp_tpu_torch.utils.normalize import l2_norm
 from decomp_tpu_torch.utils.result import NMFResult
 
+# Salt of the held-out reserve's seed (ascii 'held', as decomp_tpu's
+# _HELDOUT_SALT): a mask the caller draws from manual_seed(random_seed)
+# must not reuse the reserve's uniforms, or a mask u >= 0.3 makes the
+# u < 0.05 reserve exactly empty.
+_HELDOUT_SALT = 0x68656C64
 _METHODS = ("mu", "kl-mu", "hals")
 _PRECISIONS = ("default", "high", "highest", "bfloat16", "tensorfloat32",
                "float32", "fastest")
-# Rows per chunk where a product upcasts compute-dtype data: bounds the
-# f32 temporaries to a chunk instead of all of y.
+# Rows per chunk where a product upcasts compute-dtype data or a sum runs
+# over all of y: bounds the temporaries to a chunk instead of all of y.
 _CHUNK_ROWS = 8192
 
 
@@ -85,63 +96,73 @@ def solve(
     check_every: int = 1,
     verbose: bool = False,
     stop: str = "rel_change",
+    heldout_frac: float = 0.05,
 ) -> NMFResult:
     """Factorise ``y ≈ x @ d`` with nonnegative factors.
 
     Parameters
     ----------
-    y : (n_samples, n_channels) real tensor (bf16, f32 or f64).
+    y : (n_samples, n_channels) real tensor (bf16, f32 or f64). Missing
+        entries may hold any finite value if ``mask`` marks them 0.
     d : (rank, n_channels) initial dictionary (warm start). One of ``d``
         or ``rank`` is required.
     rank : target rank for random initialisation when ``d`` is None.
     x : (n_samples, rank) initial activations (warm start).
     tol : relative change of ``d`` below which iteration stops (0 = run
         all ``maxiter`` iterations, with no host read per iteration).
-    method : 'mu' (Lee-Seung multiplicative updates, L2 loss). 'kl-mu'
-        and 'hals' are not ported yet.
-    mask, minibatch, stop='heldout' : not ported yet; raise DecompError.
-    inner_iter : x updates per d update; the extra refinements reuse the
-        y @ d.T numerator (accelerated MU).
+    method : 'mu' (Lee-Seung multiplicative updates, L2 loss) or 'kl-mu'
+        (Lee-Seung updates of the generalised KL divergence). 'hals' is
+        not ported yet.
+    mask : (n_samples, n_channels) 1/0 or bool tensor on y's device;
+        1 = observed. Cast to y's dtype.
+    minibatch : not ported yet; raises DecompError.
+    inner_iter : x updates per d update; for dense 'mu' the extra
+        refinements reuse the y @ d.T numerator (accelerated MU).
     random_seed : seed of the initial factors, drawn from
-        ``torch.Generator(device=y.device).manual_seed(random_seed)``.
-        The draw cannot reproduce ``jax.random``'s bits, so a seeded
-        trajectory differs from ``decomp_tpu``'s: pass ``x`` and ``d`` to
-        compare the two.
+        ``torch.Generator(device=y.device).manual_seed(random_seed)``,
+        and (salted) of the held-out reserve. The draws cannot reproduce
+        ``jax.random``'s bits, so a seeded trajectory differs from
+        ``decomp_tpu``'s: pass ``x`` and ``d`` to compare the two.
     eps : additive denominator guard of the multiplicative updates.
-    record_objective : record 0.5*||y - x@d||^2 per iteration.
+    record_objective : record the objective per iteration: 0.5 *
+        ||mask * (y - x@d)||^2 for 'mu', the KL divergence for 'kl-mu'.
     precision : accepted for ``decomp_tpu`` compatibility and without
         effect: f32 products here are always full f32 (never TF32), and
         bf16 products always sum in f32.
     factor_dtype : store x and d in this wider dtype while y and every
         product's operands stay in y's dtype (bf16 data, f32 factors is
-        the converging high-throughput operating point).
+        the converging high-throughput operating point). 'mu' and 'kl-mu'.
     use_kernel : True / False / 'auto'. The kernel path computes the x
-        update and the d statistics in one ``mu_stats_dense`` call: on a
+        update and the d statistics in one ``ops.cuda_mu`` call: on a
         CUDA tensor the hand-written kernel, on a CPU tensor its plain
         twin. 'auto' engages it for a CUDA ``y`` of dtype bf16 or f32 with
-        factors in y's dtype or f32 and rank <= 128, and is False on CPU.
+        rank <= 128, factors in y's dtype or f32 ('kl-mu': y's dtype
+        only), and ``inner_iter == 1`` unless dense 'mu'; it is False on
+        CPU.
     kernel_block_rows : rows per partial of the kernel's statistics pass
         (on CPU, rows per chunk of the twin); a positive multiple of 8.
     check_every : evaluate the stopping rule every this many iterations.
     verbose : print the iteration index and diff at every check.
+    stop : 'rel_change' (relative change of ``d``) or 'heldout': reserve
+        ``heldout_frac`` of the observed entries as a validation set,
+        train on the rest, and stop when the validation error's relative
+        improvement per check falls below ``tol`` or the error rises.
+        Requires a mask; ``check_every`` defaults to 25;
+        ``record_objective`` is refused. ``aux["heldout_rel_err"]`` holds
+        the final relative validation error.
+    heldout_frac : fraction of the observed entries reserved under
+        stop='heldout'.
 
     Returns
     -------
-    NMFResult(x, d, niter, converged, objective)
+    NMFResult(x, d, niter, converged, objective, aux)
     """
     if method not in _METHODS:
         raise DecompError(f"method must be one of {_METHODS}, got {method!r}")
-    if method != "mu":
-        raise _not_ported(f"method={method!r}", 3)
-    if mask is not None:
-        raise _not_ported("mask", 3)
+    if method == "hals":
+        raise _not_ported("method='hals'", 3)
     if minibatch is not None:
         raise _not_ported("minibatch", 3)
-    if stop not in ("rel_change", "heldout"):
-        raise DecompError(f"stop must be 'rel_change' or 'heldout', "
-                          f"got {stop!r}")
-    if stop == "heldout":
-        raise _not_ported("stop='heldout'", 3)
     if precision not in _PRECISIONS:
         raise DecompError(f"precision must be one of {_PRECISIONS}, "
                           f"got {precision!r}")
@@ -181,77 +202,239 @@ def solve(
         assertion.assert_ndim("x", x, 2)
         assertion.assert_axis_size("x", x, 0, n_samples, "n_samples")
         assertion.assert_axis_size("x", x, 1, rank, "rank")
+    if mask is not None:
+        mask = torch.as_tensor(mask)
+        assertion.assert_same_shape("mask", mask, "y", y)
+        mask = _on_device("mask", mask, y.dtype, y.device)
     inner_iter = _validate_inner_iter(inner_iter)
     cuda_mu.validate_block_rows(kernel_block_rows)
 
     if use_kernel == "auto":
         use_kernel = (y.is_cuda
                       and y.dtype in (torch.bfloat16, torch.float32)
+                      and (inner_iter == 1
+                           or (method == "mu" and mask is None))
+                      and (method == "mu" or factor_dtype is None)
                       and fdt in (y.dtype, torch.float32)
                       and rank <= cuda_mu.KERNEL_MAX_RANK)
+    use_kernel = bool(use_kernel)
+    if use_kernel and method != "mu" and factor_dtype is not None:
+        raise DecompError(f"use_kernel=True with method={method!r} does "
+                          "not support factor_dtype")
+    if use_kernel and inner_iter != 1 and (method != "mu"
+                                           or mask is not None):
+        raise DecompError("use_kernel=True supports inner_iter > 1 only "
+                          "for dense method='mu' (the masked/KL "
+                          "denominators need fresh data passes)")
+    if stop not in ("rel_change", "heldout"):
+        raise DecompError(f"stop must be 'rel_change' or 'heldout', "
+                          f"got {stop!r}")
+    val = None
+    if stop == "heldout":
+        if mask is None:
+            raise DecompError("stop='heldout' requires a mask (it "
+                              "validates on reserved OBSERVED entries)")
+        if record_objective:
+            raise DecompError("stop='heldout' is incompatible with "
+                              "record_objective (checks are amortised "
+                              "over check_every iterations)")
+        if not 0.0 < float(heldout_frac) < 1.0:
+            raise DecompError("heldout_frac must be in (0, 1)")
+        if check_every == 1:
+            check_every = 25  # each check costs two reconstructions
+        val = _heldout_reserve(mask, float(heldout_frac), int(random_seed))
     return _solve(
-        y, d, x, rank=int(rank), tol=float(tol), eps=float(eps),
-        maxiter=int(maxiter), inner_iter=inner_iter,
+        y, d, x, mask, val, rank=int(rank), method=method, tol=float(tol),
+        eps=float(eps), maxiter=int(maxiter), inner_iter=inner_iter,
         record_objective=bool(record_objective), factor_dtype=factor_dtype,
-        use_kernel=bool(use_kernel), kernel_block_rows=kernel_block_rows,
+        use_kernel=use_kernel, kernel_block_rows=kernel_block_rows,
         check_every=int(check_every), verbose=bool(verbose),
         random_seed=int(random_seed))
 
 
-def _solve(y, d, x, *, rank, tol, eps, maxiter, inner_iter,
-           record_objective, factor_dtype, use_kernel, kernel_block_rows,
-           check_every, verbose, random_seed):
+def _heldout_reserve(mask, frac, random_seed):
+    """The validation set of stop='heldout': each observed entry with
+    probability ``frac``, drawn on the mask's device, in row chunks, from
+    a generator seeded with ``random_seed`` salted by ``_HELDOUT_SALT``.
+    The salt goes into the low 32 bits, the only ones the CPU generator
+    keeps, and the high ones. Returns a 0/1 tensor in the mask's dtype."""
+    seed = (random_seed ^ (_HELDOUT_SALT * (2 ** 32 + 1))) % 2 ** 64
+    gen = torch.Generator(device=mask.device).manual_seed(seed)
+    val = torch.empty_like(mask)
+    for sl in _row_slices(mask.shape[0]):
+        u = torch.rand(val[sl].shape, generator=gen, device=mask.device)
+        val[sl] = (u < frac).to(mask.dtype) * mask[sl]
+    return val
+
+
+def _solve(y, d, x, mask, val, *, rank, method="mu", tol=1e-4, eps=1e-15,
+           maxiter=1000, inner_iter=1, record_objective=False,
+           factor_dtype=None, use_kernel=False, kernel_block_rows=None,
+           check_every=1, verbose=False, random_seed=0):
+    """The solve, after ``solve``'s checks. ``val``: the held-out
+    validation set (0/1 in y's dtype, inside ``mask``) under
+    stop='heldout', else None; ``solve`` draws it with
+    ``_heldout_reserve``, and a parity test may pass ``decomp_tpu``'s."""
     rdt = real_dtype(y.dtype)
+    acc = acc_dtype(rdt)
+    tiny = torch.finfo(acc).tiny
     # eps guards f32 (or wider) denominators in mixed mode; it is rounded
     # to that dtype as the JAX package rounds it.
     eps_t = torch.tensor(eps, dtype=real_dtype(factor_dtype)
                          if factor_dtype is not None else rdt)
+    hd = None
+    if val is not None:
+        # Train on the observed entries outside the validation set. yv
+        # and val stay in y's dtype (val is 0/1, so val * y is exact).
+        mask = mask - val
+        yv = val * y
+        vnorm = torch.clamp(_row_sum(yv.shape[0], lambda sl: torch.sum(
+            yv[sl].to(acc) * yv[sl].to(acc))), min=tiny)
+        hd = (yv, val, vnorm)
+    my = y if mask is None else mask * y
     if d is None or x is None:
+        # The init scale comes from the observed data: junk values at
+        # missing entries cannot blow up the starting point.
         gen = torch.Generator(device=y.device).manual_seed(random_seed)
-        d, x = _init_factors(gen, y, d, x, rank, factor_dtype)
-    acc = acc_dtype(rdt)
-    tiny = torch.finfo(acc).tiny
+        d, x = _init_factors(gen, my, d, x, rank, factor_dtype)
 
     def diff_fn(old, new):
         d_old = old[1].to(acc)
         d_new = new[1].to(acc)
         return l2_norm(d_new - d_old) / torch.clamp(l2_norm(d_old), min=tiny)
 
-    def objective(state):
-        return 0.5 * _sq_resid(y, state[0], state[1], acc)
+    if method == "kl-mu":
+        def objective(state):
+            return _kl_objective(my, state[0], state[1], mask, eps_t)
+    else:
+        def objective(state):
+            return 0.5 * _sq_resid(my, state[0], state[1], acc, mask)
 
     if use_kernel:
-        cdt = y.dtype
-        eps_k = float(eps_t)
-
-        def step(state, it):
-            x_, d_ = state
-            return cuda_mu.mu_update_dense(
-                y, x_, d_.to(cdt), eps_k, block_rows=kernel_block_rows,
-                d_master=d_, inner_iter=inner_iter)
+        step = _kernel_step(my, mask, method, float(eps_t), kernel_block_rows,
+                            inner_iter)
     else:
-        if factor_dtype is not None:
-            upd_x, upd_d = _update_x_mixed, _update_d_mixed
-        else:
-            upd_x, upd_d = _update_x, _update_d
+        upd_x, upd_d = _UPDATES[method, factor_dtype is not None]
 
         def step(state, it):
             x_, d_ = state
             for _ in range(inner_iter):
-                x_ = upd_x(y, x_, d_, eps_t)
-            return (x_, upd_d(y, x_, d_, eps_t))
+                x_ = upd_x(my, x_, d_, mask, eps_t)
+            return (x_, upd_d(my, x_, d_, mask, eps_t))
 
+    val_sqerr, min_iter = None, 0
+    if hd is not None:
+        # diff is the validation error's relative improvement per check;
+        # it goes negative when the error rises, and the loop stops then.
+        val_sqerr, diff_fn = _heldout_machinery(hd, y.dtype)
+        # warm-up floor, clamped to the budget so a short run can still
+        # report convergence
+        min_iter = min(2 * check_every, max(maxiter - check_every, 0))
     res = run_iterations(
         step, (x, d), tol=tol, maxiter=maxiter, diff_fn=diff_fn,
         objective_fn=objective, record_objective=record_objective,
-        check_every=check_every, verbose=verbose)
+        check_every=check_every, verbose=verbose, min_iter=min_iter,
+        diff_nonnegative=hd is None)
+    aux = (None if val_sqerr is None
+           else {"heldout_rel_err": torch.sqrt(val_sqerr(res.state))})
     return NMFResult(x=res.state[0], d=res.state[1], niter=res.niter,
-                     converged=res.converged, objective=res.objective)
+                     converged=res.converged, objective=res.objective,
+                     aux=aux)
 
 
-def masked_completion(*args, **kwargs):
-    """Not ported yet: masked MU and held-out stopping come first."""
-    raise _not_ported("masked_completion", 3)
+def _kernel_step(my, mask, method, eps, block_rows, inner_iter):
+    """One iteration through the ``ops.cuda_mu`` kernel of the method and
+    mask (``decomp_tpu``'s ``_solve_pallas`` dispatch). The MU kernels
+    stream the compute-dtype copy of d and update the (possibly wider)
+    master in the epilogue; the KL kernels take d in my's dtype."""
+    cdt = my.dtype
+    if method == "kl-mu" and mask is None:
+        def step(state, it):
+            return cuda_mu.kl_update_dense(my, state[0], state[1], eps,
+                                           block_rows=block_rows)
+    elif method == "kl-mu":
+        def step(state, it):
+            return cuda_mu.kl_update_masked(my, mask, state[0], state[1], eps,
+                                            block_rows=block_rows)
+    elif mask is None:
+        def step(state, it):
+            x_, d_ = state
+            return cuda_mu.mu_update_dense(
+                my, x_, d_.to(cdt), eps, block_rows=block_rows, d_master=d_,
+                inner_iter=inner_iter)
+    else:
+        def step(state, it):
+            x_, d_ = state
+            return cuda_mu.mu_update_masked(
+                my, mask, x_, d_.to(cdt), eps, block_rows=block_rows,
+                d_master=d_)
+    return step
+
+
+def _heldout_machinery(hd, compute_dtype):
+    """(val_sqerr, diff_fn) for stop='heldout'. ``hd`` = (yv, val, vnorm):
+    the validation data and set in y's dtype and the squared norm of yv.
+    The validation reconstruction takes compute-dtype operands and sums in
+    the >= f32 dtype of vnorm, a row chunk at a time."""
+    yv, val, vnorm = hd
+    acc = vnorm.dtype
+    tiny = torch.finfo(acc).tiny
+
+    def val_sqerr(state):
+        x_, d_ = state
+        dc = d_.to(compute_dtype).to(acc)
+
+        def part(sl):
+            recon = x_[sl].to(compute_dtype).to(acc) @ dc
+            r = yv[sl].to(acc) - val[sl].to(acc) * recon
+            return torch.sum(r * r)
+
+        return _row_sum(yv.shape[0], part) / vnorm
+
+    def diff_fn(old, new):
+        e_old = val_sqerr(old)
+        e_new = val_sqerr(new)
+        return (e_old - e_new) / torch.clamp(e_old, min=tiny)
+
+    return val_sqerr, diff_fn
+
+
+def masked_completion(y, mask, rank=None, d=None, x=None, *, tol=1e-4,
+                      maxiter=4000, heldout_frac=0.05, random_seed=0,
+                      mixed="auto", refit=0, mesh=None, **kwargs):
+    """Matrix-completion preset: masked MU-NMF stopped on held-out
+    validation error (``solve(stop='heldout')``).
+
+    ``mixed``: 'auto' (a CUDA ``y`` of dtype f32), True, or False. Mixed
+    runs bf16 data with f32 factors through the masked kernel (and
+    ``precision='default'``); otherwise y's dtype is kept.
+
+    ``refit=N`` follows the held-out-stopped solve with N warm-started
+    iterations on ALL observed entries at ``tol=0``; the result keeps the
+    held-out solve's ``aux`` and ``converged`` and counts both runs'
+    iterations in ``niter``. ``mesh`` (sharded solves) is not ported.
+    """
+    if mesh is not None:
+        raise _not_ported("masked_completion(mesh=...)", 8)
+    y = torch.as_tensor(y)
+    if mixed == "auto":
+        mixed = y.is_cuda and y.dtype == torch.float32
+    if mixed:
+        y = y.to(torch.bfloat16)
+        kwargs.setdefault("factor_dtype", torch.float32)
+        kwargs.setdefault("precision", "default")
+    res = solve(y, d, rank=rank, x=x, mask=mask, tol=tol, maxiter=maxiter,
+                method="mu", stop="heldout", heldout_frac=heldout_frac,
+                random_seed=random_seed, **kwargs)
+    if refit:
+        refit_res = solve(y, res.d, x=res.x, mask=mask, tol=0.0,
+                          maxiter=int(refit), method="mu",
+                          random_seed=random_seed, **kwargs)
+        # The polish runs at tol=0, so its own converged flag is vacuously
+        # False: the caller gates on the held-out solve's verdict.
+        res = refit_res._replace(aux=res.aux, converged=res.converged,
+                                 niter=res.niter + refit_res.niter)
+    return res
 
 
 def solve_streaming(*args, **kwargs):
@@ -259,24 +442,58 @@ def solve_streaming(*args, **kwargs):
     raise _not_ported("solve_streaming", 7)
 
 
-def _sq_resid(y, x, d, acc):
-    """||y - x@d||^2 in ``acc``, one row chunk at a time (no M x N
-    temporary in ``acc``)."""
-    total = torch.zeros((), dtype=acc, device=y.device)
-    for s in range(0, y.shape[0], _CHUNK_ROWS):
-        r = y[s:s + _CHUNK_ROWS].to(acc) - (x[s:s + _CHUNK_ROWS] @ d).to(acc)
-        total = total + torch.sum(r * r)
+def _row_slices(m):
+    return [slice(s, s + _CHUNK_ROWS) for s in range(0, m, _CHUNK_ROWS)]
+
+
+def _row_sum(m, part):
+    """The sum of ``part(rows)`` over the row chunks of an m-row matrix."""
+    total = None
+    for sl in _row_slices(m):
+        p = part(sl)
+        total = p if total is None else total + p
     return total
 
 
-def _update_x(my, x, d, eps):
+def _sq_resid(my, x, d, acc, mask=None):
+    """||my - mask * (x@d)||^2 in ``acc`` (no mask: ||my - x@d||^2), one
+    row chunk at a time (no M x N temporary in ``acc``)."""
+    def part(sl):
+        recon = (x[sl] @ d).to(acc)
+        if mask is not None:
+            recon = mask[sl].to(acc) * recon
+        r = my[sl].to(acc) - recon
+        return torch.sum(r * r)
+
+    return _row_sum(my.shape[0], part)
+
+
+def _kl_objective(my, x, d, mask, eps):
+    """Generalised KL divergence D(y || x@d) over the observed entries,
+    with the 0 log 0 = 0 convention, one row chunk at a time."""
+    def part(sl):
+        r = x[sl] @ d + eps
+        if mask is not None:
+            r = mask[sl] * r
+        myc = my[sl]
+        ylogy = torch.where(myc > 0, myc * torch.log(myc / (r + eps)), 0.0)
+        return torch.sum(ylogy - myc + r)
+
+    return _row_sum(my.shape[0], part)
+
+
+def _update_x(my, x, d, mask, eps):
     """One multiplicative x update, all in the factors' dtype."""
-    return x * (my @ d.T) / (x @ (d @ d.T) + eps)
+    num = my @ d.T
+    den = x @ (d @ d.T) if mask is None else (mask * (x @ d)) @ d.T
+    return x * num / (den + eps)
 
 
-def _update_d(my, x, d, eps):
+def _update_d(my, x, d, mask, eps):
     """One multiplicative d update, all in the factors' dtype."""
-    return d * (x.T @ my) / ((x.T @ x) @ d + eps)
+    num = x.T @ my
+    den = (x.T @ x) @ d if mask is None else x.T @ (mask * (x @ d))
+    return d * num / (den + eps)
 
 
 def _rows_dot(a, b):
@@ -284,40 +501,103 @@ def _rows_dot(a, b):
     bf16 operands are exact in f32), one row chunk of ``a`` at a time."""
     w = torch.promote_types(a.dtype, torch.float32)
     bw = b.to(w)
-    return torch.cat([(a[s:s + _CHUNK_ROWS].to(w) @ bw).to(torch.float32)
-                      for s in range(0, a.shape[0], _CHUNK_ROWS)])
+    return torch.cat([(a[sl].to(w) @ bw).to(torch.float32)
+                      for sl in _row_slices(a.shape[0])])
 
 
 def _tdot(a, b):
     """``a.T @ b`` like ``_rows_dot``, summed over row chunks in f32."""
     w = torch.promote_types(a.dtype, torch.float32)
-    out = None
-    for s in range(0, a.shape[0], _CHUNK_ROWS):
-        part = (a[s:s + _CHUNK_ROWS].to(w).T
-                @ b[s:s + _CHUNK_ROWS].to(w)).to(torch.float32)
-        out = part if out is None else out + part
-    return out
+    return _row_sum(a.shape[0], lambda sl: (
+        a[sl].to(w).T @ b[sl].to(w)).to(torch.float32))
 
 
-def _update_x_mixed(my, x, d, eps):
+def _recon_m(mask, xb, db):
+    """The masked reconstruction at the mixed mode's quantisation points,
+    ``cdt(f32(mask) * (xb @ db))`` with ``cdt = xb.dtype``."""
+    return torch.cat([(mask[sl].to(torch.float32) * _rows_dot(xb[sl], db))
+                      .to(xb.dtype) for sl in _row_slices(xb.shape[0])])
+
+
+def _ratio(my, xb, db, eps):
+    """The KL ratio at the mixed mode's quantisation points,
+    ``cdt(f32(my) / (xb @ db + eps))`` with ``cdt = my.dtype``."""
+    return torch.cat([(my[sl].to(torch.float32)
+                       / (_rows_dot(xb[sl], db) + eps)).to(my.dtype)
+                      for sl in _row_slices(my.shape[0])])
+
+
+def _update_x_mixed(my, x, d, mask, eps):
     """Mixed-precision x update (factor_dtype mode): x and d are stored
     wide, every product takes compute-dtype (= my.dtype) operands and sums
     in f32, d d^T is cast to the compute dtype at use."""
     cdt = my.dtype
     db = d.to(cdt)
     num = _rows_dot(my, db.T)
-    ddt = cuda_mu.gram_rows(db)
-    den = _rows_dot(x.to(cdt), ddt.to(cdt))
+    if mask is None:
+        den = _rows_dot(x.to(cdt), cuda_mu.gram_rows(db).to(cdt))
+    else:
+        den = _rows_dot(_recon_m(mask, x.to(cdt), db), db.T)
     return x * num / (den + eps)
 
 
-def _update_d_mixed(my, x, d, eps):
-    """Mixed-precision d update; the K x K @ K x N epilogue is full f32."""
+def _update_d_mixed(my, x, d, mask, eps):
+    """Mixed-precision d update; the dense K x K @ K x N epilogue is full
+    f32."""
     cdt = my.dtype
     xb = x.to(cdt)
     num = _tdot(xb, my)
-    den = _tdot(xb, xb) @ d.to(torch.float32)
+    if mask is None:
+        den = _tdot(xb, xb) @ d.to(torch.float32)
+    else:
+        den = _tdot(xb, _recon_m(mask, xb, d.to(cdt)))
     return d * num / (den + eps)
+
+
+def _update_x_kl(my, x, d, mask, eps):
+    """One Lee-Seung KL x update:
+    x <- x * ((my / (x@d + eps)) @ d.T) / ((mask or 1) @ d.T + eps)."""
+    num = (my / (x @ d + eps)) @ d.T
+    den = torch.sum(d, 1) if mask is None else mask @ d.T
+    return x * num / (den + eps)
+
+
+def _update_d_kl(my, x, d, mask, eps):
+    """One Lee-Seung KL d update:
+    d <- d * (x.T @ (my / (x@d + eps))) / (x.T @ (mask or 1) + eps)."""
+    num = x.T @ (my / (x @ d + eps))
+    den = torch.sum(x, 0)[:, None] if mask is None else x.T @ mask
+    return d * num / (den + eps)
+
+
+def _update_x_kl_mixed(my, x, d, mask, eps):
+    """Mixed-precision KL x update: the ratio is formed in f32 and cast to
+    the compute dtype as the next product's operand."""
+    cdt = my.dtype
+    db = d.to(cdt)
+    num = _rows_dot(_ratio(my, x.to(cdt), db, eps), db.T)
+    den = (torch.sum(d.to(torch.float32), 1) if mask is None
+           else _rows_dot(mask, db.T))
+    return x * num / (den + eps)
+
+
+def _update_d_kl_mixed(my, x, d, mask, eps):
+    """Mixed-precision KL d update; see _update_x_kl_mixed."""
+    cdt = my.dtype
+    xb = x.to(cdt)
+    num = _tdot(xb, _ratio(my, xb, d.to(cdt), eps))
+    den = (torch.sum(x.to(torch.float32), 0)[:, None] if mask is None
+           else _tdot(xb, mask))
+    return d * num / (den + eps)
+
+
+# (method, mixed precision) -> the composition path's (x, d) updates.
+_UPDATES = {
+    ("mu", False): (_update_x, _update_d),
+    ("mu", True): (_update_x_mixed, _update_d_mixed),
+    ("kl-mu", False): (_update_x_kl, _update_d_kl),
+    ("kl-mu", True): (_update_x_kl_mixed, _update_d_kl_mixed),
+}
 
 
 def _init_factors(gen, y, d, x, rank, factor_dtype=None):

@@ -3,10 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``decomp_tpu_torch/_build/`` on first use,
 then loaded with ``ctypes``. The library's file name carries a hash of
-the source and the flags, so an edited source rebuilds and a stale
-library is never loaded. ``nvcc``'s ``-Xptxas -v`` report (registers,
-shared memory, spills per kernel) is kept beside the library as
-``<library>.log``.
+the source, the shared headers and the flags, so an edited source or
+header rebuilds and a stale library is never loaded. ``nvcc``'s
+``-Xptxas -v`` report (registers, shared memory, spills per kernel) is
+kept beside the library as ``<library>.log``.
 
 Nothing here runs at import: the CPU tests import every module, and
 this machine class has no ``nvcc``.
@@ -39,9 +39,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (SRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """The library of ``csrc/<name>.cu``. Its name hashes the source, every
+    shared header ``csrc/*.cuh`` (a source may include any of them) and
+    the flags."""
+    h = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

@@ -1,24 +1,36 @@
-"""Dense multiplicative-update NMF statistics: the CUDA kernel and its
-plain twin (counterpart of the dense part of ``decomp_tpu.ops.pallas_mu``).
+"""Multiplicative-update NMF statistics: the CUDA kernels and their plain
+twins (counterpart of ``decomp_tpu.ops.pallas_mu``).
 
-``mu_stats_dense(y, x, d, eps)`` returns ``(x_new, numd, gram)``:
+Four kernels, each the x update of one iteration plus the d update's
+sufficient statistics, in one call:
 
-    x_new = x * (y d^T) / (x (d d^T) + eps)   (``inner_iter`` refinements
-                                               reuse the numerator y d^T)
-    numd  = x_new^T y       (K, N) f32
-    gram  = x_new^T x_new   (K, K) f32
+    mu_stats_dense(y, x, d, eps)          -> x_new, numd = x_new^T y,
+                                             gram = x_new^T x_new
+    mu_stats_masked(my, mask, x, d, eps)  -> x_new, numd = x_new^T my,
+                                             dend = x_new^T (mask * (x_new d))
+    kl_stats_dense(my, x, d, eps)         -> x_new, numd = x_new^T
+                                             (my / (x_new d + eps)),
+                                             xsum = column sums of x_new
+    kl_stats_masked(my, mask, x, d, eps)  -> x_new, numd as kl_stats_dense,
+                                             dend = x_new^T mask
 
-with the TPU kernel's quantisation points (``pallas_mu.py:175-198``):
-products take compute-dtype operands (``cdt = y.dtype``) and sum in f32;
-``d d^T`` is formed in f32 and cast to ``cdt`` at use; the iterate stays
-f32 across refinements; ``x_new`` is stored in ``x``'s dtype; the
-statistics use ``x_new`` cast to ``cdt``. As in the TPU kernel, ``x_new``
-and the statistics are formed in f32 even for f64 data.
+(``my = mask * y``; the statistics are f32, numd and dend (K, N), gram
+(K, K), xsum (1, K)), with the TPU kernels' quantisation points
+(``pallas_mu.py:160-372``): products take compute-dtype operands
+(``cdt = y.dtype``) and sum in f32; the masked reconstruction
+``cdt(f32(mask) * recon)`` and the KL ratio ``cdt(f32(my) / (recon +
+eps))`` are formed in f32 and cast to ``cdt``; ``x_new`` is formed in f32
+and stored in ``x``'s dtype; the statistics use ``x_new`` cast to
+``cdt``, and ``xsum`` sums the f32 ``x_new``. As in the TPU kernels,
+``x_new`` and the statistics are formed in f32 even for f64 data.
 
-On a CUDA tensor the wrapper launches ``csrc/mu_stats_dense.cu`` (bf16 or
-f32 ``y``; ``x`` in ``y``'s dtype or f32; ``d`` in ``y``'s dtype;
-1 <= K <= 128) and raises on anything else. On a CPU tensor it runs
-``mu_stats_dense_plain``. It never falls back from one to the other.
+On a CUDA tensor a wrapper launches its kernel (``csrc/mu_stats_dense.cu``
+or ``csrc/mu_kl_stats.cu``: bf16 or f32 data, ``d`` and ``mask`` in the
+data's dtype, 1 <= K <= 128; ``x`` in the data's dtype or f32 for the MU
+kernels, in the data's dtype for the KL ones) and raises on anything
+else. On a CPU tensor it runs its ``*_plain`` twin. It never falls back
+from one to the other. Each wrapper counts its kernel launches in
+``.launches``.
 
 Not ported: ``calibrated_tpu``, ``fits_vmem`` and ``default_block_rows``,
 which encode TPU v5e VMEM calibrations.
@@ -38,6 +50,9 @@ KERNEL_MAX_RANK = 128
 _TARGET_CHUNKS = 128
 _MIN_CHUNK_ROWS = 256
 _MAX_GRID_Y = 65535
+# Rows per stripe of csrc/mu_kl_stats.cu's x update (BM1 there): the KL
+# dense kernel writes one partial column sum of x_new per stripe.
+_X_STRIPE_ROWS = 64
 
 
 def validate_block_rows(block_rows):
@@ -80,8 +95,6 @@ def mu_stats_dense_plain(y, x, d, eps, *, block_rows=None, inner_iter=1):
     as plain torch. Compute-dtype operands are upcast (exactly) to f32 in
     row chunks of ``block_rows``, so no f32 copy of all of ``y`` is made.
     """
-    m = y.shape[0]
-    rows = block_rows or default_block_rows(m)
     cdt, wdt = y.dtype, _work_dtype(y.dtype)
     eps32 = torch.tensor(float(eps), dtype=torch.float32)
     dw = d.to(wdt)
@@ -91,42 +104,137 @@ def mu_stats_dense_plain(y, x, d, eps, *, block_rows=None, inner_iter=1):
                        device=y.device)
     gram = torch.zeros((d.shape[0], d.shape[0]), dtype=torch.float32,
                        device=y.device)
-    for s in range(0, m, rows):
-        yc = y[s:s + rows].to(wdt)
+    for sl in _row_chunks(y.shape[0], block_rows):
+        yc = y[sl].to(wdt)
         num = (yc @ dw.T).to(torch.float32)
-        xf = x[s:s + rows].to(torch.float32)
+        xf = x[sl].to(torch.float32)
         for _ in range(int(inner_iter)):
             den = (xf.to(cdt).to(wdt) @ ddt_c).to(torch.float32)
             xf = xf * num / (den + eps32)
-        x_new[s:s + rows] = xf.to(x.dtype)
+        x_new[sl] = xf.to(x.dtype)
         xc = xf.to(cdt).to(wdt)
         numd += (xc.T @ yc).to(torch.float32)
         gram += (xc.T @ xc).to(torch.float32)
     return x_new, numd, gram
 
 
-def _check_kernel_args(y, x, d, inner_iter, block_rows):
-    for name, t in (("y", y), ("x", x), ("d", d)):
+def mu_stats_masked_plain(my, mask, x, d, eps, *, block_rows=None):
+    """``mu_stats_masked``'s plain twin (``_masked_kernel``,
+    ``pallas_mu.py:222``), in row chunks of ``block_rows`` like
+    ``mu_stats_dense_plain``."""
+    cdt, wdt, f32 = my.dtype, _work_dtype(my.dtype), torch.float32
+    eps32 = torch.tensor(float(eps), dtype=f32)
+    dw = d.to(wdt)
+    x_new = torch.empty_like(x)
+    numd = torch.zeros((d.shape[0], my.shape[1]), dtype=f32, device=my.device)
+    dend = torch.zeros_like(numd)
+    for sl in _row_chunks(my.shape[0], block_rows):
+        myc = my[sl].to(wdt)
+        mc = mask[sl].to(f32)
+        recon = (x[sl].to(cdt).to(wdt) @ dw).to(f32)
+        den = ((mc * recon).to(cdt).to(wdt) @ dw.T).to(f32)
+        xf = x[sl].to(f32) * (myc @ dw.T).to(f32) / (den + eps32)
+        x_new[sl] = xf.to(x.dtype)
+        xc = xf.to(cdt).to(wdt)
+        recon2_m = (mc * (xc @ dw).to(f32)).to(cdt).to(wdt)
+        numd += (xc.T @ myc).to(f32)
+        dend += (xc.T @ recon2_m).to(f32)
+    return x_new, numd, dend
+
+
+def kl_stats_dense_plain(my, x, d, eps, *, block_rows=None):
+    """``kl_stats_dense``'s plain twin (``_kl_dense_kernel``,
+    ``pallas_mu.py:276``)."""
+    return _kl_plain(my, None, x, d, eps, block_rows)
+
+
+def kl_stats_masked_plain(my, mask, x, d, eps, *, block_rows=None):
+    """``kl_stats_masked``'s plain twin (``_kl_masked_kernel``,
+    ``pallas_mu.py:325``)."""
+    return _kl_plain(my, mask, x, d, eps, block_rows)
+
+
+def _kl_plain(my, mask, x, d, eps, block_rows):
+    """Both KL twins: ``(x_new, numd, xsum)`` without a mask, ``(x_new,
+    numd, dend)`` with one."""
+    cdt, wdt, f32 = my.dtype, _work_dtype(my.dtype), torch.float32
+    eps32 = torch.tensor(float(eps), dtype=f32)
+    dw = d.to(wdt)
+    dsum = _dsum(d)
+    x_new = torch.empty_like(x)
+    numd = torch.zeros((d.shape[0], my.shape[1]), dtype=f32, device=my.device)
+    den_d = (torch.zeros((1, d.shape[0]), dtype=f32, device=my.device)
+             if mask is None else torch.zeros_like(numd))
+
+    def ratio(xc, myf):
+        return (myf / ((xc @ dw).to(f32) + eps32)).to(cdt).to(wdt)
+
+    for sl in _row_chunks(my.shape[0], block_rows):
+        myf = my[sl].to(f32)
+        num = (ratio(x[sl].to(cdt).to(wdt), myf) @ dw.T).to(f32)
+        if mask is None:
+            den = dsum
+        else:
+            mc = mask[sl].to(wdt)
+            den = (mc @ dw.T).to(f32)
+        xf = x[sl].to(f32) * num / (den + eps32)
+        x_new[sl] = xf.to(x.dtype)
+        xc = xf.to(cdt).to(wdt)
+        numd += (xc.T @ ratio(xc, myf)).to(f32)
+        if mask is None:
+            den_d += xf.sum(0, keepdim=True)
+        else:
+            den_d += (xc.T @ mc).to(f32)
+    return x_new, numd, den_d
+
+
+def _dsum(d):
+    """Row sums of ``d`` in f32, shape (1, K): the dense KL x update's
+    denominator, formed outside the kernel as ``pallas_mu.py:618`` forms
+    it."""
+    return d.to(torch.float32).sum(1)[None, :]
+
+
+def _row_chunks(m, block_rows):
+    rows = block_rows or default_block_rows(m)
+    return [slice(s, s + rows) for s in range(0, m, rows)]
+
+
+def _check_kernel_args(y, x, d, inner_iter, block_rows, *, mask=None,
+                       wide_x=True):
+    """Refuse what the kernels do not take, before any launch. ``mask``:
+    the masked kernels' mask, which must match ``y``; ``wide_x``: whether
+    the kernel takes f32 ``x`` with bf16 ``y`` (the MU kernels do)."""
+    named = (("y", y), ("x", x), ("d", d))
+    if mask is not None:
+        named += (("mask", mask),)
+    for name, t in named:
         if t.device != y.device:
             raise DecompError(f"{name} is on {t.device}, y on {y.device}")
         if not t.is_contiguous():
             raise DecompError(f"{name} must be contiguous")
-    if y.dim() != 2 or x.dim() != 2 or d.dim() != 2:
-        raise ShapeError("y, x and d must be 2-D")
+        if t.dim() != 2:
+            raise ShapeError(f"{name} must be 2-D, got {tuple(t.shape)}")
     m, n = y.shape
     k = d.shape[0]
     if x.shape != (m, k) or d.shape != (k, n):
         raise ShapeError(f"x {tuple(x.shape)} and d {tuple(d.shape)} do not "
                          f"fit y {tuple(y.shape)}")
+    if mask is not None and mask.shape != y.shape:
+        raise ShapeError(f"mask {tuple(mask.shape)} does not match y "
+                         f"{tuple(y.shape)}")
     if not 1 <= k <= KERNEL_MAX_RANK:
         raise ShapeError(f"the kernel takes 1 <= rank <= {KERNEL_MAX_RANK}, "
                          f"got {k}")
     if y.dtype not in (torch.bfloat16, torch.float32):
         raise DtypeError(f"the kernel takes bf16 or f32 y, got {y.dtype}")
-    if d.dtype != y.dtype:
-        raise DtypeError(f"d must have y's dtype {y.dtype}, got {d.dtype}")
-    if x.dtype not in (y.dtype, torch.float32):
-        raise DtypeError(f"x must be {y.dtype} or float32, got {x.dtype}")
+    for name, t in named[2:]:
+        if t.dtype != y.dtype:
+            raise DtypeError(f"{name} must have y's dtype {y.dtype}, got "
+                             f"{t.dtype}")
+    x_dtypes = (y.dtype, torch.float32) if wide_x else (y.dtype,)
+    if x.dtype not in x_dtypes:
+        raise DtypeError(f"x must be one of {x_dtypes}, got {x.dtype}")
     if int(inner_iter) < 1:
         raise DecompError(f"inner_iter must be >= 1, got {inner_iter}")
     if max(m, n) >= 2 ** 31:
@@ -136,18 +244,46 @@ def _check_kernel_args(y, x, d, inner_iter, block_rows):
                           f"{_MAX_GRID_Y} row chunks for M={m}")
 
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
 @functools.cache
-def _launcher():
-    """The kernel's C entry point, built on first use, with its ctypes
-    signature (pointers and the stream as c_void_p)."""
+def _c_function(source, name, argtypes):
+    """The C entry point ``name`` of ``csrc/<source>.cu``, built on first
+    use, with its ctypes signature (pointers and the stream as
+    c_void_p)."""
     from decomp_tpu_torch.ops import _build
 
-    fn = _build.load("mu_stats_dense").mu_stats_dense_launch
+    fn = getattr(_build.load(source), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
-                   + [ctypes.c_float] + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p] * 4)
+    fn.argtypes = list(argtypes)
     return fn
+
+
+def _runs_plain(t):
+    """True for a CPU tensor (the twin runs), False for a CUDA tensor (the
+    kernel runs); any other device is refused."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise DecompError(f"no kernel for device {t.device}")
+    return False
+
+
+def _launch(name, fn, device, *args):
+    """Call the C entry point ``fn`` on ``device``'s current stream (the
+    stream is the last argument); raise if it reports a CUDA error."""
+    err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def _f32(shape, device):
+    return torch.empty(shape, dtype=torch.float32, device=device)
+
+
+def _is_bf16(t):
+    return int(t.dtype == torch.bfloat16)
 
 
 def mu_stats_dense(y, x, d, eps, *, block_rows=None, inner_iter=1):
@@ -155,37 +291,112 @@ def mu_stats_dense(y, x, d, eps, *, block_rows=None, inner_iter=1):
     docstring. ``block_rows``: rows per partial of the kernel's statistics
     pass (on CPU: rows per upcast chunk of the twin)."""
     validate_block_rows(block_rows)
-    if y.device.type == "cpu":
+    if _runs_plain(y):
         return mu_stats_dense_plain(y, x, d, eps, block_rows=block_rows,
                                     inner_iter=inner_iter)
-    if y.device.type != "cuda":
-        raise DecompError(f"no kernel for device {y.device}")
     rows = block_rows or default_block_rows(y.shape[0])
     _check_kernel_args(y, x, d, inner_iter, rows)
     m, n = y.shape
     k = d.shape[0]
-    fn = _launcher()
+    fn = _c_function("mu_stats_dense", "mu_stats_dense_launch",
+                     (_I,) * 2 + (_P,) * 4 + (_F,) + (_I,) * 5 + (_P,) * 4)
     with torch.cuda.device(y.device):
         ddt = gram_rows(d)
-        chunks = -(-m // rows)
         size = k * n + k * k
         x_new = torch.empty_like(x)
-        part = torch.empty(chunks * size, dtype=torch.float32,
-                           device=y.device)
-        out = torch.empty(size, dtype=torch.float32, device=y.device)
-        stream = torch.cuda.current_stream(y.device).cuda_stream
-        err = fn(int(y.dtype == torch.bfloat16),
-                 int(x.dtype == torch.bfloat16),
-                 y.data_ptr(), x.data_ptr(), d.data_ptr(), ddt.data_ptr(),
-                 float(eps), m, n, k, int(inner_iter), rows,
-                 x_new.data_ptr(), part.data_ptr(), out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"mu_stats_dense launch failed: cudaError {err}")
+        part = _f32(-(-m // rows) * size, y.device)
+        out = _f32(size, y.device)
+        _launch("mu_stats_dense", fn, y.device, _is_bf16(y), _is_bf16(x),
+                y.data_ptr(), x.data_ptr(), d.data_ptr(), ddt.data_ptr(),
+                float(eps), m, n, k, int(inner_iter), rows,
+                x_new.data_ptr(), part.data_ptr(), out.data_ptr())
     mu_stats_dense.launches += 1
     return x_new, out[:k * n].view(k, n), out[k * n:].view(k, k)
 
 
 mu_stats_dense.launches = 0
+
+
+def mu_stats_masked(my, mask, x, d, eps, *, block_rows=None):
+    """The masked-MU statistics ``(x_new, numd, dend)``; see the module
+    docstring. ``my`` is the pre-masked data ``mask * y``."""
+    validate_block_rows(block_rows)
+    if _runs_plain(my):
+        return mu_stats_masked_plain(my, mask, x, d, eps,
+                                     block_rows=block_rows)
+    return _masked_launch(mu_stats_masked, my, mask, x, d, eps, block_rows)
+
+
+mu_stats_masked.launches = 0
+
+
+def kl_stats_dense(my, x, d, eps, *, block_rows=None):
+    """The dense KL-MU statistics ``(x_new, numd, xsum)``; see the module
+    docstring. ``dsum``, the row sums of ``d`` in f32, is formed here,
+    outside the kernel (``pallas_mu.py:618``)."""
+    validate_block_rows(block_rows)
+    if _runs_plain(my):
+        return kl_stats_dense_plain(my, x, d, eps, block_rows=block_rows)
+    rows = block_rows or default_block_rows(my.shape[0])
+    _check_kernel_args(my, x, d, 1, rows, wide_x=False)
+    m, n = my.shape
+    k = d.shape[0]
+    fn = _c_function("mu_kl_stats", "kl_stats_dense_launch",
+                     (_I,) + (_P,) * 4 + (_F,) + (_I,) * 4 + (_P,) * 6)
+    with torch.cuda.device(my.device):
+        dsum = _dsum(d)
+        x_new = torch.empty_like(x)
+        part = _f32(-(-m // rows) * k * n, my.device)
+        out = _f32(k * n, my.device)
+        xpart = _f32(-(-m // _X_STRIPE_ROWS) * k, my.device)
+        xsum = _f32((1, k), my.device)
+        _launch("kl_stats_dense", fn, my.device, _is_bf16(my),
+                my.data_ptr(), x.data_ptr(), d.data_ptr(), dsum.data_ptr(),
+                float(eps), m, n, k, rows, x_new.data_ptr(), part.data_ptr(),
+                out.data_ptr(), xpart.data_ptr(), xsum.data_ptr())
+    kl_stats_dense.launches += 1
+    return x_new, out.view(k, n), xsum
+
+
+kl_stats_dense.launches = 0
+
+
+def kl_stats_masked(my, mask, x, d, eps, *, block_rows=None):
+    """The masked KL-MU statistics ``(x_new, numd, dend)``; see the module
+    docstring."""
+    validate_block_rows(block_rows)
+    if _runs_plain(my):
+        return kl_stats_masked_plain(my, mask, x, d, eps,
+                                     block_rows=block_rows)
+    return _masked_launch(kl_stats_masked, my, mask, x, d, eps, block_rows)
+
+
+kl_stats_masked.launches = 0
+
+
+def _masked_launch(wrapper, my, mask, x, d, eps, block_rows):
+    """Launch the kernel of ``wrapper``, ``mu_stats_masked`` or
+    ``kl_stats_masked`` (the same C signature, but only the MU kernel takes
+    f32 x with bf16 data), and count the launch on it."""
+    name = wrapper.__name__
+    rows = block_rows or default_block_rows(my.shape[0])
+    mu = name == "mu_stats_masked"
+    _check_kernel_args(my, x, d, 1, rows, mask=mask, wide_x=mu)
+    m, n = my.shape
+    k = d.shape[0]
+    fn = _c_function("mu_kl_stats", f"{name}_launch",
+                     (_I,) * (1 + mu) + (_P,) * 4 + (_F,) + (_I,) * 4
+                     + (_P,) * 4)
+    with torch.cuda.device(my.device):
+        x_new = torch.empty_like(x)
+        part = _f32(-(-m // rows) * 2 * k * n, my.device)
+        out = _f32(2 * k * n, my.device)
+        flags = (_is_bf16(my), _is_bf16(x))[:1 + mu]
+        _launch(name, fn, my.device, *flags, my.data_ptr(), mask.data_ptr(),
+                x.data_ptr(), d.data_ptr(), float(eps), m, n, k, rows,
+                x_new.data_ptr(), part.data_ptr(), out.data_ptr())
+    wrapper.launches += 1
+    return x_new, out[:k * n].view(k, n), out[k * n:].view(k, n)
 
 
 def mu_update_dense(y, x, d, eps, *, block_rows=None, d_master=None,
@@ -201,9 +412,38 @@ def mu_update_dense(y, x, d, eps, *, block_rows=None, d_master=None,
     """
     x_new, numd, gram = mu_stats_dense(y, x, d, eps, block_rows=block_rows,
                                        inner_iter=inner_iter)
-    eps32 = torch.tensor(float(eps), dtype=torch.float32)
     d_epi = d if d_master is None else d_master
-    d32 = d_epi.to(torch.float32)
-    den_d = gram @ d32
-    d_new = (d32 * numd / (den_d + eps32)).to(d_epi.dtype)
-    return x_new, d_new
+    return x_new, _epilogue(d_epi, numd, gram @ d_epi.to(torch.float32),
+                            eps)
+
+
+def mu_update_masked(my, mask, x, d, eps, *, block_rows=None, d_master=None):
+    """One masked MU iteration (``pallas_mu.py:502``). Returns (x_new,
+    d_new) with ``d_new = d * numd / (dend + eps)`` in f32; ``d_master``
+    as in ``mu_update_dense``."""
+    x_new, numd, dend = mu_stats_masked(my, mask, x, d, eps,
+                                        block_rows=block_rows)
+    return x_new, _epilogue(d if d_master is None else d_master, numd, dend,
+                            eps)
+
+
+def kl_update_dense(my, x, d, eps, *, block_rows=None):
+    """One dense KL-MU iteration (``pallas_mu.py:581``). Returns (x_new,
+    d_new) with ``d_new = d * numd / (xsum^T + eps)`` in f32."""
+    x_new, numd, xsum = kl_stats_dense(my, x, d, eps, block_rows=block_rows)
+    return x_new, _epilogue(d, numd, xsum[0][:, None], eps)
+
+
+def kl_update_masked(my, mask, x, d, eps, *, block_rows=None):
+    """One masked KL-MU iteration (``pallas_mu.py:664``). Returns (x_new,
+    d_new) with ``d_new = d * numd / (dend + eps)`` in f32."""
+    x_new, numd, dend = kl_stats_masked(my, mask, x, d, eps,
+                                        block_rows=block_rows)
+    return x_new, _epilogue(d, numd, dend, eps)
+
+
+def _epilogue(d, numd, den, eps):
+    """The d update's f32 epilogue, ``d * numd / (den + eps)``, stored in
+    ``d``'s dtype."""
+    eps32 = torch.tensor(float(eps), dtype=torch.float32)
+    return (d.to(torch.float32) * numd / (den + eps32)).to(d.dtype)

@@ -4,10 +4,12 @@ PyTorch has no ``lax.while_loop``, so this is a host loop over eager
 device work. It keeps the JAX loop's contract exactly: ``niter``,
 ``converged``, the NaN-padded objective curve, ``check_every`` blocks
 whose trip count shrinks near ``maxiter``, ``min_iter``, and the same
-``ValueError``s. The host reads the convergence quantity once per check;
-with ``tol <= 0`` the stop test can never fire (every ``diff_fn`` of this
-package is a nonnegative norm ratio), so the loop neither evaluates nor
-reads it and the device runs ahead of the host.
+``ValueError``s. The host reads the convergence quantity once per check.
+A caller whose ``diff_fn`` is nonnegative (a norm ratio) says so with
+``diff_nonnegative``: with ``tol <= 0`` its stop test can never fire, so
+the loop neither evaluates nor reads it and the device runs ahead of the
+host. Any other diff is tested as the JAX loop tests it, at every tol: a
+held-out improvement goes negative when the validation error rises.
 """
 
 import math
@@ -36,6 +38,7 @@ def run_iterations(
     check_every: int = 1,
     verbose: bool = False,
     min_iter: int = 0,
+    diff_nonnegative: bool = False,
 ) -> IterationResult:
     """Run ``state <- step(state, it)`` until converged or ``maxiter``.
 
@@ -52,6 +55,8 @@ def run_iterations(
     verbose:       print the iteration index and diff at every check.
     min_iter:      suppress the convergence verdict before this many
                    iterations have run.
+    diff_nonnegative: ``diff_fn`` never returns a negative value, so at
+                   ``tol <= 0`` (and not verbose) the stop test is skipped.
     """
     if maxiter < 1:
         raise ValueError(f"maxiter must be >= 1, got {maxiter}")
@@ -65,7 +70,7 @@ def run_iterations(
                          "record_objective")
 
     tol = float(tol)
-    test_diff = tol > 0 or verbose
+    test_diff = tol > 0 or verbose or not diff_nonnegative
     obj = None
     it, converged, state = 0, False, init_state
     while it < maxiter and not converged:

@@ -76,8 +76,9 @@ def test_record_objective_requires_fn():
 
 
 def test_tol_zero_never_reads_diff():
-    """With tol <= 0 the stop test cannot fire, so the loop skips the
-    diff (and its host read) entirely."""
+    """With tol <= 0 the stop test of a diff the caller declares
+    nonnegative cannot fire, so the loop skips the diff (and its host
+    read) entirely."""
     calls = []
 
     def diff(old, new):
@@ -85,8 +86,33 @@ def test_tol_zero_never_reads_diff():
         return _diff(old, new)
 
     res = tloop.run_iterations(_step, torch.tensor(7.0), tol=0.0,
-                               maxiter=6, diff_fn=diff)
+                               maxiter=6, diff_fn=diff,
+                               diff_nonnegative=True)
     assert res.niter == 6 and not res.converged and not calls
+
+
+def _improvement(old, new):
+    # Relative improvement of a held-out-like error e(s) = (s - 3)^2: the
+    # step drives s from 7 towards 2, so e falls until s passes 3 and then
+    # rises, and the diff goes negative.
+    e_old, e_new = (old - 3.0) ** 2, (new - 3.0) ** 2
+    return (e_old - e_new) / e_old
+
+
+@pytest.mark.parametrize("check_every,min_iter", [(1, 0), (2, 0), (1, 4)])
+def test_negative_diff_stops_at_tol_zero(check_every, min_iter):
+    """A diff that goes negative stops the loop at tol=0, as the JAX loop
+    stops (it always compares diff < tol): held-out stopping at tol=0
+    must end when the validation error rises."""
+    kw = dict(tol=0.0, maxiter=50, diff_fn=_improvement,
+              check_every=check_every, min_iter=min_iter)
+    j = jloop.run_iterations(_step, jnp.asarray(np.float64(7.0)), **kw)
+    t = tloop.run_iterations(_step, torch.tensor(7.0, dtype=torch.float64),
+                             **kw)
+    assert bool(j.converged) and int(j.niter) < 50
+    assert t.niter == int(j.niter)
+    assert t.converged == bool(j.converged)
+    assert float(t.state) == float(j.state)
 
 
 def test_step_sees_exact_iteration_indices():

@@ -4,6 +4,7 @@ kernel build's bookkeeping, and the package's independence from JAX.
 Inputs are made with numpy from a seed and go through both packages."""
 
 import os
+import shutil
 import subprocess
 import sys
 
@@ -161,6 +162,23 @@ def test_build_paths_are_content_addressed():
     assert p == _build.library_path("mu_stats_dense")
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
     assert (_build.SRC_DIR / "mu_stats_dense.cu").exists()
+
+
+def test_build_hash_covers_shared_headers(tmp_path, monkeypatch):
+    """Every source may include the shared headers (csrc/*.cuh), so an
+    edited header changes every library's name and a stale library is
+    never loaded."""
+    for f in _build.SRC_DIR.iterdir():
+        if f.suffix in (".cu", ".cuh"):
+            shutil.copy(f, tmp_path / f.name)
+    monkeypatch.setattr(_build, "SRC_DIR", tmp_path)
+    names = ("mu_stats_dense", "mu_kl_stats")
+    before = [_build.library_path(n) for n in names]
+    header = tmp_path / "nmf_common.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = [_build.library_path(n) for n in names]
+    assert all(a != b for a, b in zip(before, after))
+    assert len(set(after)) == len(names)
 
 
 def test_package_never_imports_jax():
