@@ -32,12 +32,37 @@ for sm_90a (one nvcc per source, all at once), and then:
    128 f32, dense and masked, 20 iterations each, and checks one kernel
    launch per iteration and a falling KL objective;
 8. times each new kernel against its twin per call at its path's shape
-   (and masked MU also at 262,144 x 10,112 K = 128 bf16).
+   (and masked MU also at 262,144 x 10,112 K = 128 bf16);
+9. holds the lasso kernel ``solve_rows`` against its twin at a ragged
+   1,000 x 200 and 300 x 1,000 and at 10,000 x 512 (ista, fista,
+   acc_ista; scalar and per-feature step; precision 'highest' and
+   'high'; exact and fixed-budget mode; one row that resumes done), with
+   bit-identical reruns on 16-row stripes, and ``masked_grad_rows`` at
+   1,000 x 1,000 F = 100 and a ragged 333 x 257 F = 7 in f32 and bf16
+   (and at 100,000 x 1,024 F = 128 in phase 12);
+10. drives batch lasso at BASELINE config 2, ``lasso.solve`` on 10,000
+    problems of 256 channels over 512 features (acc_ista, precision
+    'high', per-problem stopping, tol 1e-4), and checks one
+    ``solve_rows`` launch, every row converged, the KKT conditions and
+    the agreement with the 'highest' kernel run and the composition run;
+    it prints the time to tol and the marginal time per solve over a
+    chain of 6, beside the bound, and times the kernel path against the
+    composition path at three small batches;
+11. drives the masked lasso, ``lasso.solve(mask=...)`` at 100,000 x
+    1,024, F = 128, 30% missing, 50 FISTA iterations in f32 and in bf16,
+    and checks one ``masked_grad_rows`` launch per iteration, a falling
+    objective and the agreement with the composition run;
+12. times the lasso kernels against their twins: ``solve_rows`` per
+    config-2 solve and at 262,144 x 512 for 100 fixed-budget iterations,
+    ``masked_grad_rows`` at 100,000 x 1,024, F = 128.
 
 Each path runs with every launch count set to 0 just before it and read
 just after. It exits non-zero on any failure, without a CUDA device, and
 where the package is absent. The line before the last is a JSON summary
-of the kernels; the last line is ``{"ok": true, "device": {...}}``.
+of the kernels, each with its bound: the larger of its bytes (each input
+read once, each output written once) over 3.35 TB/s and its operations
+over the H100's peak for their type (989 TFLOP/s bf16 tensor cores, 67
+TFLOP/s f32 FMA). The last line is ``{"ok": true, "device": {...}}``.
 """
 
 import concurrent.futures
@@ -64,14 +89,74 @@ LIMIT = {torch.bfloat16: 5e-5, torch.float32: 2e-6}
 # statistics, and x_new stored in f32, keep LIMIT (measured <= 2.8e-6
 # with bf16 data, <= 4.1e-7 f32).
 X_BF16_LIMIT = 2e-4
+# solve_rows against its twin on the card, relative Frobenius of x.
+# 'highest' (full f32 FMAs) gave the twin's bits at F = 200 and 512; at
+# F = 1,000 (two 512-column chunks) cuBLAS sums in another order, and
+# a row may stop an iteration apart. 'high' (bf16x3) sums its three
+# products per 16-deep tile in another order than the twin's three whole
+# products, so a row whose relative change hovers at tol may stop an
+# iteration apart, and an acc_ista restart may flip. Measured on an H100
+# 80GB HBM3 at 700 W over three runs at 1,000 x 200, 300 x 1,000 and
+# 10,000 x 512: niter equal on >= 98.7% of rows, those rows within
+# 1.13e-5, all rows within 1.10e-4, and the fixed budget (37 iterations,
+# no stopping) within 1.65e-4 for x and z. The limits keep a margin of
+# 4x or more (6% of rows for niter).
+SOLVE_LIMITS = {"nit_eq": 0.94, "eq_rows": 5e-5, "all_rows": 5e-4,
+                "fixed": 7e-4}
+# masked_grad_rows against its twin (measured on the H100: 4.6e-7 f32,
+# 5.6e-5 bf16, where the residual is rounded to bf16 before the second
+# product and a one-ulp f32 difference flips a rounding); 4x margin.
+GRAD_LIMIT = {torch.float32: 2e-6, torch.bfloat16: 2.5e-4}
+# Config 2 (acc_ista, tol 1e-4, 'high'), measured on the H100: x of
+# solve_rows against its twin on config 2's inputs 6.8e-4 (their niter
+# agree on only ~56% of rows: config 2's unnormalised dictionary, L ~
+# 1,400, leaves many rows' relative change near tol for several
+# iterations); x of the lasso.solve run against the 'highest' kernel run
+# and the composition run 8.8e-4 (two stopping points a relative change
+# of 1e-4 apart); the KKT residual per row over L tol |x| at most 0.96
+# (0.96 for the composition run too). Limits with a margin of 4x or more.
+C2_TWIN_LIMIT = 3e-3
+C2_X_LIMIT = 4e-3
+C2_KKT_LIMIT = 4.0
+# The masked lasso's x, kernel path against composition path after 50
+# iterations (measured 7.1e-8 f32; 2.7e-3 bf16, where the composition
+# rounds each product to bf16 and the kernel forms the residual in f32).
+MASKED_X_LIMIT = {torch.float32: 5e-7, torch.bfloat16: 2e-2}
 EPS = 1e-6
-SOURCES = ("mu_stats_dense", "mu_kl_stats")
+SOURCES = ("mu_stats_dense", "mu_kl_stats", "lasso_fista", "lasso_grad")
 # name -> (source, masked, the TPU kernel it replaces)
 NEW_KERNELS = {
     "mu_stats_masked": ("mu_kl_stats", True, "pallas_mu.py:522"),
     "kl_stats_dense": ("mu_kl_stats", False, "pallas_mu.py:603"),
     "kl_stats_masked": ("mu_kl_stats", True, "pallas_mu.py:678"),
 }
+# The H100's data-sheet rates (SXM, dense) that bound a kernel.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+
+def bound(nbytes, ops, dtype):
+    """(ms, 'bytes' or 'operations'): the least time the card could take
+    to move ``nbytes`` and do ``ops`` operations of ``dtype``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def stats_bound(name, m, n, k, ydt, xdt):
+    """The bound of one NMF statistics kernel call: y (and the mask) read
+    once, x read and x_new written, d read, the statistics written; its
+    products on the data's type."""
+    masked = name.endswith("masked")
+    nbytes = ((2 if masked else 1) * m * n * ydt.itemsize
+              + 2 * m * k * xdt.itemsize + k * n * ydt.itemsize
+              + (2 if masked else 1) * k * n * 4)
+    if name == "mu_stats_dense":   # y d^T, x_new^T y; x ddt, x_new^T x_new
+        ops = 4.0 * m * n * k + 4.0 * m * k * k
+    else:                          # 2MNK for each M x N x K product
+        ops = {"mu_stats_masked": 12, "kl_stats_dense": 8,
+               "kl_stats_masked": 12}[name] * float(m) * n * k
+    return bound(nbytes, ops, ydt)
 
 
 def check(cond, msg):
@@ -180,14 +265,418 @@ def time_new(cuda_mu, name, args, reps=5):
     return kernel_ms, plain_ms
 
 
+LASSO_METHODS = {"ista": (False, False), "fista": (True, False),
+                 "acc_ista": (True, True)}   # (momentum, restart)
+
+
+def rows_problem(gen, dev, m, f, n):
+    """(yah, gram, 1/L) of a planted batch made on the card: a normal /
+    sqrt(N), truth 10% sparse, 1% noise."""
+    from decomp_tpu_torch.ops.spectral import spectral_norm_psd
+
+    a = torch.randn((f, n), generator=gen, device=dev) / n ** 0.5
+    xt = torch.randn((m, f), generator=gen, device=dev) * (
+        torch.rand((m, f), generator=gen, device=dev) < 0.1)
+    y = xt @ a + 0.01 * torch.randn((m, n), generator=gen, device=dev)
+    gram = a @ a.T
+    return y @ a.T, gram, 1.0 / float(spectral_norm_psd(gram))
+
+
+def rows_start(m, f, dev):
+    """x0, t0, done0, nit0 of a fresh batch in which row 5 resumes done
+    (after 9 iterations, at x = 1)."""
+    x0 = torch.zeros((m, f), device=dev)
+    t0 = torch.ones((m, 1), device=dev)
+    d0 = torch.zeros((m, 1), device=dev)
+    n0 = torch.zeros((m, 1), dtype=torch.int32, device=dev)
+    x0[5], d0[5], n0[5] = 1.0, 1.0, 9
+    return x0, t0, d0, n0
+
+
+def compare_rows_exact(out, ref, tag):
+    """solve_rows against its twin in exact mode: niter equal on most
+    rows, x of those rows and of all rows within SOLVE_LIMITS."""
+    eq = (out[4] == ref[4])[:, 0]
+    nit_eq = float(eq.float().mean())
+    err_eq = rel_fro(out[0][eq], ref[0][eq]) if bool(eq.any()) else 0.0
+    err_all = rel_fro(out[0], ref[0])
+    print(f"kernel vs twin {tag}: niter equal on {nit_eq:.4f} of rows "
+          f"(limit {SOLVE_LIMITS['nit_eq']}), rel_fro x on those "
+          f"{err_eq:.3e} (limit {SOLVE_LIMITS['eq_rows']:.0e}), all rows "
+          f"{err_all:.3e} (limit {SOLVE_LIMITS['all_rows']:.0e})", flush=True)
+    check(np.isfinite(err_all), f"{tag}: non-finite x")
+    check(nit_eq >= SOLVE_LIMITS["nit_eq"] and
+          err_eq <= SOLVE_LIMITS["eq_rows"] and
+          err_all <= SOLVE_LIMITS["all_rows"],
+          f"{tag}: kernel disagrees with twin")
+
+
+def compare_solve_rows(cl, gen, dev, m, f, n):
+    """solve_rows against its twin at M x F for every method, step form
+    and precision, in exact mode (tol 1e-4, 300 iterations) and in the
+    fixed-budget mode (37 iterations), with a row that resumes done."""
+    yah, gram, step = rows_problem(gen, dev, m, f, n)
+    x0, t0, d0, n0 = rows_start(m, f, dev)
+    ramp = torch.linspace(0.5, 1.0, f, device=dev)
+    for method, (mom, rst) in LASSO_METHODS.items():
+        for hi_lo in (False, True):
+            for vec in (False, True):
+                s = step * ramp if vec else step
+                args = (yah, gram, x0, x0, t0, d0, n0, s, 0.05 * s)
+                kw = dict(momentum=mom, restart=rst, hi_lo=hi_lo)
+                tag = (f"solve_rows {m}x{f} {method} "
+                       f"{'high' if hi_lo else 'highest'} "
+                       f"{'per-feature' if vec else 'scalar'} step")
+                out = cl.solve_rows(*args, 1e-4, maxiter=300, **kw)
+                # A rerun, with 16-row stripes where 32 is the default.
+                again = cl.solve_rows(*args, 1e-4, maxiter=300,
+                                      block_rows=16, **kw)
+                ref = cl.solve_rows_plain(*args, 1e-4, maxiter=300, **kw)
+                fixed = cl.solve_rows(*args, 0.0, maxiter=37, fixed=True,
+                                      **kw)
+                exact0 = cl.solve_rows(*args, 0.0, maxiter=37, **kw)
+                fref = cl.solve_rows_plain(*args, 0.0, maxiter=37,
+                                           fixed=True, **kw)
+                torch.cuda.synchronize()
+                compare_rows_exact(out, ref, tag)
+                err_fixed = max(rel_fro(fixed[0], fref[0]),
+                                rel_fro(fixed[1], fref[1]))
+                same = all(torch.equal(u, v) for u, v in zip(out, again))
+                fixed_is_exact = all(torch.equal(u, v)
+                                     for u, v in zip(fixed, exact0))
+                kept = (torch.equal(out[0][5], x0[5])
+                        and int(out[4][5, 0]) == 9)
+                print(f"  fixed budget: rel_fro x, z {err_fixed:.3e} (limit "
+                      f"{SOLVE_LIMITS['fixed']:.0e}); bit-identical rerun "
+                      f"(16-row stripes) {same}; fixed mode == exact mode "
+                      f"at tol 0 {fixed_is_exact}; done row kept {kept}",
+                      flush=True)
+                check(err_fixed <= SOLVE_LIMITS["fixed"],
+                      f"{tag}: fixed-budget kernel disagrees with twin")
+                check(same, f"{tag}: two kernel runs differ")
+                check(fixed_is_exact, f"{tag}: fixed mode differs from exact "
+                      "mode at tol 0")
+                check(kept, f"{tag}: the row that resumed done moved")
+
+
+def grad_inputs(gen, dev, m, n, f, dt):
+    """my = mask * y, mask (30% missing), x and a for masked_grad_rows."""
+    mask = (torch.rand((m, n), generator=gen, device=dev) >= 0.3).to(dt)
+    my = torch.randn((m, n), generator=gen, device=dev).to(dt) * mask
+    x = torch.randn((m, f), generator=gen, device=dev).to(dt)
+    a = (torch.randn((f, n), generator=gen, device=dev) / n ** 0.5).to(dt)
+    return my, mask, x, a
+
+
+def compare_grad(cl, args):
+    """masked_grad_rows against its twin; returns the max abs error."""
+    my, x = args[0], args[2]
+    out = cl.masked_grad_rows(*args)
+    again = cl.masked_grad_rows(*args)
+    ref = cl.masked_grad_rows_plain(*args)
+    torch.cuda.synchronize()
+    err = rel_fro(out, ref)
+    same = torch.equal(out, again)
+    lim = GRAD_LIMIT[my.dtype]
+    tag = (f"masked_grad_rows {my.shape[0]}x{my.shape[1]} F={x.shape[1]} "
+           f"{str(my.dtype)[6:]}")
+    print(f"kernel vs twin {tag}: rel_fro {err:.3e} (limit {lim:g}); "
+          f"bit-identical rerun: {same}", flush=True)
+    check(np.isfinite(err) and err <= lim, f"{tag}: kernel disagrees with "
+          "twin")
+    check(same, f"{tag}: two kernel runs differ")
+    return max_abs([out], [ref])
+
+
+def config2_data():
+    """BASELINE config 2 as bench.py:157-163 makes it (numpy, seed 1):
+    10,000 problems, 512 features, 256 channels, 5%-sparse truth, 0.01
+    noise; returns (y, a) as f32 arrays."""
+    rng = np.random.default_rng(1)
+    a = rng.normal(size=(512, 256)).astype(np.float32)
+    x_true = (rng.normal(size=(10_000, 512))
+              * (rng.random((10_000, 512)) < 0.05)).astype(np.float32)
+    y = x_true @ a + 0.01 * rng.normal(size=(10_000, 256)).astype(np.float32)
+    return y.astype(np.float32), a
+
+
+def kkt_residual(x, y, a, alpha, lip, tol):
+    """Per row, the distance of 0 from the lasso's subdifferential at x
+    (|grad + alpha sign x| on the support, max(|grad| - alpha, 0) off it),
+    over L tol ||x_row||: the scale a relative change of tol leaves."""
+    xd, ad = x.double(), a.double()
+    g = xd @ (ad @ ad.T) - y.double() @ ad.T
+    r = torch.where(xd != 0, g + alpha * torch.sign(xd),
+                    (g.abs() - alpha).clamp_min(0.0))
+    return (torch.linalg.vector_norm(r, dim=1)
+            / (lip * tol * torch.linalg.vector_norm(xd, dim=1)))
+
+
+def marginal_ms(fn, k=6, repeats=4):
+    """bench.py:92-117's marginal time per call, in ms: (time of k chained
+    calls - time of one) / (k - 1), best of ``repeats``, each fenced by a
+    synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    best_1 = best_k = float("inf")
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best_1 = min(best_1, time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        for _ in range(k):
+            fn()
+        torch.cuda.synchronize()
+        best_k = min(best_k, time.perf_counter() - t0)
+    if best_k > best_1:
+        return (best_k - best_1) / (k - 1) * 1e3
+    return best_k / k * 1e3
+
+
+def event_ms(fn):
+    """(ms, result) of one call between CUDA events."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1), out
+
+
+def solve_rows_bound(m, f, sum_niter, hi_lo):
+    """The bound of one solve_rows call: yah, x0 and z0 read and x, z
+    written (the Gram's bytes are negligible), and 2F^2 operations per
+    product per row-iteration this run needed: three bf16 products under
+    'high', one f32 product under 'highest'."""
+    nbytes = 5 * m * f * 4 + 2 * f * f * 2
+    if hi_lo:
+        return bound(nbytes, 6.0 * f * f * sum_niter, torch.bfloat16)
+    return bound(nbytes, 2.0 * f * f * sum_niter, torch.float32)
+
+
+def config2_phase(lasso, dev, card, reset_counts, read_counts):
+    """Phase 10: BASELINE config 2 end to end through ``lasso.solve``.
+    Returns the main run's solve_rows launches and the data (y, a) on the
+    card."""
+    from decomp_tpu_torch.ops.spectral import spectral_norm_psd
+
+    y_np, a_np = config2_data()
+    cfg = dict(tol=1e-4, maxiter=4000, method="acc_ista", per_problem=True)
+    # Host arrays go to the card unless the caller asks for the CPU.
+    check(lasso.solve(y_np[:64], a_np, 0.1, **cfg).x.is_cuda,
+          "a numpy y did not run on the card")
+    y, a = (torch.from_numpy(v).to(dev) for v in (y_np, a_np))
+    m, f = y.shape[0], a.shape[0]
+
+    def solve(**kw):
+        return lasso.solve(y, a, 0.1, **cfg, **kw)
+
+    solve(precision="high")   # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    ms, res = event_ms(lambda: solve(precision="high"))
+    launches = read_counts("solve_rows", 1)
+    highest_ms, top = event_ms(lambda: solve(precision="highest"))
+    comp_ms, comp = event_ms(lambda: solve(use_kernel=False))
+    marg = marginal_ms(lambda: solve(precision="high"))
+    nit = res.niter.double()
+    sum_nit = int(nit.sum())
+    b_ms, b_by = solve_rows_bound(m, f, sum_nit, True)
+    lip = float(spectral_norm_psd(a @ a.T))
+    kkt = kkt_residual(res.x, y, a, 0.1, lip, 1e-4)
+    kkt_comp = kkt_residual(comp.x, y, a, 0.1, lip, 1e-4)
+    err_top = rel_fro(res.x, top.x)
+    err_comp = rel_fro(res.x, comp.x)
+    print(f"config 2 lasso.solve {m} problems x {f} features x "
+          f"{y.shape[1]} channels, acc_ista, precision 'high', per_problem, "
+          f"tol 1e-4 ({card}): time to tol {ms:.3f} ms, marginal per solve "
+          f"(chain of 6) {marg:.3f} ms, bound of its solve_rows "
+          f"{b_ms:.3f} ms ({b_by}); niter min/median/max "
+          f"{int(nit.min())}/{int(nit.median())}/{int(nit.max())}, sum "
+          f"{sum_nit}; converged rows {int(res.converged.sum())}/{m}; "
+          f"solve_rows launches {launches}", flush=True)
+    print(f"  precision 'highest' {highest_ms:.3f} ms (niter sum "
+          f"{int(top.niter.double().sum())}), use_kernel=False "
+          f"{comp_ms:.3f} ms ({card}); rel_fro x vs 'highest' "
+          f"{err_top:.3e}, vs composition {err_comp:.3e} (limit "
+          f"{C2_X_LIMIT:.0e}); KKT residual / (L tol |x|) max "
+          f"{float(kkt.max()):.3f}, median {float(kkt.median()):.3f} "
+          f"(composition max {float(kkt_comp.max()):.3f}; limit "
+          f"{C2_KKT_LIMIT})", flush=True)
+    check(bool(res.converged.all()), "config 2: not every row converged")
+    check(res.x.shape == (m, f) and bool(torch.isfinite(res.x).all()),
+          "config 2: x is not finite or has the wrong shape")
+    check(err_top <= C2_X_LIMIT and err_comp <= C2_X_LIMIT,
+          "config 2: x disagrees with the 'highest' or composition run")
+    check(float(kkt.max()) <= C2_KKT_LIMIT,
+          "config 2: the KKT conditions do not hold")
+    return launches, y, a
+
+
+def lasso_crossover(lasso, gen, dev, card):
+    """Whole-solve kernel against the composition path (per-problem
+    acc_ista, 'highest', tol 1e-4) at small batches: where
+    ``use_kernel='auto'`` would want a size gate."""
+    for m, f, n in ((64, 64, 48), (1000, 128, 96), (4000, 256, 128)):
+        a = torch.randn((f, n), generator=gen, device=dev)
+        xt = torch.randn((m, f), generator=gen, device=dev) * (
+            torch.rand((m, f), generator=gen, device=dev) < 0.05)
+        y = xt @ a + 0.01 * torch.randn((m, n), generator=gen, device=dev)
+        ms = {}
+        for kernel in (True, False):
+            def solve():
+                return lasso.solve(y, a, 0.1, tol=1e-4, maxiter=4000,
+                                   method="acc_ista", per_problem=True,
+                                   use_kernel=kernel)
+            solve()
+            torch.cuda.synchronize()
+            ms[kernel], res = event_ms(solve)
+        print(f"lasso.solve {m}x{f}x{n} per-problem acc_ista: kernel path "
+              f"{ms[True]:.3f} ms, composition {ms[False]:.3f} ms (max niter "
+              f"{int(res.niter.max())}) ({card})", flush=True)
+
+
+def masked_lasso_phase(lasso, dev, card, reset_counts, read_counts, m, n,
+                       f):
+    """Phase 11: the masked lasso at M x N, F features, 30% missing, 50
+    FISTA iterations, in f32 and in bf16. Returns the f32 run's
+    masked_grad_rows launches."""
+    iters, alpha = 50, 0.05
+    g = torch.Generator(device=dev).manual_seed(11)
+    a = torch.randn((f, n), generator=g, device=dev) / n ** 0.5
+    xt = torch.randn((m, f), generator=g, device=dev) * (
+        torch.rand((m, f), generator=g, device=dev) < 0.1)
+    mask = (torch.rand((m, n), generator=g, device=dev) >= 0.3).float()
+    my = (xt @ a + 0.01 * torch.randn((m, n), generator=g, device=dev)) * mask
+    del xt
+
+    def objective(x, my_, mask_, a_):
+        r = mask_.float() * (x.float() @ a_.float()) - my_.float()
+        return (0.5 * float(torch.sum(r.double() ** 2))
+                + alpha * float(x.double().abs().sum()))
+
+    launches = {}
+    for dt in (torch.float32, torch.bfloat16):
+        my_, mask_, a_ = (t.to(dt) for t in (my, mask, a))
+
+        def solve(maxiter=iters, **kw):
+            return lasso.solve(my_, a_, alpha, mask=mask_, method="fista",
+                               tol=0.0, maxiter=maxiter, **kw)
+
+        solve(maxiter=2)   # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        ms, res = event_ms(solve)
+        launches[dt] = read_counts("masked_grad_rows", iters)
+        comp_ms, comp = event_ms(lambda: solve(use_kernel=False))
+        obj0 = objective(torch.zeros((m, f), device=dev), my_, mask_, a_)
+        obj1 = objective(res.x, my_, mask_, a_)
+        err = rel_fro(res.x, comp.x)
+        tag = f"masked lasso {m}x{n} F={f} {str(dt)[6:]}"
+        print(f"{tag}, 30% missing, fista, {iters} iterations ({card}): "
+              f"{iters / ms * 1e3:.1f} iterations/s ({ms:.3f} ms), "
+              f"use_kernel=False {iters / comp_ms * 1e3:.1f} iterations/s "
+              f"({comp_ms:.3f} ms); objective {obj0:.6e} -> {obj1:.6e}; "
+              f"rel_fro x vs composition {err:.3e} (limit "
+              f"{MASKED_X_LIMIT[dt]:.0e}); masked_grad_rows launches "
+              f"{launches[dt]}", flush=True)
+        check(res.niter == iters, f"{tag}: niter {res.niter} != {iters}")
+        check(bool(torch.isfinite(res.x).all()), f"{tag}: non-finite x")
+        check(np.isfinite(obj1) and obj1 < obj0,
+              f"{tag}: the objective did not fall")
+        check(err <= MASKED_X_LIMIT[dt], f"{tag}: x disagrees with the "
+              "composition run")
+        del my_, mask_, a_, res, comp
+    return launches[torch.float32]
+
+
+def lasso_times(cl, gen, dev, card, y, a, fixed_shape, grad_shape):
+    """Phase 12: the lasso kernels against their twins per call, with
+    their bounds: solve_rows on config 2's data (y, a) and in the fixed
+    budget at ``fixed_shape`` (M, F), masked_grad_rows at ``grad_shape``
+    (M, N, F). Returns {name: (max_abs_err, ms, plain_ms, bound_ms,
+    bound_by)} at the main path's shapes."""
+    from decomp_tpu_torch.ops.spectral import spectral_norm_psd
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    out = {}
+    # solve_rows on config 2's inputs, as lasso.solve calls it.
+    gram = a @ a.T
+    yah = y @ a.T
+    step = 1.0 / float(spectral_norm_psd(gram))
+    m, f = yah.shape
+    x0, t0, d0, n0 = rows_start(m, f, dev)
+    x0[5], d0[5], n0[5] = 0.0, 0.0, 0
+    args = (yah, gram, x0, x0, t0, d0, n0, step, 0.1 * step, 1e-4)
+    kw = dict(momentum=True, restart=True, maxiter=4000, hi_lo=True)
+    got = cl.solve_rows(*args, **kw)
+    ref = cl.solve_rows_plain(*args, **kw)
+    torch.cuda.synchronize()
+    eq = (got[4] == ref[4])[:, 0]
+    err = rel_fro(got[0], ref[0])
+    print(f"kernel vs twin solve_rows config 2 ('high', tol 1e-4): niter "
+          f"equal on {float(eq.float().mean()):.4f} of rows, rel_fro x "
+          f"{err:.3e} (limit {C2_TWIN_LIMIT:.0e})", flush=True)
+    check(err <= C2_TWIN_LIMIT, "config 2: solve_rows disagrees with twin")
+    k_ms = cuda_ms(lambda: cl.solve_rows(*args, **kw), 3)
+    p_ms = cuda_ms(lambda: cl.solve_rows_plain(*args, **kw), 1)
+    b = solve_rows_bound(m, f, int(got[4].double().sum()), True)
+    out["solve_rows"] = (max_abs(got[:1], ref[:1]), k_ms, p_ms) + b
+    print(f"solve_rows config 2 ({m}x{f}, 'high', acc_ista, tol 1e-4): "
+          f"kernel {k_ms:.3f} ms, plain twin {p_ms:.3f} ms per call, bound "
+          f"{b[0]:.3f} ms ({b[1]}) ({card})", flush=True)
+    del gram, yah, args, got, ref
+
+    # solve_rows' fixed budget, 100 iterations.
+    (m, f), iters = fixed_shape, 100
+    yah, gram, step = rows_problem(gen, dev, m, f, 256)
+    x0, t0, d0, n0 = rows_start(m, f, dev)
+    args = (yah, gram, x0, x0, t0, d0, n0, step, 0.05 * step, 0.0)
+    kw = dict(momentum=True, restart=True, maxiter=iters, hi_lo=True,
+              fixed=True)
+    got = cl.solve_rows(*args, **kw)
+    ref = cl.solve_rows_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = max(rel_fro(got[0], ref[0]), rel_fro(got[1], ref[1]))
+    check(err <= SOLVE_LIMITS["fixed"], f"fixed budget at {m}x{f}: "
+          "solve_rows disagrees with twin")
+    k_ms = cuda_ms(lambda: cl.solve_rows(*args, **kw), 2)
+    p_ms = cuda_ms(lambda: cl.solve_rows_plain(*args, **kw), 1)
+    b = solve_rows_bound(m, f, int((got[4] - n0).double().sum()), True)
+    print(f"solve_rows fixed budget {m}x{f}, {iters} iterations, 'high', "
+          f"acc_ista: kernel {k_ms:.3f} ms, plain twin {p_ms:.3f} ms per "
+          f"call, bound {b[0]:.3f} ms ({b[1]}) ({card}); rel_fro x, z "
+          f"{err:.3e} (limit {SOLVE_LIMITS['fixed']:.0e})", flush=True)
+    del yah, gram, args, got, ref, x0
+
+    # masked_grad_rows at the masked lasso's shape.
+    m, n, f = grad_shape
+    for dt in (f32, bf16):
+        args = grad_inputs(gen, dev, m, n, f, dt)
+        e = compare_grad(cl, args)
+        k_ms = cuda_ms(lambda: cl.masked_grad_rows(*args), 5)
+        p_ms = cuda_ms(lambda: cl.masked_grad_rows_plain(*args), 2)
+        b = bound((2 * m * n + 2 * m * f + f * n) * dt.itemsize,
+                  4.0 * m * n * f, dt)
+        print(f"masked_grad_rows {m}x{n} F={f} {str(dt)[6:]}: kernel "
+              f"{k_ms:.3f} ms, plain twin {p_ms:.3f} ms per call, bound "
+              f"{b[0]:.3f} ms ({b[1]}) ({card})", flush=True)
+        if dt == f32:
+            out["masked_grad_rows"] = (e, k_ms, p_ms) + b
+        del args
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
               file=sys.stderr)
         return 1
-    from decomp_tpu_torch import nmf
+    from decomp_tpu_torch import lasso, nmf
     from decomp_tpu_torch.models import nmf as nmf_mod
-    from decomp_tpu_torch.ops import _build, cuda_mu
+    from decomp_tpu_torch.ops import _build, cuda_lasso, cuda_mu
 
     check("jax" not in sys.modules, "the port imported jax")
     check(not torch.backends.cuda.matmul.allow_tf32,
@@ -196,6 +685,7 @@ def main():
     torch.cuda.set_device(dev)
     wrappers = [getattr(cuda_mu, n)
                 for n in ("mu_stats_dense", *NEW_KERNELS)]
+    wrappers += [cuda_lasso.solve_rows, cuda_lasso.masked_grad_rows]
 
     def reset_counts():
         for w in wrappers:
@@ -232,8 +722,8 @@ def main():
                   and " 0 bytes spill stores, 0 bytes spill loads" not in ln]
         print(f"built decomp_tpu_torch/csrc/{s}.cu with nvcc for sm_90a; "
               f"register spills: {spills or 'none'}", flush=True)
-    print(f"both sources built in parallel in {build_s:.1f} s (0 s = "
-          f"already built); torch {torch.__version__}, CUDA "
+    print(f"{len(SOURCES)} sources built in parallel in {build_s:.1f} s "
+          f"(0 s = already built); torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
     t_phase = phase("1 build", t_phase)
 
@@ -281,9 +771,11 @@ def main():
         y, x0, d0.to(bf16), EPS), 5)
     plain_ms = cuda_ms(lambda: cuda_mu.mu_stats_dense_plain(
         y, x0, d0.to(bf16), EPS), 2)
+    dense_b = stats_bound("mu_stats_dense", m, n, k, bf16, f32)
     print(f"mu_stats_dense {m}x{n} K={k} bf16 y, f32 x: kernel "
-          f"{kernel_ms:.3f} ms, plain twin {plain_ms:.3f} ms per call "
-          f"({card}); rel_fro x_new={errs[0]:.3e} numd={errs[1]:.3e} "
+          f"{kernel_ms:.3f} ms, plain twin {plain_ms:.3f} ms per call, bound "
+          f"{dense_b[0]:.3f} ms ({dense_b[1]}) ({card}); rel_fro "
+          f"x_new={errs[0]:.3e} numd={errs[1]:.3e} "
           f"gram={errs[2]:.3e}, max_abs_err={err_abs:.3e}", flush=True)
 
     rows = torch.arange(0, m, 4096, device=dev)
@@ -435,41 +927,86 @@ def main():
                             NEW_KERNELS[name][1])
         errs_abs[name] = compare_new(cuda_mu, name, args)
         times[name] = time_new(cuda_mu, name, args)
+        b = stats_bound(name, m_, n_, k_, ydt, xdt)
         print(f"{name} {m_}x{n_} K={k_} data={str(ydt)[6:]} "
               f"x={str(xdt)[6:]}: kernel {times[name][0]:.3f} ms, plain twin "
-              f"{times[name][1]:.3f} ms per call ({card}); max_abs_err "
-              f"{errs_abs[name]:.3e}", flush=True)
+              f"{times[name][1]:.3f} ms per call, bound {b[0]:.3f} ms "
+              f"({b[1]}) ({card}); max_abs_err {errs_abs[name]:.3e}",
+              flush=True)
         del args
     args = stats_inputs(gen, dev, 262_144, 10112, 128, bf16, f32, True)
     wide_ms = time_new(cuda_mu, "mu_stats_masked", args)
+    wide_b = stats_bound("mu_stats_masked", 262_144, 10112, 128, bf16, f32)
     print(f"mu_stats_masked 262144x10112 K=128 data=bfloat16 x=float32: "
           f"kernel {wide_ms[0]:.3f} ms, plain twin {wide_ms[1]:.3f} ms per "
-          f"call ({card})", flush=True)
+          f"call, bound {wide_b[0]:.3f} ms ({wide_b[1]}) ({card})",
+          flush=True)
     del args
-    phase("8 kernel times", t_phase)
+    t_phase = phase("8 kernel times", t_phase)
 
-    main_launches = {"mu_stats_masked": launches4, **kl_launches}
-    entries = [{
-        "name": "mu_stats_dense",
-        "route": "cuda",
-        "source": "decomp_tpu_torch/csrc/mu_stats_dense.cu",
-        "replaces": "decomp_tpu/ops/pallas_mu.py:438",
-        "launches": launches,
-        "max_abs_err": err_abs,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]
-    for name, (source, _, replaces) in NEW_KERNELS.items():
+    # Phase 9: the lasso kernels against their twins.
+    for m_, f_, n_ in ((1000, 200, 160), (300, 1000, 700),
+                       (10_000, 512, 256)):
+        compare_solve_rows(cuda_lasso, gen, dev, m_, f_, n_)
+    for m_, n_, f_ in ((1000, 1000, 100), (333, 257, 7)):
+        for dt in (f32, bf16):
+            compare_grad(cuda_lasso, grad_inputs(gen, dev, m_, n_, f_, dt))
+    t_phase = phase("9 lasso kernels vs twins", t_phase)
+
+    # Phase 10: batch lasso at BASELINE config 2.
+    launches2, y2, a2 = config2_phase(lasso, dev, card, reset_counts,
+                                      read_counts)
+    lasso_crossover(lasso, gen, dev, card)
+    t_phase = phase("10 config 2", t_phase)
+
+    # Phase 11: the masked lasso.
+    launches_grad = masked_lasso_phase(lasso, dev, card, reset_counts,
+                                       read_counts, 100_000, 1024, 128)
+    t_phase = phase("11 masked lasso", t_phase)
+
+    # Phase 12: the lasso kernels' times against their twins.
+    # solve_rows' fixed budget at 262,144 x 512: yah, x and z 0.5 GB each.
+    lasso_stats = lasso_times(cuda_lasso, gen, dev, card, y2, a2,
+                              (262_144, 512), (100_000, 1024, 128))
+    phase("12 lasso kernel times", t_phase)
+
+    bounds = {"mu_stats_dense": dense_b,
+              "mu_stats_masked": stats_bound("mu_stats_masked", m4, n4, k4,
+                                             bf16, f32),
+              "kl_stats_dense": stats_bound("kl_stats_dense", m7, n7, k7,
+                                            f32, f32),
+              "kl_stats_masked": stats_bound("kl_stats_masked", m7, n7, k7,
+                                             f32, f32)}
+    stats = {"mu_stats_dense": (err_abs, kernel_ms, plain_ms),
+             **{name: (errs_abs[name],) + times[name] for name in NEW_KERNELS}}
+    stats = {name: s + bounds[name] for name, s in stats.items()}
+    stats.update(lasso_stats)
+    main_launches = {"mu_stats_dense": launches, "mu_stats_masked": launches4,
+                     **kl_launches, "solve_rows": launches2,
+                     "masked_grad_rows": launches_grad}
+    kernels = {"mu_stats_dense": ("mu_stats_dense", "pallas_mu.py:438"),
+               **{name: (src, rep) for name, (src, _, rep)
+                  in NEW_KERNELS.items()},
+               "solve_rows": ("lasso_fista", "pallas_fista.py:349"),
+               "masked_grad_rows": ("lasso_grad", "pallas_lasso.py:159")}
+    entries = []
+    for name, (source, replaces) in kernels.items():
+        err, ms, p_ms, b_ms, b_by = stats[name]
         entries.append({
             "name": name,
             "route": "cuda",
             "source": f"decomp_tpu_torch/csrc/{source}.cu",
             "replaces": f"decomp_tpu/ops/{replaces}",
             "launches": main_launches[name],
-            "max_abs_err": errs_abs[name],
-            "ms": times[name][0],
-            "plain_ms": times[name][1],
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": p_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            # No one PyTorch call computes any of these functions.
+            "library_ms": None,
         })
+    print(card, flush=True)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,18 +2,24 @@
 
 It mirrors ``decomp_tpu``'s layout (``models/``, ``ops/``, ``utils/``) and
 ``solve()`` surface; its CUDA kernels live in ``csrc/`` and are built for
-Hopper (``sm_90a``) on first use. Ported so far: multiplicative-update
-NMF (``nmf.solve``, methods 'mu' and 'kl-mu', full batch, dense or masked,
-with ``inner_iter``, mixed precision and held-out stopping; the
-``nmf.masked_completion`` preset), whose x update and d statistics run in
-the hand-written kernels of ``ops.cuda_mu`` on a CUDA tensor. ``decomp_tpu``
-(JAX) stays the reference the port is tested against; this package never
-imports JAX.
+Hopper (``sm_90a``) on first use. Ported so far:
+- multiplicative-update NMF (``nmf.solve``, methods 'mu' and 'kl-mu', full
+  batch, dense or masked, with ``inner_iter``, mixed precision and held-out
+  stopping; the ``nmf.masked_completion`` preset), whose x update and d
+  statistics run in the hand-written kernels of ``ops.cuda_mu``;
+- batch lasso (``lasso.solve``, methods 'ista', 'fista', 'acc_ista',
+  'parallel_cd' and 'cd', masked or not, global or per-problem stopping,
+  exact resume; ``lasso.solve_streaming``), whose per-problem solve and
+  masked gradient run in the hand-written kernels of ``ops.cuda_lasso``.
+An entry point runs on the card unless the caller asks for the CPU: a
+tensor stays on its device, and host arrays go to ``device=`` or, by
+default, the CUDA device (``utils.device``). ``decomp_tpu`` (JAX) stays the
+reference the port is tested against; this package never imports JAX.
 """
 
-from decomp_tpu_torch.models import nmf
-from decomp_tpu_torch.utils.result import NMFResult
+from decomp_tpu_torch.models import lasso, nmf
+from decomp_tpu_torch.utils.result import LassoResult, NMFResult
 
 __version__ = "0.1.0"
 
-__all__ = ["nmf", "NMFResult"]
+__all__ = ["lasso", "nmf", "LassoResult", "NMFResult"]

@@ -1,6 +1,6 @@
-"""Public solver families. Only ``nmf`` ('mu' and 'kl-mu') is ported so
-far; lasso and dictionary learning follow (ROADMAP Queue 1)."""
+"""Public solver families: ``nmf`` ('mu' and 'kl-mu') and ``lasso``;
+dictionary learning follows (ROADMAP Queue 1)."""
 
-from decomp_tpu_torch.models import nmf
+from decomp_tpu_torch.models import lasso, nmf
 
-__all__ = ["nmf"]
+__all__ = ["lasso", "nmf"]

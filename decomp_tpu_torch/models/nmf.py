@@ -18,8 +18,11 @@ path (``use_kernel``), whose x update and d statistics are one call of an
 tensor, its plain twin on a CPU tensor), and the composition path of
 plain torch products.
 
-Everything runs on ``y``'s device; tensors on another device are refused,
-never moved. Not ported yet, and refused with ``DecompError``:
+Entry points run on the card unless the caller asks for the CPU: a tensor
+``y`` stays on its device, host arrays go to ``device=`` or, by default,
+the CUDA device, and with no CUDA device and no ``device`` they raise
+(``utils.device``). The companions follow ``y``; a tensor on another device
+is refused, never moved. Not ported yet, and refused with ``DecompError``:
 ``method='hals'``, ``minibatch``, ``masked_completion(mesh=...)`` and
 ``solve_streaming``.
 """
@@ -31,6 +34,7 @@ import torch
 from decomp_tpu_torch.ops import cuda_mu
 from decomp_tpu_torch.ops.loop import run_iterations
 from decomp_tpu_torch.utils import assertion
+from decomp_tpu_torch.utils import device as _device
 from decomp_tpu_torch.utils.dtypes import acc_dtype, real_dtype
 from decomp_tpu_torch.utils.exceptions import DecompError
 from decomp_tpu_torch.utils.normalize import l2_norm
@@ -66,14 +70,6 @@ def _validate_inner_iter(inner_iter):
     return int(inner_iter)
 
 
-def _on_device(name, t, dtype, device):
-    t = torch.as_tensor(t)
-    if t.device != device:
-        raise DecompError(f"{name} is on {t.device} but y is on {device}; "
-                          "move it explicitly")
-    return t.to(dtype)
-
-
 def solve(
     y,
     d=None,
@@ -97,6 +93,7 @@ def solve(
     verbose: bool = False,
     stop: str = "rel_change",
     heldout_frac: float = 0.05,
+    device=None,
 ) -> NMFResult:
     """Factorise ``y ≈ x @ d`` with nonnegative factors.
 
@@ -152,6 +149,8 @@ def solve(
         the final relative validation error.
     heldout_frac : fraction of the observed entries reserved under
         stop='heldout'.
+    device : where host-array inputs go (default the CUDA device; see
+        ``utils.device``). A tensor ``y`` stays on its device.
 
     Returns
     -------
@@ -166,7 +165,7 @@ def solve(
     if precision not in _PRECISIONS:
         raise DecompError(f"precision must be one of {_PRECISIONS}, "
                           f"got {precision!r}")
-    y = torch.as_tensor(y)
+    y = _device.on_device("y", y, _device.resolve(y, device))
     assertion.assert_ndim("y", y, 2)
     assertion.assert_inexact("y", y)
     assertion.assert_real("y", y)
@@ -190,7 +189,7 @@ def solve(
     if d is None and rank is None:
         raise DecompError("provide an initial dictionary `d` or a `rank`")
     if d is not None:
-        d = _on_device("d", d, fdt, y.device)
+        d = _device.on_device("d", d, y.device, fdt)
         assertion.assert_ndim("d", d, 2)
         assertion.assert_axis_size("d", d, 1, n_channels, "n_channels")
         if rank is not None and d.shape[0] != rank:
@@ -198,14 +197,14 @@ def solve(
                 f"rank={rank} inconsistent with d.shape[0]={d.shape[0]}")
         rank = d.shape[0]
     if x is not None:
-        x = _on_device("x", x, fdt, y.device)
+        x = _device.on_device("x", x, y.device, fdt)
         assertion.assert_ndim("x", x, 2)
         assertion.assert_axis_size("x", x, 0, n_samples, "n_samples")
         assertion.assert_axis_size("x", x, 1, rank, "rank")
     if mask is not None:
-        mask = torch.as_tensor(mask)
+        mask = _device.on_device("mask", mask, y.device)
         assertion.assert_same_shape("mask", mask, "y", y)
-        mask = _on_device("mask", mask, y.dtype, y.device)
+        mask = mask.to(y.dtype)
     inner_iter = _validate_inner_iter(inner_iter)
     cuda_mu.validate_block_rows(kernel_block_rows)
 
@@ -413,10 +412,12 @@ def masked_completion(y, mask, rank=None, d=None, x=None, *, tol=1e-4,
     iterations on ALL observed entries at ``tol=0``; the result keeps the
     held-out solve's ``aux`` and ``converged`` and counts both runs'
     iterations in ``niter``. ``mesh`` (sharded solves) is not ported.
+    Host-array inputs go to ``kwargs['device']``, by default the CUDA
+    device, as in ``solve``.
     """
     if mesh is not None:
         raise _not_ported("masked_completion(mesh=...)", 8)
-    y = torch.as_tensor(y)
+    y = _device.on_device("y", y, _device.resolve(y, kwargs.get("device")))
     if mixed == "auto":
         mixed = y.is_cuda and y.dtype == torch.float32
     if mixed:

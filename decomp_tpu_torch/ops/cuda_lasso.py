@@ -1,0 +1,331 @@
+"""Batch-lasso kernels and their plain twins (counterpart of
+``decomp_tpu.ops.pallas_fista`` and of the rows kernel of
+``decomp_tpu.ops.pallas_lasso``).
+
+    solve_rows(yah, gram, x0, z0, t0, done0, nit0, step, thresh, tol, ...)
+        -> (x, z, t, done, niter): the whole batched ISTA / FISTA /
+           acc_ista solve of unmasked rows, each row stopping on its own
+    masked_grad_rows(my, mask, x, a)
+        -> g = (mask * (x a) - my) a^T: the masked lasso gradient
+
+``solve_rows`` keeps the TPU kernel's semantics (``pallas_fista.py:133-
+346``): the gradient ``v gram - yah``, the prox ``sign(u) max(|u| -
+thresh, 0)`` of ``u = v - step grad``, momentum ``t' = (1 + sqrt(1 +
+4 t^2)) / 2``, ``z' = x' + ((t - 1) / t') (x' - x)`` with the row-local
+restart when ``(z - x') . (x' - x) > 0``, and per-row stopping on ``|x' -
+x| / max(|x'|, f32 tiny) < tol`` in division form. A row that is done
+leaves x, z and t as they are and stops counting iterations; rows that
+enter done never move. ``step`` and ``thresh`` are scalars or per-feature
+vectors. ``fixed=True`` (the caller knows ``tol <= 0``) drops the stopping
+test: rows that entered done are kept and the others report ``nit0 +
+maxiter``, bit-identical to the exact mode at ``tol = 0``. ``hi_lo=True``
+(precision 'high') computes each product as bf16x3: the operands are split
+into a high half, the f32 value with its low 16 bits cleared (exact in
+bf16), and a low half, the bf16 rounding of the remainder; the products
+hi.hi + hi.lo + lo.hi are summed in f32 and lo.lo is dropped
+(``pallas_fista.py:123-130``, ``:159-182``). ``hi_lo=False`` is full f32.
+
+``masked_grad_rows`` keeps the quantisation points of
+``pallas_lasso.py:144-156``: products take the data's dtype (``cdt``) as
+operands and sum in f32, the residual ``cdt(f32(mask) * (x a) - f32(my))``
+is formed in f32 and cast to ``cdt``, and ``g`` is stored in x's dtype.
+
+On a CUDA tensor a wrapper launches its kernel (``csrc/lasso_fista.cu``:
+f32, 1 <= F <= ``SOLVE_MAX_FEATURES``; ``csrc/lasso_grad.cu``: bf16 or f32
+data with every operand in the data's dtype, 1 <= F <=
+``GRAD_MAX_FEATURES``) and raises on anything else. On a CPU tensor it runs
+its ``*_plain`` twin. It never falls back from one to the other. Each
+wrapper counts its kernel launches in ``.launches``.
+
+Not ported: the TPU kernels' VMEM calibrations and 128-alignment padding
+(``default_block_rows``, ``fits_vmem``, ``auto_wins``,
+``kernel_alignment``, ``pad2``, ``pad_alpha``): the CUDA kernels mask
+ragged rows and features themselves. ``solve_rows``' split-complex
+``group_fc`` mode is not ported yet (ROADMAP Queue 2 #5).
+"""
+
+import torch
+
+from decomp_tpu_torch.ops.cuda_mu import (_F, _I, _P, _c_function, _launch,
+                                          _runs_plain, _work_dtype)
+from decomp_tpu_torch.utils.exceptions import (DecompError, DtypeError,
+                                               ShapeError)
+
+# Largest F that solve_rows' kernel takes: a stripe's x and z stay in
+# shared memory in f32 (csrc/lasso_fista.cu).
+SOLVE_MAX_FEATURES = 1024
+# Largest F of masked_grad_rows' kernel: its rank tile (KP in
+# csrc/nmf_common.cuh).
+GRAD_MAX_FEATURES = 128
+# Stripe heights of solve_rows' kernel: 32 rows up to F = 512, 16 above.
+_WIDE_STRIPE_MAX_F = 512
+# Rows per chunk of masked_grad_rows' twin.
+_GRAD_CHUNK_ROWS = 8192
+_F32_TINY = torch.finfo(torch.float32).tiny
+_HI_MASK = -65536  # 0xFFFF0000 as an int32
+
+
+def split_hi_lo(v):
+    """The bf16x3 split of f32 ``v``: ``hi``, the f32 value with its low 16
+    bits cleared (exact in bf16), and ``lo = bf16(v - hi)``, both bf16."""
+    hi_f = (v.contiguous().view(torch.int32) & _HI_MASK).view(torch.float32)
+    return hi_f.to(torch.bfloat16), (v - hi_f).to(torch.bfloat16)
+
+
+def stripe_rows(block_rows, f: int) -> int:
+    """Rows per stripe of ``solve_rows``' kernel at F features: 16, or 32
+    at F <= 512 (the default there); anything else is refused."""
+    rows = block_rows or (32 if f <= _WIDE_STRIPE_MAX_F else 16)
+    if rows not in (16, 32) or (rows == 32 and f > _WIDE_STRIPE_MAX_F):
+        raise DecompError(f"kernel_block_rows must be 16, or 32 at F <= "
+                          f"{_WIDE_STRIPE_MAX_F}; got {block_rows!r} at F={f}")
+    return rows
+
+
+def _feature_vector(v, f, device):
+    """A scalar or (F,) / (1, F) step or threshold as an f32 (F,) tensor."""
+    v = torch.as_tensor(v, dtype=torch.float32, device=device).reshape(-1)
+    if v.numel() not in (1, f):
+        raise ShapeError(f"step / threshold must be a scalar or have {f} "
+                         f"entries, got {v.numel()}")
+    return v.expand(f).contiguous()
+
+
+def _gradient(yah, gram, hi_lo):
+    """``v -> v gram - yah`` in full f32 or bf16x3 (the exact bf16 halves
+    upcast to f32: a bf16 x bf16 product is exact in f32)."""
+    if not hi_lo:
+        return lambda v: v @ gram - yah
+    ghi, glo = (h.float() for h in split_hi_lo(gram))
+
+    def grad(v):
+        vhi, vlo = (h.float() for h in split_hi_lo(v))
+        p = vhi @ ghi
+        p = p + vhi @ glo
+        p = p + vlo @ ghi
+        return p - yah
+
+    return grad
+
+
+def solve_rows_plain(yah, gram, x0, z0, t0, done0, nit0, stepsz, thresh, tol,
+                     *, momentum, restart, maxiter, hi_lo=False, fixed=False,
+                     block_rows=None):
+    """``solve_rows``' plain twin: the same function in plain torch. The
+    host loops over iterations, freezes rows per step and looks for an
+    all-done stripe every 8 steps (which changes no row's result).
+    ``block_rows`` is the kernel's stripe height and changes nothing here.
+    """
+    del block_rows
+    f32 = torch.float32
+    m, f = yah.shape
+    dev = yah.device
+    yah, gram = yah.to(f32), gram.to(f32)
+    step = _feature_vector(stepsz, f, dev)[None, :]
+    thr = _feature_vector(thresh, f, dev)[None, :]
+    tol = torch.tensor(float(tol), dtype=f32, device=dev)
+    tiny = torch.tensor(_F32_TINY, dtype=f32, device=dev)
+    grad = _gradient(yah, gram, hi_lo)
+
+    def prox(v):
+        u = v - step * grad(v)
+        return torch.sign(u) * torch.clamp(torch.abs(u) - thr, min=0.0)
+
+    def candidate(x, z, t):
+        if not momentum:
+            return prox(x), z, t
+        x_c = prox(z)
+        t_c = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * t * t))
+        z_c = x_c + ((t - 1.0) / t_c) * (x_c - x)
+        if restart:
+            do = torch.sum((z - x_c) * (x_c - x), dim=1, keepdim=True) > 0
+            t_c = torch.where(do, torch.ones_like(t_c), t_c)
+            z_c = torch.where(do, x_c, z_c)
+        return x_c, z_c, t_c
+
+    x0 = x0.to(f32)
+    z0 = (z0 if momentum else x0).to(f32)
+    t0 = t0.reshape(m, 1).to(f32)
+    done0 = done0.reshape(m, 1).to(f32)
+    nit0 = nit0.reshape(m, 1).to(torch.int32)
+    keep0 = done0 > 0.5
+    x, z, t = x0, z0, t0
+    if fixed:
+        for _ in range(int(maxiter)):
+            x, z, t = candidate(x, z, t)
+        x = torch.where(keep0, x0, x)
+        z = torch.where(keep0, z0, z) if momentum else x
+        t = torch.where(keep0, t0, t)
+        nit = nit0 + torch.where(keep0, 0, int(maxiter)).to(torch.int32)
+        return x, z, t, done0.clone(), nit
+
+    done, nit = keep0, nit0.clone()
+    for it in range(int(maxiter)):
+        if it % 8 == 0 and bool(done.all()):
+            break
+        x_c, z_c, t_c = candidate(x, z, t)
+        num = torch.sqrt(torch.sum((x_c - x) ** 2, dim=1, keepdim=True))
+        den = torch.maximum(torch.sqrt(torch.sum(x_c * x_c, dim=1,
+                                                 keepdim=True)), tiny)
+        newly = num / den < tol
+        x = torch.where(done, x, x_c)
+        if momentum:
+            z = torch.where(done, z, z_c)
+            t = torch.where(done, t, t_c)
+        nit = nit + (~done).to(torch.int32)
+        done = done | newly
+    return x, (z if momentum else x), t, done.to(f32), nit
+
+
+def check_solve_rows_args(yah, gram, x0, z0, t0, done0, nit0, maxiter,
+                          block_rows):
+    """Refuse what ``solve_rows``' kernel does not take, before any
+    launch."""
+    if yah.dim() != 2:
+        raise ShapeError(f"yah must be 2-D, got {tuple(yah.shape)}")
+    m, f = yah.shape
+    for name, t, shape in (("yah", yah, (m, f)), ("gram", gram, (f, f)),
+                           ("x0", x0, (m, f)), ("z0", z0, (m, f))):
+        if t.device != yah.device:
+            raise DecompError(f"{name} is on {t.device}, yah on {yah.device}")
+        if t.dtype != torch.float32:
+            raise DtypeError(f"the kernel takes f32 {name}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ShapeError(f"{name} must have shape {shape}, got "
+                             f"{tuple(t.shape)}")
+    for name, t in (("t0", t0), ("done0", done0), ("nit0", nit0)):
+        if t.device != yah.device or t.numel() != m:
+            raise ShapeError(f"{name} must hold {m} entries on {yah.device}")
+    if not 1 <= f <= SOLVE_MAX_FEATURES:
+        raise ShapeError(f"the whole-solve kernel takes 1 <= F <= "
+                         f"{SOLVE_MAX_FEATURES} features, got {f}")
+    if m >= 2 ** 31 or int(maxiter) >= 2 ** 31:
+        raise ShapeError("M and maxiter must be < 2^31")
+    return stripe_rows(block_rows, f)
+
+
+def solve_rows(yah, gram, x0, z0, t0, done0, nit0, stepsz, thresh, tol, *,
+               momentum, restart, maxiter, hi_lo=False, fixed=False,
+               block_rows=None):
+    """The whole batched proximal-gradient solve; see the module docstring.
+
+    yah (M, F), gram (F, F), x0 and z0 (M, F): f32 (``z0`` is read only by
+    the momentum methods); t0, done0 (0/1) and nit0: M entries each, any
+    shape; ``stepsz`` and ``thresh`` scalars or F-vectors; ``tol`` a
+    number. ``block_rows``: the kernel's stripe height, 16 or 32 (32 only
+    at F <= 512; default by F). Returns (x, z, t, done, niter) with shapes
+    ((M, F), (M, F), (M, 1), (M, 1), (M, 1)), done f32 0/1 and niter int32.
+    """
+    if int(maxiter) < 0:
+        raise ValueError(f"maxiter must be >= 0, got {maxiter}")
+    stripe_rows(block_rows, yah.shape[-1])
+    if _runs_plain(yah):
+        return solve_rows_plain(
+            yah, gram, x0, z0, t0, done0, nit0, stepsz, thresh, tol,
+            momentum=momentum, restart=restart, maxiter=maxiter, hi_lo=hi_lo,
+            fixed=fixed, block_rows=block_rows)
+    rows = check_solve_rows_args(yah, gram, x0, z0, t0, done0, nit0, maxiter,
+                                 block_rows)
+    m, f = yah.shape
+    f32, dev = torch.float32, yah.device
+    fn = _c_function("lasso_fista", "lasso_solve_rows_launch",
+                     (_I,) * 5 + (_P,) * 10 + (_F,) + (_I,) * 3 + (_P,) * 6)
+    with torch.cuda.device(dev):
+        step = _feature_vector(stepsz, f, dev)
+        thr = _feature_vector(thresh, f, dev)
+        if hi_lo:
+            # The kernel reads B(k, n) = gram[k, n] from rows of gram^T.
+            g0, g1 = (h.contiguous() for h in split_hi_lo(gram.T))
+        else:
+            g0, g1 = gram.contiguous(), gram
+        t0c = t0.reshape(m).to(f32).contiguous()
+        d0c = done0.reshape(m).to(f32).contiguous()
+        n0c = nit0.reshape(m).to(torch.int32).contiguous()
+        x0c, z0c = x0.contiguous(), z0.contiguous()
+        yahc = yah.contiguous()
+        x = torch.empty((m, f), dtype=f32, device=dev)
+        z = torch.empty_like(x)
+        t = torch.empty((m, 1), dtype=f32, device=dev)
+        done = torch.empty_like(t)
+        nit = torch.empty((m, 1), dtype=torch.int32, device=dev)
+        _launch("solve_rows", fn, dev, int(hi_lo), int(momentum),
+                int(restart), int(fixed), rows, yahc.data_ptr(),
+                g0.data_ptr(), g1.data_ptr(), x0c.data_ptr(), z0c.data_ptr(),
+                t0c.data_ptr(), d0c.data_ptr(), n0c.data_ptr(),
+                step.data_ptr(), thr.data_ptr(), float(tol), m, f,
+                int(maxiter), x.data_ptr(), z.data_ptr(), t.data_ptr(),
+                done.data_ptr(), nit.data_ptr())
+    solve_rows.launches += 1
+    return x, z, t, done, nit
+
+
+solve_rows.launches = 0
+
+
+def masked_grad_rows_plain(my, mask, x, a, *, block_rows=None):
+    """``masked_grad_rows``' plain twin (``_grad_rows_kernel``,
+    ``pallas_lasso.py:144``), in row chunks of ``block_rows``. As in the TPU
+    kernel, the products' sums and the residual are f32 even for f64
+    data."""
+    cdt, wdt, f32 = my.dtype, _work_dtype(my.dtype), torch.float32
+    aw = a.to(wdt)
+    g = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    rows = block_rows or _GRAD_CHUNK_ROWS
+    for s in range(0, my.shape[0], rows):
+        sl = slice(s, s + rows)
+        recon = (x[sl].to(cdt).to(wdt) @ aw).to(f32)
+        resid = (mask[sl].to(f32) * recon - my[sl].to(f32)).to(a.dtype)
+        g[sl] = (resid.to(wdt) @ aw.T).to(f32).to(x.dtype)
+    return g
+
+
+def check_masked_grad_args(my, mask, x, a):
+    """Refuse what ``masked_grad_rows``' kernel does not take, before any
+    launch."""
+    named = (("my", my), ("mask", mask), ("x", x), ("a", a))
+    for name, t in named:
+        if t.device != my.device:
+            raise DecompError(f"{name} is on {t.device}, my on {my.device}")
+        if t.dim() != 2:
+            raise ShapeError(f"{name} must be 2-D, got {tuple(t.shape)}")
+        if t.dtype != my.dtype:
+            raise DtypeError(f"{name} must have my's dtype {my.dtype}, got "
+                             f"{t.dtype}")
+    if my.dtype not in (torch.bfloat16, torch.float32):
+        raise DtypeError(f"the kernel takes bf16 or f32 data, got {my.dtype}")
+    m, n = my.shape
+    f = a.shape[0]
+    if mask.shape != my.shape or x.shape != (m, f) or a.shape != (f, n):
+        raise ShapeError(f"mask {tuple(mask.shape)}, x {tuple(x.shape)} and "
+                         f"a {tuple(a.shape)} do not fit my {tuple(my.shape)}")
+    if not 1 <= f <= GRAD_MAX_FEATURES:
+        raise ShapeError(f"the masked-gradient kernel takes 1 <= F <= "
+                         f"{GRAD_MAX_FEATURES} features, got {f} (wider "
+                         "dictionaries: use_kernel=False)")
+    if max(m, n) >= 2 ** 31:
+        raise ShapeError(f"my's sides must be < 2^31, got {tuple(my.shape)}")
+
+
+def masked_grad_rows(my, mask, x, a):
+    """The masked lasso gradient ``(mask * (x a) - my) a^T`` (M, F) in x's
+    dtype; ``my`` is the pre-masked data ``mask * y`` (M, N), ``x`` (M, F),
+    ``a`` (F, N). The M x N reconstruction never reaches device memory."""
+    if _runs_plain(my):
+        return masked_grad_rows_plain(my, mask, x, a)
+    check_masked_grad_args(my, mask, x, a)
+    m, n = my.shape
+    f = a.shape[0]
+    fn = _c_function("lasso_grad", "masked_grad_rows_launch",
+                     (_I,) + (_P,) * 4 + (_I,) * 3 + (_P,) * 2)
+    with torch.cuda.device(my.device):
+        myc, maskc, xc, ac = (t.contiguous() for t in (my, mask, x, a))
+        g = torch.empty((m, f), dtype=x.dtype, device=my.device)
+        _launch("masked_grad_rows", fn, my.device,
+                int(my.dtype == torch.bfloat16), myc.data_ptr(),
+                maskc.data_ptr(), xc.data_ptr(), ac.data_ptr(), m, n, f,
+                g.data_ptr())
+    masked_grad_rows.launches += 1
+    return g
+
+
+masked_grad_rows.launches = 0

@@ -9,7 +9,8 @@ side, say) becomes that type; any other keeps its own class.
 
 The caller converts JAX arrays with ``np.asarray`` (or hands them over
 as they are: anything ``np.asarray`` accepts converts), so this module
-never imports JAX.
+never imports JAX. ``lasso_resume`` turns a ``decomp_tpu`` lasso result
+into the warm start and ``state=`` that continue its trajectory here.
 """
 
 import numpy as np
@@ -75,3 +76,21 @@ def _tensor_to_array(t):
 def to_numpy(tree):
     """Tensor leaves -> numpy arrays on the host (bf16 widens to f32)."""
     return _map(_tensor_to_array, tree, (torch.Tensor,))
+
+
+def lasso_resume(result, device, dtype=None):
+    """``(x, state)`` that resume the lasso solve ``result`` (a
+    ``decomp_tpu`` ``LassoResult``, or any with array-like fields) where it
+    stopped, on ``device``:
+    ``lasso.solve(y, a, alpha, x, state=state, ...)``. ``state`` holds the
+    momentum pair ``aux["z"]``, ``aux["t"]`` when the result has one, and,
+    for a ``per_problem`` result, its per-row ``converged`` and ``niter``
+    as ``"done"`` and ``"niter"``; it is None when there is neither. A
+    ``per_problem`` resume must pass ``per_problem=True`` again."""
+    res = from_numpy(result, device, dtype)
+    state = {}
+    if res.aux is not None:
+        state["z"], state["t"] = res.aux["z"], res.aux["t"]
+    if torch.as_tensor(res.converged).dim() == 1:
+        state["done"], state["niter"] = res.converged, res.niter
+    return res.x, state or None
