@@ -54,7 +54,32 @@ for sm_90a (one nvcc per source, all at once), and then:
     objective and the agreement with the composition run;
 12. times the lasso kernels against their twins: ``solve_rows`` per
     config-2 solve and at 262,144 x 512 for 100 fixed-budget iterations,
-    ``masked_grad_rows`` at 100,000 x 1,024, F = 128.
+    ``masked_grad_rows`` at 100,000 x 1,024, F = 128;
+13. holds the dictionary-learning kernels against their twins:
+    ``bcd_sweep`` at K = 256, N = 64 (config 3), at a ragged K = 37, N =
+    50 and at the largest K x N it takes (256 x 208) with one all-zero
+    atom, which must be kept; ``masked_grad_dict`` at 1,000 x 1,000 K =
+    100 and a ragged 333 x 257 K = 7, in f32 and bf16; each with a
+    bit-identical rerun;
+14. drives dictionary learning at BASELINE config 3,
+    ``dictionary_learning.solve`` on bench.py's 20,000 x 64 patches with
+    256 atoms (alpha 0.05, tol 1e-5, 60 outer iterations, lasso_iter 15,
+    precision 'high'), and checks one ``bcd_sweep`` launch per outer
+    iteration and none of the masked kernels, unit atoms, a falling
+    objective and the agreement with the composition run; it prints the
+    time per solve, the marginal per solve over a chain of 6 beside the
+    sweep's share of it, and the device's busy share from one
+    ``torch.profiler`` run;
+15. drives masked dictionary learning at 100,000 x 1,024, 128 atoms, 30%
+    missing (planted: unit atoms, truth 10% sparse, 0.01 noise), 20 outer
+    iterations at tol 0 with lasso_iter 15 in f32, then 10 in bf16, and
+    checks ``niter`` launches of ``masked_grad_dict`` and ``niter x 15``
+    of ``masked_grad_rows``, a falling objective and the agreement with
+    the composition run;
+16. times the dictionary-learning kernels against their twins per call,
+    with their bounds: ``bcd_sweep`` on config 3's statistics (also per
+    atom), ``masked_grad_dict`` at 100,000 x 1,024, K = 128 in f32 and
+    bf16 on phase 15's factors.
 
 Each path runs with every launch count set to 0 just before it and read
 just after. It exits non-zero on any failure, without a CUDA device, and
@@ -122,8 +147,22 @@ C2_KKT_LIMIT = 4.0
 # iterations (measured 7.1e-8 f32; 2.7e-3 bf16, where the composition
 # rounds each product to bf16 and the kernel forms the residual in f32).
 MASKED_X_LIMIT = {torch.float32: 5e-7, torch.bfloat16: 2e-2}
+# bcd_sweep against its twin (relative Frobenius of d after one sweep on
+# unit atoms, A = x^T x from random x): the kernel sums a_k d in another
+# order than cuBLAS. Measured on the H100 at 700 W: at most 7.3e-7 over
+# K x N = 256 x 64, 37 x 50, 256 x 208, 16 x 3,000 and 1,024 x 52.
+BCD_LIMIT = 5e-6
+# Config 3: d of the kernel run against the composition run after 60
+# outer iterations (measured 2.5e-6, x 1.0e-5), and the atoms' norms.
+C3_D_LIMIT = 2.5e-5
+UNIT_LIMIT = 1e-5
+# Masked dictionary learning, kernel path against composition path (d and
+# x after 20 f32 / 10 bf16 outer iterations; measured 1.7e-7 f32, 8.2e-3
+# bf16, where the composition rounds each product to bf16).
+MASKED_DL_LIMIT = {torch.float32: 2e-6, torch.bfloat16: 5e-2}
 EPS = 1e-6
-SOURCES = ("mu_stats_dense", "mu_kl_stats", "lasso_fista", "lasso_grad")
+SOURCES = ("mu_stats_dense", "mu_kl_stats", "lasso_fista", "lasso_grad",
+           "dl_bcd")
 # name -> (source, masked, the TPU kernel it replaces)
 NEW_KERNELS = {
     "mu_stats_masked": ("mu_kl_stats", True, "pallas_mu.py:522"),
@@ -368,17 +407,20 @@ def grad_inputs(gen, dev, m, n, f, dt):
     return my, mask, x, a
 
 
-def compare_grad(cl, args):
-    """masked_grad_rows against its twin; returns the max abs error."""
+def compare_grad(module, name, args):
+    """The masked gradient ``name`` of ``module`` (masked_grad_rows, or
+    cuda_dl's masked_grad_dict) against its twin; returns the max abs
+    error."""
     my, x = args[0], args[2]
-    out = cl.masked_grad_rows(*args)
-    again = cl.masked_grad_rows(*args)
-    ref = cl.masked_grad_rows_plain(*args)
+    out = getattr(module, name)(*args)
+    again = getattr(module, name)(*args)
+    ref = getattr(module, f"{name}_plain")(*args)
     torch.cuda.synchronize()
     err = rel_fro(out, ref)
     same = torch.equal(out, again)
     lim = GRAD_LIMIT[my.dtype]
-    tag = (f"masked_grad_rows {my.shape[0]}x{my.shape[1]} F={x.shape[1]} "
+    tag = (f"{name} {my.shape[0]}x{my.shape[1]} "
+           f"{'K' if name.endswith('dict') else 'F'}={x.shape[1]} "
            f"{str(my.dtype)[6:]}")
     print(f"kernel vs twin {tag}: rel_fro {err:.3e} (limit {lim:g}); "
           f"bit-identical rerun: {same}", flush=True)
@@ -391,13 +433,28 @@ def compare_grad(cl, args):
 def config2_data():
     """BASELINE config 2 as bench.py:157-163 makes it (numpy, seed 1):
     10,000 problems, 512 features, 256 channels, 5%-sparse truth, 0.01
-    noise; returns (y, a) as f32 arrays."""
+    noise; returns (y, a) as f32 arrays and the generator, which config 3
+    continues."""
     rng = np.random.default_rng(1)
     a = rng.normal(size=(512, 256)).astype(np.float32)
     x_true = (rng.normal(size=(10_000, 512))
               * (rng.random((10_000, 512)) < 0.05)).astype(np.float32)
     y = x_true @ a + 0.01 * rng.normal(size=(10_000, 256)).astype(np.float32)
-    return y.astype(np.float32), a
+    return y.astype(np.float32), a, rng
+
+
+def config3_data():
+    """BASELINE config 3 as bench.py:187-195 makes it, after config 2's
+    draws: 20,000 8x8 patches (64 channels) over 256 unit atoms, 10%-sparse
+    truth, 0.01 noise, and a normal initial dictionary; returns (y, d0) as
+    f32 arrays."""
+    rng = config2_data()[2]
+    d_true = rng.normal(size=(256, 64))
+    d_true /= np.linalg.norm(d_true, axis=1, keepdims=True)
+    xs = rng.normal(size=(20_000, 256)) * (rng.random((20_000, 256)) < 0.1)
+    y = (xs @ d_true + 0.01 * rng.normal(size=(20_000, 64))).astype(
+        np.float32)
+    return y, rng.normal(size=(256, 64)).astype(np.float32)
 
 
 def kkt_residual(x, y, a, alpha, lip, tol):
@@ -462,7 +519,7 @@ def config2_phase(lasso, dev, card, reset_counts, read_counts):
     card."""
     from decomp_tpu_torch.ops.spectral import spectral_norm_psd
 
-    y_np, a_np = config2_data()
+    y_np, a_np, _ = config2_data()
     cfg = dict(tol=1e-4, maxiter=4000, method="acc_ista", per_problem=True)
     # Host arrays go to the card unless the caller asks for the CPU.
     check(lasso.solve(y_np[:64], a_np, 0.1, **cfg).x.is_cuda,
@@ -655,7 +712,7 @@ def lasso_times(cl, gen, dev, card, y, a, fixed_shape, grad_shape):
     m, n, f = grad_shape
     for dt in (f32, bf16):
         args = grad_inputs(gen, dev, m, n, f, dt)
-        e = compare_grad(cl, args)
+        e = compare_grad(cl, "masked_grad_rows", args)
         k_ms = cuda_ms(lambda: cl.masked_grad_rows(*args), 5)
         p_ms = cuda_ms(lambda: cl.masked_grad_rows_plain(*args), 2)
         b = bound((2 * m * n + 2 * m * f + f * n) * dt.itemsize,
@@ -669,14 +726,214 @@ def lasso_times(cl, gen, dev, card, y, a, fixed_shape, grad_shape):
     return out
 
 
+def bcd_inputs(gen, dev, k, n, dead=None):
+    """A = x^T x and B = x^T y of random x and y, and unit atoms d; atom
+    ``dead`` gets all-zero statistics."""
+    x = torch.randn((2000, k), generator=gen, device=dev)
+    y = torch.randn((2000, n), generator=gen, device=dev)
+    if dead is not None:
+        x[:, dead] = 0
+    d = torch.randn((k, n), generator=gen, device=dev)
+    return x.T @ x, x.T @ y, d / torch.linalg.vector_norm(d, dim=1,
+                                                          keepdim=True)
+
+
+def compare_bcd(cd, a, b, d, tag, dead=None):
+    """bcd_sweep against its twin, with a bit-identical rerun; atom
+    ``dead`` must be kept. Returns the max abs error."""
+    out = cd.bcd_sweep(a, b, d)
+    again = cd.bcd_sweep(a, b, d)
+    ref = cd.bcd_sweep_plain(a, b, d)
+    torch.cuda.synchronize()
+    err = rel_fro(out, ref)
+    same = torch.equal(out, again)
+    kept = dead is None or torch.equal(out[dead], d[dead])
+    tag = f"bcd_sweep {tag}"
+    print(f"kernel vs twin {tag}: rel_fro {err:.3e} (limit {BCD_LIMIT:g}); "
+          f"bit-identical rerun: {same}; dead atom kept: {kept}", flush=True)
+    check(np.isfinite(err) and err <= BCD_LIMIT, f"{tag}: kernel disagrees "
+          "with twin")
+    check(same, f"{tag}: two kernel runs differ")
+    check(kept, f"{tag}: the dead atom moved")
+    return max_abs([out], [ref])
+
+
+def config3_phase(dl, dev, card, reset_counts, read_counts):
+    """Phase 14: BASELINE config 3 end to end through
+    ``dictionary_learning.solve``. Returns the main run's bcd_sweep
+    launches, its final statistics (A, B, d) and the marginal ms per
+    solve."""
+    from torch.profiler import ProfilerActivity, profile
+
+    y_np, d0_np = config3_data()
+    cfg = dict(tol=1e-5, maxiter=60, lasso_iter=15, precision="high")
+    # Host arrays go to the card unless the caller asks for the CPU.
+    small = dl.solve(y_np[:500], d0_np, 0.05, maxiter=2, lasso_iter=2)
+    check(small.d.is_cuda, "a numpy y did not run on the card")
+    y, d0 = (torch.from_numpy(v).to(dev) for v in (y_np, d0_np))
+
+    def solve(**kw):
+        return dl.solve(y, d0, 0.05, **cfg, **kw)
+
+    solve()   # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    ms, res = event_ms(solve)
+    launches = read_counts("bcd_sweep", res.niter)
+    comp_ms, comp = event_ms(lambda: solve(use_kernel=False))
+    rec = solve(record_objective=True)
+    obj = rec.objective[:rec.niter]
+    marg = marginal_ms(solve, repeats=2)
+    # Device activity only: host-side events would slow the host loop,
+    # whose pace sets this solve's wall.
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solve()
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    kernels = sorted((e for e in prof.key_averages()
+                      if str(e.device_type).endswith("CUDA")),
+                     key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    unit = float((torch.linalg.vector_norm(res.d, dim=1) - 1).abs().max())
+    err_d, err_x = rel_fro(res.d, comp.d), rel_fro(res.x, comp.x)
+    print(f"config 3 dictionary_learning.solve {y.shape[0]}x{y.shape[1]}, "
+          f"{d0.shape[0]} atoms, tol 1e-5, 60 outer x 15 inner, 'high' "
+          f"({card}): {ms:.3f} ms per solve, marginal per solve (chain of 6) "
+          f"{marg:.3f} ms; niter {res.niter}, converged {res.converged}; "
+          f"bcd_sweep launches {launches}; use_kernel=False {comp_ms:.3f} ms",
+          flush=True)
+    print(f"  objective {float(obj[0]):.6e} -> {float(obj[-1]):.6e}; max "
+          f"| ||d_k|| - 1 | {unit:.2e} (limit {UNIT_LIMIT:g}); rel_fro d vs "
+          f"composition {err_d:.3e} (limit {C3_D_LIMIT:g}), x {err_x:.3e}; "
+          f"device busy {busy_ms:.3f} ms of a {prof_ms:.3f} ms profiled solve "
+          f"({busy_ms / prof_ms:.3f}; {busy_ms / ms:.3f} of the unprofiled "
+          "solve)", flush=True)
+    for e in kernels[:6]:
+        print(f"    {e.self_device_time_total / 1e3:9.3f} ms in {e.count:5d} "
+              f"launches: {e.key[:70]}", flush=True)
+    check(res.d.shape == d0.shape and bool(torch.isfinite(res.d).all())
+          and bool(torch.isfinite(res.x).all()), "config 3: non-finite "
+          "factors or the wrong shape")
+    check(unit <= UNIT_LIMIT, "config 3: atoms are not unit norm")
+    check(bool(torch.isfinite(obj).all()) and float(obj[-1]) < float(obj[0]),
+          "config 3: the objective did not fall")
+    check(err_d <= C3_D_LIMIT, "config 3: d disagrees with the composition")
+    x = res.x
+    return launches, (x.T @ x, x.T @ y, res.d), marg
+
+
+def masked_dl_phase(dl, dev, card, reset_counts, read_counts, m, n, k):
+    """Phase 15: masked dictionary learning at M x N, K atoms, 30% missing,
+    planted; 20 outer iterations in f32 and 10 in bf16 at tol 0, 15 inner
+    iterations each (lasso_tol 0: a fixed inner budget). Returns the f32
+    run's masked_grad_dict launches and its (my, mask, x, d)."""
+    alpha, inner = 0.05, 15
+    g = torch.Generator(device=dev).manual_seed(15)
+    d_true = torch.randn((k, n), generator=g, device=dev)
+    d_true /= torch.linalg.vector_norm(d_true, dim=1, keepdim=True)
+    xt = torch.randn((m, k), generator=g, device=dev) * (
+        torch.rand((m, k), generator=g, device=dev) < 0.1)
+    mask = (torch.rand((m, n), generator=g, device=dev) >= 0.3).float()
+    my = (xt @ d_true + 0.01 * torch.randn((m, n), generator=g, device=dev)
+          ) * mask
+    d0 = torch.randn((k, n), generator=g, device=dev)
+    del xt, d_true
+
+    def objective(x, d, my_, mask_):
+        r = mask_.float() * (x.float() @ d.float()) - my_.float()
+        return (0.5 * float(torch.sum(r.double() ** 2))
+                + alpha * float(x.double().abs().sum()))
+
+    launches, kept = {}, None
+    for dt, iters in ((torch.float32, 20), (torch.bfloat16, 10)):
+        my_, mask_, d0_ = (t.to(dt) for t in (my, mask, d0))
+
+        def solve(maxiter=iters, **kw):
+            return dl.solve(my_, d0_, alpha, mask=mask_, tol=0.0,
+                            maxiter=maxiter, lasso_iter=inner, lasso_tol=0.0,
+                            **kw)
+
+        first = solve(maxiter=1)   # warm-up, and the objective it leaves
+        torch.cuda.synchronize()
+        reset_counts()
+        ms, res = event_ms(solve)
+        launches[dt] = read_counts({"masked_grad_dict": iters,
+                                    "masked_grad_rows": iters * inner})
+        comp_ms, comp = event_ms(lambda: solve(use_kernel=False))
+        obj1 = objective(first.x, first.d, my_, mask_)
+        obj = objective(res.x, res.d, my_, mask_)
+        err_d, err_x = rel_fro(res.d, comp.d), rel_fro(res.x, comp.x)
+        lim = MASKED_DL_LIMIT[dt]
+        tag = f"masked dictionary learning {m}x{n} K={k} {str(dt)[6:]}"
+        print(f"{tag}, 30% missing, {iters} outer x {inner} inner ({card}): "
+              f"{ms / iters:.3f} ms per outer iteration, use_kernel=False "
+              f"{comp_ms / iters:.3f} ms; objective after 1 iteration "
+              f"{obj1:.6e}, after {iters} {obj:.6e}; rel_fro vs composition "
+              f"d {err_d:.3e}, x {err_x:.3e} (limit {lim:g}); launches "
+              f"masked_grad_dict {launches[dt]['masked_grad_dict']}, "
+              f"masked_grad_rows {launches[dt]['masked_grad_rows']}",
+              flush=True)
+        check(res.niter == iters, f"{tag}: niter {res.niter} != {iters}")
+        check(bool(torch.isfinite(res.d).all())
+              and bool(torch.isfinite(res.x).all()), f"{tag}: non-finite "
+              "factors")
+        check(np.isfinite(obj) and obj < obj1, f"{tag}: the objective did "
+              "not fall")
+        check(err_d <= lim and err_x <= lim, f"{tag}: the kernel path "
+              "disagrees with the composition")
+        if dt == torch.float32:
+            kept = (my_, mask_, res.x, res.d)
+        del first, res, comp
+    return launches[torch.float32]["masked_grad_dict"], kept
+
+
+def dl_times(cd, card, c3, c3_marg, c3_niter, masked):
+    """Phase 16: the dictionary-learning kernels against their twins per
+    call, with their bounds: bcd_sweep on config 3's statistics ``c3`` =
+    (A, B, d), masked_grad_dict on phase 15's (my, mask, x, d) in f32 and
+    bf16. Returns {name: (max_abs_err, ms, plain_ms, bound_ms,
+    bound_by)}."""
+    out = {}
+    a, b, d = c3
+    k, n = d.shape
+    e = compare_bcd(cd, a, b, d, "on config 3's statistics")
+    k_ms = cuda_ms(lambda: cd.bcd_sweep(a, b, d), 20)
+    p_ms = cuda_ms(lambda: cd.bcd_sweep_plain(a, b, d), 2)
+    bnd = bound(4 * (k * k + 3 * k * n), 2.0 * k * k * n, torch.float32)
+    out["bcd_sweep"] = (e, k_ms, p_ms) + bnd
+    print(f"bcd_sweep config 3 (K={k}, N={n}): kernel {k_ms:.4f} ms per "
+          f"sweep ({k_ms * 1e3 / k:.3f} us per atom), plain twin "
+          f"{p_ms:.3f} ms, bound {bnd[0] * 1e3:.4f} us ({bnd[1]}) ({card}); "
+          f"{c3_niter} sweeps = {c3_niter * k_ms / c3_marg * 100:.1f}% of "
+          "config 3's marginal per solve", flush=True)
+    my, mask, x, dd = masked
+    m, n = my.shape
+    k = dd.shape[0]
+    for dt in (torch.float32, torch.bfloat16):
+        args = tuple(t.to(dt) for t in (my, mask, x, dd))
+        e = compare_grad(cd, "masked_grad_dict", args)
+        k_ms = cuda_ms(lambda: cd.masked_grad_dict(*args), 5)
+        p_ms = cuda_ms(lambda: cd.masked_grad_dict_plain(*args), 2)
+        bnd = bound((2 * m * n + m * k + k * n) * dt.itemsize + 4 * k * n,
+                    4.0 * m * n * k, dt)
+        print(f"masked_grad_dict {m}x{n} K={k} {str(dt)[6:]}: kernel "
+              f"{k_ms:.3f} ms, plain twin {p_ms:.3f} ms per call, bound "
+              f"{bnd[0]:.3f} ms ({bnd[1]}) ({card})", flush=True)
+        if dt == torch.float32:
+            out["masked_grad_dict"] = (e, k_ms, p_ms) + bnd
+        del args
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
               file=sys.stderr)
         return 1
-    from decomp_tpu_torch import lasso, nmf
+    from decomp_tpu_torch import dictionary_learning, lasso, nmf
     from decomp_tpu_torch.models import nmf as nmf_mod
-    from decomp_tpu_torch.ops import _build, cuda_lasso, cuda_mu
+    from decomp_tpu_torch.ops import _build, cuda_dl, cuda_lasso, cuda_mu
 
     check("jax" not in sys.modules, "the port imported jax")
     check(not torch.backends.cuda.matmul.allow_tf32,
@@ -685,20 +942,23 @@ def main():
     torch.cuda.set_device(dev)
     wrappers = [getattr(cuda_mu, n)
                 for n in ("mu_stats_dense", *NEW_KERNELS)]
-    wrappers += [cuda_lasso.solve_rows, cuda_lasso.masked_grad_rows]
+    wrappers += [cuda_lasso.solve_rows, cuda_lasso.masked_grad_rows,
+                 cuda_dl.bcd_sweep, cuda_dl.masked_grad_dict]
 
     def reset_counts():
         for w in wrappers:
             w.launches = 0
 
-    def read_counts(expected, launches):
+    def read_counts(expected, launches=None):
         """The counts after one path: ``expected`` launched ``launches``
-        times, every other kernel not at all."""
+        times (or each kernel of a dict ``expected`` its count), every
+        other kernel not at all. Returns the expected count(s)."""
         got = {w.__name__: w.launches for w in wrappers}
         want = {w.__name__: 0 for w in wrappers}
-        want[expected] = launches
+        want.update(expected if isinstance(expected, dict)
+                    else {expected: launches})
         check(got == want, f"kernel launches {got}, expected {want}")
-        return launches
+        return expected if isinstance(expected, dict) else launches
 
     # Phase 1: the card, and the kernels built from the checkout.
     t_phase = time.perf_counter()
@@ -950,7 +1210,8 @@ def main():
         compare_solve_rows(cuda_lasso, gen, dev, m_, f_, n_)
     for m_, n_, f_ in ((1000, 1000, 100), (333, 257, 7)):
         for dt in (f32, bf16):
-            compare_grad(cuda_lasso, grad_inputs(gen, dev, m_, n_, f_, dt))
+            compare_grad(cuda_lasso, "masked_grad_rows",
+                         grad_inputs(gen, dev, m_, n_, f_, dt))
     t_phase = phase("9 lasso kernels vs twins", t_phase)
 
     # Phase 10: batch lasso at BASELINE config 2.
@@ -968,7 +1229,33 @@ def main():
     # solve_rows' fixed budget at 262,144 x 512: yah, x and z 0.5 GB each.
     lasso_stats = lasso_times(cuda_lasso, gen, dev, card, y2, a2,
                               (262_144, 512), (100_000, 1024, 128))
-    phase("12 lasso kernel times", t_phase)
+    t_phase = phase("12 lasso kernel times", t_phase)
+
+    # Phase 13: the dictionary-learning kernels against their twins.
+    for k_, n_, dead in ((256, 64, None), (37, 50, None), (256, 208, 3)):
+        compare_bcd(cuda_dl, *bcd_inputs(gen, dev, k_, n_, dead),
+                    f"K={k_} N={n_}", dead)
+    for m_, n_, k_ in ((1000, 1000, 100), (333, 257, 7)):
+        for dt in (f32, bf16):
+            compare_grad(cuda_dl, "masked_grad_dict",
+                         grad_inputs(gen, dev, m_, n_, k_, dt))
+    t_phase = phase("13 dictionary-learning kernels vs twins", t_phase)
+
+    # Phase 14: dictionary learning at BASELINE config 3.
+    launches3, c3, marg3 = config3_phase(dictionary_learning, dev, card,
+                                         reset_counts, read_counts)
+    t_phase = phase("14 config 3", t_phase)
+
+    # Phase 15: masked dictionary learning.
+    launches_gd, masked15 = masked_dl_phase(dictionary_learning, dev, card,
+                                            reset_counts, read_counts,
+                                            100_000, 1024, 128)
+    t_phase = phase("15 masked dictionary learning", t_phase)
+
+    # Phase 16: the dictionary-learning kernels' times against their twins.
+    dl_stats = dl_times(cuda_dl, card, c3, marg3, launches3, masked15)
+    del masked15
+    phase("16 dictionary-learning kernel times", t_phase)
 
     bounds = {"mu_stats_dense": dense_b,
               "mu_stats_masked": stats_bound("mu_stats_masked", m4, n4, k4,
@@ -981,14 +1268,18 @@ def main():
              **{name: (errs_abs[name],) + times[name] for name in NEW_KERNELS}}
     stats = {name: s + bounds[name] for name, s in stats.items()}
     stats.update(lasso_stats)
+    stats.update(dl_stats)
     main_launches = {"mu_stats_dense": launches, "mu_stats_masked": launches4,
                      **kl_launches, "solve_rows": launches2,
-                     "masked_grad_rows": launches_grad}
+                     "masked_grad_rows": launches_grad,
+                     "bcd_sweep": launches3, "masked_grad_dict": launches_gd}
     kernels = {"mu_stats_dense": ("mu_stats_dense", "pallas_mu.py:438"),
                **{name: (src, rep) for name, (src, _, rep)
                   in NEW_KERNELS.items()},
                "solve_rows": ("lasso_fista", "pallas_fista.py:349"),
-               "masked_grad_rows": ("lasso_grad", "pallas_lasso.py:159")}
+               "masked_grad_rows": ("lasso_grad", "pallas_lasso.py:159"),
+               "bcd_sweep": ("dl_bcd", "pallas_bcd.py:115"),
+               "masked_grad_dict": ("mu_kl_stats", "pallas_lasso.py:225")}
     entries = []
     for name, (source, replaces) in kernels.items():
         err, ms, p_ms, b_ms, b_by = stats[name]

@@ -10,16 +10,21 @@ Hopper (``sm_90a``) on first use. Ported so far:
 - batch lasso (``lasso.solve``, methods 'ista', 'fista', 'acc_ista',
   'parallel_cd' and 'cd', masked or not, global or per-problem stopping,
   exact resume; ``lasso.solve_streaming``), whose per-problem solve and
-  masked gradient run in the hand-written kernels of ``ops.cuda_lasso``.
+  masked gradient run in the hand-written kernels of ``ops.cuda_lasso``;
+- dictionary learning (``dictionary_learning.solve``, full batch or
+  minibatch, masked or not, held-out stopping, native complex), whose
+  dictionary updates run in the hand-written kernels of ``ops.cuda_dl``.
 An entry point runs on the card unless the caller asks for the CPU: a
 tensor stays on its device, and host arrays go to ``device=`` or, by
 default, the CUDA device (``utils.device``). ``decomp_tpu`` (JAX) stays the
 reference the port is tested against; this package never imports JAX.
 """
 
-from decomp_tpu_torch.models import lasso, nmf
-from decomp_tpu_torch.utils.result import LassoResult, NMFResult
+from decomp_tpu_torch.models import dictionary_learning, lasso, nmf
+from decomp_tpu_torch.utils.result import (DictionaryLearningResult,
+                                           LassoResult, NMFResult)
 
 __version__ = "0.1.0"
 
-__all__ = ["lasso", "nmf", "LassoResult", "NMFResult"]
+__all__ = ["dictionary_learning", "lasso", "nmf", "DictionaryLearningResult",
+           "LassoResult", "NMFResult"]

@@ -1,10 +1,13 @@
-// Masked multiplicative-update and KL-divergence NMF statistics on Hopper
-// (sm_90a): one templated source, three variants.
+// Masked multiplicative-update and KL-divergence NMF statistics, and the
+// masked dictionary gradient, on Hopper (sm_90a): one templated source,
+// four variants.
 //
 // Replaces three Pallas TPU kernels of decomp_tpu/ops/pallas_mu.py:
 //   MU_MASKED  mu_stats_masked (:522, body _masked_kernel :222)
 //   KL_DENSE   kl_stats_dense  (:603, body _kl_dense_kernel :276)
 //   KL_MASKED  kl_stats_masked (:678, body _kl_masked_kernel :325)
+// and one of decomp_tpu/ops/pallas_lasso.py:
+//   GRAD_DICT  masked_grad_dict (:225, body _grad_dict_kernel :201)
 // Given my = mask * y (M, N), mask (M, N) (masked variants), x (M, K) and
 // d (K, N) in my's dtype (cdt), each forms a reconstruction R = cdt(x) d
 // on chip, applies the variant's elementwise step E(R), and returns
@@ -17,6 +20,8 @@
 //   KL_MASKED  E as KL_DENSE
 //              x_new = x * (E d^T) / (mask d^T + eps)
 //              numd = x_new^T E(x_new), dend = x_new^T mask       (K, N) f32
+//   GRAD_DICT  E = cdt(mask * R - my), no x update
+//              g = x^T E(x)                                       (K, N) f32
 // with the TPU kernels' quantisation points: products take cdt operands and
 // sum in f32; E is formed in f32 and cast to cdt; x_new is formed in f32
 // and stored in x's dtype; the statistics use cdt(x_new_f32); xsum sums the
@@ -60,12 +65,19 @@
 // data bytes, partials 1.3 GB). The 2-byte mask stream could be a bitmask
 // (1/16 of the bytes): later work, with the fused single pass and wgmma.
 // d (2.6 MB) is re-read from L2 by every stripe of launch 1.
+//
+// GRAD_DICT runs launches 2 and 3 only, on x itself: one pass over my and
+// mask, 4 MNK FLOP (R and x^T E). At 100,000 x 1,024, K = 128: 52 GFLOP
+// against 0.87 GB in f32 (0.78 ms of f32 FMA at 67 TFLOP/s bounds it), 0.44
+// GB in bf16 (0.13 ms of HBM). Its row chunks are chosen by the wrapper to
+// fill the 132 SMs a few times over (ops/cuda_dl.py), since each chunk's
+// K x N partial (0.5 MB at K = 128, N = 1,024) is written and read again.
 
 #include "nmf_common.cuh"
 
 namespace {
 
-enum Variant { MU_MASKED = 0, KL_DENSE = 1, KL_MASKED = 2 };
+enum Variant { MU_MASKED = 0, KL_DENSE = 1, KL_MASKED = 2, GRAD_DICT = 3 };
 
 constexpr int BM1 = 64;         // rows per block of the x update
 constexpr int BN2 = 64;         // columns per block of the statistics pass
@@ -73,6 +85,9 @@ constexpr int LDN = BN2 + 8;    // leading dim of BN2-wide tiles
 constexpr int LDF = KP + 4;     // leading dim of the f32 x_new tile
 
 template <int V> constexpr bool kMasked = V != KL_DENSE;
+// K x N statistics per partial: [numd | dend], or [numd] (the gradient).
+template <int V> constexpr int kParts = V == MU_MASKED || V == KL_MASKED
+                                            ? 2 : 1;
 
 // The variant's elementwise step on one entry: r is the f32 reconstruction,
 // y and m the entry's data and mask values.
@@ -80,6 +95,8 @@ template <int V, typename T>
 __device__ __forceinline__ T elementwise(float r, float y, float m,
                                          float eps) {
   if constexpr (V == MU_MASKED) return from_f32<T>(m * r);
+  else if constexpr (V == GRAD_DICT)
+    return from_f32<T>(__fsub_rn(__fmul_rn(m, r), y));
   else return from_f32<T>(y / (r + eps));
 }
 
@@ -219,7 +236,8 @@ __global__ void __launch_bounds__(THREADS)
 // statistics as 4 (rank rows of 32) x 2 (cols of 32). Shared memory:
 // Ds (KP x LDN, resident) | Es (BK x LDN) | two stages of
 // [x_new (BK x LDR, cdt) | my (BK x LDN) | mask (BK x LDN)].
-// Partial c holds [numd (K x N) | dend (K x N, masked variants)].
+// Partial c holds [numd (K x N) | dend (K x N, MU_MASKED and KL_MASKED)];
+// for GRAD_DICT x_new is x and numd is the gradient.
 template <int V, typename T, typename X>
 __global__ void __launch_bounds__(THREADS)
     stats_kernel(const T* __restrict__ my, const T* __restrict__ mask,
@@ -312,7 +330,7 @@ __global__ void __launch_bounds__(THREADS)
   }
 
   const long long KN = (long long)K * N;
-  float* out = part + (long long)blockIdx.y * (kMasked<V> ? 2 : 1) * KN;
+  float* out = part + (long long)blockIdx.y * kParts<V> * KN;
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -323,7 +341,8 @@ __global__ void __launch_bounds__(THREADS)
         const long long c = n0 + wc + frag_col(nt, i, lane);
         if (kr >= K || c >= N) continue;
         out[kr * (long long)N + c] = numd[mt][nt][i];
-        if (kMasked<V>) out[KN + kr * (long long)N + c] = dend[mt][nt][i];
+        if (kParts<V> == 2)
+          out[KN + kr * (long long)N + c] = dend[mt][nt][i];
       }
 }
 
@@ -354,14 +373,43 @@ struct Args {
   cudaStream_t stream;
 };
 
+template <typename T>
+bool data_vec(const Args& a, bool masked) {
+  return rows_aligned<T>(a.my, a.N) &&
+         (!masked || rows_aligned<T>(a.mask, a.N));
+}
+
+// Launches 2 and 3: the statistics of x_stats (x_new, or x for GRAD_DICT)
+// in per-chunk partials, then their fixed-order sum into a.out.
+template <int V, typename T, typename X>
+int launch_stats(const Args& a, const void* x_stats) {
+  const int chunks = (a.M + a.chunk_rows - 1) / a.chunk_rows;
+  const dim3 grid2((a.N + BN2 - 1) / BN2, chunks);
+  constexpr size_t smem2 = stats_smem<T>();
+  cudaError_t err = cudaFuncSetAttribute(
+      stats_kernel<V, T, X>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem2);
+  if (err != cudaSuccess) return (int)err;
+  stats_kernel<V, T, X><<<grid2, THREADS, smem2, a.stream>>>(
+      static_cast<const T*>(a.my), static_cast<const T*>(a.mask),
+      static_cast<const X*>(x_stats), static_cast<const T*>(a.d), a.eps, a.M,
+      a.N, a.K, a.chunk_rows, static_cast<float*>(a.part),
+      data_vec<T>(a, kMasked<V>), rows_aligned<X>(x_stats, a.K),
+      rows_aligned<T>(a.d, a.N));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_reduce(static_cast<const float*>(a.part),
+                       (long long)kParts<V> * a.K * a.N, chunks,
+                       static_cast<float*>(a.out), a.stream);
+}
+
 template <int V, typename T, typename X>
 int launch(const Args& a) {
   cudaError_t err;
   const T* my = static_cast<const T*>(a.my);
   const T* mask = static_cast<const T*>(a.mask);
   const T* d = static_cast<const T*>(a.d);
-  const bool y_vec = rows_aligned<T>(a.my, a.N) &&
-                     (!kMasked<V> || rows_aligned<T>(a.mask, a.N));
+  const bool y_vec = data_vec<T>(a, kMasked<V>);
   const bool d_vec = rows_aligned<T>(a.d, a.N);
   const int blocks1 = (a.M + BM1 - 1) / BM1;
 
@@ -378,23 +426,7 @@ int launch(const Args& a) {
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const int chunks = (a.M + a.chunk_rows - 1) / a.chunk_rows;
-  const dim3 grid2((a.N + BN2 - 1) / BN2, chunks);
-  constexpr size_t smem2 = stats_smem<T>();
-  err = cudaFuncSetAttribute(stats_kernel<V, T, X>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem2);
-  if (err != cudaSuccess) return (int)err;
-  stats_kernel<V, T, X><<<grid2, THREADS, smem2, a.stream>>>(
-      my, mask, static_cast<const X*>(a.x_new), d, a.eps, a.M, a.N, a.K,
-      a.chunk_rows, static_cast<float*>(a.part), y_vec,
-      rows_aligned<X>(a.x_new, a.K), d_vec);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  const long long S = (kMasked<V> ? 2LL : 1LL) * a.K * a.N;
-  const int rc = launch_reduce(static_cast<const float*>(a.part), S, chunks,
-                               static_cast<float*>(a.out), a.stream);
+  const int rc = launch_stats<V, T, X>(a, a.x_new);
   if (rc != 0 || V != KL_DENSE) return rc;
   reduce_long_kernel<<<a.K, THREADS, 0, a.stream>>>(
       static_cast<const float*>(a.xpart), a.K, blocks1,
@@ -414,7 +446,10 @@ bool bad_shape(const Args& a) {
 // compute dtype). part holds chunks x S f32 partials and out S f32, with
 // S = 2 K N = [numd | dend] for the masked variants and K N = [numd] for
 // KL_DENSE, whose dsum is (K) f32, xpart ceil(M / 64) x K f32 scratch and
-// xsum (K) f32. Each returns 0 or the first non-zero cudaError_t.
+// xsum (K) f32. masked_grad_dict_launch takes my, mask, x and d all in the
+// compute dtype and writes the (K, N) f32 gradient to out, through chunks x
+// K N f32 partials in part. Each returns 0 or the first non-zero
+// cudaError_t.
 extern "C" int mu_stats_masked_launch(int t_bf16, int x_bf16, const void* my,
                                       const void* mask, const void* x,
                                       const void* d, float eps, int M, int N,
@@ -454,4 +489,17 @@ extern "C" int kl_stats_masked_launch(int t_bf16, const void* my,
   if (bad_shape(a)) return (int)cudaErrorInvalidValue;
   if (t_bf16) return launch<KL_MASKED, bf16, bf16>(a);
   return launch<KL_MASKED, float, float>(a);
+}
+
+extern "C" int masked_grad_dict_launch(int t_bf16, const void* my,
+                                       const void* mask, const void* x,
+                                       const void* d, int M, int N, int K,
+                                       int chunk_rows, void* part, void* out,
+                                       void* stream) {
+  const Args a{my, mask, x, d, nullptr, 0.f, M, N, K, chunk_rows,
+               nullptr, part, out, nullptr, nullptr,
+               static_cast<cudaStream_t>(stream)};
+  if (bad_shape(a)) return (int)cudaErrorInvalidValue;
+  if (t_bf16) return launch_stats<GRAD_DICT, bf16, bf16>(a, x);
+  return launch_stats<GRAD_DICT, float, float>(a, x);
 }

@@ -1,6 +1,6 @@
-"""Public solver families: ``nmf`` ('mu' and 'kl-mu') and ``lasso``;
-dictionary learning follows (ROADMAP Queue 1)."""
+"""Public solver families: ``nmf`` ('mu' and 'kl-mu'), ``lasso`` and
+``dictionary_learning``."""
 
-from decomp_tpu_torch.models import lasso, nmf
+from decomp_tpu_torch.models import dictionary_learning, lasso, nmf
 
-__all__ = ["lasso", "nmf"]
+__all__ = ["dictionary_learning", "lasso", "nmf"]

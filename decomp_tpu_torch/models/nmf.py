@@ -266,6 +266,18 @@ def _heldout_reserve(mask, frac, random_seed):
     return val
 
 
+def _heldout_split(y, mask, val):
+    """``(train_mask, hd)`` of stop='heldout': train on the observed
+    entries outside the validation set ``val``; ``hd = (yv, val, vnorm)``
+    holds the validation data and set in y's dtype (val is 0/1, so val * y
+    is exact) and the squared norm of yv in the >= f32 accumulator."""
+    acc = acc_dtype(real_dtype(y.dtype))
+    yv = val * y
+    vnorm = torch.clamp(_row_sum(yv.shape[0], lambda sl: torch.sum(
+        yv[sl].to(acc) * yv[sl].to(acc))), min=torch.finfo(acc).tiny)
+    return mask - val, (yv, val, vnorm)
+
+
 def _solve(y, d, x, mask, val, *, rank, method="mu", tol=1e-4, eps=1e-15,
            maxiter=1000, inner_iter=1, record_objective=False,
            factor_dtype=None, use_kernel=False, kernel_block_rows=None,
@@ -283,13 +295,7 @@ def _solve(y, d, x, mask, val, *, rank, method="mu", tol=1e-4, eps=1e-15,
                          if factor_dtype is not None else rdt)
     hd = None
     if val is not None:
-        # Train on the observed entries outside the validation set. yv
-        # and val stay in y's dtype (val is 0/1, so val * y is exact).
-        mask = mask - val
-        yv = val * y
-        vnorm = torch.clamp(_row_sum(yv.shape[0], lambda sl: torch.sum(
-            yv[sl].to(acc) * yv[sl].to(acc))), min=tiny)
-        hd = (yv, val, vnorm)
+        mask, hd = _heldout_split(y, mask, val)
     my = y if mask is None else mask * y
     if d is None or x is None:
         # The init scale comes from the observed data: junk values at

@@ -1,0 +1,188 @@
+"""Dictionary-learning kernels and their plain twins (counterpart of
+``decomp_tpu.ops.pallas_bcd`` and of the dictionary kernel of
+``decomp_tpu.ops.pallas_lasso``).
+
+    bcd_sweep(stats_a, stats_b, d)
+        -> one block-coordinate-descent pass over the atoms, in order:
+           u = b_k - a_k d + a_kk d_k, then d_k <- u / ||u||, kept where
+           ||u|| <= tiny (a dead atom keeps its direction)
+    masked_grad_dict(my, mask, x, d)
+        -> g = x^T (mask * (x d) - my): the masked dictionary gradient
+
+``bcd_sweep`` solves the rows of ``A d = B`` (``A = x^H x`` (K, K), ``B =
+x^H y`` (K, N)) one atom at a time, each step reading the rows the earlier
+steps wrote (``pallas_bcd.py:82-112``). Its twin is the composition sweep of
+``models.dictionary_learning``: a host loop over atoms of plain products in
+the data's dtype (full f32 or f64, never TF32; real or complex).
+
+``masked_grad_dict`` keeps the quantisation points of ``pallas_lasso.py:
+201-218``: products take the data's dtype (``cdt``) as operands and sum in
+f32, the residual ``cdt(f32(mask) * (x d) - f32(my))`` is formed in f32 and
+cast to ``cdt``, and ``g`` is f32 (K, N).
+
+On a CUDA tensor a wrapper launches its kernel (``csrc/dl_bcd.cu``: f32,
+one thread block, d resident in shared memory, so K x N is bounded by
+``bcd_fits``; ``csrc/mu_kl_stats.cu``'s GRAD_DICT variant: bf16 or f32 data
+with every operand in the data's dtype, 1 <= K <= ``GRAD_DICT_MAX_ATOMS``)
+and raises on anything else. On a CPU tensor it runs its ``*_plain`` twin.
+It never falls back from one to the other. Each wrapper counts its kernel
+launches in ``.launches``.
+
+Not ported: the TPU kernels' VMEM gates and alignment padding
+(``pallas_bcd.py:44-79``, ``pallas_lasso.py:58-132``): the CUDA kernels
+mask ragged K and N themselves.
+"""
+
+import torch
+
+from decomp_tpu_torch.ops.cuda_lasso import (GRAD_MAX_FEATURES,
+                                             check_masked_grad_args)
+from decomp_tpu_torch.ops.cuda_mu import (_I, _P, _c_function, _f32, _launch,
+                                          _runs_plain, _work_dtype)
+from decomp_tpu_torch.utils.dtypes import real_dtype
+from decomp_tpu_torch.utils.exceptions import (DecompError, DtypeError,
+                                               ShapeError)
+from decomp_tpu_torch.utils.normalize import l2_norm
+
+# Largest K x N that bcd_sweep's kernel takes (208 KB of d in f32), and
+# only where its shared memory fits too (bcd_fits): d in K x (N | 1)
+# floats, two row buffers of K + N, u (N) and 16 warp partials.
+BCD_MAX_ELEMS = 53_248
+_BCD_WARPS = 16
+_MAX_BLOCK_SMEM = 232_448      # 227 KB, the most one block may take
+# Largest K of masked_grad_dict's kernel: its rank tile (KP in
+# csrc/nmf_common.cuh), as for masked_grad_rows.
+GRAD_DICT_MAX_ATOMS = GRAD_MAX_FEATURES
+# masked_grad_dict's kernel runs (64-column tile) x (row chunk) blocks and
+# writes one K x N partial per chunk: the chunks aim at 4 waves of the
+# H100's 132 SMs in all. A function of the shape only, so the summation
+# order, and every bit of g, depend on nothing else.
+_GRAD_DICT_BLOCKS = 4 * 132
+_STATS_TILE_COLS = 64
+# Rows per chunk of masked_grad_dict's twin.
+_GRAD_CHUNK_ROWS = 8192
+
+
+def bcd_smem_bytes(k: int, n: int) -> int:
+    """Shared memory of ``bcd_sweep``'s kernel at K atoms, N channels."""
+    return 4 * (k * (n | 1) + 2 * (k + n) + n + _BCD_WARPS)
+
+
+def bcd_fits(k: int, n: int) -> bool:
+    """Whether ``bcd_sweep``'s kernel takes K x N: at most
+    ``BCD_MAX_ELEMS`` entries, and the shared memory fits one block."""
+    return k * n <= BCD_MAX_ELEMS and bcd_smem_bytes(k, n) <= _MAX_BLOCK_SMEM
+
+
+def bcd_sweep_plain(stats_a, stats_b, d):
+    """``bcd_sweep``'s plain twin: a host loop over the atoms in d's dtype
+    (``decomp_tpu``'s ``_bcd_dict_update`` composition). Returns a new
+    tensor."""
+    rdt = real_dtype(d.dtype)
+    tiny = torch.tensor(torch.finfo(rdt).tiny, dtype=rdt, device=d.device)
+    d = d.clone()
+    for k in range(d.shape[0]):
+        a_row = stats_a[k]
+        u = stats_b[k] - a_row @ d + a_row[k].real.to(d.dtype) * d[k]
+        norm = l2_norm(u)
+        d[k] = torch.where(norm > tiny, u / torch.maximum(norm, tiny), d[k])
+    return d
+
+
+def check_bcd_args(stats_a, stats_b, d):
+    """Refuse what ``bcd_sweep``'s kernel does not take, before any
+    launch."""
+    for name, t in (("stats_a", stats_a), ("stats_b", stats_b), ("d", d)):
+        if t.device != d.device:
+            raise DecompError(f"{name} is on {t.device}, d on {d.device}")
+        if t.dtype != torch.float32:
+            raise DtypeError(f"the BCD sweep kernel takes f32 {name}, got "
+                             f"{t.dtype}")
+        if t.dim() != 2:
+            raise ShapeError(f"{name} must be 2-D, got {tuple(t.shape)}")
+    k, n = d.shape
+    if stats_a.shape != (k, k) or stats_b.shape != (k, n):
+        raise ShapeError(f"stats_a {tuple(stats_a.shape)} and stats_b "
+                         f"{tuple(stats_b.shape)} do not fit d {(k, n)}")
+    if k < 1 or n < 1 or not bcd_fits(k, n):
+        raise ShapeError(
+            f"the BCD sweep kernel takes K x N <= {BCD_MAX_ELEMS} entries "
+            f"whose shared memory fits one block, got K={k}, N={n} "
+            "(larger dictionaries: _bcd_kernel=False)")
+
+
+def bcd_sweep(stats_a, stats_b, d):
+    """One BCD pass over the atoms; see the module docstring. ``stats_a``
+    (K, K), ``stats_b`` and ``d`` (K, N). Returns the swept (K, N)
+    dictionary as a new tensor."""
+    if _runs_plain(d):
+        return bcd_sweep_plain(stats_a, stats_b, d)
+    check_bcd_args(stats_a, stats_b, d)
+    k, n = d.shape
+    fn = _c_function("dl_bcd", "bcd_sweep_launch",
+                     (_P,) * 3 + (_I,) * 2 + (_P,) * 2)
+    with torch.cuda.device(d.device):
+        ac, bc, dc = (t.contiguous() for t in (stats_a, stats_b, d))
+        out = torch.empty((k, n), dtype=torch.float32, device=d.device)
+        _launch("bcd_sweep", fn, d.device, ac.data_ptr(), bc.data_ptr(),
+                dc.data_ptr(), k, n, out.data_ptr())
+    bcd_sweep.launches += 1
+    return out
+
+
+bcd_sweep.launches = 0
+
+
+def masked_grad_dict_plain(my, mask, x, d, *, block_rows=None):
+    """``masked_grad_dict``'s plain twin (``_grad_dict_kernel``,
+    ``pallas_lasso.py:201``), in row chunks of ``block_rows`` summed in
+    f32 in chunk order. As in the TPU kernel, the products' sums, the
+    residual and g are f32 even for f64 data."""
+    cdt, wdt, f32 = my.dtype, _work_dtype(my.dtype), torch.float32
+    dw = d.to(wdt)
+    g = torch.zeros(d.shape, dtype=f32, device=my.device)
+    rows = block_rows or _GRAD_CHUNK_ROWS
+    for s in range(0, my.shape[0], rows):
+        sl = slice(s, s + rows)
+        xc = x[sl].to(cdt).to(wdt)
+        recon = (xc @ dw).to(f32)
+        resid = (mask[sl].to(f32) * recon - my[sl].to(f32)).to(d.dtype)
+        g += (xc.T @ resid.to(wdt)).to(f32)
+    return g
+
+
+def grad_dict_chunk_rows(m: int, n: int) -> int:
+    """Rows per partial of ``masked_grad_dict``'s kernel: about
+    ``_GRAD_DICT_BLOCKS`` blocks over the (64-column tile) x (chunk) grid,
+    in multiples of 32 rows."""
+    tiles = -(-n // _STATS_TILE_COLS)
+    chunks = max(1, -(-_GRAD_DICT_BLOCKS // tiles))
+    rows = -(-m // chunks)
+    return -(-rows // 32) * 32
+
+
+def masked_grad_dict(my, mask, x, d):
+    """The masked dictionary gradient ``x^T (mask * (x d) - my)`` (K, N) in
+    f32; ``my`` is the pre-masked data ``mask * y`` (M, N), ``x`` (M, K),
+    ``d`` (K, N). The M x N residual never reaches device memory."""
+    if _runs_plain(my):
+        return masked_grad_dict_plain(my, mask, x, d)
+    check_masked_grad_args(my, mask, x, d)
+    m, n = my.shape
+    k = d.shape[0]
+    rows = grad_dict_chunk_rows(m, n)
+    fn = _c_function("mu_kl_stats", "masked_grad_dict_launch",
+                     (_I,) + (_P,) * 4 + (_I,) * 4 + (_P,) * 3)
+    with torch.cuda.device(my.device):
+        myc, maskc, xc, dc = (t.contiguous() for t in (my, mask, x, d))
+        part = _f32(-(-m // rows) * k * n, my.device)
+        out = _f32(k * n, my.device)
+        _launch("masked_grad_dict", fn, my.device,
+                int(my.dtype == torch.bfloat16), myc.data_ptr(),
+                maskc.data_ptr(), xc.data_ptr(), dc.data_ptr(), m, n, k, rows,
+                part.data_ptr(), out.data_ptr())
+    masked_grad_dict.launches += 1
+    return out.view(k, n)
+
+
+masked_grad_dict.launches = 0
