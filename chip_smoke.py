@@ -13,9 +13,12 @@ for sm_90a (one nvcc per source, all at once), and then:
 2. holds the kernel ``mu_stats_dense`` against its plain PyTorch twin on
    the card (bf16 data with f32 factors, and f32 data; ragged and
    full-width shapes) and checks that two runs give the same bits;
-3. holds ``mu_stats_masked``, ``kl_stats_dense`` and ``kl_stats_masked``
-   against their twins the same way, at 1000 x 1000 K = 100,
-   100,000 x 1,000 K = 50 and 65,536 x 10,112 K = 128;
+3. holds ``mu_stats_masked`` (on a dense mask), ``kl_stats_dense`` and
+   ``kl_stats_masked`` against their twins the same way, at 1000 x 1000
+   K = 100, 100,000 x 1,000 K = 50 and 65,536 x 10,112 K = 128; then
+   (3b) ``mu_stats_masked`` on a packed mask (``cuda_mu.pack_mask``, the
+   kernel of ``csrc/mu_masked_packed.cu``) with bf16 data and f32 or bf16
+   x at those shapes, a ragged 333 x 257 K = 7 and 1000 x 1000 K = 64;
 4. drives the dense main path, ``decomp_tpu_torch.nmf.solve`` on a
    1,048,576 x 10,112 bf16 matrix at rank 128 with f32 factors, 20
    iterations, and checks that every iteration went through the kernel,
@@ -26,13 +29,15 @@ for sm_90a (one nvcc per source, all at once), and then:
 6. drives masked completion at BASELINE config 4,
    ``nmf.masked_completion`` on a planted 100,000 x 1,000 rank-50 matrix
    with 30% missing (bf16 data, f32 factors, held-out stopping), and
-   checks one ``mu_stats_masked`` launch per iteration, convergence, the
-   held-out error and the factors;
+   checks one ``mu_stats_masked`` launch per iteration, all on the packed
+   route and none on the dense one, convergence, the held-out error and
+   the factors;
 7. drives KL-MU, ``nmf.solve(method='kl-mu')`` at 100,000 x 1,024 rank
    128 f32, dense and masked, 20 iterations each, and checks one kernel
    launch per iteration and a falling KL objective;
-8. times each new kernel against its twin per call at its path's shape
-   (and masked MU also at 262,144 x 10,112 K = 128 bf16);
+8. times each new kernel against its twin per call at its path's shape;
+   masked MU's packed-mask kernel in turns with the dense-mask kernel on
+   the same inputs, at config 4 and at 262,144 x 10,112 K = 128 bf16;
 9. holds the lasso kernel ``solve_rows`` against its twin at a ragged
    1,000 x 200 and 300 x 1,000 and at 10,000 x 512 (ista, fista,
    acc_ista; scalar and per-feature step; precision 'highest' and
@@ -161,11 +166,11 @@ UNIT_LIMIT = 1e-5
 # bf16, where the composition rounds each product to bf16).
 MASKED_DL_LIMIT = {torch.float32: 2e-6, torch.bfloat16: 5e-2}
 EPS = 1e-6
-SOURCES = ("mu_stats_dense", "mu_kl_stats", "lasso_fista", "lasso_grad",
-           "dl_bcd")
+SOURCES = ("mu_stats_dense", "mu_kl_stats", "mu_masked_packed", "lasso_fista",
+           "lasso_grad", "dl_bcd")
 # name -> (source, masked, the TPU kernel it replaces)
 NEW_KERNELS = {
-    "mu_stats_masked": ("mu_kl_stats", True, "pallas_mu.py:522"),
+    "mu_stats_masked": ("mu_masked_packed", True, "pallas_mu.py:522"),
     "kl_stats_dense": ("mu_kl_stats", False, "pallas_mu.py:603"),
     "kl_stats_masked": ("mu_kl_stats", True, "pallas_mu.py:678"),
 }
@@ -182,12 +187,17 @@ def bound(nbytes, ops, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def stats_bound(name, m, n, k, ydt, xdt):
+def stats_bound(name, m, n, k, ydt, xdt, packed=False):
     """The bound of one NMF statistics kernel call: y (and the mask) read
     once, x read and x_new written, d read, the statistics written; its
-    products on the data's type."""
+    products on the data's type. ``packed``: the mask is read as its bits,
+    4 bytes per row per ``packed_words`` word."""
+    from decomp_tpu_torch.ops.cuda_mu import packed_words
+
     masked = name.endswith("masked")
-    nbytes = ((2 if masked else 1) * m * n * ydt.itemsize
+    mask_bytes = (m * packed_words(n) * 4 if packed
+                  else m * n * ydt.itemsize if masked else 0)
+    nbytes = (m * n * ydt.itemsize + mask_bytes
               + 2 * m * k * xdt.itemsize + k * n * ydt.itemsize
               + (2 if masked else 1) * k * n * 4)
     if name == "mu_stats_dense":   # y d^T, x_new^T y; x ddt, x_new^T x_new
@@ -271,20 +281,32 @@ def stats_inputs(gen, dev, m, n, k, ydt, xdt, masked):
     return (my, mask, x, d) if masked else (my, x, d)
 
 
-def compare_new(cuda_mu, name, args):
+def compare_new(cuda_mu, name, args, packed=False):
     """One of the masked-MU / KL kernels against its twin on ``args``;
-    returns the outputs' max abs error."""
+    returns the outputs' max abs error. ``packed``: ``mu_stats_masked``
+    takes the mask as its bits (the kernel of csrc/mu_masked_packed.cu),
+    the twin the dense mask."""
     wrapper = getattr(cuda_mu, name)
-    out = wrapper(*args, EPS)
-    again = wrapper(*args, EPS)
+    kargs = args
+    if packed:
+        bits = cuda_mu.pack_mask(args[1])
+        check(bits is not None, "pack_mask refused a 0/1 mask")
+        kargs = (args[0], bits) + tuple(args[2:])
+        before = wrapper.packed_launches
+    out = wrapper(*kargs, EPS)
+    again = wrapper(*kargs, EPS)
     ref = getattr(cuda_mu, f"{name}_plain")(*args, EPS)
     torch.cuda.synchronize()
+    if packed:
+        check(wrapper.packed_launches == before + 2,
+              "the packed mask did not take the packed kernel")
     my, x = args[0], args[-2]
     errs = [rel_fro(a, b) for a, b in zip(out, ref)]
     limits = [X_BF16_LIMIT if x.dtype == torch.bfloat16 else LIMIT[my.dtype]]
     limits += [LIMIT[my.dtype]] * 2
     same = all(torch.equal(a, b) for a, b in zip(out, again))
-    tag = (f"{name} {my.shape[0]}x{my.shape[1]} K={x.shape[1]} "
+    tag = (f"{name}{' packed mask' if packed else ''} "
+           f"{my.shape[0]}x{my.shape[1]} K={x.shape[1]} "
            f"data={str(my.dtype)[6:]} x={str(x.dtype)[6:]}")
     print(f"kernel vs twin {tag}: rel_fro " + " ".join(
         f"{e:.3e} (limit {lim:.0e})" for e, lim in zip(errs, limits))
@@ -294,6 +316,60 @@ def compare_new(cuda_mu, name, args):
           f"{tag}: kernel disagrees with twin")
     check(same, f"{tag}: two kernel runs differ")
     return max_abs(out, ref)
+
+
+def time_packed(cuda_mu, args, reps=10):
+    """Per-call ms of the packed-mask kernel, the dense-mask kernel on the
+    bf16 mask and the twin, on the same inputs, in turns (dense, packed,
+    packed, dense; each figure the mean of its two)."""
+    my, mask, x, d = args
+    bits = cuda_mu.pack_mask(mask)
+
+    def dense():
+        return cuda_mu.mu_stats_masked(my, mask, x, d, EPS)
+
+    def packed():
+        return cuda_mu.mu_stats_masked(my, bits, x, d, EPS)
+
+    t = [cuda_ms(f, reps) for f in (dense, packed, packed, dense)]
+    plain = cuda_ms(lambda: cuda_mu.mu_stats_masked_plain(my, mask, x, d,
+                                                          EPS), 2)
+    return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2, plain
+
+
+def packed_passes(cuda_mu, args, card):
+    """The packed-mask kernel's three launches (x update, statistics,
+    reduction) timed apart by torch.profiler over 5 calls, each beside the
+    HBM bytes it must move and the rate that makes: the x update reads my,
+    the mask bits, x and d and writes x_new and xc = bf16(x_new) (M x KT);
+    the statistics read my, the bits, xc and each N tile's d and write the
+    partials; the reduction reads the partials and writes numd and dend."""
+    from torch.profiler import ProfilerActivity, profile
+
+    my, mask, x, d = args
+    bits = cuda_mu.pack_mask(mask)
+    (m, n), k = my.shape, d.shape[0]
+    kt = 64 if k <= 64 else 128
+    chunks = -(-m // cuda_mu.packed_block_rows(m, n, k))
+    mn, xb, words = m * n * 2, m * k * x.element_size(), bits.numel() * 4
+    part = chunks * 2 * k * n * 4
+    nbytes = {"x_update_packed": mn + words + 2 * xb + k * n * 2 + m * kt * 2,
+              "stats_packed": mn + words + m * kt * 2 + k * n * 2 + part,
+              "reduce_kernel": part + 2 * k * n * 4}
+    cuda_mu.mu_stats_masked(my, bits, x, d, EPS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            cuda_mu.mu_stats_masked(my, bits, x, d, EPS)
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        name = next((p for p in nbytes if p in e.key), None)
+        if name is None or not str(e.device_type).endswith("CUDA"):
+            continue
+        ms = e.self_device_time_total / 5 / 1e3
+        print(f"  pass {name} {m}x{n} K={k}: {ms:.4f} ms per call, "
+              f"{nbytes[name] / 1e6:.1f} MB, {nbytes[name] / ms / 1e9:.3f} "
+              f"TB/s ({card})", flush=True)
 
 
 def time_new(cuda_mu, name, args, reps=5):
@@ -948,6 +1024,8 @@ def main():
     def reset_counts():
         for w in wrappers:
             w.launches = 0
+        cuda_mu.mu_stats_masked.packed_launches = 0
+        cuda_mu.mu_stats_masked.dense_launches = 0
 
     def read_counts(expected, launches=None):
         """The counts after one path: ``expected`` launched ``launches``
@@ -1011,6 +1089,16 @@ def main():
                 compare_new(cuda_mu, name, args)
                 del args
     t_phase = phase("3 masked-MU and KL kernels vs twins", t_phase)
+
+    # Phase 3b: the packed-mask masked-MU kernel against its twin, bf16
+    # data with f32 and with bf16 x.
+    for m, n, k in ((1000, 1000, 100), (100_000, 1000, 50),
+                    (65536, 10112, 128), (333, 257, 7), (1000, 1000, 64)):
+        for xdt in (f32, bf16):
+            args = stats_inputs(gen, dev, m, n, k, bf16, xdt, True)
+            compare_new(cuda_mu, "mu_stats_masked", args, packed=True)
+            del args
+    t_phase = phase("3b packed-mask kernel vs twin", t_phase)
 
     # Phase 4: the dense main path at the real size.
     m, n, k, iters = 1 << 20, 10112, 128, 20
@@ -1117,6 +1205,10 @@ def main():
     torch.cuda.synchronize()
     wall4 = time.perf_counter() - t0
     launches4 = read_counts("mu_stats_masked", res.niter)
+    routes4 = (cuda_mu.mu_stats_masked.packed_launches,
+               cuda_mu.mu_stats_masked.dense_launches)
+    check(routes4 == (res.niter, 0), f"config 4: (packed, dense) route "
+          f"launches {routes4}, expected ({res.niter}, 0)")
     ho = float(res.aux["heldout_rel_err"])
     miss = 1.0 - mask4
     true_err = float(
@@ -1127,7 +1219,8 @@ def main():
           f"after {res.niter} iterations in {wall4:.3f} s "
           f"({res.niter / wall4:.1f} iters/s, {card}); held-out relative "
           f"error {ho:.4e}, true error on the missing entries "
-          f"{true_err:.4e}; mu_stats_masked launches {launches4}",
+          f"{true_err:.4e}; mu_stats_masked launches {launches4} (packed "
+          f"route {routes4[0]}, dense route {routes4[1]})",
           flush=True)
     check(res.converged, "masked completion did not converge")
     check(ho < 5e-2, f"held-out relative error {ho} >= 5e-2")
@@ -1176,32 +1269,39 @@ def main():
     t_phase = phase("7 KL-MU", t_phase)
 
     # Phase 8: each new kernel against its twin, per call, at its path's
-    # shape; masked MU also at 262,144 x 10,112 K = 128 bf16 (comparable
-    # with the dense row above).
-    shapes = {"mu_stats_masked": (m4, n4, k4, bf16, f32),
-              "kl_stats_dense": (m7, n7, k7, f32, f32),
-              "kl_stats_masked": (m7, n7, k7, f32, f32)}
+    # shape. Masked MU runs its main path's route, the packed mask, timed
+    # in turns with the dense-mask kernel on the same inputs, at config 4
+    # and at 262,144 x 10,112 K = 128 bf16 (comparable with the dense row
+    # above).
     times, errs_abs = {}, {}
-    for name, (m_, n_, k_, ydt, xdt) in shapes.items():
-        args = stats_inputs(gen, dev, m_, n_, k_, ydt, xdt,
+    for m_, n_, k_ in ((m4, n4, k4), (262_144, 10112, 128)):
+        args = stats_inputs(gen, dev, m_, n_, k_, bf16, f32, True)
+        e = compare_new(cuda_mu, "mu_stats_masked", args, packed=True)
+        t = time_packed(cuda_mu, args)
+        b = stats_bound("mu_stats_masked", m_, n_, k_, bf16, f32, True)
+        b_dense = stats_bound("mu_stats_masked", m_, n_, k_, bf16, f32)
+        print(f"mu_stats_masked {m_}x{n_} K={k_} data=bfloat16 x=float32: "
+              f"packed-mask kernel {t[0]:.3f} ms (bound {b[0]:.3f} ms, "
+              f"{b[1]}), dense-mask kernel {t[1]:.3f} ms (bound "
+              f"{b_dense[0]:.3f} ms, {b_dense[1]}), plain twin {t[2]:.3f} ms "
+              f"per call; packed / dense {t[0] / t[1]:.3f} ({card}); "
+              f"max_abs_err {e:.3e}", flush=True)
+        packed_passes(cuda_mu, args, card)
+        if m_ == m4:
+            errs_abs["mu_stats_masked"] = e
+            times["mu_stats_masked"] = (t[0], t[2])
+        del args
+    for name in ("kl_stats_dense", "kl_stats_masked"):
+        args = stats_inputs(gen, dev, m7, n7, k7, f32, f32,
                             NEW_KERNELS[name][1])
         errs_abs[name] = compare_new(cuda_mu, name, args)
         times[name] = time_new(cuda_mu, name, args)
-        b = stats_bound(name, m_, n_, k_, ydt, xdt)
-        print(f"{name} {m_}x{n_} K={k_} data={str(ydt)[6:]} "
-              f"x={str(xdt)[6:]}: kernel {times[name][0]:.3f} ms, plain twin "
-              f"{times[name][1]:.3f} ms per call, bound {b[0]:.3f} ms "
-              f"({b[1]}) ({card}); max_abs_err {errs_abs[name]:.3e}",
-              flush=True)
+        b = stats_bound(name, m7, n7, k7, f32, f32)
+        print(f"{name} {m7}x{n7} K={k7} data=float32 x=float32: kernel "
+              f"{times[name][0]:.3f} ms, plain twin {times[name][1]:.3f} ms "
+              f"per call, bound {b[0]:.3f} ms ({b[1]}) ({card}); max_abs_err "
+              f"{errs_abs[name]:.3e}", flush=True)
         del args
-    args = stats_inputs(gen, dev, 262_144, 10112, 128, bf16, f32, True)
-    wide_ms = time_new(cuda_mu, "mu_stats_masked", args)
-    wide_b = stats_bound("mu_stats_masked", 262_144, 10112, 128, bf16, f32)
-    print(f"mu_stats_masked 262144x10112 K=128 data=bfloat16 x=float32: "
-          f"kernel {wide_ms[0]:.3f} ms, plain twin {wide_ms[1]:.3f} ms per "
-          f"call, bound {wide_b[0]:.3f} ms ({wide_b[1]}) ({card})",
-          flush=True)
-    del args
     t_phase = phase("8 kernel times", t_phase)
 
     # Phase 9: the lasso kernels against their twins.
@@ -1259,7 +1359,7 @@ def main():
 
     bounds = {"mu_stats_dense": dense_b,
               "mu_stats_masked": stats_bound("mu_stats_masked", m4, n4, k4,
-                                             bf16, f32),
+                                             bf16, f32, packed=True),
               "kl_stats_dense": stats_bound("kl_stats_dense", m7, n7, k7,
                                             f32, f32),
               "kl_stats_masked": stats_bound("kl_stats_masked", m7, n7, k7,

@@ -368,10 +368,16 @@ def _kernel_step(my, mask, method, eps, block_rows, inner_iter):
                 my, x_, d_.to(cdt), eps, block_rows=block_rows, d_master=d_,
                 inner_iter=inner_iter)
     else:
+        # A 0/1 mask goes to the kernel as bits, packed once per solve
+        # (under stop='heldout' this is the training mask); a weighted
+        # mask, or f32 data on the card, stays dense.
+        packed = cuda_mu.pack_mask(mask) if cuda_mu.takes_packed(my) else None
+        mask_k = mask if packed is None else packed
+
         def step(state, it):
             x_, d_ = state
             return cuda_mu.mu_update_masked(
-                my, mask, x_, d_.to(cdt), eps, block_rows=block_rows,
+                my, mask_k, x_, d_.to(cdt), eps, block_rows=block_rows,
                 d_master=d_)
     return step
 

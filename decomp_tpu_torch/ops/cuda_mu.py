@@ -28,7 +28,9 @@ On a CUDA tensor a wrapper launches its kernel (``csrc/mu_stats_dense.cu``
 or ``csrc/mu_kl_stats.cu``: bf16 or f32 data, ``d`` and ``mask`` in the
 data's dtype, 1 <= K <= 128; ``x`` in the data's dtype or f32 for the MU
 kernels, in the data's dtype for the KL ones) and raises on anything
-else. On a CPU tensor it runs its ``*_plain`` twin. It never falls back
+else. ``mu_stats_masked`` also takes the mask as bits (``pack_mask``):
+with bf16 data on the card that launches ``csrc/mu_masked_packed.cu``.
+On a CPU tensor a wrapper runs its ``*_plain`` twin. It never falls back
 from one to the other. Each wrapper counts its kernel launches in
 ``.launches``.
 
@@ -53,6 +55,14 @@ _MAX_GRID_Y = 65535
 # Rows per stripe of csrc/mu_kl_stats.cu's x update (BM1 there): the KL
 # dense kernel writes one partial column sum of x_new per stripe.
 _X_STRIPE_ROWS = 64
+# The packed kernel's statistics pass (csrc/mu_masked_packed.cu): 64-column
+# N tiles and 64-row stages, and two waves of its resident blocks, 2 per SM
+# (kBlocks there) on the H100's 132 SMs.
+_PACKED_N_TILE = 64
+_PACKED_STAGE_ROWS = 64
+_PACKED_RESIDENT = 2 * 132
+# Rows per chunk of pack_mask's int64 temporaries (32 MB per 1,024 words).
+_PACK_ROWS = 4096
 
 
 def validate_block_rows(block_rows):
@@ -319,15 +329,153 @@ mu_stats_dense.launches = 0
 
 def mu_stats_masked(my, mask, x, d, eps, *, block_rows=None):
     """The masked-MU statistics ``(x_new, numd, dend)``; see the module
-    docstring. ``my`` is the pre-masked data ``mask * y``."""
+    docstring. ``my`` is the pre-masked data ``mask * y``.
+
+    ``mask`` is either dense, in ``my``'s shape, or the bits of a 0/1
+    mask from ``pack_mask`` (int32). On a CUDA tensor a packed mask
+    launches ``csrc/mu_masked_packed.cu`` (bf16 ``my`` only) and counts
+    it in ``.packed_launches``; a dense mask launches the masked kernel of
+    ``csrc/mu_kl_stats.cu`` and counts it in ``.dense_launches``;
+    ``.launches`` counts both. On a CPU tensor a packed mask is unpacked
+    to ``my``'s dtype for the twin, which then gives the dense mask's
+    bits."""
     validate_block_rows(block_rows)
+    packed = mask.dtype == torch.int32
+    if packed:
+        _check_packed(my, mask)
     if _runs_plain(my):
+        if packed:
+            mask = unpack_mask(mask, my.shape[1], my.dtype)
         return mu_stats_masked_plain(my, mask, x, d, eps,
                                      block_rows=block_rows)
-    return _masked_launch(mu_stats_masked, my, mask, x, d, eps, block_rows)
+    if packed:
+        out = _packed_launch(my, mask, x, d, eps, block_rows)
+        mu_stats_masked.packed_launches += 1
+        mu_stats_masked.launches += 1
+        return out
+    out = _masked_launch(mu_stats_masked, my, mask, x, d, eps, block_rows)
+    mu_stats_masked.dense_launches += 1
+    return out
 
 
 mu_stats_masked.launches = 0
+mu_stats_masked.packed_launches = 0
+mu_stats_masked.dense_launches = 0
+
+
+def packed_words(n: int) -> int:
+    """Words per row of a packed mask of ``n`` columns: ceil(n / 32)
+    rounded up to a multiple of 4, so that rows start 16-byte aligned."""
+    return -(-n // 128) * 4
+
+
+def pack_mask(mask):
+    """The bits of a 0/1 mask, for ``mu_stats_masked``'s packed route: an
+    int32 tensor (M, ``packed_words(N)``) on the mask's device, bit j of
+    word w of row r set where ``mask[r, 32 w + j] != 0``, pad bits 0.
+    Returns None for a mask holding any value other than 0 and 1 (checked
+    with one host read); such a mask stays dense. Run once per solve."""
+    if mask.dim() != 2:
+        raise ShapeError(f"mask must be 2-D, got {tuple(mask.shape)}")
+    if not bool(((mask == 0) | (mask == 1)).all()):
+        return None
+    m, n = mask.shape
+    w = packed_words(n)
+    shifts = torch.arange(32, device=mask.device, dtype=torch.int64)
+    out = torch.empty((m, w), dtype=torch.int32, device=mask.device)
+    for sl in _row_chunks(m, _PACK_ROWS):
+        part = mask[sl]
+        bits = torch.zeros((part.shape[0], w * 32), dtype=torch.int64,
+                           device=mask.device)
+        bits[:, :n] = part != 0
+        words = (bits.view(-1, w, 32) << shifts).sum(-1)
+        out[sl] = (words - (words >= 2 ** 31) * 2 ** 32).to(torch.int32)
+    return out
+
+
+def unpack_mask(packed, n, dtype):
+    """The (M, n) 0/1 mask of ``pack_mask``'s bits, in ``dtype``."""
+    shifts = torch.arange(32, device=packed.device, dtype=torch.int32)
+    bits = (packed[:, :, None] >> shifts) & 1
+    return bits.reshape(packed.shape[0], -1)[:, :n].to(dtype)
+
+
+def takes_packed(my):
+    """Whether ``mu_stats_masked`` runs ``my`` with a packed mask: bf16
+    data on the card (the packed kernel), any data on the CPU (the
+    twin)."""
+    return my.dtype == torch.bfloat16 or my.device.type == "cpu"
+
+
+def packed_block_rows(m: int, n: int, k: int) -> int:
+    """Rows per partial of the packed kernel's statistics pass: enough
+    chunks that chunks x 64-column N tiles make two waves of the blocks
+    the H100's 132 SMs hold at once (33 chunks of 3,072 rows at 100,000 x
+    1,000; 4 of 65,536 at 262,144 x 10,112), in whole 64-row stages. A
+    function of the shape alone, so every bit of the result is; ``k``
+    does not change it."""
+    tiles = -(-n // _PACKED_N_TILE)
+    chunks = max(1, -(-2 * _PACKED_RESIDENT // tiles))
+    rows = -(-m // chunks)
+    return -(-rows // _PACKED_STAGE_ROWS) * _PACKED_STAGE_ROWS
+
+
+def _check_packed(my, packed):
+    """A packed mask must be 2-D int32 (M, packed_words(N)) for ``my`` (M,
+    N), on ``my``'s device."""
+    if my.dim() != 2 or packed.dim() != 2:
+        raise ShapeError("my and the packed mask must be 2-D")
+    want = (my.shape[0], packed_words(my.shape[1]))
+    if tuple(packed.shape) != want:
+        raise ShapeError(f"packed mask {tuple(packed.shape)} does not fit my "
+                         f"{tuple(my.shape)}: expected {want}")
+    if packed.device != my.device:
+        raise DecompError(f"the packed mask is on {packed.device}, my on "
+                          f"{my.device}")
+
+
+def _tma_rows(t):
+    """``t`` (2-D, contiguous) and its row stride in elements, with rows
+    that start 16-byte aligned as TMA needs; otherwise a zero-padded
+    copy."""
+    per = 16 // t.element_size()
+    if t.data_ptr() % 16 == 0 and t.shape[1] % per == 0:
+        return t, t.shape[1]
+    ld = -(-t.shape[1] // per) * per
+    padded = torch.zeros((t.shape[0], ld), dtype=t.dtype, device=t.device)
+    padded[:, :t.shape[1]] = t
+    return padded, ld
+
+
+def _packed_launch(my, packed, x, d, eps, block_rows):
+    """Launch ``csrc/mu_masked_packed.cu`` on bf16 ``my`` and the packed
+    mask (``mu_stats_masked``'s packed route)."""
+    m, n = my.shape
+    k = d.shape[0]
+    rows = block_rows or packed_block_rows(m, n, k)
+    _check_kernel_args(my, x, d, 1, rows)
+    if my.dtype != torch.bfloat16:
+        raise DtypeError(f"the packed-mask kernel takes bf16 data, got "
+                         f"{my.dtype}")
+    if packed.data_ptr() % 16:
+        packed = packed.clone()
+    kt = 64 if k <= 64 else 128
+    fn = _c_function("mu_masked_packed", "mu_masked_packed_launch",
+                     (_I,) * 2 + (_P, _I) * 2 + (_P,) * 2 + (_I, _F)
+                     + (_I,) * 4 + (_P,) * 5)
+    with torch.cuda.device(my.device):
+        my_t, ld_my = _tma_rows(my)
+        d_t, ld_d = _tma_rows(d)
+        x_new = torch.empty_like(x)
+        xc = torch.empty((m, kt), dtype=torch.bfloat16, device=my.device)
+        part = _f32(-(-m // rows) * 2 * k * n, my.device)
+        out = _f32(2 * k * n, my.device)
+        _launch("mu_stats_masked (packed)", fn, my.device, _is_bf16(x), kt,
+                my_t.data_ptr(), ld_my, packed.data_ptr(), packed.shape[1],
+                x.data_ptr(), d_t.data_ptr(), ld_d, float(eps), m, n, k, rows,
+                x_new.data_ptr(), xc.data_ptr(), part.data_ptr(),
+                out.data_ptr())
+    return x_new, out[:k * n].view(k, n), out[k * n:].view(k, n)
 
 
 def kl_stats_dense(my, x, d, eps, *, block_rows=None):

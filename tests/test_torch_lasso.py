@@ -263,6 +263,22 @@ def test_solve_streaming_matches_jax(per_problem, chunk_rows):
         _assert_same_run(rt, rj, 1e-10)
 
 
+# Complex data through the stream, native complex128 in both packages (the
+# JAX package's complex_split='auto' keeps CPU data complex): x to 1e-10
+# with equal per-row niter, as the real case above.
+@pytest.mark.parametrize("per_problem", [False, True])
+def test_solve_streaming_complex_matches_jax(per_problem):
+    y, a, _ = planted_lasso(seed=60, n_samples=10, complex_=True)
+    mask = random_mask(61, y.shape)
+    for m in (None, mask):
+        kw = dict(tol=1e-6, maxiter=2000, method="fista", mask=m,
+                  chunk_rows=3, per_problem=per_problem)
+        rj = decomp_tpu.lasso.solve_streaming(y, a, ALPHA, **kw)
+        rt = tl.solve_streaming(y, a, ALPHA, device="cpu", **kw)
+        assert isinstance(rt.x, np.ndarray) and rt.x.dtype == np.complex128
+        _assert_same_run(rt, rj, 1e-10)
+
+
 def _bad_problem():
     y, a, _ = planted_lasso(seed=15)
     return y, a
