@@ -11,8 +11,11 @@ for sm_90a (one nvcc per source, all at once), and then:
 1. prints the card's name and power limit (nvidia-smi), the build time
    and ptxas' register-spill report;
 2. holds the kernel ``mu_stats_dense`` against its plain PyTorch twin on
-   the card (bf16 data with f32 factors, and f32 data; ragged and
-   full-width shapes) and checks that two runs give the same bits;
+   the card and checks that two runs give the same bits: f32 data on
+   ``csrc/mu_stats_dense.cu``, and bf16 data with f32 or bf16 x on the
+   route to ``csrc/mu_dense_tma.cu`` (TMA ring, wgmma) at 1000 x 1000
+   K = 100 (inner_iter 1 and 3) and K = 64, a ragged 333 x 257 K = 7,
+   65,537 x 10,112 and 65,536 x 10,112 K = 128;
 3. holds ``mu_stats_masked`` (on a dense mask), ``kl_stats_dense`` and
    ``kl_stats_masked`` against their twins the same way, at 1000 x 1000
    K = 100, 100,000 x 1,000 K = 50 and 65,536 x 10,112 K = 128; then
@@ -21,10 +24,12 @@ for sm_90a (one nvcc per source, all at once), and then:
    x at those shapes, a ragged 333 x 257 K = 7 and 1000 x 1000 K = 64;
 4. drives the dense main path, ``decomp_tpu_torch.nmf.solve`` on a
    1,048,576 x 10,112 bf16 matrix at rank 128 with f32 factors, 20
-   iterations, and checks that every iteration went through the kernel,
-   that the factors are finite and nonnegative and that the
-   reconstruction error fell; it times the solve and one kernel call
-   against one twin call;
+   iterations, and checks that every iteration went through the TMA
+   kernel, that the factors are finite and nonnegative and that the
+   reconstruction error fell; it times the solve, and one kernel call in
+   turns with one call of ``csrc/mu_stats_dense.cu`` on the same inputs,
+   against one twin call, and prints each pass of the TMA kernel from
+   ``torch.profiler`` with the bytes it moves;
 5. solves a planted rank-10 problem to convergence and restarts from it;
 6. drives masked completion at BASELINE config 4,
    ``nmf.masked_completion`` on a planted 100,000 x 1,000 rank-50 matrix
@@ -166,8 +171,8 @@ UNIT_LIMIT = 1e-5
 # bf16, where the composition rounds each product to bf16).
 MASKED_DL_LIMIT = {torch.float32: 2e-6, torch.bfloat16: 5e-2}
 EPS = 1e-6
-SOURCES = ("mu_stats_dense", "mu_kl_stats", "mu_masked_packed", "lasso_fista",
-           "lasso_grad", "dl_bcd")
+SOURCES = ("mu_stats_dense", "mu_dense_tma", "mu_kl_stats", "mu_masked_packed",
+           "lasso_fista", "lasso_grad", "dl_bcd")
 # name -> (source, masked, the TPU kernel it replaces)
 NEW_KERNELS = {
     "mu_stats_masked": ("mu_masked_packed", True, "pallas_mu.py:522"),
@@ -249,22 +254,32 @@ def phase(name, t0):
 
 
 def compare(cuda_mu, gen, dev, m, n, k, inner, ydt, xdt):
+    """mu_stats_dense against its twin: bf16 data take the TMA route
+    (csrc/mu_dense_tma.cu), f32 data csrc/mu_stats_dense.cu."""
     y = torch.rand((m, n), generator=gen, device=dev, dtype=ydt)
     x = 0.1 + torch.rand((m, k), generator=gen, device=dev, dtype=xdt)
     d = 0.1 + torch.rand((k, n), generator=gen, device=dev, dtype=ydt)
+    before = cuda_mu.mu_stats_dense.tma_launches
     out = cuda_mu.mu_stats_dense(y, x, d, EPS, inner_iter=inner)
     again = cuda_mu.mu_stats_dense(y, x, d, EPS, inner_iter=inner)
     ref = cuda_mu.mu_stats_dense_plain(y, x, d, EPS, inner_iter=inner)
     torch.cuda.synchronize()
+    tma = cuda_mu.mu_stats_dense.tma_launches - before
     errs = [rel_fro(a, b) for a, b in zip(out, ref)]
+    limits = [X_BF16_LIMIT if xdt == torch.bfloat16 else LIMIT[ydt]]
+    limits += [LIMIT[ydt]] * 2
     same = all(torch.equal(a, b) for a, b in zip(out, again))
     tag = (f"{m}x{n} K={k} inner={inner} y={str(ydt)[6:]} "
-           f"x={str(xdt)[6:]}")
-    print(f"kernel vs twin {tag}: rel_fro x_new={errs[0]:.3e} "
-          f"numd={errs[1]:.3e} gram={errs[2]:.3e} (limit {LIMIT[ydt]:.0e}); "
-          f"bit-identical rerun: {same}", flush=True)
+           f"x={str(xdt)[6:]} ({'TMA' if tma else 'mu_stats_dense.cu'})")
+    print(f"kernel vs twin {tag}: rel_fro " + " ".join(
+        f"{name}={e:.3e} (limit {lim:.0e})" for name, e, lim
+        in zip(("x_new", "numd", "gram"), errs, limits))
+        + f"; bit-identical rerun: {same}", flush=True)
+    check(tma == (2 if ydt == torch.bfloat16 else 0),
+          f"{tag}: {tma} launches on the TMA route")
     check(all(np.isfinite(errs)), f"{tag}: non-finite outputs")
-    check(max(errs) <= LIMIT[ydt], f"{tag}: kernel disagrees with twin")
+    check(all(e <= lim for e, lim in zip(errs, limits)),
+          f"{tag}: kernel disagrees with twin")
     check(same, f"{tag}: two kernel runs differ")
     return errs
 
@@ -337,15 +352,36 @@ def time_packed(cuda_mu, args, reps=10):
     return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2, plain
 
 
-def packed_passes(cuda_mu, args, card):
-    """The packed-mask kernel's three launches (x update, statistics,
-    reduction) timed apart by torch.profiler over 5 calls, each beside the
-    HBM bytes it must move and the rate that makes: the x update reads my,
-    the mask bits, x and d and writes x_new and xc = bf16(x_new) (M x KT);
-    the statistics read my, the bits, xc and each N tile's d and write the
-    partials; the reduction reads the partials and writes numd and dend."""
+def pass_times(fn, nbytes, tag, card, calls=5):
+    """Each launch of ``fn`` whose kernel is named by a key of ``nbytes``
+    (``::key`` in the profiler's name, so that cuBLAS's splitKreduce_kernel
+    is not taken for reduce_kernel), timed apart by torch.profiler over
+    ``calls`` calls, beside the HBM bytes it must move and the rate that
+    makes."""
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        name = next((p for p in nbytes if f"::{p}" in e.key), None)
+        if name is None or not str(e.device_type).endswith("CUDA"):
+            continue
+        ms = e.self_device_time_total / calls / 1e3
+        print(f"  pass {name} {tag}: {ms:.4f} ms per call, "
+              f"{nbytes[name] / 1e6:.1f} MB, {nbytes[name] / ms / 1e9:.3f} "
+              f"TB/s ({card})", flush=True)
+
+
+def packed_passes(cuda_mu, args, card):
+    """The packed-mask kernel's three launches (x update, statistics,
+    reduction): the x update reads my, the mask bits, x and d and writes
+    x_new and xc = bf16(x_new) (M x KT); the statistics read my, the bits,
+    xc and each N tile's d and write the partials; the reduction reads the
+    partials and writes numd and dend."""
     my, mask, x, d = args
     bits = cuda_mu.pack_mask(mask)
     (m, n), k = my.shape, d.shape[0]
@@ -356,20 +392,24 @@ def packed_passes(cuda_mu, args, card):
     nbytes = {"x_update_packed": mn + words + 2 * xb + k * n * 2 + m * kt * 2,
               "stats_packed": mn + words + m * kt * 2 + k * n * 2 + part,
               "reduce_kernel": part + 2 * k * n * 4}
-    cuda_mu.mu_stats_masked(my, bits, x, d, EPS)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            cuda_mu.mu_stats_masked(my, bits, x, d, EPS)
-        torch.cuda.synchronize()
-    for e in prof.key_averages():
-        name = next((p for p in nbytes if p in e.key), None)
-        if name is None or not str(e.device_type).endswith("CUDA"):
-            continue
-        ms = e.self_device_time_total / 5 / 1e3
-        print(f"  pass {name} {m}x{n} K={k}: {ms:.4f} ms per call, "
-              f"{nbytes[name] / 1e6:.1f} MB, {nbytes[name] / ms / 1e9:.3f} "
-              f"TB/s ({card})", flush=True)
+    pass_times(lambda: cuda_mu.mu_stats_masked(my, bits, x, d, EPS), nbytes,
+               f"{m}x{n} K={k}", card)
+
+
+def dense_passes(cuda_mu, y, x, d, card):
+    """The dense TMA kernel's three launches: the x update reads y, x and d
+    and writes x_new and xc = bf16(x_new) (M x 128); the statistics read y
+    and xc and write the partials; the reduction reads the partials and
+    writes numd and gram."""
+    (m, n), k = y.shape, d.shape[0]
+    chunks = -(-m // cuda_mu.dense_tma_block_rows(m, n))
+    mn, xb, xc = m * n * 2, m * k * x.element_size(), m * 128 * 2
+    size = (k * n + k * k) * 4
+    nbytes = {"x_update_tma": mn + 2 * xb + k * n * 2 + xc,
+              "stats_tma": mn + xc + chunks * size,
+              "reduce_kernel": chunks * size + size}
+    pass_times(lambda: cuda_mu.mu_stats_dense(y, x, d, EPS), nbytes,
+               f"{m}x{n} K={k} ({chunks} chunks)", card)
 
 
 def time_new(cuda_mu, name, args, reps=5):
@@ -1026,6 +1066,7 @@ def main():
             w.launches = 0
         cuda_mu.mu_stats_masked.packed_launches = 0
         cuda_mu.mu_stats_masked.dense_launches = 0
+        cuda_mu.mu_stats_dense.tma_launches = 0
 
     def read_counts(expected, launches=None):
         """The counts after one path: ``expected`` launched ``launches``
@@ -1065,15 +1106,18 @@ def main():
           f"{torch.version.cuda}", flush=True)
     t_phase = phase("1 build", t_phase)
 
-    # Phase 2: the dense kernel against its twin on the card.
+    # Phase 2: the dense kernels against their twin on the card: f32 data
+    # on csrc/mu_stats_dense.cu, bf16 data on csrc/mu_dense_tma.cu.
     gen = torch.Generator(device=dev).manual_seed(1234)
     bf16, f32 = torch.bfloat16, torch.float32
     for inner in (1, 3):
-        compare(cuda_mu, gen, dev, 1000, 1000, 100, inner, bf16, f32)
         compare(cuda_mu, gen, dev, 1000, 1000, 100, inner, f32, f32)
-    compare(cuda_mu, gen, dev, 1000, 1000, 100, 1, bf16, bf16)
-    compare(cuda_mu, gen, dev, 65536, 10112, 128, 1, bf16, f32)
     compare(cuda_mu, gen, dev, 65536, 10112, 128, 1, f32, f32)
+    for m, n, k, inner in ((1000, 1000, 100, 1), (1000, 1000, 100, 3),
+                           (1000, 1000, 64, 1), (333, 257, 7, 1),
+                           (65537, 10112, 128, 1), (65536, 10112, 128, 1)):
+        for xdt in (f32, bf16):
+            compare(cuda_mu, gen, dev, m, n, k, inner, bf16, xdt)
     t_phase = phase("2 dense kernel vs twin", t_phase)
 
     # Phase 3: the masked-MU and KL kernels against their twins.
@@ -1108,23 +1152,36 @@ def main():
     d0, x0 = nmf_mod._init_factors(torch.Generator(device=dev).manual_seed(0),
                                    y, None, None, k, f32)
     # One mu_stats_dense call of the kernel against the twin at this shape.
-    out = cuda_mu.mu_stats_dense(y, x0, d0.to(bf16), EPS)
-    ref = cuda_mu.mu_stats_dense_plain(y, x0, d0.to(bf16), EPS)
+    d0b = d0.to(bf16)
+    out = cuda_mu.mu_stats_dense(y, x0, d0b, EPS)
+    ref = cuda_mu.mu_stats_dense_plain(y, x0, d0b, EPS)
     errs = [rel_fro(a, b) for a, b in zip(out, ref)]
     err_abs = max_abs(out, ref)
     check(max(errs) <= LIMIT[bf16], f"main-path shape: kernel disagrees "
           f"with twin {errs}")
     del out, ref
-    kernel_ms = cuda_ms(lambda: cuda_mu.mu_stats_dense(
-        y, x0, d0.to(bf16), EPS), 5)
+
+    # The TMA kernel in turns with the mma.sync design (csrc/mu_stats_dense.cu,
+    # which the main path no longer runs on bf16) on the same inputs.
+    def tma():
+        return cuda_mu.mu_stats_dense(y, x0, d0b, EPS)
+
+    def mma():
+        return cuda_mu._dense_mma_launch(y, x0, d0b, EPS)
+
+    t = [cuda_ms(f, 5) for f in (mma, tma, tma, mma)]
+    kernel_ms, mma_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
     plain_ms = cuda_ms(lambda: cuda_mu.mu_stats_dense_plain(
-        y, x0, d0.to(bf16), EPS), 2)
+        y, x0, d0b, EPS), 2)
     dense_b = stats_bound("mu_stats_dense", m, n, k, bf16, f32)
-    print(f"mu_stats_dense {m}x{n} K={k} bf16 y, f32 x: kernel "
-          f"{kernel_ms:.3f} ms, plain twin {plain_ms:.3f} ms per call, bound "
-          f"{dense_b[0]:.3f} ms ({dense_b[1]}) ({card}); rel_fro "
-          f"x_new={errs[0]:.3e} numd={errs[1]:.3e} "
+    print(f"mu_stats_dense {m}x{n} K={k} bf16 y, f32 x: TMA kernel "
+          f"{kernel_ms:.3f} ms, mu_stats_dense.cu {mma_ms:.3f} ms (TMA / "
+          f"mma.sync {kernel_ms / mma_ms:.3f}), plain twin {plain_ms:.3f} ms "
+          f"per call, bound {dense_b[0]:.3f} ms ({dense_b[1]}) ({card}); "
+          f"rel_fro x_new={errs[0]:.3e} numd={errs[1]:.3e} "
           f"gram={errs[2]:.3e}, max_abs_err={err_abs:.3e}", flush=True)
+    dense_passes(cuda_mu, y, x0, d0b, card)
+    del d0b
 
     rows = torch.arange(0, m, 4096, device=dev)
     ys = y[rows].float()
@@ -1148,6 +1205,9 @@ def main():
     e1.record()
     torch.cuda.synchronize()
     launches = read_counts("mu_stats_dense", iters)
+    tma_launches = cuda_mu.mu_stats_dense.tma_launches
+    check(tma_launches == iters, f"{tma_launches} of {iters} mu_stats_dense "
+          "launches took the TMA route")
     solve_s = e0.elapsed_time(e1) / 1e3
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     check(res.niter == iters, f"niter {res.niter} != {iters}")
@@ -1162,7 +1222,9 @@ def main():
     print(f"main path nmf.solve {m}x{n} bf16, rank {k}, f32 factors: "
           f"{iters} iterations in {solve_s:.3f} s = {iters / solve_s:.3f} "
           f"iters/s, {tflops:.2f} TFLOP/s ({card}); mu_stats_dense "
-          f"launches {launches}; sampled relative reconstruction error "
+          f"launches {launches} (TMA route {tma_launches}, "
+          f"mu_stats_dense.cu {launches - tma_launches}); sampled relative "
+          f"reconstruction error "
           f"{err0:.4f} -> {err1:.4f}; peak device memory {peak_gb:.1f} GB",
           flush=True)
     del res, y, ys
@@ -1373,7 +1435,7 @@ def main():
                      **kl_launches, "solve_rows": launches2,
                      "masked_grad_rows": launches_grad,
                      "bcd_sweep": launches3, "masked_grad_dict": launches_gd}
-    kernels = {"mu_stats_dense": ("mu_stats_dense", "pallas_mu.py:438"),
+    kernels = {"mu_stats_dense": ("mu_dense_tma", "pallas_mu.py:438"),
                **{name: (src, rep) for name, (src, _, rep)
                   in NEW_KERNELS.items()},
                "solve_rows": ("lasso_fista", "pallas_fista.py:349"),

@@ -62,150 +62,12 @@
 // cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime's
 // entry-point query, so the library needs no -lcuda.
 
-#include <cuda.h>
-
-#include "nmf_common.cuh"
+#include "sm90_common.cuh"
 
 namespace {
 
 constexpr int BMX = 64;          // rows per block of the x update
 constexpr int BNS = 64;          // columns per block of the statistics pass
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(smem_u32(bar)), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One 2-D TMA box, element (c0, c1) = (column, row) of the tensor at its
-// corner, into dst; completion is counted on bar.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap& map,
-                                         int c0, int c1, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(&map)), "r"(c0), "r"(c1),
-      "r"(smem_u32(bar))
-      : "memory");
-}
-
-// A bf16 tile as TMA leaves it: boxes of RB-byte rows (64 or 128) and
-// BOX_ROWS rows, side by side along the columns, each swizzled by the
-// hardware's 64B / 128B pattern (the 16-byte chunk index XOR address bits
-// 7-8 / 7-9). The tile starts 1024-byte aligned.
-template <int RB, int BOX_ROWS>
-struct Swz {
-  const bf16* p;
-  __device__ __forceinline__ const bf16* at(int r, int c) const {
-    constexpr int CB = RB / 2;
-    uint32_t off = (uint32_t)((c / CB) * (RB * BOX_ROWS) + r * RB +
-                              (c % CB) * 2);
-    off ^= (off >> 3) & ((RB / 16 - 1) << 4);
-    return reinterpret_cast<const bf16*>(
-        reinterpret_cast<const char*>(p) + off);
-  }
-};
-
-// A row-major tile written by threads, padded rows of ld elements.
-struct Pad {
-  const bf16* p;
-  int ld;
-  __device__ __forceinline__ const bf16* at(int r, int c) const {
-    return p + r * ld + c;
-  }
-};
-
-__device__ __forceinline__ void ldsm4(uint32_t (&f)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(f[0]), "=r"(f[1]), "=r"(f[2]), "=r"(f[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm4t(uint32_t (&f)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(f[0]), "=r"(f[1]), "=r"(f[2]), "=r"(f[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm2(uint32_t (&f)[2], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(f[0]), "=r"(f[1])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm2t(uint32_t (&f)[2], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(f[0]), "=r"(f[1])
-      : "r"(smem_u32(p)));
-}
-
-// Operand view of a tile: element (i, k) of the operand is the tile's
-// (i, k), or its (k, i) when KM. Fragments come by ldmatrix (.trans when
-// KM), each lane naming one 16-byte row of an 8 x 8 matrix; swizzling
-// keeps 16-byte chunks whole, so Swz and Pad tiles serve alike.
-template <typename Tile, bool KM>
-struct Op {
-  Tile t;
-  // mma.sync's A fragment of rows i0..i0 + 15, depth k0..k0 + 15.
-  __device__ __forceinline__ void a(uint32_t (&f)[4], int i0, int k0,
-                                    int lane) const {
-    const int j = lane >> 3, r = lane & 7;
-    if (KM) ldsm4t(f, t.at(k0 + (j >> 1) * 8 + r, i0 + (j & 1) * 8));
-    else ldsm4(f, t.at(i0 + (j & 1) * 8 + r, k0 + (j >> 1) * 8));
-  }
-  // B fragments of two 8-wide tiles, i0..i0 + 15: {b0, b1} of the first,
-  // then of the second.
-  __device__ __forceinline__ void b2(uint32_t (&f)[4], int i0, int k0,
-                                     int lane) const {
-    const int j = lane >> 3, r = lane & 7;
-    if (KM) ldsm4t(f, t.at(k0 + (j & 1) * 8 + r, i0 + (j >> 1) * 8));
-    else ldsm4(f, t.at(i0 + (j >> 1) * 8 + r, k0 + (j & 1) * 8));
-  }
-  // The B fragment {b0, b1} of one 8-wide tile.
-  __device__ __forceinline__ void b1(uint32_t (&f)[2], int i0, int k0,
-                                     int lane) const {
-    const int j = (lane >> 3) & 1, r = lane & 7;
-    if (KM) ldsm2t(f, t.at(k0 + j * 8 + r, i0));
-    else ldsm2(f, t.at(i0 + r, k0 + j * 8));
-  }
-};
-
-template <bool KM, typename Tile>
-__device__ __forceinline__ Op<Tile, KM> op(Tile t) {
-  return Op<Tile, KM>{t};
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // The A fragments of one BK-deep stage (two 16-deep steps, depth k0 ..
 // k0 + 31) for the rows i0 .. i0 + 16 MT - 1 of operand a.
@@ -293,11 +155,6 @@ template <int KT>
 constexpr size_t x_smem() {
   return 1024 + (size_t)kStages<KT> * kXSlot<KT> +
          (size_t)BMX * (KT + 8) * 2 + 2 * BMX * LDE * 2 + 8 * kStages<KT>;
-}
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  const uint32_t s = smem_u32(p);
-  return p + (((s + 1023u) & ~1023u) - s);
 }
 
 // E = cdt(mask * r) for a warp's 16 x 32 tile of R at (row0, col0) of the
@@ -570,47 +427,6 @@ __global__ void __launch_bounds__(THREADS, kBlocks)
         out[kr * (long long)N + c] = numd[mt][nt][i];
         out[KN + kr * (long long)N + c] = dend[mt][nt][i];
       }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &q);
-#endif
-    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 2-D row-major tensor of cols x rows elements (row stride ld elements)
-// in boxes of box_cols x box_rows; entries outside it read as zero.
-bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elt,
-              const void* ptr, long long cols, long long rows, long long ld,
-              int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)(ld * elt)};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t step[2] = {1, 1};
-  return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, step,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 struct Args {

@@ -1,9 +1,15 @@
-// Dense multiplicative-update NMF statistics on Hopper (sm_90a).
+// Dense multiplicative-update NMF statistics on Hopper (sm_90a), for f32
+// data.
 //
 // Replaces the Pallas TPU kernel decomp_tpu/ops/pallas_mu.py:438
-// mu_stats_dense (body _dense_kernel, pallas_mu.py:160). Given data y (M, N),
-// activations x (M, K), dictionary d (K, N) in y's dtype and ddt = d d^T
-// (K, K, f32) it returns
+// mu_stats_dense (body _dense_kernel, pallas_mu.py:160) for f32 y. bf16 y,
+// the main path, goes to mu_dense_tma.cu (TMA ring, wgmma, a bf16 copy of
+// x_new, few statistics chunks): ops/cuda_mu.py routes by dtype. This
+// kernel still takes bf16 y, so that both designs can be timed on the same
+// inputs (cuda_mu._dense_mma_launch); the bf16 notes below describe that
+// path, and the byte count is its, at the main path's shape. Given data
+// y (M, N), activations x (M, K), dictionary d (K, N) in y's dtype and
+// ddt = d d^T (K, K, f32) it returns
 //   x_new = x * (y d^T) / (x ddt + eps)   (inner_iter refinements that reuse
 //                                          the numerator y d^T)
 //   numd  = x_new^T y      (K, N) f32
@@ -53,8 +59,8 @@
 //   partials              128 chunks x 5.2 MB, written and read: 1.3 GB
 //   total                 ~45 GB, ~13.5 ms at 3.35 TB/s
 // against ~22 GB (~6.7 ms) for a fused single pass. d and ddt (2.6 MB,
-// 32 KB) are re-read by every block but from L2. Fusing the passes (and
-// wgmma with TMA) is later work.
+// 32 KB) are re-read by every block but from L2. mu_dense_tma.cu moves
+// ~44 GB for bf16 data (xc in bf16 and 8 chunks of partials).
 
 #include "nmf_common.cuh"
 

@@ -28,11 +28,12 @@ On a CUDA tensor a wrapper launches its kernel (``csrc/mu_stats_dense.cu``
 or ``csrc/mu_kl_stats.cu``: bf16 or f32 data, ``d`` and ``mask`` in the
 data's dtype, 1 <= K <= 128; ``x`` in the data's dtype or f32 for the MU
 kernels, in the data's dtype for the KL ones) and raises on anything
-else. ``mu_stats_masked`` also takes the mask as bits (``pack_mask``):
-with bf16 data on the card that launches ``csrc/mu_masked_packed.cu``.
-On a CPU tensor a wrapper runs its ``*_plain`` twin. It never falls back
-from one to the other. Each wrapper counts its kernel launches in
-``.launches``.
+else. ``mu_stats_dense`` takes bf16 data to ``csrc/mu_dense_tma.cu``
+(``dense_route``). ``mu_stats_masked`` also takes the mask as bits
+(``pack_mask``): with bf16 data on the card that launches
+``csrc/mu_masked_packed.cu``. On a CPU tensor a wrapper runs its
+``*_plain`` twin. It never falls back from one to the other. Each
+wrapper counts its kernel launches in ``.launches``.
 
 Not ported: ``calibrated_tpu``, ``fits_vmem`` and ``default_block_rows``,
 which encode TPU v5e VMEM calibrations.
@@ -63,6 +64,14 @@ _PACKED_STAGE_ROWS = 64
 _PACKED_RESIDENT = 2 * 132
 # Rows per chunk of pack_mask's int64 temporaries (32 MB per 1,024 words).
 _PACK_ROWS = 4096
+# The dense TMA kernel's statistics pass (csrc/mu_dense_tma.cu): 128-column
+# N tiles plus one gram tile, 64-row stages, one resident block per SM on
+# the H100's 132 SMs; its chunks fill at least this share of their waves.
+_TMA_N_TILE = 128
+_TMA_STAGE_ROWS = 64
+_TMA_RESIDENT = 132
+_TMA_WAVE_FILL = 0.95
+_TMA_MAX_CHUNKS = 64
 
 
 def validate_block_rows(block_rows):
@@ -296,14 +305,102 @@ def _is_bf16(t):
     return int(t.dtype == torch.bfloat16)
 
 
+def dense_route(dtype, device):
+    """Which code ``mu_stats_dense`` runs for data of ``dtype`` on
+    ``device``: ``'plain'`` (the twin) on the CPU; on the card ``'tma'``
+    (``csrc/mu_dense_tma.cu``) for bf16 data and ``'mma'``
+    (``csrc/mu_stats_dense.cu``) for any other dtype, whose checks refuse
+    all but f32. Other devices raise. A route by dtype, never a
+    fallback."""
+    kind = torch.device(device).type
+    if kind == "cpu":
+        return "plain"
+    if kind != "cuda":
+        raise DecompError(f"no kernel for device {device}")
+    return "tma" if dtype == torch.bfloat16 else "mma"
+
+
+def dense_tma_block_rows(m: int, n: int) -> int:
+    """Rows per partial of ``csrc/mu_dense_tma.cu``'s statistics pass: the
+    fewest row chunks for which chunks x (128-column N tiles + the gram
+    tile) fill at least 95% of their waves of resident blocks (one per SM
+    on 132 SMs), else the best fill up to 64 chunks; in whole 64-row
+    stages. At 1,048,576 x 10,112: 8 chunks of 131,072 rows (80 tiles, 640
+    blocks, 97% of 5 waves). A function of (M, N) alone, so the summation
+    order, and every bit of the result, is."""
+    tiles = -(-n // _TMA_N_TILE) + 1
+    stages = -(-m // _TMA_STAGE_ROWS)
+    best, best_fill = 1, 0.0
+    for chunks in range(1, min(_TMA_MAX_CHUNKS, stages) + 1):
+        blocks = tiles * chunks
+        fill = blocks / (-(-blocks // _TMA_RESIDENT) * _TMA_RESIDENT)
+        if fill > best_fill:
+            best, best_fill = chunks, fill
+        if fill >= _TMA_WAVE_FILL:
+            break
+    rows = -(-m // best)
+    return -(-rows // _TMA_STAGE_ROWS) * _TMA_STAGE_ROWS
+
+
 def mu_stats_dense(y, x, d, eps, *, block_rows=None, inner_iter=1):
     """The dense-MU statistics ``(x_new, numd, gram)``; see the module
     docstring. ``block_rows``: rows per partial of the kernel's statistics
-    pass (on CPU: rows per upcast chunk of the twin)."""
+    pass (on CPU: rows per upcast chunk of the twin).
+
+    On the card the route follows the data's dtype (``dense_route``):
+    bf16 ``y`` launches ``csrc/mu_dense_tma.cu`` (TMA ring, wgmma; its
+    chunks are whole 64-row stages, so ``block_rows`` is rounded up to a
+    multiple of 64) and counts it in ``.tma_launches``; f32 ``y`` launches
+    ``csrc/mu_stats_dense.cu``. ``.launches`` counts both."""
     validate_block_rows(block_rows)
-    if _runs_plain(y):
+    route = dense_route(y.dtype, y.device)
+    if route == "plain":
         return mu_stats_dense_plain(y, x, d, eps, block_rows=block_rows,
                                     inner_iter=inner_iter)
+    if route == "tma":
+        out = _dense_tma_launch(y, x, d, eps, block_rows, inner_iter)
+        mu_stats_dense.tma_launches += 1
+    else:
+        out = _dense_mma_launch(y, x, d, eps, block_rows, inner_iter)
+    mu_stats_dense.launches += 1
+    return out
+
+
+def _dense_tma_launch(y, x, d, eps, block_rows, inner_iter):
+    """Launch ``csrc/mu_dense_tma.cu`` on bf16 ``y`` and ``d``
+    (``mu_stats_dense``'s bf16 route)."""
+    m, n = y.shape
+    k = d.shape[0]
+    rows = (dense_tma_block_rows(m, n) if block_rows is None
+            else -(-block_rows // _TMA_STAGE_ROWS) * _TMA_STAGE_ROWS)
+    _check_kernel_args(y, x, d, inner_iter, rows)
+    if y.dtype != torch.bfloat16:
+        raise DtypeError(f"the TMA kernel takes bf16 data, got {y.dtype}")
+    fn = _c_function("mu_dense_tma", "mu_dense_tma_launch",
+                     (_I, _P, _I, _P, _P, _I, _P, _F) + (_I,) * 5
+                     + (_P,) * 5)
+    with torch.cuda.device(y.device):
+        y_t, ld_y = _tma_rows(y)
+        d_t, ld_d = _tma_rows(d)
+        ddt = gram_rows(d)
+        size = k * n + k * k
+        x_new = torch.empty_like(x)
+        xc = torch.empty((m, KERNEL_MAX_RANK), dtype=torch.bfloat16,
+                         device=y.device)
+        part = _f32(-(-m // rows) * size, y.device)
+        out = _f32(size, y.device)
+        _launch("mu_stats_dense (TMA)", fn, y.device, _is_bf16(x),
+                y_t.data_ptr(), ld_y, x.data_ptr(), d_t.data_ptr(), ld_d,
+                ddt.data_ptr(), float(eps), m, n, k, int(inner_iter), rows,
+                x_new.data_ptr(), xc.data_ptr(), part.data_ptr(),
+                out.data_ptr())
+    return x_new, out[:k * n].view(k, n), out[k * n:].view(k, k)
+
+
+def _dense_mma_launch(y, x, d, eps, block_rows=None, inner_iter=1):
+    """Launch ``csrc/mu_stats_dense.cu`` (``mu_stats_dense``'s f32 route).
+    It takes bf16 data too, so that both designs can be timed on the same
+    inputs; nothing on the main path calls it with bf16."""
     rows = block_rows or default_block_rows(y.shape[0])
     _check_kernel_args(y, x, d, inner_iter, rows)
     m, n = y.shape
@@ -320,11 +417,11 @@ def mu_stats_dense(y, x, d, eps, *, block_rows=None, inner_iter=1):
                 y.data_ptr(), x.data_ptr(), d.data_ptr(), ddt.data_ptr(),
                 float(eps), m, n, k, int(inner_iter), rows,
                 x_new.data_ptr(), part.data_ptr(), out.data_ptr())
-    mu_stats_dense.launches += 1
     return x_new, out[:k * n].view(k, n), out[k * n:].view(k, k)
 
 
 mu_stats_dense.launches = 0
+mu_stats_dense.tma_launches = 0
 
 
 def mu_stats_masked(my, mask, x, d, eps, *, block_rows=None):
