@@ -30,7 +30,8 @@ for sm_90a (one nvcc per source, all at once), and then:
    turns with one call of ``csrc/mu_stats_dense.cu`` on the same inputs,
    against one twin call, and prints each pass of the TMA kernel from
    ``torch.profiler`` with the bytes it moves;
-5. solves a planted rank-10 problem to convergence and restarts from it;
+5. solves a planted rank-10 problem to convergence and restarts from it,
+   and times ``csrc/mu_stats_dense.cu`` (f32 data) per call on it;
 6. drives masked completion at BASELINE config 4,
    ``nmf.masked_completion`` on a planted 100,000 x 1,000 rank-50 matrix
    with 30% missing (bf16 data, f32 factors, held-out stopping), and
@@ -42,12 +43,16 @@ for sm_90a (one nvcc per source, all at once), and then:
    launch per iteration and a falling KL objective;
 8. times each new kernel against its twin per call at its path's shape;
    masked MU's packed-mask kernel in turns with the dense-mask kernel on
-   the same inputs, at config 4 and at 262,144 x 10,112 K = 128 bf16;
+   the same inputs, at config 4 and at 262,144 x 10,112 K = 128 bf16, and
+   the dense-mask kernel on f32 data at config 4's shape;
 9. holds the lasso kernel ``solve_rows`` against its twin at a ragged
    1,000 x 200 and 300 x 1,000 and at 10,000 x 512 (ista, fista,
    acc_ista; scalar and per-feature step; precision 'highest' and
    'high'; exact and fixed-budget mode; one row that resumes done), with
-   bit-identical reruns on 16-row stripes, and ``masked_grad_rows`` at
+   bit-identical reruns on 16-row stripes, then its complex mode the same
+   way on complex64 data at 1,000 x 100, 300 x 500 and 10,000 x 512
+   complex features, every call counted on the complex route, and
+   ``masked_grad_rows`` at
    1,000 x 1,000 F = 100 and a ragged 333 x 257 F = 7 in f32 and bf16
    (and at 100,000 x 1,024 F = 128 in phase 12);
 10. drives batch lasso at BASELINE config 2, ``lasso.solve`` on 10,000
@@ -57,14 +62,25 @@ for sm_90a (one nvcc per source, all at once), and then:
     the agreement with the 'highest' kernel run and the composition run;
     it prints the time to tol and the marginal time per solve over a
     chain of 6, beside the bound, and times the kernel path against the
-    composition path at three small batches;
+    composition path at three small batches, real and complex64;
+10c. drives complex batch lasso at the JAX package's config-2-complex
+    (``benchmarks/bench_split_complex.py``: 10,000 problems of 256
+    complex channels over 512 complex features, complex64, acc_ista,
+    'high', per-problem stopping, tol 1e-4) through ``lasso.solve``'s
+    'auto' route, and checks one ``solve_rows`` launch on the complex
+    route, every row converged, the complex KKT conditions and the
+    agreement with the 'highest' kernel run and the composition run; it
+    prints the time to tol, the marginal per solve over a chain of 6 and
+    the bound, and checks that ``lasso.solve_streaming`` takes the same
+    kernel once per chunk;
 11. drives the masked lasso, ``lasso.solve(mask=...)`` at 100,000 x
     1,024, F = 128, 30% missing, 50 FISTA iterations in f32 and in bf16,
     and checks one ``masked_grad_rows`` launch per iteration, a falling
     objective and the agreement with the composition run;
 12. times the lasso kernels against their twins: ``solve_rows`` per
     config-2 solve and at 262,144 x 512 for 100 fixed-budget iterations,
-    ``masked_grad_rows`` at 100,000 x 1,024, F = 128;
+    its complex mode per config-2-complex solve, ``masked_grad_rows`` at
+    100,000 x 1,024, F = 128;
 13. holds the dictionary-learning kernels against their twins:
     ``bcd_sweep`` at K = 256, N = 64 (config 3), at a ragged K = 37, N =
     50 and at the largest K x N it takes (256 x 208) with one all-zero
@@ -94,13 +110,15 @@ for sm_90a (one nvcc per source, all at once), and then:
 Each path runs with every launch count set to 0 just before it and read
 just after. It exits non-zero on any failure, without a CUDA device, and
 where the package is absent. The line before the last is a JSON summary
-of the kernels, each with its bound: the larger of its bytes (each input
+of the kernels (the eight, and ``solve_rows``' complex mode as its own
+entry), each with its bound: the larger of its bytes (each input
 read once, each output written once) over 3.35 TB/s and its operations
 over the H100's peak for their type (989 TFLOP/s bf16 tensor cores, 67
 TFLOP/s f32 FMA). The last line is ``{"ok": true, "device": {...}}``.
 """
 
 import concurrent.futures
+import itertools
 import json
 import subprocess
 import sys
@@ -138,6 +156,12 @@ X_BF16_LIMIT = 2e-4
 # 4x or more (6% of rows for niter).
 SOLVE_LIMITS = {"nit_eq": 0.94, "eq_rows": 5e-5, "all_rows": 5e-4,
                 "fixed": 7e-4}
+# The complex mode holds the same limits. Measured on an H100 80GB HBM3 at
+# 700 W at 1,000 x 100c, 300 x 500c and 10,000 x 512c (Fc complex
+# features, 2 Fc reals): niter equal on >= 98.6% of rows, those rows within
+# 5.99e-6, all rows within 5.36e-5, and the fixed budget within 1.19e-4
+# for x and z (an acc_ista restart that flips in one row); 'highest' gave
+# the twin's bits at Fc = 100 and 512. A margin of 4x or more.
 # masked_grad_rows against its twin (measured on the H100: 4.6e-7 f32,
 # 5.6e-5 bf16, where the residual is rounded to bf16 before the second
 # product and a one-ulp f32 difference flips a rounding); 4x margin.
@@ -153,6 +177,16 @@ GRAD_LIMIT = {torch.float32: 2e-6, torch.bfloat16: 2.5e-4}
 C2_TWIN_LIMIT = 3e-3
 C2_X_LIMIT = 4e-3
 C2_KKT_LIMIT = 4.0
+# Config-2-complex (the same call on complex64 data), measured on the H100:
+# x of solve_rows against its twin 8.8e-4 (niter equal on 98% of rows);
+# x of the lasso.solve run against the 'highest' kernel run and the
+# composition run 5.2e-3 (two stopping points a relative change of 1e-4
+# apart, on a dictionary with L ~ 3,000); the KKT residual per row over L
+# tol |x| at most 1.0 (1.0 for the composition run too). Limits with a
+# margin of 4x or more.
+C2C_TWIN_LIMIT = 4e-3
+C2C_X_LIMIT = 3e-2
+C2C_KKT_LIMIT = 4.0
 # The masked lasso's x, kernel path against composition path after 50
 # iterations (measured 7.1e-8 f32; 2.7e-3 bf16, where the composition
 # rounds each product to bf16 and the kernel forms the residual in f32).
@@ -218,14 +252,19 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
+def wide(t):
+    """``t`` in f64, or complex128 for complex data."""
+    return t.to(torch.complex128) if t.is_complex() else t.double()
+
+
 def rel_fro(a, b):
-    a, b = a.double(), b.double()
+    a, b = wide(a), wide(b)
     return float(torch.linalg.vector_norm(a - b)
                  / torch.linalg.vector_norm(b))
 
 
 def max_abs(outs, refs):
-    return max(float((a.double() - b.double()).abs().max())
+    return max(float((wide(a) - wide(b)).abs().max())
                for a, b in zip(outs, refs))
 
 
@@ -424,23 +463,28 @@ LASSO_METHODS = {"ista": (False, False), "fista": (True, False),
                  "acc_ista": (True, True)}   # (momentum, restart)
 
 
-def rows_problem(gen, dev, m, f, n):
+def rows_problem(gen, dev, m, f, n, complex_=False):
     """(yah, gram, 1/L) of a planted batch made on the card: a normal /
-    sqrt(N), truth 10% sparse, 1% noise."""
+    sqrt(N), truth 10% sparse, 1% noise; ``complex_``: complex64 with
+    normal real and imaginary parts (a over sqrt(2N))."""
     from decomp_tpu_torch.ops.spectral import spectral_norm_psd
 
-    a = torch.randn((f, n), generator=gen, device=dev) / n ** 0.5
-    xt = torch.randn((m, f), generator=gen, device=dev) * (
+    dt = torch.complex64 if complex_ else torch.float32
+    scale = (2 * n) ** 0.5 if complex_ else n ** 0.5
+    a = torch.randn((f, n), generator=gen, device=dev, dtype=dt) / scale
+    xt = torch.randn((m, f), generator=gen, device=dev, dtype=dt) * (
         torch.rand((m, f), generator=gen, device=dev) < 0.1)
-    y = xt @ a + 0.01 * torch.randn((m, n), generator=gen, device=dev)
-    gram = a @ a.T
-    return y @ a.T, gram, 1.0 / float(spectral_norm_psd(gram))
+    y = xt @ a + 0.01 * torch.randn((m, n), generator=gen, device=dev,
+                                    dtype=dt)
+    ah = a.conj().T
+    gram = a @ ah
+    return y @ ah, gram, 1.0 / float(spectral_norm_psd(gram))
 
 
-def rows_start(m, f, dev):
+def rows_start(m, f, dev, dtype=torch.float32):
     """x0, t0, done0, nit0 of a fresh batch in which row 5 resumes done
     (after 9 iterations, at x = 1)."""
-    x0 = torch.zeros((m, f), device=dev)
+    x0 = torch.zeros((m, f), device=dev, dtype=dtype)
     t0 = torch.ones((m, 1), device=dev)
     d0 = torch.zeros((m, 1), device=dev)
     n0 = torch.zeros((m, 1), dtype=torch.int32, device=dev)
@@ -466,12 +510,14 @@ def compare_rows_exact(out, ref, tag):
           f"{tag}: kernel disagrees with twin")
 
 
-def compare_solve_rows(cl, gen, dev, m, f, n):
+def compare_solve_rows(cl, gen, dev, m, f, n, complex_=False):
     """solve_rows against its twin at M x F for every method, step form
     and precision, in exact mode (tol 1e-4, 300 iterations) and in the
-    fixed-budget mode (37 iterations), with a row that resumes done."""
-    yah, gram, step = rows_problem(gen, dev, m, f, n)
-    x0, t0, d0, n0 = rows_start(m, f, dev)
+    fixed-budget mode (37 iterations), with a row that resumes done;
+    ``complex_``: F complex64 features through the complex mode, every
+    kernel call counted on its route."""
+    yah, gram, step = rows_problem(gen, dev, m, f, n, complex_)
+    x0, t0, d0, n0 = rows_start(m, f, dev, yah.dtype)
     ramp = torch.linspace(0.5, 1.0, f, device=dev)
     for method, (mom, rst) in LASSO_METHODS.items():
         for hi_lo in (False, True):
@@ -479,9 +525,10 @@ def compare_solve_rows(cl, gen, dev, m, f, n):
                 s = step * ramp if vec else step
                 args = (yah, gram, x0, x0, t0, d0, n0, s, 0.05 * s)
                 kw = dict(momentum=mom, restart=rst, hi_lo=hi_lo)
-                tag = (f"solve_rows {m}x{f} {method} "
-                       f"{'high' if hi_lo else 'highest'} "
+                tag = (f"solve_rows {m}x{f}{'c' if complex_ else ''} "
+                       f"{method} {'high' if hi_lo else 'highest'} "
                        f"{'per-feature' if vec else 'scalar'} step")
+                before = cl.solve_rows.complex_launches
                 out = cl.solve_rows(*args, 1e-4, maxiter=300, **kw)
                 # A rerun, with 16-row stripes where 32 is the default.
                 again = cl.solve_rows(*args, 1e-4, maxiter=300,
@@ -493,6 +540,9 @@ def compare_solve_rows(cl, gen, dev, m, f, n):
                 fref = cl.solve_rows_plain(*args, 0.0, maxiter=37,
                                            fixed=True, **kw)
                 torch.cuda.synchronize()
+                routed = cl.solve_rows.complex_launches - before
+                check(routed == (4 if complex_ else 0),
+                      f"{tag}: {routed} launches on the complex route")
                 compare_rows_exact(out, ref, tag)
                 err_fixed = max(rel_fro(fixed[0], fref[0]),
                                 rel_fro(fixed[1], fref[1]))
@@ -575,12 +625,14 @@ def config3_data():
 
 def kkt_residual(x, y, a, alpha, lip, tol):
     """Per row, the distance of 0 from the lasso's subdifferential at x
-    (|grad + alpha sign x| on the support, max(|grad| - alpha, 0) off it),
-    over L tol ||x_row||: the scale a relative change of tol leaves."""
-    xd, ad = x.double(), a.double()
-    g = xd @ (ad @ ad.T) - y.double() @ ad.T
-    r = torch.where(xd != 0, g + alpha * torch.sign(xd),
-                    (g.abs() - alpha).clamp_min(0.0))
+    (|grad + alpha x / |x|| on the support, max(|grad| - alpha, 0) off it;
+    x / |x| is sign x for real data), over L tol ||x_row||: the scale a
+    relative change of tol leaves."""
+    xd, ad = wide(x), wide(a)
+    ah = ad.conj().T
+    g = xd @ (ad @ ah) - wide(y) @ ah
+    r = torch.where(xd != 0, g + alpha * torch.sgn(xd),
+                    (g.abs() - alpha).clamp_min(0.0).to(g.dtype))
     return (torch.linalg.vector_norm(r, dim=1)
             / (lip * tol * torch.linalg.vector_norm(xd, dim=1)))
 
@@ -688,27 +740,147 @@ def config2_phase(lasso, dev, card, reset_counts, read_counts):
     return launches, y, a
 
 
+def config2_complex_data():
+    """The JAX package's config-2-complex as
+    ``benchmarks/bench_split_complex.py:56-63`` makes it (numpy, seed 1):
+    10,000 problems, 512 complex features, 256 complex channels, 5%-sparse
+    truth, 0.01 noise; returns (y, a) as complex64 arrays."""
+    rng = np.random.default_rng(1)
+    m, f, c = 10_000, 512, 256
+    a = (rng.normal(size=(f, c))
+         + 1j * rng.normal(size=(f, c))).astype(np.complex64)
+    xt = ((rng.normal(size=(m, f)) + 1j * rng.normal(size=(m, f)))
+          * (rng.random((m, f)) < 0.05)).astype(np.complex64)
+    y = (xt @ a + 0.01 * (rng.normal(size=(m, c))
+                          + 1j * rng.normal(size=(m, c)))).astype(np.complex64)
+    return y, a
+
+
+def config2_complex_phase(lasso, cl, dev, card, reset_counts, read_counts):
+    """Phase 10c: config-2-complex end to end through ``lasso.solve`` on
+    complex64 data (acc_ista, 'high', per_problem, tol 1e-4, maxiter
+    3,000, alpha 0.1). Returns the main run's solve_rows launches and the
+    data (y, a) on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from decomp_tpu_torch.ops.spectral import spectral_norm_psd
+
+    y_np, a_np = config2_complex_data()
+    cfg = dict(tol=1e-4, maxiter=3000, method="acc_ista", per_problem=True)
+    y, a = (torch.from_numpy(v).to(dev) for v in (y_np, a_np))
+    m, f = y.shape[0], a.shape[0]
+
+    def solve(**kw):
+        return lasso.solve(y, a, 0.1, **cfg, **kw)
+
+    solve(precision="high")   # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    ms, res = event_ms(lambda: solve(precision="high"))
+    launches = read_counts("solve_rows", 1)
+    routed = cl.solve_rows.complex_launches
+    check(routed == 1, f"config-2-complex: {routed} solve_rows launches on "
+          "the complex route, expected 1")
+    # 'auto' keeps 'highest' at Fc = 512 on the composition; ask for the
+    # kernel.
+    highest_ms, top = event_ms(lambda: solve(precision="highest",
+                                             use_kernel=True))
+    comp_ms, comp = event_ms(lambda: solve(use_kernel=False))
+    marg = marginal_ms(lambda: solve(precision="high"), repeats=2)
+    nit = res.niter.double()
+    sum_nit = int(nit.sum())
+    b_ms, b_by = solve_rows_bound(m, 2 * f, sum_nit, True)
+    lip = float(spectral_norm_psd(a @ a.conj().T))
+    kkt = kkt_residual(res.x, y, a, 0.1, lip, 1e-4)
+    kkt_comp = kkt_residual(comp.x, y, a, 0.1, lip, 1e-4)
+    err_top = rel_fro(res.x, top.x)
+    err_comp = rel_fro(res.x, comp.x)
+    print(f"config-2-complex lasso.solve {m} problems x {f} complex features "
+          f"x {y.shape[1]} complex channels, complex64, acc_ista, precision "
+          f"'high', per_problem, tol 1e-4 ({card}): time to tol {ms:.3f} ms, "
+          f"marginal per solve (chain of 6) {marg:.3f} ms, bound of its "
+          f"solve_rows {b_ms:.3f} ms ({b_by}); niter min/median/max "
+          f"{int(nit.min())}/{int(nit.median())}/{int(nit.max())}, sum "
+          f"{sum_nit}; converged rows {int(res.converged.sum())}/{m}; "
+          f"solve_rows launches {launches} (complex route {routed})",
+          flush=True)
+    print(f"  precision 'highest' {highest_ms:.3f} ms (niter sum "
+          f"{int(top.niter.double().sum())}), use_kernel=False "
+          f"{comp_ms:.3f} ms (max niter {int(comp.niter.max())}) ({card}); "
+          f"rel_fro x vs 'highest' {err_top:.3e}, vs composition "
+          f"{err_comp:.3e} (limit {C2C_X_LIMIT:.0e}); KKT residual / (L tol "
+          f"|x|) max {float(kkt.max()):.3f}, median {float(kkt.median()):.3f} "
+          f"(composition max {float(kkt_comp.max()):.3f}; limit "
+          f"{C2C_KKT_LIMIT})", flush=True)
+    check(bool(res.converged.all()), "config-2-complex: not every row "
+          "converged")
+    check(res.x.shape == (m, f) and res.x.dtype == torch.complex64
+          and bool(torch.isfinite(torch.view_as_real(res.x)).all()),
+          "config-2-complex: x is not finite complex64 of the right shape")
+    check(err_top <= C2C_X_LIMIT and err_comp <= C2C_X_LIMIT,
+          "config-2-complex: x disagrees with the 'highest' or composition "
+          "run")
+    check(float(kkt.max()) <= C2C_KKT_LIMIT,
+          "config-2-complex: the KKT conditions do not hold")
+    # Where one solve's device time goes.
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        solve(precision="high")
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.key_averages()
+                      if str(e.device_type).endswith("CUDA")),
+                     key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"  device time of one solve {busy_ms:.3f} ms ({card}):",
+          flush=True)
+    for e in kernels[:5]:
+        print(f"    {e.self_device_time_total / 1e3:9.3f} ms in {e.count:5d} "
+              f"launches: {e.key[:70]}", flush=True)
+    # solve_streaming takes the same route through 'auto': one launch per
+    # chunk of host rows.
+    reset_counts()
+    st = lasso.solve_streaming(y_np[:2000], a_np, 0.1, chunk_rows=1000,
+                               precision="high", **cfg)
+    read_counts("solve_rows", 2)
+    err_st = rel_fro(torch.from_numpy(st.x), res.x[:2000].cpu())
+    print(f"  solve_streaming of its first 2,000 rows in 2 chunks: "
+          f"solve_rows launches 2 (complex route "
+          f"{cl.solve_rows.complex_launches}); rel_fro x vs the batch run "
+          f"{err_st:.3e} (limit {C2C_X_LIMIT:.0e})", flush=True)
+    check(cl.solve_rows.complex_launches == 2 and err_st <= C2C_X_LIMIT,
+          "config-2-complex: solve_streaming did not take the kernel, or "
+          "its rows disagree with the batch run's")
+    return launches, y, a
+
+
 def lasso_crossover(lasso, gen, dev, card):
     """Whole-solve kernel against the composition path (per-problem
-    acc_ista, 'highest', tol 1e-4) at small batches: where
-    ``use_kernel='auto'`` would want a size gate."""
-    for m, f, n in ((64, 64, 48), (1000, 128, 96), (4000, 256, 128)):
-        a = torch.randn((f, n), generator=gen, device=dev)
-        xt = torch.randn((m, f), generator=gen, device=dev) * (
+    acc_ista, tol 1e-4) at small batches: real f32 under 'highest',
+    complex64 under 'highest' and 'high' (the composition's products are
+    full f32 under both): where ``use_kernel='auto'`` would want a gate."""
+    for (m, f, n), dt in itertools.product(
+            ((64, 64, 48), (1000, 128, 96), (4000, 256, 128)),
+            (torch.float32, torch.complex64)):
+        a = torch.randn((f, n), generator=gen, device=dev, dtype=dt)
+        xt = torch.randn((m, f), generator=gen, device=dev, dtype=dt) * (
             torch.rand((m, f), generator=gen, device=dev) < 0.05)
-        y = xt @ a + 0.01 * torch.randn((m, n), generator=gen, device=dev)
-        ms = {}
-        for kernel in (True, False):
-            def solve():
-                return lasso.solve(y, a, 0.1, tol=1e-4, maxiter=4000,
-                                   method="acc_ista", per_problem=True,
-                                   use_kernel=kernel)
-            solve()
-            torch.cuda.synchronize()
-            ms[kernel], res = event_ms(solve)
-        print(f"lasso.solve {m}x{f}x{n} per-problem acc_ista: kernel path "
-              f"{ms[True]:.3f} ms, composition {ms[False]:.3f} ms (max niter "
-              f"{int(res.niter.max())}) ({card})", flush=True)
+        y = xt @ a + 0.01 * torch.randn((m, n), generator=gen, device=dev,
+                                        dtype=dt)
+        for precision in (("highest", "high") if dt.is_complex
+                          else ("highest",)):
+            ms = {}
+            for kernel in (True, False):
+                def solve():
+                    return lasso.solve(y, a, 0.1, tol=1e-4, maxiter=4000,
+                                       method="acc_ista", per_problem=True,
+                                       precision=precision,
+                                       use_kernel=kernel)
+                solve()
+                torch.cuda.synchronize()
+                ms[kernel], res = event_ms(solve)
+            print(f"lasso.solve {m}x{f}x{n} {str(dt)[6:]} '{precision}' "
+                  f"per-problem acc_ista: kernel path {ms[True]:.3f} ms, "
+                  f"composition {ms[False]:.3f} ms (max niter "
+                  f"{int(res.niter.max())}) ({card})", flush=True)
 
 
 def masked_lasso_phase(lasso, dev, card, reset_counts, read_counts, m, n,
@@ -840,6 +1012,40 @@ def lasso_times(cl, gen, dev, card, y, a, fixed_shape, grad_shape):
             out["masked_grad_rows"] = (e, k_ms, p_ms) + b
         del args
     return out
+
+
+def complex_times(cl, dev, card, y, a):
+    """Phase 12, complex: solve_rows' complex mode against its twin per
+    call on config-2-complex's data (y, a) as lasso.solve calls it
+    ('high', acc_ista, tol 1e-4, maxiter 3,000). Returns (max_abs_err, ms,
+    plain_ms, bound_ms, bound_by)."""
+    from decomp_tpu_torch.ops.spectral import spectral_norm_psd
+
+    ah = a.conj().T
+    gram = a @ ah
+    yah = y @ ah
+    step = 1.0 / float(spectral_norm_psd(gram))
+    m, f = yah.shape
+    x0, t0, d0, n0 = rows_start(m, f, dev, yah.dtype)
+    x0[5], d0[5], n0[5] = 0.0, 0.0, 0
+    args = (yah, gram, x0, x0, t0, d0, n0, step, 0.1 * step, 1e-4)
+    kw = dict(momentum=True, restart=True, maxiter=3000, hi_lo=True)
+    got = cl.solve_rows(*args, **kw)
+    p_ms, ref = event_ms(lambda: cl.solve_rows_plain(*args, **kw))
+    eq = (got[4] == ref[4])[:, 0]
+    err = rel_fro(got[0], ref[0])
+    print(f"kernel vs twin solve_rows config-2-complex ('high', tol 1e-4): "
+          f"niter equal on {float(eq.float().mean()):.4f} of rows, rel_fro x "
+          f"{err:.3e} (limit {C2C_TWIN_LIMIT:.0e})", flush=True)
+    check(err <= C2C_TWIN_LIMIT, "config-2-complex: solve_rows disagrees "
+          "with twin")
+    k_ms = cuda_ms(lambda: cl.solve_rows(*args, **kw), 3)
+    b = solve_rows_bound(m, 2 * f, int(got[4].double().sum()), True)
+    print(f"solve_rows config-2-complex ({m}x{f} complex, 2F = {2 * f} "
+          f"reals, 'high', acc_ista, tol 1e-4): kernel {k_ms:.3f} ms, plain "
+          f"twin {p_ms:.3f} ms per call, bound {b[0]:.3f} ms ({b[1]}), "
+          f"kernel / bound {k_ms / b[0]:.1f} ({card})", flush=True)
+    return (max_abs(got[:1], ref[:1]), k_ms, p_ms) + b
 
 
 def bcd_inputs(gen, dev, k, n, dead=None):
@@ -1067,6 +1273,7 @@ def main():
         cuda_mu.mu_stats_masked.packed_launches = 0
         cuda_mu.mu_stats_masked.dense_launches = 0
         cuda_mu.mu_stats_dense.tma_launches = 0
+        cuda_lasso.solve_rows.complex_launches = 0
 
     def read_counts(expected, launches=None):
         """The counts after one path: ``expected`` launched ``launches``
@@ -1249,6 +1456,15 @@ def main():
     check(res.converged, "planted run did not converge")
     check(err <= 2e-2, f"planted relative error {err} > 2e-2")
     check(warm.niter <= 3, f"warm restart took {warm.niter} iterations")
+    # f32 data take csrc/mu_stats_dense.cu: one call on the solution.
+    args5 = (yp, res.x, res.d)
+    err5 = compare_new(cuda_mu, "mu_stats_dense", args5)
+    times5 = time_new(cuda_mu, "mu_stats_dense", args5, reps=50)
+    b5 = stats_bound("mu_stats_dense", 1000, 500, 10, f32, f32)
+    print(f"mu_stats_dense 1000x500 K=10 data=float32 x=float32 "
+          f"(csrc/mu_stats_dense.cu): kernel {times5[0]:.4f} ms, plain twin "
+          f"{times5[1]:.4f} ms per call, bound {b5[0]:.4f} ms ({b5[1]}) "
+          f"({card}); max_abs_err {err5:.3e}", flush=True)
     t_phase = phase("5 planted dense", t_phase)
 
     # Phase 6: masked completion at BASELINE config 4 (bench.py:214-220):
@@ -1353,6 +1569,17 @@ def main():
             errs_abs["mu_stats_masked"] = e
             times["mu_stats_masked"] = (t[0], t[2])
         del args
+    # f32 data (and weighted masks) take the dense-mask kernel of
+    # csrc/mu_kl_stats.cu: at config 4's shape.
+    args = stats_inputs(gen, dev, m4, n4, k4, f32, f32, True)
+    e = compare_new(cuda_mu, "mu_stats_masked", args)
+    t = time_new(cuda_mu, "mu_stats_masked", args)
+    b = stats_bound("mu_stats_masked", m4, n4, k4, f32, f32)
+    print(f"mu_stats_masked {m4}x{n4} K={k4} data=float32 x=float32 (dense "
+          f"mask, csrc/mu_kl_stats.cu): kernel {t[0]:.3f} ms, plain twin "
+          f"{t[1]:.3f} ms per call, bound {b[0]:.3f} ms ({b[1]}) ({card}); "
+          f"max_abs_err {e:.3e}", flush=True)
+    del args
     for name in ("kl_stats_dense", "kl_stats_masked"):
         args = stats_inputs(gen, dev, m7, n7, k7, f32, f32,
                             NEW_KERNELS[name][1])
@@ -1370,6 +1597,9 @@ def main():
     for m_, f_, n_ in ((1000, 200, 160), (300, 1000, 700),
                        (10_000, 512, 256)):
         compare_solve_rows(cuda_lasso, gen, dev, m_, f_, n_)
+    # The complex mode: Fc complex features are 2 Fc reals.
+    for m_, f_, n_ in ((1000, 100, 80), (300, 500, 350), (10_000, 512, 256)):
+        compare_solve_rows(cuda_lasso, gen, dev, m_, f_, n_, complex_=True)
     for m_, n_, f_ in ((1000, 1000, 100), (333, 257, 7)):
         for dt in (f32, bf16):
             compare_grad(cuda_lasso, "masked_grad_rows",
@@ -1379,8 +1609,15 @@ def main():
     # Phase 10: batch lasso at BASELINE config 2.
     launches2, y2, a2 = config2_phase(lasso, dev, card, reset_counts,
                                       read_counts)
+    check(cuda_lasso.solve_rows.complex_launches == 0,
+          "config 2 took the complex route")
     lasso_crossover(lasso, gen, dev, card)
     t_phase = phase("10 config 2", t_phase)
+
+    # Phase 10c: batch lasso on complex data, config-2-complex.
+    launches2c, y2c, a2c = config2_complex_phase(
+        lasso, cuda_lasso, dev, card, reset_counts, read_counts)
+    t_phase = phase("10c config-2-complex", t_phase)
 
     # Phase 11: the masked lasso.
     launches_grad = masked_lasso_phase(lasso, dev, card, reset_counts,
@@ -1391,6 +1628,9 @@ def main():
     # solve_rows' fixed budget at 262,144 x 512: yah, x and z 0.5 GB each.
     lasso_stats = lasso_times(cuda_lasso, gen, dev, card, y2, a2,
                               (262_144, 512), (100_000, 1024, 128))
+    lasso_stats["solve_rows_complex"] = complex_times(cuda_lasso, dev, card,
+                                                      y2c, a2c)
+    del y2c, a2c
     t_phase = phase("12 lasso kernel times", t_phase)
 
     # Phase 13: the dictionary-learning kernels against their twins.
@@ -1433,12 +1673,15 @@ def main():
     stats.update(dl_stats)
     main_launches = {"mu_stats_dense": launches, "mu_stats_masked": launches4,
                      **kl_launches, "solve_rows": launches2,
+                     "solve_rows_complex": launches2c,
                      "masked_grad_rows": launches_grad,
                      "bcd_sweep": launches3, "masked_grad_dict": launches_gd}
     kernels = {"mu_stats_dense": ("mu_dense_tma", "pallas_mu.py:438"),
                **{name: (src, rep) for name, (src, _, rep)
                   in NEW_KERNELS.items()},
                "solve_rows": ("lasso_fista", "pallas_fista.py:349"),
+               "solve_rows_complex": ("lasso_fista",
+                                      "pallas_fista.py:349 (group_fc)"),
                "masked_grad_rows": ("lasso_grad", "pallas_lasso.py:159"),
                "bcd_sweep": ("dl_bcd", "pallas_bcd.py:115"),
                "masked_grad_dict": ("mu_kl_stats", "pallas_lasso.py:225")}

@@ -18,6 +18,20 @@
 // the _rn intrinsics, so nothing is contracted into an FMA and the exact and
 // fixed modes round identically.
 //
+// Complex mode (GROUP; the TPU kernel's group_fc, pallas_fista.py:192-
+// 205). A complex64 row of Fc features is F = 2 Fc interleaved reals
+// [re_0, im_0, re_1, im_1, ...] (a contiguous complex tensor viewed as f32),
+// G the real embedding of the Hermitian Gram with the 2 x 2 block
+// [[Re G_kn, Im G_kn], [-Im G_kn, Re G_kn]] at (k, n), symmetric because G
+// is Hermitian, so the product, the splits and the tile loads are the real
+// ones. Only the prox differs: the paired-magnitude soft threshold
+// x' = u max(1 - thresh / max(|u|, tiny), 0) of each complex u = (re, im).
+// In mma.sync's accumulator layout the two reals of a feature are the
+// adjacent registers i = 0, 1 (row g) and i = 2, 3 (row g + 8) of one
+// thread, so the pair never leaves the thread. The wrapper repeats each
+// feature's step and threshold in both reals. The stopping and restart sums
+// over all 2 Fc reals are the complex norms and Re<z - x', x' - x>.
+//
 // Precision. HILO = false ('highest'): v G in full f32 FMAs on the CUDA
 // cores, never TF32. HILO = true ('high'): bf16x3 on the tensor cores
 // (mma.sync m16n8k16 bf16, f32 accumulation). The wrapper splits G once,
@@ -52,7 +66,10 @@
 // the design's cost driver; clusters with TMA multicast of G are the later
 // remedy. Shared memory (~207 KB) allows one block per SM: 313 stripes make
 // 2.4 waves over 132 SMs. Ragged M and F are masked in the kernel; nothing
-// is padded.
+// is padded. The complex mode at config-2-complex (Fc = 512, F = 1024,
+// R = 16) reads 4 MB of G halves per stripe-iteration, 256 KB per
+// row-iteration against 32 KB at config 2: it is L2-bound further below its
+// operations bound.
 
 #include "nmf_common.cuh"
 
@@ -244,6 +261,16 @@ __device__ __forceinline__ float shrink(float u, float thr) {
   return m > 0.f ? copysignf(m, u) : 0.f;
 }
 
+// max(1 - thr / max(|re + i im|, tiny), 0): the scale of the complex soft
+// threshold, NaN kept.
+__device__ __forceinline__ float pair_scale(float re, float im, float thr) {
+  const float mag =
+      __fsqrt_rn(__fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im)));
+  if (mag != mag) return mag;
+  const float s = __fsub_rn(1.f, __fdiv_rn(thr, fmaxf(mag, F32_TINY)));
+  return (s > 0.f || s != s) ? s : 0.f;
+}
+
 __host__ __device__ constexpr int lds_of(int fk, bool hilo) {
   return fk + (hilo ? 8 : 4);
 }
@@ -257,7 +284,7 @@ __host__ __device__ constexpr size_t smem_bytes(int R, int fk, bool hilo) {
          16;
 }
 
-template <bool HILO, int MT, int NT>
+template <bool HILO, bool GROUP, int MT, int NT>
 __global__ void __launch_bounds__(THREADS, 1) solve_rows_kernel(Params p) {
   constexpr int R = 16 * MT;
   constexpr int NCH = NT / 8;
@@ -352,32 +379,72 @@ __global__ void __launch_bounds__(THREADS, 1) solve_rows_kernel(Params p) {
       for (int h = 0; h < 2; ++h)
 #pragma unroll
         for (int q = 0; q < 3; ++q) part[mt][h][q] = 0.f;
+    if (GROUP) {
+      // Registers 2h and 2h + 1 hold columns col and col + 1 of one row: a
+      // complex feature's re and im (F is even, so both are in or out).
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
+      for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
+        for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int row = frag_row(mt, i, lane);
-          const int col =
-              (nt / 8) * NCOL + warp * 64 + frag_col(nt % 8, i, lane);
-          if (row >= rows || col >= F) {
-            acc[mt][nt][i] = 0.f;
-            continue;
+          for (int h = 0; h < 2; ++h) {
+            const int row = frag_row(mt, 2 * h, lane);
+            const int col =
+                (nt / 8) * NCOL + warp * 64 + frag_col(nt % 8, 2 * h, lane);
+            if (row >= rows || col >= F) {
+              acc[mt][nt][2 * h] = acc[mt][nt][2 * h + 1] = 0.f;
+              continue;
+            }
+            float v[2], u[2];
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              v[j] = Vs[row * lds + col + j];
+              const float grad =
+                  __fsub_rn(acc[mt][nt][2 * h + j],
+                            p.yah[(row0 + row) * F + col + j]);
+              u[j] = __fsub_rn(v[j], __fmul_rn(step_s[col + j], grad));
+            }
+            const float sc = pair_scale(u[0], u[1], thr_s[col]);
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const float xo = Xs[row * lds + col + j];
+              const float xc = __fmul_rn(u[j], sc);
+              acc[mt][nt][2 * h + j] = xc;
+              const float d = __fsub_rn(xc, xo);
+              float* pr = part[mt][h];
+              pr[0] = fmaf(d, d, pr[0]);
+              pr[1] = fmaf(xc, xc, pr[1]);
+              pr[2] = fmaf(__fsub_rn(v[j], xc), d, pr[2]);
+            }
           }
-          const float v = Vs[row * lds + col];
-          const float xo = Xs[row * lds + col];
-          const float grad = __fsub_rn(acc[mt][nt][i],
-                                       p.yah[(row0 + row) * F + col]);
-          const float u = __fsub_rn(v, __fmul_rn(step_s[col], grad));
-          const float xc = shrink(u, thr_s[col]);
-          acc[mt][nt][i] = xc;
-          const float d = __fsub_rn(xc, xo);
-          float* pr = part[mt][i >> 1];
-          pr[0] = fmaf(d, d, pr[0]);
-          pr[1] = fmaf(xc, xc, pr[1]);
-          pr[2] = fmaf(__fsub_rn(v, xc), d, pr[2]);
-        }
+    } else {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int row = frag_row(mt, i, lane);
+            const int col =
+                (nt / 8) * NCOL + warp * 64 + frag_col(nt % 8, i, lane);
+            if (row >= rows || col >= F) {
+              acc[mt][nt][i] = 0.f;
+              continue;
+            }
+            const float v = Vs[row * lds + col];
+            const float xo = Xs[row * lds + col];
+            const float grad = __fsub_rn(acc[mt][nt][i],
+                                         p.yah[(row0 + row) * F + col]);
+            const float u = __fsub_rn(v, __fmul_rn(step_s[col], grad));
+            const float xc = shrink(u, thr_s[col]);
+            acc[mt][nt][i] = xc;
+            const float d = __fsub_rn(xc, xo);
+            float* pr = part[mt][i >> 1];
+            pr[0] = fmaf(d, d, pr[0]);
+            pr[1] = fmaf(xc, xc, pr[1]);
+            pr[2] = fmaf(__fsub_rn(v, xc), d, pr[2]);
+          }
+    }
     // 3. Per-row sums: the 4 lanes of a row, then the warps, in a fixed
     // order.
 #pragma unroll
@@ -469,26 +536,26 @@ __global__ void __launch_bounds__(THREADS, 1) solve_rows_kernel(Params p) {
   }
 }
 
-template <bool HILO, int MT, int NT>
+template <bool HILO, bool GROUP, int MT, int NT>
 int launch(const Params& p, cudaStream_t stream) {
   constexpr int R = 16 * MT;
   const int fk = (p.F + KD - 1) / KD * KD;
   const size_t smem = smem_bytes(R, fk, HILO);
   cudaError_t err = cudaFuncSetAttribute(
-      solve_rows_kernel<HILO, MT, NT>,
+      solve_rows_kernel<HILO, GROUP, MT, NT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = ((long long)p.M + R - 1) / R;
-  solve_rows_kernel<HILO, MT, NT>
+  solve_rows_kernel<HILO, GROUP, MT, NT>
       <<<(unsigned)blocks, THREADS, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <bool HILO>
+template <bool HILO, bool GROUP>
 int dispatch(const Params& p, int rows, cudaStream_t stream) {
-  if (rows == 32) return launch<HILO, 2, 8>(p, stream);
-  if (p.F <= NCOL) return launch<HILO, 1, 8>(p, stream);
-  return launch<HILO, 1, 16>(p, stream);
+  if (rows == 32) return launch<HILO, GROUP, 2, 8>(p, stream);
+  if (p.F <= NCOL) return launch<HILO, GROUP, 1, 8>(p, stream);
+  return launch<HILO, GROUP, 1, 16>(p, stream);
 }
 
 }  // namespace
@@ -497,15 +564,17 @@ int dispatch(const Params& p, int rows, cudaStream_t stream) {
 // step, thr (F) f32; nit0 (M) int32; g0 the f32 Gram (F x F) when hi_lo is
 // 0, else g0 and g1 the bf16 halves hi(G)^T and lo(G)^T. z0 is read only
 // when momentum is set. rows is the stripe height: 32 (F <= 512) or 16
-// (F <= 1024). Outputs x, z (M x F), t, done (M) f32 and nit (M) int32.
-// Returns 0 or the first non-zero cudaError_t.
+// (F <= 1024). group = 1 is the complex mode: F even, rows and G
+// interleaved as above, step and thr repeated in both reals of a feature.
+// Outputs x, z (M x F), t, done (M) f32 and nit (M) int32. Returns 0 or the
+// first non-zero cudaError_t.
 extern "C" int lasso_solve_rows_launch(
-    int hi_lo, int momentum, int restart, int fixed, int rows,
+    int hi_lo, int momentum, int restart, int fixed, int group, int rows,
     const void* yah, const void* g0, const void* g1, const void* x0,
     const void* z0, const void* t0, const void* done0, const void* nit0,
     const void* step, const void* thr, float tol, int M, int F, int maxiter,
     void* x, void* z, void* t, void* done, void* nit, void* stream) {
-  if (M < 1 || F < 1 || F > 2 * NCOL || maxiter < 0 ||
+  if (M < 1 || F < 1 || F > 2 * NCOL || maxiter < 0 || (group && F % 2) ||
       (rows != 16 && rows != 32) || (rows == 32 && F > NCOL))
     return (int)cudaErrorInvalidValue;
   const size_t elem = hi_lo ? 2 : 4;
@@ -522,5 +591,9 @@ extern "C" int lasso_solve_rows_launch(
                  static_cast<float*>(z), static_cast<float*>(t),
                  static_cast<float*>(done), static_cast<int*>(nit)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return hi_lo ? dispatch<true>(p, rows, s) : dispatch<false>(p, rows, s);
+  if (group)
+    return hi_lo ? dispatch<true, true>(p, rows, s)
+                 : dispatch<false, true>(p, rows, s);
+  return hi_lo ? dispatch<true, false>(p, rows, s)
+               : dispatch<false, false>(p, rows, s);
 }

@@ -12,16 +12,17 @@ step) and 'cd' (sequential coordinate descent, a correctness reference).
 Two paths run the gradient methods: the composition path of plain torch
 products, driven by ``ops.loop.run_iterations``, and the kernel path
 (``use_kernel``) of ``ops.cuda_lasso``: the whole per-problem solve of
-unmasked rows in one ``solve_rows`` call, or the masked gradient in one
-``masked_grad_rows`` call per iteration (the CUDA kernel on a CUDA tensor,
-its plain twin on a CPU tensor).
+unmasked rows in one ``solve_rows`` call (real f32, or complex64 through
+its complex mode), or the masked gradient in one ``masked_grad_rows`` call
+per iteration (the CUDA kernel on a CUDA tensor, its plain twin on a CPU
+tensor). ``solve_split`` is a thin wrapper over native complex for callers
+that hold (re, im) pairs.
 
 Entry points run on the card unless the caller asks for the CPU: see
-``utils.device``. Not ported yet, and refused with ``DecompError``: the
-split-complex entry ``solve_split`` and ``use_kernel=True`` with complex
-data (ROADMAP Queue 2 #5).
+``utils.device``.
 """
 
+import numpy as np
 import torch
 
 from decomp_tpu_torch.ops import cuda_lasso
@@ -32,12 +33,17 @@ from decomp_tpu_torch.utils import assertion
 from decomp_tpu_torch.utils import device as _device
 from decomp_tpu_torch.utils.dtypes import real_dtype
 from decomp_tpu_torch.utils.exceptions import DecompError
-from decomp_tpu_torch.utils.result import LassoResult
+from decomp_tpu_torch.utils.result import LassoResult, SplitComplex
 
 _METHODS = ("ista", "fista", "acc_ista", "cd", "parallel_cd")
 _GRAD_METHODS = ("ista", "fista", "acc_ista", "parallel_cd")
 _PRECISIONS = ("default", "high", "highest", "bfloat16", "tensorfloat32",
                "float32", "fastest")
+# use_kernel='auto' on complex64 data. Measured on an H100 (PERF.md §6):
+# the kernel's complex mode beats the composition under 'high' at every
+# measured width (64 to 512 complex features), and under 'highest' up to
+# 256; at 512 its full-f32 products lose to the composition.
+_AUTO_COMPLEX_HIGHEST_MAX_FEATURES = 256
 
 
 def solve(
@@ -97,15 +103,18 @@ def solve(
         (n_samples,). Methods ista / fista / acc_ista / parallel_cd.
     use_kernel : True / False / 'auto'. The kernel path: unmasked with
         ``per_problem=True``, the whole solve in one
-        ``cuda_lasso.solve_rows`` call (float32, a gradient method, scalar
-        or per-feature alpha, no ``record_objective``, precision 'highest'
-        or 'high'); masked, the gradient in one
+        ``cuda_lasso.solve_rows`` call (float32 with F <= 1024, or
+        complex64 with F <= 512 through the kernel's complex mode; a
+        gradient method, scalar or per-feature alpha, no
+        ``record_objective``, precision 'highest' or 'high'); masked (real
+        data only), the gradient in one
         ``cuda_lasso.masked_grad_rows`` call per iteration. On a CUDA
         tensor the hand-written kernel runs, on a CPU tensor its plain
         twin. 'auto' takes each kernel on a CUDA tensor wherever its
         contract holds (real bf16/f32 data and F <= 128 for the masked
-        kernel; f32 and F <= 1024 for the whole solve); it is False on the
-        CPU.
+        kernel; f32 and F <= 1024 for the whole solve, complex64 under
+        'high' and F <= 512, or under 'highest' and F <= 256, where the
+        card measured the kernel faster); it is False on the CPU.
     kernel_block_rows : rows per stripe of the whole-solve kernel, 16 or
         32 (32 only at F <= 512); default by F. Results do not depend on it.
     return_state : momentum methods also return ``aux={"z", "t"}``; passing
@@ -293,22 +302,28 @@ def _kernel_mode(use_kernel, y, mask, method, dtype, n_features, per_problem,
             ok = (dtype in (torch.bfloat16, torch.float32)
                   and n_features <= cuda_lasso.GRAD_MAX_FEATURES)
             return "masked" if ok else None
-        ok = (per_problem and dtype == torch.float32
+        if dtype == torch.complex64:
+            max_f = (cuda_lasso.SOLVE_MAX_COMPLEX_FEATURES
+                     if precision == "high"
+                     else _AUTO_COMPLEX_HIGHEST_MAX_FEATURES)
+        else:
+            max_f = (cuda_lasso.SOLVE_MAX_FEATURES
+                     if dtype == torch.float32 else 0)
+        ok = (per_problem and n_features <= max_f
               and not record_objective
               and precision in ("highest", "high")
-              and alpha.dim() <= 1
-              and n_features <= cuda_lasso.SOLVE_MAX_FEATURES)
+              and alpha.dim() <= 1)
         return "whole" if ok else None
     if not use_kernel:
         return None
     if method not in _GRAD_METHODS:
         raise DecompError("use_kernel=True requires a gradient method "
                           f"{_GRAD_METHODS}, got {method!r}")
-    if dtype.is_complex:
-        raise DecompError("use_kernel=True does not support complex dtypes: "
-                          "the kernels' split-complex mode is not ported "
-                          "yet (ROADMAP.md Queue 2 #5); use_kernel=False "
-                          "runs complex data natively")
+    if dtype.is_complex and mask is not None:
+        raise DecompError("use_kernel=True on complex data runs the whole-"
+                          "solve kernel, which takes unmasked problems only; "
+                          "use_kernel=False runs masked complex data "
+                          "natively")
     if mask is not None:
         return "masked"
     # Whole-solve kernel: per-row stopping is intrinsic to its stripe-
@@ -321,9 +336,18 @@ def _kernel_mode(use_kernel, y, mask, method, dtype, n_features, per_problem,
             "stops on its own; there is no global lock-step criterion). "
             "The unmasked global-criterion gradient is already a single "
             "Gram product.")
-    if dtype != torch.float32:
+    if dtype == torch.complex128:
+        raise DecompError("the whole-solve kernel requires complex64 data "
+                          "(float32 re and im parts), got complex128")
+    if dtype not in (torch.float32, torch.complex64):
         raise DecompError("the whole-solve kernel requires float32 inputs, "
                           f"got {dtype}")
+    if (dtype.is_complex
+            and n_features > cuda_lasso.SOLVE_MAX_COMPLEX_FEATURES):
+        raise DecompError(
+            "the whole-solve kernel takes at most "
+            f"{cuda_lasso.SOLVE_MAX_COMPLEX_FEATURES} complex features "
+            f"({cuda_lasso.SOLVE_MAX_FEATURES} reals), got {n_features}")
     if record_objective:
         raise DecompError("the whole-solve kernel cannot record per-"
                           "iteration objectives (iterations never leave the "
@@ -587,20 +611,21 @@ def _solve_whole(y, a, alpha, x, lipschitz, tol, z0, t0, done0, nit0, *,
                  method, maxiter, hi_lo, block_rows=None, return_state=False,
                  fixed=False):
     """The whole-solve kernel path (unmasked batch, per-problem stopping):
-    the Gram, ``y a^T`` and the step size in full f32, then the whole
-    batched solve in one ``cuda_lasso.solve_rows`` call
-    (``decomp_tpu``'s ``_whole_core``)."""
+    the Gram ``a a^H``, ``y a^H`` and the step size in full f32 (complex64
+    for complex data, whose ``solve_rows`` call runs the kernel's complex
+    mode), then the whole batched solve in one ``cuda_lasso.solve_rows``
+    call (``decomp_tpu``'s ``_whole_core`` and ``_solve_whole_split``)."""
     f32 = torch.float32
     m, f = y.shape[0], a.shape[0]
     dev = y.device
-    ah = a.T
+    ah = a.conj().T
     gram = a @ ah
     yah = y @ ah
     stepsz = _step_size(gram, method, lipschitz)       # scalar or (f,)
     thresh = alpha.to(f32) * stepsz                    # scalar or (f,)
 
     momentum = method in ("fista", "acc_ista")
-    x0 = torch.zeros((m, f), dtype=f32, device=dev) if x is None else x
+    x0 = torch.zeros((m, f), dtype=y.dtype, device=dev) if x is None else x
     z0 = x0 if z0 is None else z0
     t0 = torch.ones((m,), dtype=f32, device=dev) if t0 is None else t0
     done0 = (torch.zeros((m,), dtype=f32, device=dev) if done0 is None
@@ -619,12 +644,86 @@ def _solve_whole(y, a, alpha, x, lipschitz, tol, z0, t0, done0, nit0, *,
                        aux=aux)
 
 
-def solve_split(*args, **kwargs):
-    """Not ported: complex data runs natively through ``solve``; the
-    explicit (re, im) entry waits for the kernels' split-complex mode."""
-    raise DecompError("lasso.solve_split is not ported to decomp_tpu_torch "
-                      "(ROADMAP.md Queue 2 #5): pass complex tensors to "
-                      "lasso.solve, which runs them natively")
+def solve_split(y, a, alpha, x=None, *, tol=1e-5, maxiter: int = 1000,
+                method: str = "fista", mask=None, lipschitz=None,
+                record_objective: bool = False, precision: str = "highest",
+                check_every: int = 1, per_problem: bool = False,
+                return_state: bool = False, momentum_state=None, state=None,
+                use_kernel="auto", kernel_block_rows=None,
+                device=None) -> LassoResult:
+    """Complex lasso over explicit (re, im) pairs (``decomp_tpu``'s
+    ``solve_split``): a thin wrapper over native complex.
+
+    ``y``, ``a`` (and the optional ``x`` warm start and momentum-state
+    ``z``) are ``SplitComplex`` pairs, any object with ``.re`` and ``.im``,
+    or ``(re, im)`` tuples of real arrays or tensors. They are joined into
+    complex64 (f32 parts) or complex128 (f64 parts) and solved by
+    ``solve`` with the same options; ``x`` and ``aux["z"]`` come back as
+    ``SplitComplex`` pairs of real tensors. Methods: the gradient family
+    (ista / fista / acc_ista / parallel_cd); 2-D inputs only.
+    ``use_kernel=True`` runs the whole-solve kernel's complex mode, with
+    ``decomp_tpu``'s ``use_pallas`` contract: unmasked, ``per_problem``,
+    f32 parts, no ``record_objective``, precision 'highest' or 'high',
+    scalar or per-feature alpha.
+    """
+    if method not in _GRAD_METHODS:
+        raise DecompError("solve_split supports the gradient methods "
+                          f"(ista / fista / acc_ista / parallel_cd), got "
+                          f"{method!r}")
+    yc = _join_split("y", y)
+    ac = _join_split("a", a)
+    assertion.assert_ndim("y", yc, 2)
+    assertion.assert_ndim("a", ac, 2)
+    xc = None if x is None else _join_split("x", x)
+    if momentum_state is not None:
+        momentum_state = (_join_split("momentum_state z", momentum_state[0]),
+                          momentum_state[1])
+    if isinstance(state, dict) and "z" in state:
+        state = {**state, "z": _join_split("state z", state["z"])}
+    res = solve(yc, ac, alpha, xc, tol=tol, maxiter=maxiter, method=method,
+                mask=mask, lipschitz=lipschitz,
+                record_objective=record_objective, precision=precision,
+                check_every=check_every, per_problem=per_problem,
+                use_kernel=use_kernel, kernel_block_rows=kernel_block_rows,
+                return_state=return_state, momentum_state=momentum_state,
+                state=state, device=device)
+    aux = res.aux
+    if aux is not None:
+        aux = {"z": _split(aux["z"]), "t": aux["t"]}
+    return res._replace(x=_split(res.x), aux=aux)
+
+
+def _join_split(name, v):
+    """A (re, im) pair, or an object with ``.re`` and ``.im``, of real
+    arrays or tensors as one complex array: a tensor where both parts are
+    tensors, else numpy (which ``solve`` places by its device rule)."""
+    if hasattr(v, "re") and hasattr(v, "im"):
+        re, im = v.re, v.im
+    elif isinstance(v, (tuple, list)) and len(v) == 2:
+        re, im = v
+    else:
+        raise DecompError(f"{name} must be a SplitComplex or a (re, im) pair "
+                          "of real arrays")
+    if isinstance(re, torch.Tensor) and isinstance(im, torch.Tensor):
+        if re.is_complex() or im.is_complex():
+            raise DecompError(f"{name}'s (re, im) parts must be real")
+        assertion.assert_same_shape(f"{name}.im", im, f"{name}.re", re)
+        rdt = torch.promote_types(torch.promote_types(re.dtype, im.dtype),
+                                  torch.float32)
+        return torch.complex(re.to(rdt), _device.on_device(
+            f"{name}.im", im, re.device, rdt))
+    re, im = np.asarray(re), np.asarray(im)
+    if np.iscomplexobj(re) or np.iscomplexobj(im):
+        raise DecompError(f"{name}'s (re, im) parts must be real")
+    assertion.assert_same_shape(f"{name}.im", im, f"{name}.re", re)
+    out = np.empty(re.shape, np.result_type(re, im, np.complex64))
+    out.real, out.imag = re, im
+    return out
+
+
+def _split(v):
+    """A complex tensor as a ``SplitComplex`` of real tensors."""
+    return SplitComplex(v.real.contiguous(), v.imag.contiguous())
 
 
 # The out-of-core variant (host-streamed row chunks) reuses this module's

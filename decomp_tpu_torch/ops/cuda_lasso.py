@@ -25,23 +25,36 @@ bf16), and a low half, the bf16 rounding of the remainder; the products
 hi.hi + hi.lo + lo.hi are summed in f32 and lo.lo is dropped
 (``pallas_fista.py:123-130``, ``:159-182``). ``hi_lo=False`` is full f32.
 
+Complex data (``group_fc``, ``pallas_fista.py:192-205``): complex64 yah,
+gram, x0 and z0 run ``solve_rows``' complex mode. A row of Fc complex
+features is solved as F = 2 Fc interleaved reals ``[re_0, im_0, re_1, ...]``
+(``as_pairs``, a view of a contiguous complex tensor) against the real
+embedding of the Hermitian Gram (``embed_gram``: the 2 x 2 block ``[[Re,
+Im], [-Im, Re]]`` of each complex entry); the prox is the paired-magnitude
+soft threshold ``u max(1 - thresh / max(|u|, tiny), 0)`` of each complex
+``u``, and the stopping and restart sums run over all 2 Fc reals. Step and
+threshold are per complex feature. x and z come back complex64. JAX's
+``[re | im]`` halves are the same function with the sums over k in another
+order.
+
 ``masked_grad_rows`` keeps the quantisation points of
 ``pallas_lasso.py:144-156``: products take the data's dtype (``cdt``) as
 operands and sum in f32, the residual ``cdt(f32(mask) * (x a) - f32(my))``
 is formed in f32 and cast to ``cdt``, and ``g`` is stored in x's dtype.
 
 On a CUDA tensor a wrapper launches its kernel (``csrc/lasso_fista.cu``:
-f32, 1 <= F <= ``SOLVE_MAX_FEATURES``; ``csrc/lasso_grad.cu``: bf16 or f32
-data with every operand in the data's dtype, 1 <= F <=
-``GRAD_MAX_FEATURES``) and raises on anything else. On a CPU tensor it runs
-its ``*_plain`` twin. It never falls back from one to the other. Each
-wrapper counts its kernel launches in ``.launches``.
+f32 with 1 <= F <= ``SOLVE_MAX_FEATURES``, or complex64 with 1 <= Fc <=
+``SOLVE_MAX_COMPLEX_FEATURES``; ``csrc/lasso_grad.cu``: bf16 or f32 data
+with every operand in the data's dtype, 1 <= F <= ``GRAD_MAX_FEATURES``)
+and raises on anything else. On a CPU tensor it runs its ``*_plain`` twin.
+It never falls back from one to the other. Each wrapper counts its kernel
+launches in ``.launches``; ``solve_rows`` counts its complex-mode launches
+in ``.complex_launches`` as well.
 
 Not ported: the TPU kernels' VMEM calibrations and 128-alignment padding
 (``default_block_rows``, ``fits_vmem``, ``auto_wins``,
 ``kernel_alignment``, ``pad2``, ``pad_alpha``): the CUDA kernels mask
-ragged rows and features themselves. ``solve_rows``' split-complex
-``group_fc`` mode is not ported yet (ROADMAP Queue 2 #5).
+ragged rows and features themselves.
 """
 
 import torch
@@ -54,6 +67,8 @@ from decomp_tpu_torch.utils.exceptions import (DecompError, DtypeError,
 # Largest F that solve_rows' kernel takes: a stripe's x and z stay in
 # shared memory in f32 (csrc/lasso_fista.cu).
 SOLVE_MAX_FEATURES = 1024
+# Largest complex Fc of its complex mode: 2 Fc reals.
+SOLVE_MAX_COMPLEX_FEATURES = SOLVE_MAX_FEATURES // 2
 # Largest F of masked_grad_rows' kernel: its rank tile (KP in
 # csrc/nmf_common.cuh).
 GRAD_MAX_FEATURES = 128
@@ -91,6 +106,65 @@ def _feature_vector(v, f, device):
     return v.expand(f).contiguous()
 
 
+def as_pairs(v):
+    """A complex (M, Fc) tensor as the f32 (M, 2 Fc) rows ``[re_0, im_0,
+    re_1, im_1, ...]``: a view of a contiguous complex64 tensor."""
+    v = v.resolve_conj().contiguous()
+    return torch.view_as_real(v).reshape(v.shape[0], 2 * v.shape[1])
+
+
+def from_pairs(v):
+    """``as_pairs``' inverse: f32 (M, 2 Fc) rows as a complex64 (M, Fc)
+    view."""
+    return torch.view_as_complex(v.contiguous().reshape(v.shape[0], -1, 2))
+
+
+def embed_gram(gram):
+    """The real embedding of a complex (Fc, Fc) Gram in ``as_pairs``'
+    order: (2 Fc, 2 Fc) f32 with the block ``[[Re g, Im g], [-Im g, Re g]]``
+    at (k, n), so that ``as_pairs(v) @ embed_gram(g) == as_pairs(v @ g)``.
+    It is symmetric when ``gram`` is Hermitian."""
+    g = torch.view_as_real(gram.resolve_conj())
+    re, im = g[..., 0], g[..., 1]
+    rows = torch.stack([torch.stack([re, im], -1),
+                        torch.stack([-im, re], -1)], 1)
+    fc = gram.shape[0]
+    return rows.reshape(2 * fc, 2 * fc).to(torch.float32)
+
+
+def _complex_pairs(yah, gram, x0, z0, stepsz, thresh):
+    """``solve_rows``' complex64 operands in the complex mode's f32 layout:
+    yah, x0, z0 as pairs, the embedded Gram, and step and threshold
+    repeated in both reals of each feature. Refuses other dtypes and
+    shapes."""
+    if yah.dim() != 2:
+        raise ShapeError(f"yah must be 2-D, got {tuple(yah.shape)}")
+    m, fc = yah.shape
+    for name, t, shape in (("yah", yah, (m, fc)), ("gram", gram, (fc, fc)),
+                           ("x0", x0, (m, fc)), ("z0", z0, (m, fc))):
+        if t.dtype != torch.complex64:
+            raise DtypeError(f"the complex mode takes complex64 {name} "
+                             f"(f32 parts), got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ShapeError(f"{name} must have shape {shape}, got "
+                             f"{tuple(t.shape)}")
+    step, thr = (_feature_vector(v, fc, yah.device).repeat_interleave(2)
+                 for v in (stepsz, thresh))
+    return (as_pairs(yah), embed_gram(gram), as_pairs(x0), as_pairs(z0),
+            step, thr)
+
+
+def _complex_call(fn, yah, gram, x0, z0, t0, done0, nit0, stepsz, thresh,
+                  tol, **kw):
+    """``fn`` (``solve_rows`` or its twin) on complex64 operands, through
+    the complex mode; x and z come back complex64."""
+    yah, gram, x0, z0, step, thr = _complex_pairs(yah, gram, x0, z0, stepsz,
+                                                  thresh)
+    x, z, t, done, nit = fn(yah, gram, x0, z0, t0, done0, nit0, step, thr,
+                            tol, group=True, **kw)
+    return from_pairs(x), from_pairs(z), t, done, nit
+
+
 def _gradient(yah, gram, hi_lo):
     """``v -> v gram - yah`` in full f32 or bf16x3 (the exact bf16 halves
     upcast to f32: a bf16 x bf16 product is exact in f32)."""
@@ -110,13 +184,20 @@ def _gradient(yah, gram, hi_lo):
 
 def solve_rows_plain(yah, gram, x0, z0, t0, done0, nit0, stepsz, thresh, tol,
                      *, momentum, restart, maxiter, hi_lo=False, fixed=False,
-                     block_rows=None):
+                     block_rows=None, group=False):
     """``solve_rows``' plain twin: the same function in plain torch. The
     host loops over iterations, freezes rows per step and looks for an
     all-done stripe every 8 steps (which changes no row's result).
     ``block_rows`` is the kernel's stripe height and changes nothing here.
+    Complex64 operands, or ``group=True`` on their f32 pairs, run the
+    complex mode's paired-magnitude prox.
     """
     del block_rows
+    kw = dict(momentum=momentum, restart=restart, maxiter=maxiter,
+              hi_lo=hi_lo, fixed=fixed)
+    if yah.is_complex():
+        return _complex_call(solve_rows_plain, yah, gram, x0, z0, t0, done0,
+                             nit0, stepsz, thresh, tol, **kw)
     f32 = torch.float32
     m, f = yah.shape
     dev = yah.device
@@ -129,6 +210,13 @@ def solve_rows_plain(yah, gram, x0, z0, t0, done0, nit0, stepsz, thresh, tol,
 
     def prox(v):
         u = v - step * grad(v)
+        if group:
+            pair = u.reshape(m, f // 2, 2)
+            mag = torch.sqrt(pair[..., 0] * pair[..., 0]
+                             + pair[..., 1] * pair[..., 1])
+            scale = torch.clamp(1.0 - thr[:, 0::2] / torch.maximum(mag, tiny),
+                                min=0.0)
+            return (pair * scale[..., None]).reshape(m, f)
         return torch.sign(u) * torch.clamp(torch.abs(u) - thr, min=0.0)
 
     def candidate(x, z, t):
@@ -206,30 +294,39 @@ def check_solve_rows_args(yah, gram, x0, z0, t0, done0, nit0, maxiter,
 
 def solve_rows(yah, gram, x0, z0, t0, done0, nit0, stepsz, thresh, tol, *,
                momentum, restart, maxiter, hi_lo=False, fixed=False,
-               block_rows=None):
+               block_rows=None, group=False):
     """The whole batched proximal-gradient solve; see the module docstring.
 
-    yah (M, F), gram (F, F), x0 and z0 (M, F): f32 (``z0`` is read only by
-    the momentum methods); t0, done0 (0/1) and nit0: M entries each, any
-    shape; ``stepsz`` and ``thresh`` scalars or F-vectors; ``tol`` a
-    number. ``block_rows``: the kernel's stripe height, 16 or 32 (32 only
-    at F <= 512; default by F). Returns (x, z, t, done, niter) with shapes
-    ((M, F), (M, F), (M, 1), (M, 1), (M, 1)), done f32 0/1 and niter int32.
+    yah (M, F), gram (F, F), x0 and z0 (M, F): f32, or complex64 for the
+    complex mode (``z0`` is read only by the momentum methods); t0, done0
+    (0/1) and nit0: M entries each, any shape; ``stepsz`` and ``thresh``
+    scalars or F-vectors; ``tol`` a number. ``block_rows``: the kernel's
+    stripe height, 16 or 32 (32 only at F <= 512 reals; default by F).
+    ``group=True`` runs the complex mode on f32 operands already in its
+    layout (F even). Returns (x, z, t, done, niter) with shapes ((M, F),
+    (M, F), (M, 1), (M, 1), (M, 1)), x and z in yah's dtype, done f32 0/1
+    and niter int32.
     """
     if int(maxiter) < 0:
         raise ValueError(f"maxiter must be >= 0, got {maxiter}")
+    kw = dict(momentum=momentum, restart=restart, maxiter=maxiter,
+              hi_lo=hi_lo, fixed=fixed, block_rows=block_rows)
+    if yah.is_complex():
+        return _complex_call(solve_rows, yah, gram, x0, z0, t0, done0, nit0,
+                             stepsz, thresh, tol, **kw)
     stripe_rows(block_rows, yah.shape[-1])
+    if group and yah.shape[-1] % 2:
+        raise ShapeError(f"the complex mode takes an even F, got "
+                         f"{yah.shape[-1]}")
     if _runs_plain(yah):
-        return solve_rows_plain(
-            yah, gram, x0, z0, t0, done0, nit0, stepsz, thresh, tol,
-            momentum=momentum, restart=restart, maxiter=maxiter, hi_lo=hi_lo,
-            fixed=fixed, block_rows=block_rows)
+        return solve_rows_plain(yah, gram, x0, z0, t0, done0, nit0, stepsz,
+                                thresh, tol, group=group, **kw)
     rows = check_solve_rows_args(yah, gram, x0, z0, t0, done0, nit0, maxiter,
                                  block_rows)
     m, f = yah.shape
     f32, dev = torch.float32, yah.device
     fn = _c_function("lasso_fista", "lasso_solve_rows_launch",
-                     (_I,) * 5 + (_P,) * 10 + (_F,) + (_I,) * 3 + (_P,) * 6)
+                     (_I,) * 6 + (_P,) * 10 + (_F,) + (_I,) * 3 + (_P,) * 6)
     with torch.cuda.device(dev):
         step = _feature_vector(stepsz, f, dev)
         thr = _feature_vector(thresh, f, dev)
@@ -249,17 +346,19 @@ def solve_rows(yah, gram, x0, z0, t0, done0, nit0, stepsz, thresh, tol, *,
         done = torch.empty_like(t)
         nit = torch.empty((m, 1), dtype=torch.int32, device=dev)
         _launch("solve_rows", fn, dev, int(hi_lo), int(momentum),
-                int(restart), int(fixed), rows, yahc.data_ptr(),
+                int(restart), int(fixed), int(group), rows, yahc.data_ptr(),
                 g0.data_ptr(), g1.data_ptr(), x0c.data_ptr(), z0c.data_ptr(),
                 t0c.data_ptr(), d0c.data_ptr(), n0c.data_ptr(),
                 step.data_ptr(), thr.data_ptr(), float(tol), m, f,
                 int(maxiter), x.data_ptr(), z.data_ptr(), t.data_ptr(),
                 done.data_ptr(), nit.data_ptr())
     solve_rows.launches += 1
+    solve_rows.complex_launches += int(bool(group))
     return x, z, t, done, nit
 
 
 solve_rows.launches = 0
+solve_rows.complex_launches = 0
 
 
 def masked_grad_rows_plain(my, mask, x, a, *, block_rows=None):

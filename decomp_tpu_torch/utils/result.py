@@ -18,6 +18,14 @@ class LassoResult(NamedTuple):
     aux: Optional[Any] = None
 
 
+class SplitComplex(NamedTuple):
+    """A complex array as its real and imaginary parts
+    (``decomp_tpu.ops.complex_split.SplitComplex``), here real tensors."""
+
+    re: Any
+    im: Any
+
+
 class NMFResult(NamedTuple):
     """Result of ``decomp_tpu_torch.nmf.solve``."""
 

@@ -265,6 +265,182 @@ def test_solve_rows_twin_fixed_is_exact_mode_at_tol_zero(method, vec, hi_lo,
         torch.arange(48) == 5, 9, maxiter).to(torch.int32))
 
 
+def _complex_rows_problem(seed, m, fc, n=96, vec=False):
+    """The complex counterpart of ``_rows_problem``: complex64 yah and
+    Hermitian gram, a complex start, and the scalar step 1/L or
+    parallel_cd's per-feature step theta / diag of the complex Gram."""
+    rng = np.random.default_rng(seed)
+
+    def cnormal(*shape):
+        return rng.normal(size=shape) + 1j * rng.normal(size=shape)
+
+    a = cnormal(fc, n) / np.sqrt(2 * n)
+    gram = a @ a.conj().T
+    xt = cnormal(m, fc) * (rng.random((m, fc)) < 0.1)
+    y = xt @ a + 0.01 * cnormal(m, n)
+    yah = (y @ a.conj().T).astype(np.complex64)
+    if vec:
+        d = gram.real.diagonal()
+        theta = 1.0 / np.linalg.eigvalsh(gram / np.sqrt(np.outer(d, d)))[-1]
+        step = (theta / d).astype(np.float32)
+    else:
+        step = np.float32(1.0 / (1.02 * np.linalg.eigvalsh(gram)[-1]))
+    thresh = (np.float32(0.05) * step).astype(np.float32)
+    x0 = (0.1 * cnormal(m, fc)).astype(np.complex64)
+    t0 = np.ones((m, 1), np.float32)
+    d0 = np.zeros((m, 1), np.float32)
+    d0[5] = 1.0                       # one row resumes already done
+    n0 = np.zeros((m, 1), np.float32)
+    n0[5] = 9.0
+    return yah, gram.astype(np.complex64), x0, t0, d0, n0, step, thresh
+
+
+def _both_complex(m, fc, method, vec, hi_lo, fixed, maxiter, tol, seed=6):
+    """solve_rows' complex mode on the twin, and the Pallas kernel's
+    ``group_fc`` mode (interpret mode) on the same problem in its layout:
+    [re | im] halves of 128-aligned Fc, the embedding [[Gre, Gim], [-Gim,
+    Gre]], per-feature vectors repeated in both halves, padded rows done.
+    Returns ((x, z, t, done, niter), the same from Pallas) with x, z
+    complex."""
+    yah, gram, x0, t0, d0, n0, step, thr = _complex_rows_problem(
+        seed, m, fc, vec=vec)
+    momentum, restart = _METHOD_FLAGS[method]
+    kw = dict(momentum=momentum, restart=restart, maxiter=maxiter,
+              hi_lo=hi_lo, fixed=fixed)
+    mp, fp = -(-m // 16) * 16, -(-fc // 128) * 128
+
+    def halves(v):
+        return np.concatenate([_pad(v.real, mp, fp), _pad(v.imag, mp, fp)],
+                              axis=1).astype(np.float32)
+
+    gre, gim = _pad(gram.real, fp, fp), _pad(gram.imag, fp, fp)
+    g2 = np.block([[gre, gim], [-gim, gre]]).astype(np.float32)
+    feat = ((lambda v: np.tile(_pad(v[None, :], 1, fp), (1, 2))) if vec
+            else (lambda v: v))
+    ref = pallas_fista.solve_rows(
+        halves(yah), g2, halves(x0), halves(x0),
+        np.pad(t0, ((0, mp - m), (0, 0)), constant_values=1.0),
+        np.pad(d0, ((0, mp - m), (0, 0)), constant_values=1.0),
+        _pad(n0, mp, 1), feat(step), feat(thr), tol, block_rows=16,
+        interpret=True, group_fc=fp, **kw)
+    ref = [np.asarray(r)[:m] for r in ref]
+    ref[0], ref[1] = (r[:, :fc] + 1j * r[:, fp:fp + fc] for r in ref[:2])
+    got = cuda_lasso.solve_rows(
+        _t(yah), _t(gram), _t(x0), _t(x0), _t(t0), _t(d0), _t(n0),
+        _t(step) if vec else float(step), _t(thr) if vec else float(thr),
+        tol, **kw)
+    return [g.numpy() for g in got], ref
+
+
+# Exact mode, complex: the criteria of the real case above (measured: niter
+# equal on >= 95.8% of rows, those rows within 4.3e-6, all rows within
+# 3.9e-5).
+_COMPLEX_EXACT_CASES = [(48, 100, method, vec, hi_lo)
+                        for method in ("ista", "fista", "acc_ista")
+                        for vec in (False, True) for hi_lo in (False, True)]
+_COMPLEX_EXACT_CASES += [(40, 37, "acc_ista", True, True),
+                         (40, 37, "fista", False, False)]
+
+
+@pytest.mark.parametrize("m,fc,method,vec,hi_lo", _COMPLEX_EXACT_CASES)
+def test_solve_rows_complex_twin_matches_pallas(m, fc, method, vec, hi_lo):
+    before = (cuda_lasso.solve_rows.launches,
+              cuda_lasso.solve_rows.complex_launches)
+    got, ref = _both_complex(m, fc, method, vec, hi_lo, False, 200, 1e-4)
+    assert before == (cuda_lasso.solve_rows.launches,
+                      cuda_lasso.solve_rows.complex_launches)  # the twin
+    assert got[0].dtype == np.complex64 and got[0].shape == (m, fc)
+    assert got[1].dtype == np.complex64 and got[4].dtype == np.int32
+    same = got[4][:, 0] == ref[4][:, 0]
+    assert np.mean(same) >= 0.9
+    assert rel_err(got[0][same], ref[0][same]) < 1e-4
+    assert rel_err(got[0], ref[0]) < 1e-3
+    assert got[4][5, 0] == 9 and np.array_equal(got[0][5], ref[0][5])
+    assert np.sum(got[3]) > 1
+
+
+# Fixed budget, complex: x and z to 1e-5 (measured <= 3.2e-6), niter and
+# the done row equal.
+@pytest.mark.parametrize("hi_lo", [False, True])
+@pytest.mark.parametrize("method,vec,maxiter", [
+    ("ista", False, 0), ("fista", True, 7), ("acc_ista", False, 8),
+    ("acc_ista", True, 37)])
+def test_solve_rows_complex_fixed_twin_matches_pallas(method, vec, maxiter,
+                                                      hi_lo):
+    got, ref = _both_complex(48, 100, method, vec, hi_lo, True, maxiter, 0.0)
+    assert rel_err(got[0], ref[0]) < 1e-5
+    assert rel_err(got[1], ref[1]) < 1e-5
+    np.testing.assert_array_equal(got[4], ref[4])
+    np.testing.assert_array_equal(got[3], ref[3])
+    np.testing.assert_array_equal(got[0][5], ref[0][5])   # the done row
+
+
+@pytest.mark.parametrize("hi_lo", [False, True])
+@pytest.mark.parametrize("method", ["ista", "fista", "acc_ista"])
+def test_solve_rows_complex_twin_fixed_is_exact_mode_at_tol_zero(method,
+                                                                 hi_lo):
+    yah, gram, x0, t0, d0, n0, step, thr = _complex_rows_problem(
+        8, 40, 30, vec=True)
+    momentum, restart = _METHOD_FLAGS[method]
+    args = [_t(v) for v in (yah, gram, x0, x0, t0, d0, n0, step, thr)]
+    kw = dict(momentum=momentum, restart=restart, maxiter=11, hi_lo=hi_lo)
+    exact = cuda_lasso.solve_rows(*args, 0.0, **kw)
+    fixed = cuda_lasso.solve_rows(*args, 0.0, fixed=True, **kw)
+    for e, f_ in zip(exact, fixed):
+        assert torch.equal(e, f_)
+    assert torch.equal(exact[0][5], args[2][5])          # the done row
+    assert not torch.equal(exact[0][4], args[2][4])
+
+
+def test_complex_layout_is_the_complex_product():
+    """as_pairs views a complex row as [re, im, ...]; the embedded Gram
+    multiplies pairs as the complex Gram multiplies rows, and is symmetric
+    for a Hermitian Gram."""
+    rng = np.random.default_rng(4)
+    a = _randn(rng, (6, 9), True, np.complex128)
+    gram = a @ a.conj().T
+    gram = _t(((gram + gram.conj().T) / 2).astype(np.complex64))
+    v = _t(_randn(rng, (5, 6), True, np.complex64))
+    pairs = cuda_lasso.as_pairs(v)
+    assert pairs.dtype == torch.float32 and pairs.shape == (5, 12)
+    assert torch.equal(pairs[:, 0::2], v.real)
+    assert torch.equal(pairs[:, 1::2], v.imag)
+    assert torch.equal(cuda_lasso.from_pairs(pairs), v)
+    emb = cuda_lasso.embed_gram(gram)
+    assert emb.shape == (12, 12) and torch.equal(emb, emb.T)
+    got = (pairs.double() @ emb.double()).numpy()
+    ref = cuda_lasso.as_pairs(v.to(torch.complex128) @ gram.to(
+        torch.complex128)).numpy()
+    assert rel_err(got, ref) < 1e-12
+
+
+def test_solve_rows_complex_refusals():
+    m, fc = 4, 6
+    c = torch.zeros((m, fc), dtype=torch.complex64)
+    g = torch.zeros((fc, fc), dtype=torch.complex64)
+    z = torch.zeros(m)
+    kw = dict(momentum=False, restart=False, maxiter=1)
+    with pytest.raises(texc.DtypeError, match="complex64"):
+        cuda_lasso.solve_rows(c.to(torch.complex128), g.to(torch.complex128),
+                              c, c, z, z, z, 1.0, 0.1, 0.0, **kw)
+    with pytest.raises(texc.DtypeError, match="complex64 gram"):
+        cuda_lasso.solve_rows(c, g.real, c, c, z, z, z, 1.0, 0.1, 0.0, **kw)
+    with pytest.raises(texc.ShapeError, match="gram"):
+        cuda_lasso.solve_rows(c, g[:5], c, c, z, z, z, 1.0, 0.1, 0.0, **kw)
+    with pytest.raises(texc.ShapeError, match="entries"):
+        cuda_lasso.solve_rows(c, g, c, c, z, z, z, torch.ones(5), 0.1, 0.0,
+                              **kw)
+    with pytest.raises(texc.ShapeError, match="even F"):
+        cuda_lasso.solve_rows(z[:, None].expand(m, 7).contiguous(),
+                              torch.zeros((7, 7)), torch.zeros((m, 7)),
+                              torch.zeros((m, 7)), z, z, z, 1.0, 0.1, 0.0,
+                              group=True, **kw)
+    meta = c.to("meta")
+    with pytest.raises(texc.DecompError, match="no kernel for device"):
+        cuda_lasso.solve_rows(meta, g.to("meta"), meta, meta, z, z, z, 1.0,
+                              0.1, 0.0, **kw)
+
+
 def test_kernel_range_checks_need_no_card():
     """What the kernels refuse is refused before any launch, so the checks
     run on CPU tensors."""
