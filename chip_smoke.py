@@ -46,20 +46,25 @@ for sm_90a (one nvcc per source, all at once), and then:
    the same inputs, at config 4 and at 262,144 x 10,112 K = 128 bf16, and
    the dense-mask kernel on f32 data at config 4's shape;
 9. holds the lasso kernel ``solve_rows`` against its twin at a ragged
-   1,000 x 200 and 300 x 1,000 and at 10,000 x 512 (ista, fista,
-   acc_ista; scalar and per-feature step; precision 'highest' and
-   'high'; exact and fixed-budget mode; one row that resumes done), with
-   bit-identical reruns on 16-row stripes, then its complex mode the same
-   way on complex64 data at 1,000 x 100, 300 x 500 and 10,000 x 512
-   complex features, every call counted on the complex route, and
+   1,000 x 200 and 300 x 1,000, at 10,000 x 512, at 7 x 200 (fewer rows
+   than one block's slots) and at 4,229 x 200 (a queue ragged past one
+   round of slots) (ista, fista, acc_ista; scalar and per-feature step;
+   precision 'highest' and 'high'; exact and fixed-budget mode; one row
+   that resumes done), with bit-identical reruns at 16 rows a block;
+   every 'high' call goes to ``csrc/lasso_fista_tma.cu`` and gives the
+   bits of ``csrc/lasso_fista.cu``'s 'high' path in x, z, t, done and
+   niter; then its complex mode the same way on complex64 data at 1,000
+   x 100, 300 x 500, 10,000 x 512, 7 x 100 and 2,117 x 512 complex
+   features, every call counted on the complex route, and
    ``masked_grad_rows`` at
    1,000 x 1,000 F = 100 and a ragged 333 x 257 F = 7 in f32 and bf16
    (and at 100,000 x 1,024 F = 128 in phase 12);
 10. drives batch lasso at BASELINE config 2, ``lasso.solve`` on 10,000
     problems of 256 channels over 512 features (acc_ista, precision
     'high', per-problem stopping, tol 1e-4), and checks one
-    ``solve_rows`` launch, every row converged, the KKT conditions and
-    the agreement with the 'highest' kernel run and the composition run;
+    ``solve_rows`` launch (on ``csrc/lasso_fista_tma.cu``), every row
+    converged, the KKT conditions and the agreement with the 'highest'
+    kernel run and the composition run, and prints the slot waste;
     it prints the time to tol and the marginal time per solve over a
     chain of 6, beside the bound, and times the kernel path against the
     composition path at three small batches, real and complex64;
@@ -68,8 +73,9 @@ for sm_90a (one nvcc per source, all at once), and then:
     complex channels over 512 complex features, complex64, acc_ista,
     'high', per-problem stopping, tol 1e-4) through ``lasso.solve``'s
     'auto' route, and checks one ``solve_rows`` launch on the complex
-    route, every row converged, the complex KKT conditions and the
-    agreement with the 'highest' kernel run and the composition run; it
+    route (on ``csrc/lasso_fista_tma.cu``), every row converged, the
+    complex KKT conditions and the agreement with the 'highest' kernel run
+    and the composition run; it
     prints the time to tol, the marginal per solve over a chain of 6 and
     the bound, and checks that ``lasso.solve_streaming`` takes the same
     kernel once per chunk;
@@ -79,8 +85,16 @@ for sm_90a (one nvcc per source, all at once), and then:
     objective and the agreement with the composition run;
 12. times the lasso kernels against their twins: ``solve_rows`` per
     config-2 solve and at 262,144 x 512 for 100 fixed-budget iterations,
-    its complex mode per config-2-complex solve, ``masked_grad_rows`` at
-    100,000 x 1,024, F = 128;
+    its complex mode per config-2-complex solve, each in turns with
+    ``csrc/lasso_fista.cu``'s 'high' path on the same inputs (bit for
+    bit first) and with the slot waste (slot-iterations over the
+    iterations the rows needed); both designs at 100 fixed-budget
+    iterations on one block's rows, one full wave's and (complex) 262,144
+    rows; both designs at the narrower shapes that 'high' also sends to
+    the new kernel (the crossover's batches, real and complex, 1,000 x
+    200, 300 x 1,000 and 300 x 500 complex, dictionary learning's 'whole'
+    inner coding at config 3's shape); ``masked_grad_rows`` at 100,000 x
+    1,024, F = 128;
 13. holds the dictionary-learning kernels against their twins:
     ``bcd_sweep`` at K = 256, N = 64 (config 3), at a ragged K = 37, N =
     50 and at the largest K x N it takes (256 x 208) with one all-zero
@@ -206,7 +220,7 @@ UNIT_LIMIT = 1e-5
 MASKED_DL_LIMIT = {torch.float32: 2e-6, torch.bfloat16: 5e-2}
 EPS = 1e-6
 SOURCES = ("mu_stats_dense", "mu_dense_tma", "mu_kl_stats", "mu_masked_packed",
-           "lasso_fista", "lasso_grad", "dl_bcd")
+           "lasso_fista", "lasso_fista_tma", "lasso_grad", "dl_bcd")
 # name -> (source, masked, the TPU kernel it replaces)
 NEW_KERNELS = {
     "mu_stats_masked": ("mu_masked_packed", True, "pallas_mu.py:522"),
@@ -492,22 +506,30 @@ def rows_start(m, f, dev, dtype=torch.float32):
     return x0, t0, d0, n0
 
 
-def compare_rows_exact(out, ref, tag):
+def compare_rows_exact(out, ref, tag, share=True):
     """solve_rows against its twin in exact mode: niter equal on most
-    rows, x of those rows and of all rows within SOLVE_LIMITS."""
+    rows, x of those rows and of all rows within SOLVE_LIMITS. ``share``
+    False drops the share of rows with equal niter (a batch of a few rows,
+    where one row that stops an iteration apart is a share no limit on
+    shares can hold)."""
     eq = (out[4] == ref[4])[:, 0]
     nit_eq = float(eq.float().mean())
     err_eq = rel_fro(out[0][eq], ref[0][eq]) if bool(eq.any()) else 0.0
     err_all = rel_fro(out[0], ref[0])
+    limit = SOLVE_LIMITS["nit_eq"] if share else "none, few rows"
     print(f"kernel vs twin {tag}: niter equal on {nit_eq:.4f} of rows "
-          f"(limit {SOLVE_LIMITS['nit_eq']}), rel_fro x on those "
+          f"(limit {limit}), rel_fro x on those "
           f"{err_eq:.3e} (limit {SOLVE_LIMITS['eq_rows']:.0e}), all rows "
           f"{err_all:.3e} (limit {SOLVE_LIMITS['all_rows']:.0e})", flush=True)
     check(np.isfinite(err_all), f"{tag}: non-finite x")
-    check(nit_eq >= SOLVE_LIMITS["nit_eq"] and
+    check((nit_eq >= SOLVE_LIMITS["nit_eq"] or not share) and
           err_eq <= SOLVE_LIMITS["eq_rows"] and
           err_all <= SOLVE_LIMITS["all_rows"],
           f"{tag}: kernel disagrees with twin")
+
+
+def same_bits(outs, refs):
+    return all(torch.equal(u, v) for u, v in zip(outs, refs))
 
 
 def compare_solve_rows(cl, gen, dev, m, f, n, complex_=False):
@@ -515,7 +537,10 @@ def compare_solve_rows(cl, gen, dev, m, f, n, complex_=False):
     and precision, in exact mode (tol 1e-4, 300 iterations) and in the
     fixed-budget mode (37 iterations), with a row that resumes done;
     ``complex_``: F complex64 features through the complex mode, every
-    kernel call counted on its route."""
+    kernel call counted on its route. Under 'high' every call goes to
+    csrc/lasso_fista_tma.cu, and each output must carry the bits of
+    csrc/lasso_fista.cu's 'high' path (the private ``_solve_rows_mma``)
+    at the default rows per block and at 16."""
     yah, gram, step = rows_problem(gen, dev, m, f, n, complex_)
     x0, t0, d0, n0 = rows_start(m, f, dev, yah.dtype)
     ramp = torch.linspace(0.5, 1.0, f, device=dev)
@@ -529,6 +554,7 @@ def compare_solve_rows(cl, gen, dev, m, f, n, complex_=False):
                        f"{method} {'high' if hi_lo else 'highest'} "
                        f"{'per-feature' if vec else 'scalar'} step")
                 before = cl.solve_rows.complex_launches
+                tma_before = cl.solve_rows.tma_launches
                 out = cl.solve_rows(*args, 1e-4, maxiter=300, **kw)
                 # A rerun, with 16-row stripes where 32 is the default.
                 again = cl.solve_rows(*args, 1e-4, maxiter=300,
@@ -541,19 +567,35 @@ def compare_solve_rows(cl, gen, dev, m, f, n, complex_=False):
                                            fixed=True, **kw)
                 torch.cuda.synchronize()
                 routed = cl.solve_rows.complex_launches - before
+                tma = cl.solve_rows.tma_launches - tma_before
                 check(routed == (4 if complex_ else 0),
                       f"{tag}: {routed} launches on the complex route")
-                compare_rows_exact(out, ref, tag)
+                check(tma == (4 if hi_lo else 0),
+                      f"{tag}: {tma} launches of lasso_fista_tma.cu")
+                if hi_lo:
+                    old = cl._solve_rows_mma(*args, 1e-4, maxiter=300, **kw)
+                    old_fixed = cl._solve_rows_mma(*args, 0.0, maxiter=37,
+                                                   fixed=True, **kw)
+                    bits = (same_bits(out, old) and same_bits(again, old)
+                            and same_bits(fixed, old_fixed))
+                    print(f"  lasso_fista_tma.cu bit-identical to "
+                          f"lasso_fista.cu's 'high' path (exact, 16 rows a "
+                          f"block, fixed budget): {bits}", flush=True)
+                    check(bits, f"{tag}: lasso_fista_tma.cu differs from "
+                          "lasso_fista.cu's 'high' path")
+                # Below one block's slots the share of rows with equal
+                # niter is a count of one or two rows; x is still held.
+                compare_rows_exact(out, ref, tag, share=not hi_lo or m >= (
+                    cl.stripe_rows(None, f * (2 if complex_ else 1))))
                 err_fixed = max(rel_fro(fixed[0], fref[0]),
                                 rel_fro(fixed[1], fref[1]))
-                same = all(torch.equal(u, v) for u, v in zip(out, again))
-                fixed_is_exact = all(torch.equal(u, v)
-                                     for u, v in zip(fixed, exact0))
+                same = same_bits(out, again)
+                fixed_is_exact = same_bits(fixed, exact0)
                 kept = (torch.equal(out[0][5], x0[5])
                         and int(out[4][5, 0]) == 9)
                 print(f"  fixed budget: rel_fro x, z {err_fixed:.3e} (limit "
                       f"{SOLVE_LIMITS['fixed']:.0e}); bit-identical rerun "
-                      f"(16-row stripes) {same}; fixed mode == exact mode "
+                      f"(16 rows a block) {same}; fixed mode == exact mode "
                       f"at tol 0 {fixed_is_exact}; done row kept {kept}",
                       flush=True)
                 check(err_fixed <= SOLVE_LIMITS["fixed"],
@@ -670,6 +712,15 @@ def event_ms(fn):
     return e0.elapsed_time(e1), out
 
 
+def slot_waste(solve_rows, niter, nit0=None):
+    """The schedule's waste of the last lasso_fista_tma.cu launch: its
+    blocks' slot-iterations (empty slots included) over the iterations the
+    rows needed, sum(niter - nit0)."""
+    need = niter.double().sum() - (0 if nit0 is None else
+                                   nit0.double().sum())
+    return float(solve_rows.slot_iters.double().sum() / need)
+
+
 def solve_rows_bound(m, f, sum_niter, hi_lo):
     """The bound of one solve_rows call: yah, x0 and z0 read and x, z
     written (the Gram's bytes are negligible), and 2F^2 operations per
@@ -685,6 +736,7 @@ def config2_phase(lasso, dev, card, reset_counts, read_counts):
     """Phase 10: BASELINE config 2 end to end through ``lasso.solve``.
     Returns the main run's solve_rows launches and the data (y, a) on the
     card."""
+    from decomp_tpu_torch.ops import cuda_lasso as cl
     from decomp_tpu_torch.ops.spectral import spectral_norm_psd
 
     y_np, a_np, _ = config2_data()
@@ -703,6 +755,9 @@ def config2_phase(lasso, dev, card, reset_counts, read_counts):
     reset_counts()
     ms, res = event_ms(lambda: solve(precision="high"))
     launches = read_counts("solve_rows", 1)
+    waste = slot_waste(cl.solve_rows, res.niter)
+    check(cl.solve_rows.tma_launches == 1, "config 2: the "
+          "'high' launch did not go to lasso_fista_tma.cu")
     highest_ms, top = event_ms(lambda: solve(precision="highest"))
     comp_ms, comp = event_ms(lambda: solve(use_kernel=False))
     marg = marginal_ms(lambda: solve(precision="high"))
@@ -721,7 +776,8 @@ def config2_phase(lasso, dev, card, reset_counts, read_counts):
           f"{b_ms:.3f} ms ({b_by}); niter min/median/max "
           f"{int(nit.min())}/{int(nit.median())}/{int(nit.max())}, sum "
           f"{sum_nit}; converged rows {int(res.converged.sum())}/{m}; "
-          f"solve_rows launches {launches}", flush=True)
+          f"solve_rows launches {launches} (lasso_fista_tma.cu 1; slot "
+          f"waste {waste:.4f})", flush=True)
     print(f"  precision 'highest' {highest_ms:.3f} ms (niter sum "
           f"{int(top.niter.double().sum())}), use_kernel=False "
           f"{comp_ms:.3f} ms ({card}); rel_fro x vs 'highest' "
@@ -781,6 +837,9 @@ def config2_complex_phase(lasso, cl, dev, card, reset_counts, read_counts):
     routed = cl.solve_rows.complex_launches
     check(routed == 1, f"config-2-complex: {routed} solve_rows launches on "
           "the complex route, expected 1")
+    check(cl.solve_rows.tma_launches == 1, "config-2-complex: the 'high' "
+          "launch did not go to lasso_fista_tma.cu")
+    waste = slot_waste(cl.solve_rows, res.niter)
     # 'auto' keeps 'highest' at Fc = 512 on the composition; ask for the
     # kernel.
     highest_ms, top = event_ms(lambda: solve(precision="highest",
@@ -802,8 +861,8 @@ def config2_complex_phase(lasso, cl, dev, card, reset_counts, read_counts):
           f"solve_rows {b_ms:.3f} ms ({b_by}); niter min/median/max "
           f"{int(nit.min())}/{int(nit.median())}/{int(nit.max())}, sum "
           f"{sum_nit}; converged rows {int(res.converged.sum())}/{m}; "
-          f"solve_rows launches {launches} (complex route {routed})",
-          flush=True)
+          f"solve_rows launches {launches} (complex route {routed}, "
+          f"lasso_fista_tma.cu 1; slot waste {waste:.4f})", flush=True)
     print(f"  precision 'highest' {highest_ms:.3f} ms (niter sum "
           f"{int(top.niter.double().sum())}), use_kernel=False "
           f"{comp_ms:.3f} ms (max niter {int(comp.niter.max())}) ({card}); "
@@ -841,6 +900,8 @@ def config2_complex_phase(lasso, cl, dev, card, reset_counts, read_counts):
     st = lasso.solve_streaming(y_np[:2000], a_np, 0.1, chunk_rows=1000,
                                precision="high", **cfg)
     read_counts("solve_rows", 2)
+    check(cl.solve_rows.tma_launches == 2, "config-2-complex: a "
+          "solve_streaming chunk did not go to lasso_fista_tma.cu")
     err_st = rel_fro(torch.from_numpy(st.x), res.x[:2000].cpu())
     print(f"  solve_streaming of its first 2,000 rows in 2 chunks: "
           f"solve_rows launches 2 (complex route "
@@ -956,7 +1017,7 @@ def lasso_times(cl, gen, dev, card, y, a, fixed_shape, grad_shape):
     x0[5], d0[5], n0[5] = 0.0, 0.0, 0
     args = (yah, gram, x0, x0, t0, d0, n0, step, 0.1 * step, 1e-4)
     kw = dict(momentum=True, restart=True, maxiter=4000, hi_lo=True)
-    got = cl.solve_rows(*args, **kw)
+    got, old_ms, k_ms, waste = tma_against_mma(cl, args, kw, "config 2")
     ref = cl.solve_rows_plain(*args, **kw)
     torch.cuda.synchronize()
     eq = (got[4] == ref[4])[:, 0]
@@ -965,13 +1026,14 @@ def lasso_times(cl, gen, dev, card, y, a, fixed_shape, grad_shape):
           f"equal on {float(eq.float().mean()):.4f} of rows, rel_fro x "
           f"{err:.3e} (limit {C2_TWIN_LIMIT:.0e})", flush=True)
     check(err <= C2_TWIN_LIMIT, "config 2: solve_rows disagrees with twin")
-    k_ms = cuda_ms(lambda: cl.solve_rows(*args, **kw), 3)
     p_ms = cuda_ms(lambda: cl.solve_rows_plain(*args, **kw), 1)
     b = solve_rows_bound(m, f, int(got[4].double().sum()), True)
     out["solve_rows"] = (max_abs(got[:1], ref[:1]), k_ms, p_ms) + b
     print(f"solve_rows config 2 ({m}x{f}, 'high', acc_ista, tol 1e-4): "
-          f"kernel {k_ms:.3f} ms, plain twin {p_ms:.3f} ms per call, bound "
-          f"{b[0]:.3f} ms ({b[1]}) ({card})", flush=True)
+          f"lasso_fista_tma.cu {k_ms:.3f} ms, lasso_fista.cu {old_ms:.3f} ms "
+          f"(in turns; new / old {k_ms / old_ms:.3f}), plain twin "
+          f"{p_ms:.3f} ms per call, bound {b[0]:.3f} ms ({b[1]}), slot "
+          f"waste {waste:.4f} ({card})", flush=True)
     del gram, yah, args, got, ref
 
     # solve_rows' fixed budget, 100 iterations.
@@ -981,19 +1043,23 @@ def lasso_times(cl, gen, dev, card, y, a, fixed_shape, grad_shape):
     args = (yah, gram, x0, x0, t0, d0, n0, step, 0.05 * step, 0.0)
     kw = dict(momentum=True, restart=True, maxiter=iters, hi_lo=True,
               fixed=True)
-    got = cl.solve_rows(*args, **kw)
+    got, old_ms, k_ms, waste = tma_against_mma(cl, args, kw, "fixed budget",
+                                               reps=2)
     ref = cl.solve_rows_plain(*args, **kw)
     torch.cuda.synchronize()
     err = max(rel_fro(got[0], ref[0]), rel_fro(got[1], ref[1]))
     check(err <= SOLVE_LIMITS["fixed"], f"fixed budget at {m}x{f}: "
           "solve_rows disagrees with twin")
-    k_ms = cuda_ms(lambda: cl.solve_rows(*args, **kw), 2)
     p_ms = cuda_ms(lambda: cl.solve_rows_plain(*args, **kw), 1)
     b = solve_rows_bound(m, f, int((got[4] - n0).double().sum()), True)
     print(f"solve_rows fixed budget {m}x{f}, {iters} iterations, 'high', "
-          f"acc_ista: kernel {k_ms:.3f} ms, plain twin {p_ms:.3f} ms per "
-          f"call, bound {b[0]:.3f} ms ({b[1]}) ({card}); rel_fro x, z "
-          f"{err:.3e} (limit {SOLVE_LIMITS['fixed']:.0e})", flush=True)
+          f"acc_ista: lasso_fista_tma.cu {k_ms:.3f} ms, lasso_fista.cu "
+          f"{old_ms:.3f} ms (in turns; new / old {k_ms / old_ms:.3f}; "
+          f"{k_ms * 1e6 / (m * iters):.3f} / {old_ms * 1e6 / (m * iters):.3f} "
+          f"ns per row-iteration), plain twin {p_ms:.3f} ms per call, bound "
+          f"{b[0]:.3f} ms ({b[1]}), slot waste {waste:.4f} ({card}); "
+          f"rel_fro x, z {err:.3e} (limit {SOLVE_LIMITS['fixed']:.0e})",
+          flush=True)
     del yah, gram, args, got, ref, x0
 
     # masked_grad_rows at the masked lasso's shape.
@@ -1014,6 +1080,99 @@ def lasso_times(cl, gen, dev, card, y, a, fixed_shape, grad_shape):
     return out
 
 
+def tma_against_mma(cl, args, kw, tag, reps=3):
+    """solve_rows 'high' on csrc/lasso_fista_tma.cu against
+    csrc/lasso_fista.cu's 'high' path on the same inputs: bit for bit, then
+    timed in turns (old, new, new, old). Returns (the new kernel's
+    outputs, old ms, new ms, slot waste)."""
+    got = cl.solve_rows(*args, **kw)
+    waste = slot_waste(cl.solve_rows, got[4], args[6])
+    old = cl._solve_rows_mma(*args, **kw)
+    torch.cuda.synchronize()
+    bits = same_bits(got, old)
+    print(f"{tag}: lasso_fista_tma.cu bit-identical to lasso_fista.cu's "
+          f"'high' path in x, z, t, done and niter: {bits}", flush=True)
+    check(bits, f"{tag}: lasso_fista_tma.cu differs from lasso_fista.cu")
+    del old
+    t = [cuda_ms(fn, reps) for fn in (
+        lambda: cl._solve_rows_mma(*args, **kw),
+        lambda: cl.solve_rows(*args, **kw),
+        lambda: cl.solve_rows(*args, **kw),
+        lambda: cl._solve_rows_mma(*args, **kw))]
+    return got, (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, waste
+
+
+def solve_rows_scaling(cl, gen, dev, card):
+    """Phase 12's diagnostic: both designs at 100 fixed-budget iterations
+    ('high', acc_ista), F = 512 and complex 2Fc = 1,024, on one block's rows
+    alone, on one full wave (132 blocks' rows) and (complex) at 262,144
+    rows (the real one is the fixed-budget line above). One block alone
+    much faster per row-iteration than a block in a full wave says that
+    the card's aggregate L2 rate sets the pace; as fast, that one SM's copy
+    latency does."""
+    iters = 100
+    for complex_, r in ((False, 32), (True, 16)):
+        for m in (r, 132 * r) + ((262_144,) if complex_ else ()):
+            yah, gram, step = rows_problem(gen, dev, m, 512, 256, complex_)
+            x0, t0, d0, n0 = rows_start(m, 512, dev, yah.dtype)
+            d0[5], n0[5] = 0.0, 0
+            args = (yah, gram, x0, x0, t0, d0, n0, step, 0.05 * step, 0.0)
+            kw = dict(momentum=True, restart=True, maxiter=iters,
+                      hi_lo=True, fixed=True)
+            reps = 1 if m > 100_000 else 3
+            _, old_ms, k_ms, waste = tma_against_mma(
+                cl, args, kw, f"scaling {m}x512{'c' if complex_ else ''}",
+                reps=reps)
+            print(f"solve_rows scaling, {m} rows x 512 "
+                  f"{'complex (2Fc = 1,024 reals)' if complex_ else 'real'}, "
+                  f"{iters} fixed iterations, 'high': lasso_fista.cu "
+                  f"{old_ms:.3f} ms = {old_ms * 1e6 / (m * iters):.3f} ns per "
+                  f"row-iteration; lasso_fista_tma.cu {k_ms:.3f} ms = "
+                  f"{k_ms * 1e6 / (m * iters):.3f} ns; slot waste "
+                  f"{waste:.4f} ({card})", flush=True)
+            del yah, gram, args, x0
+
+
+def solve_rows_routes(cl, gen, dev, card):
+    """Phase 12: both 'high' designs, in turns on the same inputs and bit for
+    bit, at the narrower shapes that 'high' also sends to
+    csrc/lasso_fista_tma.cu: the crossover's batches (64 x 64, 1,000 x 128,
+    4,000 x 256, real and complex features), phase 9's 1,000 x 200 and
+    300 x 1,000 (complex 300 x 500), and dictionary learning's 'whole'
+    inner coding at config 3's shape (20,000 patches, 256 atoms, fista, 15
+    iterations, tol 1e-6). Acc_ista to tol 1e-4 elsewhere. Returns the
+    shapes at which the new kernel was slower."""
+    shapes = [(m, f, n, c) for c in (False, True)
+              for m, f, n in ((64, 64, 48), (1000, 128, 96),
+                              (4000, 256, 128))]
+    shapes += [(1000, 200, 160, False), (300, 1000, 700, False),
+               (300, 500, 350, True), (20_000, 256, 64, False)]
+    slower = []
+    for m, f, n, complex_ in shapes:
+        dl = m == 20_000
+        yah, gram, step = rows_problem(gen, dev, m, f, n, complex_)
+        x0, t0, d0, n0 = rows_start(m, f, dev, yah.dtype)
+        x0[5], d0[5], n0[5] = 0.0, 0.0, 0
+        args = (yah, gram, x0, x0, t0, d0, n0, step, 0.1 * step,
+                1e-6 if dl else 1e-4)
+        kw = dict(momentum=True, restart=not dl, maxiter=15 if dl else 4000,
+                  hi_lo=True)
+        tag = (f"route {m}x{f}{'c' if complex_ else ''} "
+               f"{'fista 15 iterations (DL whole)' if dl else 'acc_ista'}")
+        got, old_ms, k_ms, waste = tma_against_mma(cl, args, kw, tag)
+        print(f"solve_rows {tag}, 'high': lasso_fista_tma.cu {k_ms:.3f} ms, "
+              f"lasso_fista.cu {old_ms:.3f} ms (in turns; new / old "
+              f"{k_ms / old_ms:.3f}), niter sum "
+              f"{int(got[4].double().sum())}, slot waste {waste:.4f} "
+              f"({card})", flush=True)
+        if k_ms >= old_ms:
+            slower.append(tag)
+        del yah, gram, args, got, x0
+    print(f"solve_rows 'high': lasso_fista_tma.cu slower than lasso_fista.cu "
+          f"at {slower or 'no shape'}", flush=True)
+    return slower
+
+
 def complex_times(cl, dev, card, y, a):
     """Phase 12, complex: solve_rows' complex mode against its twin per
     call on config-2-complex's data (y, a) as lasso.solve calls it
@@ -1030,7 +1189,8 @@ def complex_times(cl, dev, card, y, a):
     x0[5], d0[5], n0[5] = 0.0, 0.0, 0
     args = (yah, gram, x0, x0, t0, d0, n0, step, 0.1 * step, 1e-4)
     kw = dict(momentum=True, restart=True, maxiter=3000, hi_lo=True)
-    got = cl.solve_rows(*args, **kw)
+    got, old_ms, k_ms, waste = tma_against_mma(cl, args, kw,
+                                               "config-2-complex")
     p_ms, ref = event_ms(lambda: cl.solve_rows_plain(*args, **kw))
     eq = (got[4] == ref[4])[:, 0]
     err = rel_fro(got[0], ref[0])
@@ -1039,12 +1199,13 @@ def complex_times(cl, dev, card, y, a):
           f"{err:.3e} (limit {C2C_TWIN_LIMIT:.0e})", flush=True)
     check(err <= C2C_TWIN_LIMIT, "config-2-complex: solve_rows disagrees "
           "with twin")
-    k_ms = cuda_ms(lambda: cl.solve_rows(*args, **kw), 3)
     b = solve_rows_bound(m, 2 * f, int(got[4].double().sum()), True)
     print(f"solve_rows config-2-complex ({m}x{f} complex, 2F = {2 * f} "
-          f"reals, 'high', acc_ista, tol 1e-4): kernel {k_ms:.3f} ms, plain "
-          f"twin {p_ms:.3f} ms per call, bound {b[0]:.3f} ms ({b[1]}), "
-          f"kernel / bound {k_ms / b[0]:.1f} ({card})", flush=True)
+          f"reals, 'high', acc_ista, tol 1e-4): lasso_fista_tma.cu "
+          f"{k_ms:.3f} ms, lasso_fista.cu {old_ms:.3f} ms (in turns; new / "
+          f"old {k_ms / old_ms:.3f}), plain twin {p_ms:.3f} ms per call, "
+          f"bound {b[0]:.3f} ms ({b[1]}), kernel / bound {k_ms / b[0]:.1f}, "
+          f"slot waste {waste:.4f} ({card})", flush=True)
     return (max_abs(got[:1], ref[:1]), k_ms, p_ms) + b
 
 
@@ -1274,6 +1435,7 @@ def main():
         cuda_mu.mu_stats_masked.dense_launches = 0
         cuda_mu.mu_stats_dense.tma_launches = 0
         cuda_lasso.solve_rows.complex_launches = 0
+        cuda_lasso.solve_rows.tma_launches = 0
 
     def read_counts(expected, launches=None):
         """The counts after one path: ``expected`` launched ``launches``
@@ -1594,11 +1756,14 @@ def main():
     t_phase = phase("8 kernel times", t_phase)
 
     # Phase 9: the lasso kernels against their twins.
+    # 7 rows: fewer than one block's slots; 4,229 = 132 x 32 + 5 and 2,117 =
+    # 132 x 16 + 5: a queue that leaves a few rows past one full round.
     for m_, f_, n_ in ((1000, 200, 160), (300, 1000, 700),
-                       (10_000, 512, 256)):
+                       (10_000, 512, 256), (7, 200, 160), (4229, 200, 160)):
         compare_solve_rows(cuda_lasso, gen, dev, m_, f_, n_)
     # The complex mode: Fc complex features are 2 Fc reals.
-    for m_, f_, n_ in ((1000, 100, 80), (300, 500, 350), (10_000, 512, 256)):
+    for m_, f_, n_ in ((1000, 100, 80), (300, 500, 350), (10_000, 512, 256),
+                       (7, 100, 80), (2117, 512, 256)):
         compare_solve_rows(cuda_lasso, gen, dev, m_, f_, n_, complex_=True)
     for m_, n_, f_ in ((1000, 1000, 100), (333, 257, 7)):
         for dt in (f32, bf16):
@@ -1631,6 +1796,8 @@ def main():
     lasso_stats["solve_rows_complex"] = complex_times(cuda_lasso, dev, card,
                                                       y2c, a2c)
     del y2c, a2c
+    solve_rows_scaling(cuda_lasso, gen, dev, card)
+    solve_rows_routes(cuda_lasso, gen, dev, card)
     t_phase = phase("12 lasso kernel times", t_phase)
 
     # Phase 13: the dictionary-learning kernels against their twins.
@@ -1679,8 +1846,8 @@ def main():
     kernels = {"mu_stats_dense": ("mu_dense_tma", "pallas_mu.py:438"),
                **{name: (src, rep) for name, (src, _, rep)
                   in NEW_KERNELS.items()},
-               "solve_rows": ("lasso_fista", "pallas_fista.py:349"),
-               "solve_rows_complex": ("lasso_fista",
+               "solve_rows": ("lasso_fista_tma", "pallas_fista.py:349"),
+               "solve_rows_complex": ("lasso_fista_tma",
                                       "pallas_fista.py:349 (group_fc)"),
                "masked_grad_rows": ("lasso_grad", "pallas_lasso.py:159"),
                "bcd_sweep": ("dl_bcd", "pallas_bcd.py:115"),

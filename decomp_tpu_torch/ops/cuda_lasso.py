@@ -42,14 +42,19 @@ order.
 operands and sum in f32, the residual ``cdt(f32(mask) * (x a) - f32(my))``
 is formed in f32 and cast to ``cdt``, and ``g`` is stored in x's dtype.
 
-On a CUDA tensor a wrapper launches its kernel (``csrc/lasso_fista.cu``:
-f32 with 1 <= F <= ``SOLVE_MAX_FEATURES``, or complex64 with 1 <= Fc <=
-``SOLVE_MAX_COMPLEX_FEATURES``; ``csrc/lasso_grad.cu``: bf16 or f32 data
-with every operand in the data's dtype, 1 <= F <= ``GRAD_MAX_FEATURES``)
-and raises on anything else. On a CPU tensor it runs its ``*_plain`` twin.
-It never falls back from one to the other. Each wrapper counts its kernel
-launches in ``.launches``; ``solve_rows`` counts its complex-mode launches
-in ``.complex_launches`` as well.
+On a CUDA tensor a wrapper launches its kernel (``solve_rows``: f32
+with 1 <= F <= ``SOLVE_MAX_FEATURES``, or complex64 with 1 <= Fc <=
+``SOLVE_MAX_COMPLEX_FEATURES``, on ``csrc/lasso_fista_tma.cu`` for
+``hi_lo=True`` and ``csrc/lasso_fista.cu`` for ``hi_lo=False``;
+``masked_grad_rows``: ``csrc/lasso_grad.cu``, bf16 or f32 data with every
+operand in the data's dtype, 1 <= F <= ``GRAD_MAX_FEATURES``) and raises
+on anything else. On a CPU tensor it runs its ``*_plain`` twin. It never
+falls back from one to the other. Each wrapper counts its kernel launches
+in ``.launches``; ``solve_rows`` counts its complex-mode launches in
+``.complex_launches`` and its launches of the 'high' kernel in
+``.tma_launches`` as well. The 'high' kernel gives, row for row, the bits
+of ``csrc/lasso_fista.cu``'s 'high' path, which ``_solve_rows_mma`` still
+launches for comparison.
 
 Not ported: the TPU kernels' VMEM calibrations and 128-alignment padding
 (``default_block_rows``, ``fits_vmem``, ``auto_wins``,
@@ -64,16 +69,18 @@ from decomp_tpu_torch.ops.cuda_mu import (_F, _I, _P, _c_function, _launch,
 from decomp_tpu_torch.utils.exceptions import (DecompError, DtypeError,
                                                ShapeError)
 
-# Largest F that solve_rows' kernel takes: a stripe's x and z stay in
-# shared memory in f32 (csrc/lasso_fista.cu).
+# Largest F that solve_rows' kernels take: a block's rows stay on chip in
+# f32 (csrc/lasso_fista.cu, csrc/lasso_fista_tma.cu).
 SOLVE_MAX_FEATURES = 1024
 # Largest complex Fc of its complex mode: 2 Fc reals.
 SOLVE_MAX_COMPLEX_FEATURES = SOLVE_MAX_FEATURES // 2
 # Largest F of masked_grad_rows' kernel: its rank tile (KP in
 # csrc/nmf_common.cuh).
 GRAD_MAX_FEATURES = 128
-# Stripe heights of solve_rows' kernel: 32 rows up to F = 512, 16 above.
+# Rows per block of solve_rows' kernels: 32 up to F = 512, 16 above.
 _WIDE_STRIPE_MAX_F = 512
+# The 'high' kernel's tiles: 512 output columns by 16 deep.
+_TILE_COLS, _KD = 512, 16
 # Rows per chunk of masked_grad_rows' twin.
 _GRAD_CHUNK_ROWS = 8192
 _F32_TINY = torch.finfo(torch.float32).tiny
@@ -132,9 +139,35 @@ def embed_gram(gram):
     return rows.reshape(2 * fc, 2 * fc).to(torch.float32)
 
 
-def _complex_pairs(yah, gram, x0, z0, stepsz, thresh):
+def pair_gram(gram):
+    """A complex (Fc, Fc) Gram as the (Fc, 2 Fc) f32 rows that the 'high'
+    kernel (``csrc/lasso_fista_tma.cu``) reads: row n holds ``(Re g[k, n],
+    Im g[k, n])`` for k = 0 .. Fc - 1, column n of ``gram`` in ``as_pairs``'
+    order. It builds ``embed_gram``'s entries from these pairs in
+    registers, so it reads each complex entry once."""
+    return as_pairs(gram.resolve_conj().T)
+
+
+def _pairs_of_embedding(emb):
+    """``pair_gram`` of the complex Gram whose ``embed_gram`` is ``emb``
+    (2 Fc, 2 Fc): ``emb[2k, 2n + j]`` is pair entry (n, 2k + j). Refuses an
+    ``emb`` that is not, bit for bit, the embedding of those pairs: the
+    'high' kernel reads only the pairs."""
+    fc = emb.shape[0] // 2
+    pairs = emb[0::2].reshape(fc, fc, 2).transpose(0, 1).reshape(fc, 2 * fc)
+    again = embed_gram(from_pairs(pairs).T)
+    if not torch.equal(again.view(torch.int32),
+                       emb.contiguous().view(torch.int32)):
+        raise DecompError("group=True at precision 'high' takes the "
+                          "embed_gram of a complex Gram ([[Re, Im], [-Im, "
+                          "Re]] blocks); pass complex64 operands instead")
+    return pairs
+
+
+def _complex_pairs(yah, gram, x0, z0, stepsz, thresh, embed=True):
     """``solve_rows``' complex64 operands in the complex mode's f32 layout:
-    yah, x0, z0 as pairs, the embedded Gram, and step and threshold
+    yah, x0, z0 as pairs, the embedded Gram (or with ``embed=False`` the
+    ``pair_gram`` that the 'high' kernel reads), and step and threshold
     repeated in both reals of each feature. Refuses other dtypes and
     shapes."""
     if yah.dim() != 2:
@@ -150,8 +183,8 @@ def _complex_pairs(yah, gram, x0, z0, stepsz, thresh):
                              f"{tuple(t.shape)}")
     step, thr = (_feature_vector(v, fc, yah.device).repeat_interleave(2)
                  for v in (stepsz, thresh))
-    return (as_pairs(yah), embed_gram(gram), as_pairs(x0), as_pairs(z0),
-            step, thr)
+    return (as_pairs(yah), embed_gram(gram) if embed else pair_gram(gram),
+            as_pairs(x0), as_pairs(z0), step, thr)
 
 
 def _complex_call(fn, yah, gram, x0, z0, t0, done0, nit0, stepsz, thresh,
@@ -266,13 +299,14 @@ def solve_rows_plain(yah, gram, x0, z0, t0, done0, nit0, stepsz, thresh, tol,
 
 
 def check_solve_rows_args(yah, gram, x0, z0, t0, done0, nit0, maxiter,
-                          block_rows):
-    """Refuse what ``solve_rows``' kernel does not take, before any
-    launch."""
+                          block_rows, pairs=False):
+    """Refuse what ``solve_rows``' kernels do not take, before any launch.
+    ``pairs``: gram is the complex mode's ``pair_gram`` (F / 2, F)."""
     if yah.dim() != 2:
         raise ShapeError(f"yah must be 2-D, got {tuple(yah.shape)}")
     m, f = yah.shape
-    for name, t, shape in (("yah", yah, (m, f)), ("gram", gram, (f, f)),
+    gshape = (f // 2, f) if pairs else (f, f)
+    for name, t, shape in (("yah", yah, (m, f)), ("gram", gram, gshape),
                            ("x0", x0, (m, f)), ("z0", z0, (m, f))):
         if t.device != yah.device:
             raise DecompError(f"{name} is on {t.device}, yah on {yah.device}")
@@ -301,19 +335,32 @@ def solve_rows(yah, gram, x0, z0, t0, done0, nit0, stepsz, thresh, tol, *,
     complex mode (``z0`` is read only by the momentum methods); t0, done0
     (0/1) and nit0: M entries each, any shape; ``stepsz`` and ``thresh``
     scalars or F-vectors; ``tol`` a number. ``block_rows``: the kernel's
-    stripe height, 16 or 32 (32 only at F <= 512 reals; default by F).
+    rows per block, 16 or 32 (32 only at F <= 512 reals; default by F).
     ``group=True`` runs the complex mode on f32 operands already in its
     layout (F even). Returns (x, z, t, done, niter) with shapes ((M, F),
     (M, F), (M, 1), (M, 1), (M, 1)), x and z in yah's dtype, done f32 0/1
     and niter int32.
+
+    On the card, ``hi_lo=True`` launches ``csrc/lasso_fista_tma.cu``
+    (counted in ``.tma_launches``; each block's slot-iterations of the last
+    such launch stay in ``.slot_iters``) and ``hi_lo=False``
+    ``csrc/lasso_fista.cu``; ``.launches`` counts both.
     """
     if int(maxiter) < 0:
         raise ValueError(f"maxiter must be >= 0, got {maxiter}")
     kw = dict(momentum=momentum, restart=restart, maxiter=maxiter,
               hi_lo=hi_lo, fixed=fixed, block_rows=block_rows)
     if yah.is_complex():
-        return _complex_call(solve_rows, yah, gram, x0, z0, t0, done0, nit0,
-                             stepsz, thresh, tol, **kw)
+        if not hi_lo or _runs_plain(yah):
+            return _complex_call(solve_rows, yah, gram, x0, z0, t0, done0,
+                                 nit0, stepsz, thresh, tol, **kw)
+        # The 'high' kernel reads the pair Gram, not the embedding.
+        yah, gram, x0, z0, step, thr = _complex_pairs(
+            yah, gram, x0, z0, stepsz, thresh, embed=False)
+        x, z, t, done, nit = _solve_rows_tma(yah, gram, x0, z0, t0, done0,
+                                             nit0, step, thr, tol, group=True,
+                                             **kw)
+        return from_pairs(x), from_pairs(z), t, done, nit
     stripe_rows(block_rows, yah.shape[-1])
     if group and yah.shape[-1] % 2:
         raise ShapeError(f"the complex mode takes an even F, got "
@@ -321,10 +368,137 @@ def solve_rows(yah, gram, x0, z0, t0, done0, nit0, stepsz, thresh, tol, *,
     if _runs_plain(yah):
         return solve_rows_plain(yah, gram, x0, z0, t0, done0, nit0, stepsz,
                                 thresh, tol, group=group, **kw)
+    if hi_lo:
+        if group:
+            check_solve_rows_args(yah, gram, x0, z0, t0, done0, nit0,
+                                  maxiter, block_rows)
+            gram = _pairs_of_embedding(gram)
+        return _solve_rows_tma(yah, gram, x0, z0, t0, done0, nit0, stepsz,
+                               thresh, tol, group=group, **kw)
+    out = _solve_rows_mma(yah, gram, x0, z0, t0, done0, nit0, stepsz, thresh,
+                          tol, group=group, **kw)
+    solve_rows.launches += 1
+    solve_rows.complex_launches += int(bool(group))
+    return out
+
+
+solve_rows.launches = 0
+solve_rows.complex_launches = 0
+solve_rows.tma_launches = 0
+solve_rows.slot_iters = None
+
+
+def _outputs(m, f, dev):
+    """Empty x, z (M, F), t, done (M, 1) f32 and niter (M, 1) int32."""
+    x = torch.empty((m, f), dtype=torch.float32, device=dev)
+    t = torch.empty((m, 1), dtype=torch.float32, device=dev)
+    return (x, torch.empty_like(x), t, torch.empty_like(t),
+            torch.empty((m, 1), dtype=torch.int32, device=dev))
+
+
+def _row_state(t0, done0, nit0, m):
+    """t0, done0 (f32) and nit0 (int32) as contiguous (M,) tensors."""
+    return (t0.reshape(m).to(torch.float32).contiguous(),
+            done0.reshape(m).to(torch.float32).contiguous(),
+            nit0.reshape(m).to(torch.int32).contiguous())
+
+
+def stage_rows(f: int, group: bool = False):
+    """Rows of each 512-column chunk's tiles in ``csrc/lasso_fista_tma.cu``
+    at F (real) features (its ``chunk_rows``): the rows that the chunk's
+    columns read, its columns rounded up to whole 8-column groups, and half
+    as many pair rows in the complex mode."""
+    return [-(-min(_TILE_COLS, f - c) // 8) * (4 if group else 8)
+            for c in range(0, f, _TILE_COLS)]
+
+
+def tile_images(b_rows, group=False):
+    """The stage images that ``csrc/lasso_fista_tma.cu`` copies into its
+    ring, one bulk copy a stage: ``b_rows`` (N, F) f32 holds row n of the
+    product's B^T (B(k, n) = b_rows[n, k]; N = F), or with ``group`` the
+    pair Gram (N = F / 2). Returns them as one flat bf16 tensor: for each
+    chunk c of 512 output columns (``stage_rows(F, group)[c]`` rows from
+    row 512 c, or 256 c) and each depth step s (k = 16 s ..), the hi then
+    the lo tile of ``split_hi_lo``, 16 values a row with the two 8-element
+    halves swapped on rows with bit 2 set (the kernels' bank-conflict
+    swizzle), zeros past the matrix."""
+    n, k = b_rows.shape
+    nks, dev = -(-k // _KD), b_rows.device
+    first = _TILE_COLS // 2 if group else _TILE_COLS
+    halves = split_hi_lo(b_rows)
+    images = []
+    for c, rows in enumerate(stage_rows(k, group)):
+        swap = ((torch.arange(rows, device=dev) >> 2) & 1).bool()
+        tiles = []
+        for h in halves:
+            p = torch.zeros((rows, nks * _KD), dtype=torch.bfloat16,
+                            device=dev)
+            part = h[c * first:c * first + rows]
+            p[:part.shape[0], :k] = part
+            p = p.reshape(rows, nks, 2, _KD // 2).transpose(0, 1)
+            tiles.append(torch.where(swap[:, None, None], p.flip(-2), p))
+        images.append(torch.stack(tiles, 1).reshape(-1))
+    return torch.cat(images)
+
+
+def _solve_rows_tma(yah, gram, x0, z0, t0, done0, nit0, stepsz, thresh, tol,
+                    *, momentum, restart, maxiter, hi_lo=True, fixed=False,
+                    block_rows=None, group=False):
+    """Launch ``csrc/lasso_fista_tma.cu`` ('high'): f32 operands, and for
+    ``group`` the complex mode with gram as ``pair_gram`` (F / 2, F). One
+    persistent block per SM (at most one per ``rows`` rows)."""
+    del hi_lo
+    rows = check_solve_rows_args(yah, gram, x0, z0, t0, done0, nit0, maxiter,
+                                 block_rows, pairs=group)
+    m, f = yah.shape
+    dev = yah.device
+    fn = _c_function("lasso_fista_tma", "lasso_solve_rows_tma_launch",
+                     (_I,) * 6 + (_P,) * 9 + (_F,) + (_I,) * 3 + (_P,) * 8)
+    with torch.cuda.device(dev):
+        step = _feature_vector(stepsz, f, dev)
+        thr = _feature_vector(thresh, f, dev)
+        # Real: the kernel reads B(k, n) = gram[k, n] from rows of gram^T;
+        # complex: rows of the pair Gram.
+        gimg = tile_images(gram if group else gram.T, group)
+        t0c, d0c, n0c = _row_state(t0, done0, nit0, m)
+        x0c, z0c, yahc = x0.contiguous(), z0.contiguous(), yah.contiguous()
+        x, z, t, done, nit = _outputs(m, f, dev)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        blocks = min(sms, -(-m // rows))
+        queue = torch.zeros(1, dtype=torch.int32, device=dev)
+        slot_iters = torch.empty(blocks, dtype=torch.int64, device=dev)
+        _launch("solve_rows", fn, dev, int(momentum), int(restart),
+                int(fixed), int(group), rows, blocks, yahc.data_ptr(),
+                gimg.data_ptr(), x0c.data_ptr(),
+                z0c.data_ptr(), t0c.data_ptr(), d0c.data_ptr(),
+                n0c.data_ptr(), step.data_ptr(), thr.data_ptr(), float(tol),
+                m, f, int(maxiter), x.data_ptr(), z.data_ptr(), t.data_ptr(),
+                done.data_ptr(), nit.data_ptr(), queue.data_ptr(),
+                slot_iters.data_ptr())
+    solve_rows.launches += 1
+    solve_rows.tma_launches += 1
+    solve_rows.complex_launches += int(bool(group))
+    solve_rows.slot_iters = slot_iters
+    return x, z, t, done, nit
+
+
+def _solve_rows_mma(yah, gram, x0, z0, t0, done0, nit0, stepsz, thresh, tol,
+                    *, momentum, restart, maxiter, hi_lo=True, fixed=False,
+                    block_rows=None, group=False):
+    """Launch ``csrc/lasso_fista.cu`` at either precision, on f32 operands
+    (``group``: the complex mode on the embedded Gram) or on complex64
+    ones. ``solve_rows`` takes it for 'highest'; its 'high' path is the
+    reference that ``chip_smoke.py`` holds ``csrc/lasso_fista_tma.cu``
+    against bit for bit and times in turns with it. Counts nothing."""
+    kw = dict(momentum=momentum, restart=restart, maxiter=maxiter,
+              hi_lo=hi_lo, fixed=fixed, block_rows=block_rows)
+    if yah.is_complex():
+        return _complex_call(_solve_rows_mma, yah, gram, x0, z0, t0, done0,
+                             nit0, stepsz, thresh, tol, **kw)
     rows = check_solve_rows_args(yah, gram, x0, z0, t0, done0, nit0, maxiter,
                                  block_rows)
     m, f = yah.shape
-    f32, dev = torch.float32, yah.device
+    dev = yah.device
     fn = _c_function("lasso_fista", "lasso_solve_rows_launch",
                      (_I,) * 6 + (_P,) * 10 + (_F,) + (_I,) * 3 + (_P,) * 6)
     with torch.cuda.device(dev):
@@ -335,16 +509,9 @@ def solve_rows(yah, gram, x0, z0, t0, done0, nit0, stepsz, thresh, tol, *,
             g0, g1 = (h.contiguous() for h in split_hi_lo(gram.T))
         else:
             g0, g1 = gram.contiguous(), gram
-        t0c = t0.reshape(m).to(f32).contiguous()
-        d0c = done0.reshape(m).to(f32).contiguous()
-        n0c = nit0.reshape(m).to(torch.int32).contiguous()
-        x0c, z0c = x0.contiguous(), z0.contiguous()
-        yahc = yah.contiguous()
-        x = torch.empty((m, f), dtype=f32, device=dev)
-        z = torch.empty_like(x)
-        t = torch.empty((m, 1), dtype=f32, device=dev)
-        done = torch.empty_like(t)
-        nit = torch.empty((m, 1), dtype=torch.int32, device=dev)
+        t0c, d0c, n0c = _row_state(t0, done0, nit0, m)
+        x0c, z0c, yahc = x0.contiguous(), z0.contiguous(), yah.contiguous()
+        x, z, t, done, nit = _outputs(m, f, dev)
         _launch("solve_rows", fn, dev, int(hi_lo), int(momentum),
                 int(restart), int(fixed), int(group), rows, yahc.data_ptr(),
                 g0.data_ptr(), g1.data_ptr(), x0c.data_ptr(), z0c.data_ptr(),
@@ -352,13 +519,7 @@ def solve_rows(yah, gram, x0, z0, t0, done0, nit0, stepsz, thresh, tol, *,
                 step.data_ptr(), thr.data_ptr(), float(tol), m, f,
                 int(maxiter), x.data_ptr(), z.data_ptr(), t.data_ptr(),
                 done.data_ptr(), nit.data_ptr())
-    solve_rows.launches += 1
-    solve_rows.complex_launches += int(bool(group))
     return x, z, t, done, nit
-
-
-solve_rows.launches = 0
-solve_rows.complex_launches = 0
 
 
 def masked_grad_rows_plain(my, mask, x, a, *, block_rows=None):
