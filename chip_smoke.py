@@ -17,11 +17,18 @@ for sm_90a (one nvcc per source, all at once), and then:
    K = 100 (inner_iter 1 and 3) and K = 64, a ragged 333 x 257 K = 7,
    65,537 x 10,112 and 65,536 x 10,112 K = 128;
 3. holds ``mu_stats_masked`` (on a dense mask), ``kl_stats_dense`` and
-   ``kl_stats_masked`` against their twins the same way, at 1000 x 1000
+   ``kl_stats_masked`` (on a dense mask: bf16 data, and f32 data with a
+   weighted mask) against their twins the same way, at 1000 x 1000
    K = 100, 100,000 x 1,000 K = 50 and 65,536 x 10,112 K = 128; then
    (3b) ``mu_stats_masked`` on a packed mask (``cuda_mu.pack_mask``, the
    kernel of ``csrc/mu_masked_packed.cu``) with bf16 data and f32 or bf16
    x at those shapes, a ragged 333 x 257 K = 7 and 1000 x 1000 K = 64;
+   and (3c) ``kl_stats_masked`` on a packed mask (the kernel of
+   ``csrc/kl_masked_packed.cu``, bf16x6 products on the tensor cores)
+   with f32 data at those shapes and 1000 x 1000 K = 1, with eps = 0 at
+   333 x 257 K = 7, and on log-normal my, x and d over six decades at
+   65,536 x 1,024 K = 128, within the f32 limit of the full-f32 twin, and
+   the dense-mask KL kernel at the same ragged shapes, K = 1 and eps = 0;
 4. drives the dense main path, ``decomp_tpu_torch.nmf.solve`` on a
    1,048,576 x 10,112 bf16 matrix at rank 128 with f32 factors, 20
    iterations, and checks that every iteration went through the TMA
@@ -40,11 +47,14 @@ for sm_90a (one nvcc per source, all at once), and then:
    the factors;
 7. drives KL-MU, ``nmf.solve(method='kl-mu')`` at 100,000 x 1,024 rank
    128 f32, dense and masked, 20 iterations each, and checks one kernel
-   launch per iteration and a falling KL objective;
+   launch per iteration (masked: all on the packed route, none on the
+   dense one) and a falling KL objective;
 8. times each new kernel against its twin per call at its path's shape;
    masked MU's packed-mask kernel in turns with the dense-mask kernel on
    the same inputs, at config 4 and at 262,144 x 10,112 K = 128 bf16, and
-   the dense-mask kernel on f32 data at config 4's shape;
+   the dense-mask kernel on f32 data at config 4's shape; masked KL's
+   packed-mask kernel in turns with its dense-mask kernel at phase 7's
+   shape, with each pass from ``torch.profiler``;
 9. holds the lasso kernel ``solve_rows`` against its twin at a ragged
    1,000 x 200 and 300 x 1,000, at 10,000 x 512, at 7 x 200 (fewer rows
    than one block's slots) and at 4,229 x 200 (a queue ragged past one
@@ -127,8 +137,11 @@ where the package is absent. The line before the last is a JSON summary
 of the kernels (the eight, and ``solve_rows``' complex mode as its own
 entry), each with its bound: the larger of its bytes (each input
 read once, each output written once) over 3.35 TB/s and its operations
-over the H100's peak for their type (989 TFLOP/s bf16 tensor cores, 67
-TFLOP/s f32 FMA). The last line is ``{"ok": true, "device": {...}}``.
+over the H100's peak for their type: 989 TFLOP/s for bf16 on the tensor
+cores; f32 products at f32 accuracy as bf16x6 limb products on the
+tensor cores (6 passes each, 3 against a 0/1 mask, at 989 TFLOP/s; the
+full-f32-FMA bound at 67 TFLOP/s is printed beside it). The last line
+is ``{"ok": true, "device": {...}}``.
 """
 
 import concurrent.futures
@@ -220,12 +233,13 @@ UNIT_LIMIT = 1e-5
 MASKED_DL_LIMIT = {torch.float32: 2e-6, torch.bfloat16: 5e-2}
 EPS = 1e-6
 SOURCES = ("mu_stats_dense", "mu_dense_tma", "mu_kl_stats", "mu_masked_packed",
-           "lasso_fista", "lasso_fista_tma", "lasso_grad", "dl_bcd")
+           "kl_masked_packed", "lasso_fista", "lasso_fista_tma", "lasso_grad",
+           "dl_bcd")
 # name -> (source, masked, the TPU kernel it replaces)
 NEW_KERNELS = {
     "mu_stats_masked": ("mu_masked_packed", True, "pallas_mu.py:522"),
     "kl_stats_dense": ("mu_kl_stats", False, "pallas_mu.py:603"),
-    "kl_stats_masked": ("mu_kl_stats", True, "pallas_mu.py:678"),
+    "kl_stats_masked": ("kl_masked_packed", True, "pallas_mu.py:678"),
 }
 # The H100's data-sheet rates (SXM, dense) that bound a kernel.
 HBM_BYTES_PER_S = 3.35e12
@@ -240,10 +254,36 @@ def bound(nbytes, ops, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def stats_bound(name, m, n, k, ydt, xdt, packed=False):
+def f32_bounds(nbytes, ops, mask_ops=0.0):
+    """The two bounds of f32 work, (bf16x6, f32 FMA): ``ops`` counts its
+    products' operations (2MNK for each M x N x K product), ``mask_ops``
+    those of the products whose one operand is a 0/1 mask. At f32 accuracy
+    the products run as bf16x6 limb products on the tensor cores (the
+    TPU's Precision.HIGHEST): 6 bf16 passes each, 3 against a 0/1 mask
+    (exact in bf16), at 989 TFLOP/s; the second bound is full-f32 FMAs at
+    67 TFLOP/s. The first is the least time, so it is the kernels' bound."""
+    return (bound(nbytes, 6.0 * ops - 3.0 * mask_ops, torch.bfloat16),
+            bound(nbytes, ops, torch.float32))
+
+
+def dtype_bounds(nbytes, ops, dtype):
+    """(bound, f32-FMA bound or None) of ``ops`` product operations on
+    ``dtype`` operands: bf16 on the tensor cores, f32 as ``f32_bounds``."""
+    if dtype == torch.float32:
+        return f32_bounds(nbytes, ops)
+    return bound(nbytes, ops, dtype), None
+
+
+def bound_text(b, fma):
+    return (f"{b[0]:.3f} ms ({b[1]})"
+            + (f", f32-FMA bound {fma[0]:.3f} ms" if fma else ""))
+
+
+def stats_bound(name, m, n, k, ydt, xdt, packed=False, fma=False):
     """The bound of one NMF statistics kernel call: y (and the mask) read
     once, x read and x_new written, d read, the statistics written; its
-    products on the data's type. ``packed``: the mask is read as its bits,
+    products on the data's type, f32 as bf16x6 (``f32_bounds``; ``fma``:
+    as full-f32 FMAs instead). ``packed``: the mask is read as its bits,
     4 bytes per row per ``packed_words`` word."""
     from decomp_tpu_torch.ops.cuda_mu import packed_words
 
@@ -253,12 +293,17 @@ def stats_bound(name, m, n, k, ydt, xdt, packed=False):
     nbytes = (m * n * ydt.itemsize + mask_bytes
               + 2 * m * k * xdt.itemsize + k * n * ydt.itemsize
               + (2 if masked else 1) * k * n * 4)
+    mask_ops = 0.0
     if name == "mu_stats_dense":   # y d^T, x_new^T y; x ddt, x_new^T x_new
         ops = 4.0 * m * n * k + 4.0 * m * k * k
     else:                          # 2MNK for each M x N x K product
         ops = {"mu_stats_masked": 12, "kl_stats_dense": 8,
                "kl_stats_masked": 12}[name] * float(m) * n * k
-    return bound(nbytes, ops, ydt)
+        if name == "kl_stats_masked":   # mask d^T and x_new^T mask
+            mask_ops = 4.0 * m * n * k
+    if ydt != torch.float32:
+        return bound(nbytes, ops, ydt)
+    return f32_bounds(nbytes, ops, mask_ops)[1 if fma else 0]
 
 
 def check(cond, msg):
@@ -349,25 +394,29 @@ def stats_inputs(gen, dev, m, n, k, ydt, xdt, masked):
     return (my, mask, x, d) if masked else (my, x, d)
 
 
-def compare_new(cuda_mu, name, args, packed=False):
+def compare_new(cuda_mu, name, args, packed=False, eps=EPS, tag=""):
     """One of the masked-MU / KL kernels against its twin on ``args``;
-    returns the outputs' max abs error. ``packed``: ``mu_stats_masked``
-    takes the mask as its bits (the kernel of csrc/mu_masked_packed.cu),
-    the twin the dense mask."""
+    returns the outputs' max abs error. ``packed``: ``mu_stats_masked`` or
+    ``kl_stats_masked`` takes the mask as its bits (the kernel of
+    csrc/mu_masked_packed.cu or csrc/kl_masked_packed.cu), the twin the
+    dense mask; a masked wrapper given the dense mask must take its dense
+    route. ``tag`` names the inputs in the printed line."""
     wrapper = getattr(cuda_mu, name)
     kargs = args
+    route = "packed_launches" if packed else "dense_launches"
     if packed:
         bits = cuda_mu.pack_mask(args[1])
         check(bits is not None, "pack_mask refused a 0/1 mask")
         kargs = (args[0], bits) + tuple(args[2:])
-        before = wrapper.packed_launches
-    out = wrapper(*kargs, EPS)
-    again = wrapper(*kargs, EPS)
-    ref = getattr(cuda_mu, f"{name}_plain")(*args, EPS)
+    before = getattr(wrapper, route, 0)
+    out = wrapper(*kargs, eps)
+    again = wrapper(*kargs, eps)
+    ref = getattr(cuda_mu, f"{name}_plain")(*args, eps)
     torch.cuda.synchronize()
-    if packed:
-        check(wrapper.packed_launches == before + 2,
-              "the packed mask did not take the packed kernel")
+    if hasattr(wrapper, route):
+        check(getattr(wrapper, route) == before + 2,
+              f"{name}: the {'packed' if packed else 'dense'} mask did not "
+              "take its route")
     my, x = args[0], args[-2]
     errs = [rel_fro(a, b) for a, b in zip(out, ref)]
     limits = [X_BF16_LIMIT if x.dtype == torch.bfloat16 else LIMIT[my.dtype]]
@@ -375,7 +424,9 @@ def compare_new(cuda_mu, name, args, packed=False):
     same = all(torch.equal(a, b) for a, b in zip(out, again))
     tag = (f"{name}{' packed mask' if packed else ''} "
            f"{my.shape[0]}x{my.shape[1]} K={x.shape[1]} "
-           f"data={str(my.dtype)[6:]} x={str(x.dtype)[6:]}")
+           f"data={str(my.dtype)[6:]} x={str(x.dtype)[6:]}"
+           + (f" eps={eps}" if eps != EPS else "")
+           + (f" {tag}" if tag else ""))
     print(f"kernel vs twin {tag}: rel_fro " + " ".join(
         f"{e:.3e} (limit {lim:.0e})" for e, lim in zip(errs, limits))
         + f"; bit-identical rerun: {same}", flush=True)
@@ -386,31 +437,34 @@ def compare_new(cuda_mu, name, args, packed=False):
     return max_abs(out, ref)
 
 
-def time_packed(cuda_mu, args, reps=10):
-    """Per-call ms of the packed-mask kernel, the dense-mask kernel on the
-    bf16 mask and the twin, on the same inputs, in turns (dense, packed,
-    packed, dense; each figure the mean of its two)."""
+def time_packed(cuda_mu, name, args, reps=10):
+    """Per-call ms of the masked wrapper ``name``'s packed-mask kernel, its
+    dense-mask kernel on the dense mask and its twin, on the same inputs,
+    in turns (dense, packed, packed, dense; each figure the mean of its
+    two)."""
     my, mask, x, d = args
     bits = cuda_mu.pack_mask(mask)
+    wrapper = getattr(cuda_mu, name)
 
     def dense():
-        return cuda_mu.mu_stats_masked(my, mask, x, d, EPS)
+        return wrapper(my, mask, x, d, EPS)
 
     def packed():
-        return cuda_mu.mu_stats_masked(my, bits, x, d, EPS)
+        return wrapper(my, bits, x, d, EPS)
 
     t = [cuda_ms(f, reps) for f in (dense, packed, packed, dense)]
-    plain = cuda_ms(lambda: cuda_mu.mu_stats_masked_plain(my, mask, x, d,
-                                                          EPS), 2)
+    plain = cuda_ms(lambda: getattr(cuda_mu, f"{name}_plain")(
+        my, mask, x, d, EPS), 2)
     return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2, plain
 
 
-def pass_times(fn, nbytes, tag, card, calls=5):
+def pass_times(fn, nbytes, tag, card, calls=5, ops=None):
     """Each launch of ``fn`` whose kernel is named by a key of ``nbytes``
     (``::key`` in the profiler's name, so that cuBLAS's splitKreduce_kernel
     is not taken for reduce_kernel), timed apart by torch.profiler over
     ``calls`` calls, beside the HBM bytes it must move and the rate that
-    makes."""
+    makes; ``ops``: the bf16 MMA operations of some of the launches, by
+    the same keys, and the rate those make."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -424,9 +478,12 @@ def pass_times(fn, nbytes, tag, card, calls=5):
         if name is None or not str(e.device_type).endswith("CUDA"):
             continue
         ms = e.self_device_time_total / calls / 1e3
+        rate = ""
+        if ops and name in ops:
+            rate = f", {ops[name] / ms / 1e9:.2f} TFLOP/s of bf16 MMA"
         print(f"  pass {name} {tag}: {ms:.4f} ms per call, "
               f"{nbytes[name] / 1e6:.1f} MB, {nbytes[name] / ms / 1e9:.3f} "
-              f"TB/s ({card})", flush=True)
+              f"TB/s{rate} ({card})", flush=True)
 
 
 def packed_passes(cuda_mu, args, card):
@@ -447,6 +504,54 @@ def packed_passes(cuda_mu, args, card):
               "reduce_kernel": part + 2 * k * n * 4}
     pass_times(lambda: cuda_mu.mu_stats_masked(my, bits, x, d, EPS), nbytes,
                f"{m}x{n} K={k}", card)
+
+
+def kl_packed_passes(cuda_mu, args, card):
+    """The packed KL kernel's three launches: the x update reads my, the
+    mask bits, x and d's three limbs and writes x_new and its limbs xc (M
+    x 3 KT bf16); the statistics read my, the bits, xc and each N tile's
+    limbs of d and write the partials; the reduction reads the partials
+    and writes numd and dend."""
+    my, mask, x, d = args
+    bits = cuda_mu.pack_mask(mask)
+    (m, n), k = my.shape, d.shape[0]
+    kt = 64 if k <= 64 else 128
+    chunks = -(-m // cuda_mu.kl_packed_block_rows(m, n))
+    mn, xb, words = m * n * 4, m * k * 4, bits.numel() * 4
+    limbs, xc = 3 * k * n * 2, m * 3 * kt * 2
+    part = chunks * 2 * k * n * 4
+    nbytes = {"kl_x_update": mn + words + 2 * xb + limbs + xc,
+              "kl_stats": mn + words + xc + limbs + part,
+              "reduce_kernel": part + 2 * k * n * 4}
+    # Each pass: 6 + 6 + 3 bf16 passes of 2MNK at the rank tile KT.
+    per_pass = 15 * 2.0 * m * n * kt
+    pass_times(lambda: cuda_mu.kl_stats_masked(my, bits, x, d, EPS), nbytes,
+               f"{m}x{n} K={k} ({chunks} chunks)", card,
+               ops={"kl_x_update": per_pass, "kl_stats": per_pass})
+
+
+def lognormal_inputs(gen, dev, m, n, k):
+    """Masked KL inputs whose my, x and d are log-normal, e^(ln 10 z) for
+    standard normal z: 99.7% of the values within 10^-3 .. 10^3, about six
+    decades; 30% of the entries missing. A product split into two bf16
+    limbs (bf16x3) breaks LIMIT[f32] on such data, one of three limbs
+    (bf16x6) does not."""
+    ln10 = float(np.log(10.0))
+    mask = (torch.rand((m, n), generator=gen, device=dev) >= 0.3).float()
+    my = mask * torch.exp(ln10 * torch.randn((m, n), generator=gen,
+                                             device=dev))
+    x = torch.exp(ln10 * torch.randn((m, k), generator=gen, device=dev))
+    d = torch.exp(ln10 * torch.randn((k, n), generator=gen, device=dev))
+    return my, mask, x, d
+
+
+def weighted(gen, args):
+    """Masked inputs with the observed entries weighted in [0.5, 1):
+    ``pack_mask`` refuses such a mask, which keeps the dense route."""
+    my, mask, x, d = args
+    w = (0.5 + 0.5 * torch.rand(mask.shape, generator=gen,
+                                device=mask.device)).to(mask.dtype)
+    return my * w, mask * w, x, d
 
 
 def dense_passes(cuda_mu, y, x, d, card):
@@ -1069,11 +1174,11 @@ def lasso_times(cl, gen, dev, card, y, a, fixed_shape, grad_shape):
         e = compare_grad(cl, "masked_grad_rows", args)
         k_ms = cuda_ms(lambda: cl.masked_grad_rows(*args), 5)
         p_ms = cuda_ms(lambda: cl.masked_grad_rows_plain(*args), 2)
-        b = bound((2 * m * n + 2 * m * f + f * n) * dt.itemsize,
-                  4.0 * m * n * f, dt)
+        b, fma = dtype_bounds((2 * m * n + 2 * m * f + f * n) * dt.itemsize,
+                              4.0 * m * n * f, dt)
         print(f"masked_grad_rows {m}x{n} F={f} {str(dt)[6:]}: kernel "
               f"{k_ms:.3f} ms, plain twin {p_ms:.3f} ms per call, bound "
-              f"{b[0]:.3f} ms ({b[1]}) ({card})", flush=True)
+              f"{bound_text(b, fma)} ({card})", flush=True)
         if dt == f32:
             out["masked_grad_rows"] = (e, k_ms, p_ms) + b
         del args
@@ -1398,11 +1503,12 @@ def dl_times(cd, card, c3, c3_marg, c3_niter, masked):
         e = compare_grad(cd, "masked_grad_dict", args)
         k_ms = cuda_ms(lambda: cd.masked_grad_dict(*args), 5)
         p_ms = cuda_ms(lambda: cd.masked_grad_dict_plain(*args), 2)
-        bnd = bound((2 * m * n + m * k + k * n) * dt.itemsize + 4 * k * n,
-                    4.0 * m * n * k, dt)
+        bnd, fma = dtype_bounds(
+            (2 * m * n + m * k + k * n) * dt.itemsize + 4 * k * n,
+            4.0 * m * n * k, dt)
         print(f"masked_grad_dict {m}x{n} K={k} {str(dt)[6:]}: kernel "
               f"{k_ms:.3f} ms, plain twin {p_ms:.3f} ms per call, bound "
-              f"{bnd[0]:.3f} ms ({bnd[1]}) ({card})", flush=True)
+              f"{bound_text(bnd, fma)} ({card})", flush=True)
         if dt == torch.float32:
             out["masked_grad_dict"] = (e, k_ms, p_ms) + bnd
         del args
@@ -1431,8 +1537,9 @@ def main():
     def reset_counts():
         for w in wrappers:
             w.launches = 0
-        cuda_mu.mu_stats_masked.packed_launches = 0
-        cuda_mu.mu_stats_masked.dense_launches = 0
+        for w in (cuda_mu.mu_stats_masked, cuda_mu.kl_stats_masked):
+            w.packed_launches = 0
+            w.dense_launches = 0
         cuda_mu.mu_stats_dense.tma_launches = 0
         cuda_lasso.solve_rows.complex_launches = 0
         cuda_lasso.solve_rows.tma_launches = 0
@@ -1489,7 +1596,10 @@ def main():
             compare(cuda_mu, gen, dev, m, n, k, inner, bf16, xdt)
     t_phase = phase("2 dense kernel vs twin", t_phase)
 
-    # Phase 3: the masked-MU and KL kernels against their twins.
+    # Phase 3: the masked-MU and KL kernels against their twins, the masked
+    # ones on their dense-mask routes (csrc/mu_kl_stats.cu). f32 data with
+    # a 0/1 mask take the packed KL kernel (phase 3c), so the dense-mask
+    # KL kernel is held on f32 data with a weighted mask.
     variants = {"mu_stats_masked": [(bf16, f32), (bf16, bf16), (f32, f32)],
                 "kl_stats_dense": [(bf16, bf16), (f32, f32)],
                 "kl_stats_masked": [(bf16, bf16), (f32, f32)]}
@@ -1499,7 +1609,10 @@ def main():
             for ydt, xdt in dts:
                 args = stats_inputs(gen, dev, m, n, k, ydt, xdt,
                                     NEW_KERNELS[name][1])
-                compare_new(cuda_mu, name, args)
+                tag = ""
+                if name == "kl_stats_masked" and ydt == f32:
+                    args, tag = weighted(gen, args), "weighted mask"
+                compare_new(cuda_mu, name, args, tag=tag)
                 del args
     t_phase = phase("3 masked-MU and KL kernels vs twins", t_phase)
 
@@ -1512,6 +1625,39 @@ def main():
             compare_new(cuda_mu, "mu_stats_masked", args, packed=True)
             del args
     t_phase = phase("3b packed-mask kernel vs twin", t_phase)
+
+    # Phase 3c: the packed-mask KL kernel (csrc/kl_masked_packed.cu, bf16x6
+    # on the tensor cores) against its full-f32 twin, f32 data: phase 3's
+    # shapes, ragged ones, eps = 0, and log-normal data over six decades.
+    for m, n, k in ((1000, 1000, 100), (100_000, 1000, 50),
+                    (65536, 10112, 128), (333, 257, 7), (1000, 1000, 64),
+                    (1000, 1000, 1)):
+        args = stats_inputs(gen, dev, m, n, k, f32, f32, True)
+        compare_new(cuda_mu, "kl_stats_masked", args, packed=True)
+        if k == 7:
+            compare_new(cuda_mu, "kl_stats_masked", args, packed=True,
+                        eps=0.0)
+        del args
+    args = lognormal_inputs(gen, dev, 65536, 1024, 128)
+    lo, hi = (float(q) for q in torch.quantile(
+        torch.log10(args[0][args[1] > 0][:1 << 20]),
+        torch.tensor([0.0015, 0.9985], device=dev)))
+    compare_new(cuda_mu, "kl_stats_masked", args, packed=True,
+                tag=f"log-normal, 99.7% of observed my over {hi - lo:.1f} "
+                "decades")
+    del args
+    # The dense-mask KL kernel at the same edges: ragged M, N and K, K = 1
+    # and eps = 0, bf16 data and f32 data with a weighted mask.
+    for m, n, k, eps in ((333, 257, 7, EPS), (333, 257, 7, 0.0),
+                         (1000, 1000, 1, EPS)):
+        for ydt in (bf16, f32):
+            args = stats_inputs(gen, dev, m, n, k, ydt, ydt, True)
+            tag = ""
+            if ydt == f32:
+                args, tag = weighted(gen, args), "weighted mask"
+            compare_new(cuda_mu, "kl_stats_masked", args, eps=eps, tag=tag)
+            del args
+    t_phase = phase("3c packed-mask KL kernel vs twin", t_phase)
 
     # Phase 4: the dense main path at the real size.
     m, n, k, iters = 1 << 20, 10112, 128, 20
@@ -1695,13 +1841,20 @@ def main():
         e1.record()
         torch.cuda.synchronize()
         kl_launches[name] = read_counts(name, iters)
+        routes = ""
+        if mk is not None:   # f32 data and a 0/1 mask: the packed route
+            got = (cuda_mu.kl_stats_masked.packed_launches,
+                   cuda_mu.kl_stats_masked.dense_launches)
+            check(got == (iters, 0), f"masked KL-MU: (packed, dense) route "
+                  f"launches {got}, expected ({iters}, 0)")
+            routes = f" (packed route {got[0]}, dense route {got[1]})"
         kl_s = e0.elapsed_time(e1) / 1e3
         obj1 = float(nmf_mod._kl_objective(my7, res.x, res.d, mk, eps7))
         print(f"KL-MU nmf.solve(method='kl-mu') {m7}x{n7} rank {k7} f32, "
               f"{'masked 30% missing' if mk is not None else 'dense'}: "
               f"{iters} iterations in {kl_s:.3f} s = {iters / kl_s:.3f} "
               f"iters/s ({card}); KL objective {obj0:.6e} -> {obj1:.6e}; "
-              f"{name} launches {kl_launches[name]}", flush=True)
+              f"{name} launches {kl_launches[name]}{routes}", flush=True)
         check(res.niter == iters, f"niter {res.niter} != {iters}")
         check(np.isfinite(obj1) and obj1 < obj0,
               f"KL objective did not fall: {obj0} -> {obj1}")
@@ -1717,7 +1870,7 @@ def main():
     for m_, n_, k_ in ((m4, n4, k4), (262_144, 10112, 128)):
         args = stats_inputs(gen, dev, m_, n_, k_, bf16, f32, True)
         e = compare_new(cuda_mu, "mu_stats_masked", args, packed=True)
-        t = time_packed(cuda_mu, args)
+        t = time_packed(cuda_mu, "mu_stats_masked", args)
         b = stats_bound("mu_stats_masked", m_, n_, k_, bf16, f32, True)
         b_dense = stats_bound("mu_stats_masked", m_, n_, k_, bf16, f32)
         print(f"mu_stats_masked {m_}x{n_} K={k_} data=bfloat16 x=float32: "
@@ -1737,22 +1890,40 @@ def main():
     e = compare_new(cuda_mu, "mu_stats_masked", args)
     t = time_new(cuda_mu, "mu_stats_masked", args)
     b = stats_bound("mu_stats_masked", m4, n4, k4, f32, f32)
+    b_fma = stats_bound("mu_stats_masked", m4, n4, k4, f32, f32, fma=True)
     print(f"mu_stats_masked {m4}x{n4} K={k4} data=float32 x=float32 (dense "
           f"mask, csrc/mu_kl_stats.cu): kernel {t[0]:.3f} ms, plain twin "
-          f"{t[1]:.3f} ms per call, bound {b[0]:.3f} ms ({b[1]}) ({card}); "
-          f"max_abs_err {e:.3e}", flush=True)
+          f"{t[1]:.3f} ms per call, bound bf16x6 {b[0]:.3f} ms ({b[1]}), "
+          f"f32-FMA {b_fma[0]:.3f} ms ({card}); max_abs_err {e:.3e}",
+          flush=True)
     del args
-    for name in ("kl_stats_dense", "kl_stats_masked"):
-        args = stats_inputs(gen, dev, m7, n7, k7, f32, f32,
-                            NEW_KERNELS[name][1])
-        errs_abs[name] = compare_new(cuda_mu, name, args)
-        times[name] = time_new(cuda_mu, name, args)
-        b = stats_bound(name, m7, n7, k7, f32, f32)
-        print(f"{name} {m7}x{n7} K={k7} data=float32 x=float32: kernel "
-              f"{times[name][0]:.3f} ms, plain twin {times[name][1]:.3f} ms "
-              f"per call, bound {b[0]:.3f} ms ({b[1]}) ({card}); max_abs_err "
-              f"{errs_abs[name]:.3e}", flush=True)
-        del args
+    args = stats_inputs(gen, dev, m7, n7, k7, f32, f32, False)
+    errs_abs["kl_stats_dense"] = compare_new(cuda_mu, "kl_stats_dense", args)
+    times["kl_stats_dense"] = time_new(cuda_mu, "kl_stats_dense", args)
+    b = stats_bound("kl_stats_dense", m7, n7, k7, f32, f32)
+    b_fma = stats_bound("kl_stats_dense", m7, n7, k7, f32, f32, fma=True)
+    print(f"kl_stats_dense {m7}x{n7} K={k7} data=float32 x=float32: kernel "
+          f"{times['kl_stats_dense'][0]:.3f} ms, plain twin "
+          f"{times['kl_stats_dense'][1]:.3f} ms per call, bound bf16x6 "
+          f"{b[0]:.3f} ms ({b[1]}), f32-FMA {b_fma[0]:.3f} ms ({card}); "
+          f"max_abs_err {errs_abs['kl_stats_dense']:.3e}", flush=True)
+    del args
+    # Masked KL runs its main path's route, the packed mask, timed in turns
+    # with the dense-mask kernel of csrc/mu_kl_stats.cu on the same inputs.
+    args = stats_inputs(gen, dev, m7, n7, k7, f32, f32, True)
+    e = compare_new(cuda_mu, "kl_stats_masked", args, packed=True)
+    t = time_packed(cuda_mu, "kl_stats_masked", args)
+    errs_abs["kl_stats_masked"], times["kl_stats_masked"] = e, (t[0], t[2])
+    b = stats_bound("kl_stats_masked", m7, n7, k7, f32, f32, packed=True)
+    b_fma = stats_bound("kl_stats_masked", m7, n7, k7, f32, f32, fma=True)
+    print(f"kl_stats_masked {m7}x{n7} K={k7} data=float32 x=float32: "
+          f"packed-mask kernel (bf16x6) {t[0]:.3f} ms, dense-mask kernel "
+          f"(f32 FMA) {t[1]:.3f} ms, plain twin {t[2]:.3f} ms per call; "
+          f"packed / dense {t[0] / t[1]:.3f}; bound bf16x6 {b[0]:.3f} ms "
+          f"({b[1]}), f32-FMA {b_fma[0]:.3f} ms ({b_fma[1]}) ({card}); "
+          f"max_abs_err {e:.3e}", flush=True)
+    kl_packed_passes(cuda_mu, args, card)
+    del args
     t_phase = phase("8 kernel times", t_phase)
 
     # Phase 9: the lasso kernels against their twins.
@@ -1832,7 +2003,7 @@ def main():
               "kl_stats_dense": stats_bound("kl_stats_dense", m7, n7, k7,
                                             f32, f32),
               "kl_stats_masked": stats_bound("kl_stats_masked", m7, n7, k7,
-                                             f32, f32)}
+                                             f32, f32, packed=True)}
     stats = {"mu_stats_dense": (err_abs, kernel_ms, plain_ms),
              **{name: (errs_abs[name],) + times[name] for name in NEW_KERNELS}}
     stats = {name: s + bounds[name] for name, s in stats.items()}

@@ -8,6 +8,11 @@
 //   KL_MASKED  kl_stats_masked (:678, body _kl_masked_kernel :325)
 // and one of decomp_tpu/ops/pallas_lasso.py:
 //   GRAD_DICT  masked_grad_dict (:225, body _grad_dict_kernel :201)
+// The masked variants serve a dense mask: MU_MASKED f32 data and weighted
+// masks (bf16 data with a 0/1 mask go to mu_masked_packed.cu), KL_MASKED
+// bf16 data and weighted masks (f32 data with a 0/1 mask go to
+// kl_masked_packed.cu, bf16x6 on the tensor cores); ops/cuda_mu.py routes
+// by the data's dtype and the mask's form.
 // Given my = mask * y (M, N), mask (M, N) (masked variants), x (M, K) and
 // d (K, N) in my's dtype (cdt), each forms a reconstruction R = cdt(x) d
 // on chip, applies the variant's elementwise step E(R), and returns
@@ -62,8 +67,7 @@
 //   partials                 128 chunks x 10.4 MB, written and read: 2.7 GB
 //   total                    ~24 GB, ~7.2 ms at 3.35 TB/s
 // against ~10.6 GB for one fused pass. KL_DENSE reads no mask (half the
-// data bytes, partials 1.3 GB). The 2-byte mask stream could be a bitmask
-// (1/16 of the bytes): later work, with the fused single pass and wgmma.
+// data bytes, partials 1.3 GB). The packed kernels read the mask as bits.
 // d (2.6 MB) is re-read from L2 by every stripe of launch 1.
 //
 // GRAD_DICT runs launches 2 and 3 only, on x itself: one pass over my and

@@ -125,16 +125,6 @@ __device__ __forceinline__ void stage_acc(float (&acc)[MT][NT][4],
   }
 }
 
-template <int MT, int NT>
-__device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
-}
-
 // A stage is 64 columns of the stripe (launch 1) or 64 rows of the chunk
 // (launch 2), so every TMA box row is 128 bytes; its products run as two
 // BK-deep sub-stages. Ring depth by rank tile, two blocks per SM: >= 32 KB

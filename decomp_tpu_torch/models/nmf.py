@@ -124,8 +124,12 @@ def solve(
     record_objective : record the objective per iteration: 0.5 *
         ||mask * (y - x@d)||^2 for 'mu', the KL divergence for 'kl-mu'.
     precision : accepted for ``decomp_tpu`` compatibility and without
-        effect: f32 products here are always full f32 (never TF32), and
-        bf16 products always sum in f32.
+        effect: f32 products here keep f32 accuracy (never TF32): full f32,
+        except masked 'kl-mu' on f32 data with a 0/1 mask on the card,
+        whose kernel runs them as bf16x6 limb products on the tensor cores
+        (as the TPU's ``Precision.HIGHEST`` does), held to the f32
+        kernels' agreement limit with the full-f32 twin. bf16 products
+        always sum in f32.
     factor_dtype : store x and d in this wider dtype while y and every
         product's operands stay in y's dtype (bf16 data, f32 factors is
         the converging high-throughput operating point). 'mu' and 'kl-mu'.
@@ -358,9 +362,16 @@ def _kernel_step(my, mask, method, eps, block_rows, inner_iter):
             return cuda_mu.kl_update_dense(my, state[0], state[1], eps,
                                            block_rows=block_rows)
     elif method == "kl-mu":
+        # A 0/1 mask (the training mask under stop='heldout') goes to the
+        # kernel as bits, packed once per solve; a weighted mask, or bf16
+        # data on the card, stays dense.
+        packed = (cuda_mu.pack_mask(mask) if cuda_mu.kl_takes_packed(my)
+                  else None)
+        mask_k = mask if packed is None else packed
+
         def step(state, it):
-            return cuda_mu.kl_update_masked(my, mask, state[0], state[1], eps,
-                                            block_rows=block_rows)
+            return cuda_mu.kl_update_masked(my, mask_k, state[0], state[1],
+                                            eps, block_rows=block_rows)
     elif mask is None:
         def step(state, it):
             x_, d_ = state

@@ -24,16 +24,28 @@ and stored in ``x``'s dtype; the statistics use ``x_new`` cast to
 ``cdt``, and ``xsum`` sums the f32 ``x_new``. As in the TPU kernels,
 ``x_new`` and the statistics are formed in f32 even for f64 data.
 
-On a CUDA tensor a wrapper launches its kernel (``csrc/mu_stats_dense.cu``
-or ``csrc/mu_kl_stats.cu``: bf16 or f32 data, ``d`` and ``mask`` in the
-data's dtype, 1 <= K <= 128; ``x`` in the data's dtype or f32 for the MU
-kernels, in the data's dtype for the KL ones) and raises on anything
-else. ``mu_stats_dense`` takes bf16 data to ``csrc/mu_dense_tma.cu``
-(``dense_route``). ``mu_stats_masked`` also takes the mask as bits
-(``pack_mask``): with bf16 data on the card that launches
-``csrc/mu_masked_packed.cu``. On a CPU tensor a wrapper runs its
-``*_plain`` twin. It never falls back from one to the other. Each
-wrapper counts its kernel launches in ``.launches``.
+On a CUDA tensor a wrapper launches its kernel and raises on anything it
+does not take (bf16 or f32 data, ``d`` and a dense ``mask`` in the data's
+dtype, 1 <= K <= 128; ``x`` in the data's dtype, or f32 for the MU
+kernels). The routes, by dtype and by the mask's form:
+
+- ``mu_stats_dense``: bf16 data to ``csrc/mu_dense_tma.cu``
+  (``dense_route``), f32 data to ``csrc/mu_stats_dense.cu``;
+- ``mu_stats_masked``: the mask as bits (``pack_mask``) with bf16 data to
+  ``csrc/mu_masked_packed.cu``; a dense mask to ``csrc/mu_kl_stats.cu``;
+- ``kl_stats_masked``: the mask as bits with f32 data to
+  ``csrc/kl_masked_packed.cu``, whose f32 products run as bf16x6 limb
+  products on the tensor cores (``split_bf16x3``; the TPU's
+  ``Precision.HIGHEST``); a dense mask (bf16 data, or a weighted mask,
+  which ``pack_mask`` refuses) to ``csrc/mu_kl_stats.cu``;
+- ``kl_stats_dense``: ``csrc/mu_kl_stats.cu``.
+
+``nmf.solve`` packs a 0/1 mask once per solve where ``takes_packed`` (MU)
+or ``kl_takes_packed`` (KL) says the route takes bits. On a CPU tensor a
+wrapper runs its ``*_plain`` twin (unpacking a packed mask first). It
+never falls back from one to the other. Each wrapper counts its kernel
+launches in ``.launches``; the masked ones also per route, in
+``.packed_launches`` and ``.dense_launches``.
 
 Not ported: ``calibrated_tpu``, ``fits_vmem`` and ``default_block_rows``,
 which encode TPU v5e VMEM calibrations.
@@ -72,6 +84,12 @@ _TMA_STAGE_ROWS = 64
 _TMA_RESIDENT = 132
 _TMA_WAVE_FILL = 0.95
 _TMA_MAX_CHUNKS = 64
+# The packed KL kernel's statistics pass (csrc/kl_masked_packed.cu):
+# 128-column N tiles and 32-row stages, one resident block per SM on the
+# H100's 132 SMs.
+_KL_N_TILE = 128
+_KL_STAGE_ROWS = 32
+_KL_RESIDENT = 132
 
 
 def validate_block_rows(block_rows):
@@ -436,6 +454,19 @@ def mu_stats_masked(my, mask, x, d, eps, *, block_rows=None):
     ``.launches`` counts both. On a CPU tensor a packed mask is unpacked
     to ``my``'s dtype for the twin, which then gives the dense mask's
     bits."""
+    return _route_masked(mu_stats_masked, mu_stats_masked_plain,
+                         _packed_launch, my, mask, x, d, eps, block_rows)
+
+
+def _route_masked(wrapper, plain, packed_launch, my, mask, x, d, eps,
+                  block_rows):
+    """The routes of a masked wrapper (``mu_stats_masked`` or
+    ``kl_stats_masked``) by the mask's form: on the CPU its twin ``plain``
+    (a packed mask unpacked to ``my``'s dtype first); on the card
+    ``packed_launch`` for the bits of a 0/1 mask, counted in
+    ``.packed_launches``, and the dense-mask kernel of
+    ``csrc/mu_kl_stats.cu`` for a dense mask, counted in
+    ``.dense_launches``; ``.launches`` counts both."""
     validate_block_rows(block_rows)
     packed = mask.dtype == torch.int32
     if packed:
@@ -443,15 +474,14 @@ def mu_stats_masked(my, mask, x, d, eps, *, block_rows=None):
     if _runs_plain(my):
         if packed:
             mask = unpack_mask(mask, my.shape[1], my.dtype)
-        return mu_stats_masked_plain(my, mask, x, d, eps,
-                                     block_rows=block_rows)
+        return plain(my, mask, x, d, eps, block_rows=block_rows)
     if packed:
-        out = _packed_launch(my, mask, x, d, eps, block_rows)
-        mu_stats_masked.packed_launches += 1
-        mu_stats_masked.launches += 1
+        out = packed_launch(my, mask, x, d, eps, block_rows)
+        wrapper.packed_launches += 1
+        wrapper.launches += 1
         return out
-    out = _masked_launch(mu_stats_masked, my, mask, x, d, eps, block_rows)
-    mu_stats_masked.dense_launches += 1
+    out = _masked_launch(wrapper, my, mask, x, d, eps, block_rows)
+    wrapper.dense_launches += 1
     return out
 
 
@@ -467,9 +497,10 @@ def packed_words(n: int) -> int:
 
 
 def pack_mask(mask):
-    """The bits of a 0/1 mask, for ``mu_stats_masked``'s packed route: an
-    int32 tensor (M, ``packed_words(N)``) on the mask's device, bit j of
-    word w of row r set where ``mask[r, 32 w + j] != 0``, pad bits 0.
+    """The bits of a 0/1 mask, for the packed routes of
+    ``mu_stats_masked`` and ``kl_stats_masked``: an int32 tensor (M,
+    ``packed_words(N)``) on the mask's device, bit j of word w of row r
+    set where ``mask[r, 32 w + j] != 0``, pad bits 0.
     Returns None for a mask holding any value other than 0 and 1 (checked
     with one host read); such a mask stays dense. Run once per solve."""
     if mask.dim() != 2:
@@ -608,15 +639,93 @@ kl_stats_dense.launches = 0
 
 def kl_stats_masked(my, mask, x, d, eps, *, block_rows=None):
     """The masked KL-MU statistics ``(x_new, numd, dend)``; see the module
-    docstring."""
-    validate_block_rows(block_rows)
-    if _runs_plain(my):
-        return kl_stats_masked_plain(my, mask, x, d, eps,
-                                     block_rows=block_rows)
-    return _masked_launch(kl_stats_masked, my, mask, x, d, eps, block_rows)
+    docstring.
+
+    ``mask`` is either dense, in ``my``'s shape, or the bits of a 0/1
+    mask from ``pack_mask`` (int32). On a CUDA tensor a packed mask
+    launches ``csrc/kl_masked_packed.cu`` (f32 ``my`` only; its products
+    are bf16x6 on the tensor cores) and counts it in ``.packed_launches``;
+    a dense mask launches the masked KL kernel of ``csrc/mu_kl_stats.cu``
+    and counts it in ``.dense_launches``; ``.launches`` counts both. On a
+    CPU tensor a packed mask is unpacked to ``my``'s dtype for the twin,
+    which then gives the dense mask's bits."""
+    return _route_masked(kl_stats_masked, kl_stats_masked_plain,
+                         _kl_packed_launch, my, mask, x, d, eps, block_rows)
 
 
 kl_stats_masked.launches = 0
+kl_stats_masked.packed_launches = 0
+kl_stats_masked.dense_launches = 0
+
+
+def kl_takes_packed(my):
+    """Whether ``kl_stats_masked`` runs ``my`` with a packed mask: f32
+    data on the card (``csrc/kl_masked_packed.cu``), any data on the CPU
+    (the twin)."""
+    return my.dtype == torch.float32 or my.device.type == "cpu"
+
+
+def split_bf16x3(t):
+    """The three round-to-nearest bf16 limbs of f32 ``t``, stacked (3,
+    *t.shape): ``t0 = bf16(t)``, ``t1 = bf16(t - t0)``, ``t2 = bf16(t - t0
+    - t1)``, each residual exact in f32, so that ``t0 + t1 + t2`` gives
+    back ``t`` to within 2^-24 |t|. The operand split of the bf16x6
+    products of ``csrc/kl_masked_packed.cu``, made once per call for
+    ``d``."""
+    t = t.to(torch.float32)
+    t0 = t.to(torch.bfloat16)
+    r = t - t0.to(torch.float32)
+    t1 = r.to(torch.bfloat16)
+    t2 = (r - t1.to(torch.float32)).to(torch.bfloat16)
+    return torch.stack((t0, t1, t2))
+
+
+def kl_packed_block_rows(m: int, n: int) -> int:
+    """Rows per partial of the packed KL kernel's statistics pass: enough
+    chunks that chunks x 128-column N tiles make two waves of the one
+    block per SM that the H100's 132 SMs hold (33 chunks of 3,040 rows at
+    100,000 x 1,024), in whole 32-row stages. A function of the shape
+    alone, so every bit of the result is."""
+    tiles = -(-n // _KL_N_TILE)
+    chunks = max(1, -(-2 * _KL_RESIDENT // tiles))
+    rows = -(-m // chunks)
+    return -(-rows // _KL_STAGE_ROWS) * _KL_STAGE_ROWS
+
+
+def _kl_packed_launch(my, packed, x, d, eps, block_rows):
+    """Launch ``csrc/kl_masked_packed.cu`` on f32 ``my`` and the packed
+    mask (``kl_stats_masked``'s packed route). d's limbs go to the kernel
+    as one (3 KT, ld) bf16 array, limb l in rows [l KT, l KT + K), zero
+    rows and columns around it."""
+    m, n = my.shape
+    k = d.shape[0]
+    rows = block_rows or kl_packed_block_rows(m, n)
+    _check_kernel_args(my, x, d, 1, rows, wide_x=False)
+    if my.dtype != torch.float32:
+        raise DtypeError(f"the packed KL kernel takes f32 data, got "
+                         f"{my.dtype}")
+    if packed.data_ptr() % 16:
+        packed = packed.clone()
+    kt = 64 if k <= 64 else 128
+    fn = _c_function("kl_masked_packed", "kl_masked_packed_launch",
+                     (_I, _P, _I, _P, _I, _P, _P, _I, _F) + (_I,) * 4
+                     + (_P,) * 5)
+    with torch.cuda.device(my.device):
+        my_t, ld_my = _tma_rows(my)
+        ld_d = -(-n // 8) * 8
+        limbs = torch.zeros((3, kt, ld_d), dtype=torch.bfloat16,
+                            device=my.device)
+        limbs[:, :k, :n] = split_bf16x3(d)
+        x_new = torch.empty_like(x)
+        xc = torch.empty((m, 3 * kt), dtype=torch.bfloat16, device=my.device)
+        part = _f32(-(-m // rows) * 2 * k * n, my.device)
+        out = _f32(2 * k * n, my.device)
+        _launch("kl_stats_masked (packed)", fn, my.device, kt,
+                my_t.data_ptr(), ld_my, packed.data_ptr(), packed.shape[1],
+                x.data_ptr(), limbs.data_ptr(), ld_d, float(eps), m, n, k,
+                rows, x_new.data_ptr(), xc.data_ptr(), part.data_ptr(),
+                out.data_ptr())
+    return x_new, out[:k * n].view(k, n), out[k * n:].view(k, n)
 
 
 def _masked_launch(wrapper, my, mask, x, d, eps, block_rows):
