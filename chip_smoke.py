@@ -66,9 +66,14 @@ for sm_90a (one nvcc per source, all at once), and then:
    niter; then its complex mode the same way on complex64 data at 1,000
    x 100, 300 x 500, 10,000 x 512, 7 x 100 and 2,117 x 512 complex
    features, every call counted on the complex route, and
-   ``masked_grad_rows`` at
-   1,000 x 1,000 F = 100 and a ragged 333 x 257 F = 7 in f32 and bf16
-   (and at 100,000 x 1,024 F = 128 in phase 12);
+   ``masked_grad_rows`` on a dense mask (``csrc/lasso_grad.cu``) at
+   1,000 x 1,000 F = 100 and a ragged 333 x 257 F = 7 in f32 and bf16,
+   and on a packed mask with f32 data (``csrc/lasso_grad_packed.cu``,
+   bf16x6 products on wgmma) at 1,000 x 1,000 F = 100, 333 x 257 F = 7
+   (N % 4 != 0: my's padded copy), 7 x 1,000 F = 100 (fewer rows than a
+   stripe), F = 1, F = 64 (the 64-feature tile) and on log-normal my, x
+   and a at 100,000 x 1,024 F = 128, each within the f32 limit of the
+   full-f32 twin with a bit-identical rerun;
 10. drives batch lasso at BASELINE config 2, ``lasso.solve`` on 10,000
     problems of 256 channels over 512 features (acc_ista, precision
     'high', per-problem stopping, tol 1e-4), and checks one
@@ -91,8 +96,9 @@ for sm_90a (one nvcc per source, all at once), and then:
     kernel once per chunk;
 11. drives the masked lasso, ``lasso.solve(mask=...)`` at 100,000 x
     1,024, F = 128, 30% missing, 50 FISTA iterations in f32 and in bf16,
-    and checks one ``masked_grad_rows`` launch per iteration, a falling
-    objective and the agreement with the composition run;
+    and checks one ``masked_grad_rows`` launch per iteration (f32: all on
+    the packed route; bf16: all on the dense one), a falling objective
+    and the agreement with the composition run;
 12. times the lasso kernels against their twins: ``solve_rows`` per
     config-2 solve and at 262,144 x 512 for 100 fixed-budget iterations,
     its complex mode per config-2-complex solve, each in turns with
@@ -104,7 +110,8 @@ for sm_90a (one nvcc per source, all at once), and then:
     the new kernel (the crossover's batches, real and complex, 1,000 x
     200, 300 x 1,000 and 300 x 500 complex, dictionary learning's 'whole'
     inner coding at config 3's shape); ``masked_grad_rows`` at 100,000 x
-    1,024, F = 128;
+    1,024, F = 128: f32 on the packed route timed in turns with
+    ``csrc/lasso_grad.cu``'s f32 path on the same inputs, and bf16;
 13. holds the dictionary-learning kernels against their twins:
     ``bcd_sweep`` at K = 256, N = 64 (config 3), at a ragged K = 37, N =
     50 and at the largest K x N it takes (256 x 208) with one all-zero
@@ -124,8 +131,8 @@ for sm_90a (one nvcc per source, all at once), and then:
     missing (planted: unit atoms, truth 10% sparse, 0.01 noise), 20 outer
     iterations at tol 0 with lasso_iter 15 in f32, then 10 in bf16, and
     checks ``niter`` launches of ``masked_grad_dict`` and ``niter x 15``
-    of ``masked_grad_rows``, a falling objective and the agreement with
-    the composition run;
+    of ``masked_grad_rows`` (f32 on the packed route, bf16 on the dense
+    one), a falling objective and the agreement with the composition run;
 16. times the dictionary-learning kernels against their twins per call,
     with their bounds: ``bcd_sweep`` on config 3's statistics (also per
     atom), ``masked_grad_dict`` at 100,000 x 1,024, K = 128 in f32 and
@@ -134,8 +141,9 @@ for sm_90a (one nvcc per source, all at once), and then:
 Each path runs with every launch count set to 0 just before it and read
 just after. It exits non-zero on any failure, without a CUDA device, and
 where the package is absent. The line before the last is a JSON summary
-of the kernels (the eight, and ``solve_rows``' complex mode as its own
-entry), each with its bound: the larger of its bytes (each input
+of the kernels (the eight, and ``solve_rows``' complex mode and
+``masked_grad_rows``' packed route as entries of their own), each with
+its bound: the larger of its bytes (each input
 read once, each output written once) over 3.35 TB/s and its operations
 over the H100's peak for their type: 989 TFLOP/s for bf16 on the tensor
 cores; f32 products at f32 accuracy as bf16x6 limb products on the
@@ -191,7 +199,8 @@ SOLVE_LIMITS = {"nit_eq": 0.94, "eq_rows": 5e-5, "all_rows": 5e-4,
 # the twin's bits at Fc = 100 and 512. A margin of 4x or more.
 # masked_grad_rows against its twin (measured on the H100: 4.6e-7 f32,
 # 5.6e-5 bf16, where the residual is rounded to bf16 before the second
-# product and a one-ulp f32 difference flips a rounding); 4x margin.
+# product and a one-ulp f32 difference flips a rounding); 4x margin. The
+# packed route's bf16x6 products are held to the same f32 limit.
 GRAD_LIMIT = {torch.float32: 2e-6, torch.bfloat16: 2.5e-4}
 # Config 2 (acc_ista, tol 1e-4, 'high'), measured on the H100: x of
 # solve_rows against its twin on config 2's inputs 6.8e-4 (their niter
@@ -234,7 +243,7 @@ MASKED_DL_LIMIT = {torch.float32: 2e-6, torch.bfloat16: 5e-2}
 EPS = 1e-6
 SOURCES = ("mu_stats_dense", "mu_dense_tma", "mu_kl_stats", "mu_masked_packed",
            "kl_masked_packed", "lasso_fista", "lasso_fista_tma", "lasso_grad",
-           "dl_bcd")
+           "lasso_grad_packed", "dl_bcd")
 # name -> (source, masked, the TPU kernel it replaces)
 NEW_KERNELS = {
     "mu_stats_masked": ("mu_masked_packed", True, "pallas_mu.py:522"),
@@ -531,11 +540,11 @@ def kl_packed_passes(cuda_mu, args, card):
 
 
 def lognormal_inputs(gen, dev, m, n, k):
-    """Masked KL inputs whose my, x and d are log-normal, e^(ln 10 z) for
-    standard normal z: 99.7% of the values within 10^-3 .. 10^3, about six
-    decades; 30% of the entries missing. A product split into two bf16
-    limbs (bf16x3) breaks LIMIT[f32] on such data, one of three limbs
-    (bf16x6) does not."""
+    """Masked KL (and masked lasso gradient: d is a) inputs whose my, x
+    and d are log-normal, e^(ln 10 z) for standard normal z: 99.7% of the
+    values within 10^-3 .. 10^3, about six decades; 30% of the entries
+    missing. A product split into two bf16 limbs (bf16x3) breaks LIMIT[f32]
+    on such data, one of three limbs (bf16x6) does not."""
     ln10 = float(np.log(10.0))
     mask = (torch.rand((m, n), generator=gen, device=dev) >= 0.3).float()
     my = mask * torch.exp(ln10 * torch.randn((m, n), generator=gen,
@@ -720,23 +729,40 @@ def grad_inputs(gen, dev, m, n, f, dt):
     return my, mask, x, a
 
 
-def compare_grad(module, name, args):
+def compare_grad(module, name, args, packed=False, tag="", f64=False):
     """The masked gradient ``name`` of ``module`` (masked_grad_rows, or
-    cuda_dl's masked_grad_dict) against its twin; returns the max abs
+    cuda_dl's masked_grad_dict) against its twin; ``packed``: on the
+    mask's bits (masked_grad_rows' packed route); ``f64``: also both
+    against masked_grad_rows' function in f64. Returns the max abs
     error."""
-    my, x = args[0], args[2]
-    out = getattr(module, name)(*args)
-    again = getattr(module, name)(*args)
+    from decomp_tpu_torch.ops.cuda_mu import pack_mask
+
+    my, mask, x, a = args
+    fn = getattr(module, name)
+    kargs = (my, pack_mask(mask), x, a) if packed else args
+    before = getattr(fn, "packed_launches", 0)
+    out = fn(*kargs)
+    again = fn(*kargs)
     ref = getattr(module, f"{name}_plain")(*args)
     torch.cuda.synchronize()
     err = rel_fro(out, ref)
     same = torch.equal(out, again)
     lim = GRAD_LIMIT[my.dtype]
-    tag = (f"{name} {my.shape[0]}x{my.shape[1]} "
+    tag = (f"{name}{' packed' if packed else ''} {my.shape[0]}x{my.shape[1]} "
            f"{'K' if name.endswith('dict') else 'F'}={x.shape[1]} "
-           f"{str(my.dtype)[6:]}")
+           f"{str(my.dtype)[6:]}{', ' + tag if tag else ''}")
+    exact = ""
+    if f64:
+        ad = a.double()
+        g64 = (mask.double() * (x.double() @ ad) - my.double()) @ ad.T
+        exact = (f"; against f64: kernel {rel_fro(out, g64):.3e}, twin "
+                 f"{rel_fro(ref, g64):.3e}")
+        del ad, g64
     print(f"kernel vs twin {tag}: rel_fro {err:.3e} (limit {lim:g}); "
-          f"bit-identical rerun: {same}", flush=True)
+          f"bit-identical rerun: {same}{exact}", flush=True)
+    if packed:
+        check(fn.packed_launches == before + 2,
+              f"{tag}: not on the packed route")
     check(np.isfinite(err) and err <= lim, f"{tag}: kernel disagrees with "
           "twin")
     check(same, f"{tag}: two kernel runs differ")
@@ -1049,11 +1075,12 @@ def lasso_crossover(lasso, gen, dev, card):
                   f"{int(res.niter.max())}) ({card})", flush=True)
 
 
-def masked_lasso_phase(lasso, dev, card, reset_counts, read_counts, m, n,
-                       f):
+def masked_lasso_phase(lasso, dev, card, reset_counts, read_counts,
+                       grad_routes, m, n, f):
     """Phase 11: the masked lasso at M x N, F features, 30% missing, 50
-    FISTA iterations, in f32 and in bf16. Returns the f32 run's
-    masked_grad_rows launches."""
+    FISTA iterations, in f32 (the packed route) and in bf16 (the dense
+    one). Returns the masked_grad_rows launches of the f32 run on the
+    packed route and of the bf16 run on the dense route."""
     iters, alpha = 50, 0.05
     g = torch.Generator(device=dev).manual_seed(11)
     a = torch.randn((f, n), generator=g, device=dev) / n ** 0.5
@@ -1081,6 +1108,8 @@ def masked_lasso_phase(lasso, dev, card, reset_counts, read_counts, m, n,
         reset_counts()
         ms, res = event_ms(solve)
         launches[dt] = read_counts("masked_grad_rows", iters)
+        routes = grad_routes()
+        want = (iters, 0) if dt == torch.float32 else (0, iters)
         comp_ms, comp = event_ms(lambda: solve(use_kernel=False))
         obj0 = objective(torch.zeros((m, f), device=dev), my_, mask_, a_)
         obj1 = objective(res.x, my_, mask_, a_)
@@ -1092,7 +1121,9 @@ def masked_lasso_phase(lasso, dev, card, reset_counts, read_counts, m, n,
               f"({comp_ms:.3f} ms); objective {obj0:.6e} -> {obj1:.6e}; "
               f"rel_fro x vs composition {err:.3e} (limit "
               f"{MASKED_X_LIMIT[dt]:.0e}); masked_grad_rows launches "
-              f"{launches[dt]}", flush=True)
+              f"{launches[dt]} (packed, dense route {routes})", flush=True)
+        check(routes == want, f"{tag}: masked_grad_rows routes {routes}, "
+              f"expected {want}")
         check(res.niter == iters, f"{tag}: niter {res.niter} != {iters}")
         check(bool(torch.isfinite(res.x).all()), f"{tag}: non-finite x")
         check(np.isfinite(obj1) and obj1 < obj0,
@@ -1100,15 +1131,17 @@ def masked_lasso_phase(lasso, dev, card, reset_counts, read_counts, m, n,
         check(err <= MASKED_X_LIMIT[dt], f"{tag}: x disagrees with the "
               "composition run")
         del my_, mask_, a_, res, comp
-    return launches[torch.float32]
+    return launches[torch.float32], launches[torch.bfloat16]
 
 
 def lasso_times(cl, gen, dev, card, y, a, fixed_shape, grad_shape):
     """Phase 12: the lasso kernels against their twins per call, with
     their bounds: solve_rows on config 2's data (y, a) and in the fixed
     budget at ``fixed_shape`` (M, F), masked_grad_rows at ``grad_shape``
-    (M, N, F). Returns {name: (max_abs_err, ms, plain_ms, bound_ms,
-    bound_by)} at the main path's shapes."""
+    (M, N, F), f32 on the packed route and bf16 on the dense one. Returns
+    {name: (max_abs_err, ms, plain_ms, bound_ms, bound_by)} at the main
+    path's shapes."""
+    from decomp_tpu_torch.ops import cuda_mu
     from decomp_tpu_torch.ops.spectral import spectral_norm_psd
 
     f32, bf16 = torch.float32, torch.bfloat16
@@ -1167,21 +1200,45 @@ def lasso_times(cl, gen, dev, card, y, a, fixed_shape, grad_shape):
           flush=True)
     del yah, gram, args, got, ref, x0
 
-    # masked_grad_rows at the masked lasso's shape.
+    # masked_grad_rows at the masked lasso's shape: f32 on the packed route
+    # (csrc/lasso_grad_packed.cu), timed in turns with csrc/lasso_grad.cu's
+    # f32 path on the same inputs (old, new, new, old); bf16 on the dense
+    # route.
     m, n, f = grad_shape
-    for dt in (f32, bf16):
-        args = grad_inputs(gen, dev, m, n, f, dt)
-        e = compare_grad(cl, "masked_grad_rows", args)
-        k_ms = cuda_ms(lambda: cl.masked_grad_rows(*args), 5)
-        p_ms = cuda_ms(lambda: cl.masked_grad_rows_plain(*args), 2)
-        b, fma = dtype_bounds((2 * m * n + 2 * m * f + f * n) * dt.itemsize,
-                              4.0 * m * n * f, dt)
-        print(f"masked_grad_rows {m}x{n} F={f} {str(dt)[6:]}: kernel "
-              f"{k_ms:.3f} ms, plain twin {p_ms:.3f} ms per call, bound "
-              f"{bound_text(b, fma)} ({card})", flush=True)
-        if dt == f32:
-            out["masked_grad_rows"] = (e, k_ms, p_ms) + b
-        del args
+    args = grad_inputs(gen, dev, m, n, f, f32)
+    my, mask, x, a = args
+    e = compare_grad(cl, "masked_grad_rows", args, packed=True, f64=True)
+    compare_grad(cl, "masked_grad_rows", args)
+    bits, limbs = cuda_mu.pack_mask(mask), cl.grad_limbs(a)
+    t = [cuda_ms(fn, 10) for fn in (
+        lambda: cl.masked_grad_rows(my, mask, x, a),
+        lambda: cl.masked_grad_rows(my, bits, x, a, a_limbs=limbs))]
+    t += [cuda_ms(fn, 10) for fn in (
+        lambda: cl.masked_grad_rows(my, bits, x, a, a_limbs=limbs),
+        lambda: cl.masked_grad_rows(my, mask, x, a))]
+    k_ms, old_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+    p_ms = cuda_ms(lambda: cl.masked_grad_rows_plain(*args), 2)
+    # my, the bits, x, g and a's three bf16 limbs; both products bf16x6.
+    b, fma = f32_bounds(4 * (m * n + m * bits.shape[1] + 2 * m * f)
+                        + 3 * 2 * f * n, 4.0 * m * n * f)
+    print(f"masked_grad_rows {m}x{n} F={f} float32: packed-mask kernel "
+          f"(bf16x6 on wgmma) {k_ms:.4f} ms ({t[1]:.4f}, {t[2]:.4f}), "
+          f"lasso_grad.cu f32 {old_ms:.4f} ms ({t[0]:.4f}, {t[3]:.4f}) in "
+          f"turns, new / old {k_ms / old_ms:.3f}; plain twin {p_ms:.3f} ms "
+          f"per call; bound {bound_text(b, fma)}, new kernel at "
+          f"{b[0] / k_ms * 100:.1f}% of it ({card})", flush=True)
+    out["masked_grad_rows_packed"] = (e, k_ms, p_ms) + b
+    del args, my, mask, x, a, bits, limbs
+    args = grad_inputs(gen, dev, m, n, f, bf16)
+    e = compare_grad(cl, "masked_grad_rows", args)
+    k_ms = cuda_ms(lambda: cl.masked_grad_rows(*args), 5)
+    p_ms = cuda_ms(lambda: cl.masked_grad_rows_plain(*args), 2)
+    b = bound((2 * m * n + 2 * m * f + f * n) * 2, 4.0 * m * n * f, bf16)
+    print(f"masked_grad_rows {m}x{n} F={f} bfloat16 (dense mask, "
+          f"lasso_grad.cu): kernel {k_ms:.3f} ms, plain twin {p_ms:.3f} ms "
+          f"per call, bound {bound_text(b, None)} ({card})", flush=True)
+    out["masked_grad_rows"] = (e, k_ms, p_ms) + b
+    del args
     return out
 
 
@@ -1411,11 +1468,13 @@ def config3_phase(dl, dev, card, reset_counts, read_counts):
     return launches, (x.T @ x, x.T @ y, res.d), marg
 
 
-def masked_dl_phase(dl, dev, card, reset_counts, read_counts, m, n, k):
+def masked_dl_phase(dl, dev, card, reset_counts, read_counts, grad_routes,
+                    m, n, k):
     """Phase 15: masked dictionary learning at M x N, K atoms, 30% missing,
-    planted; 20 outer iterations in f32 and 10 in bf16 at tol 0, 15 inner
-    iterations each (lasso_tol 0: a fixed inner budget). Returns the f32
-    run's masked_grad_dict launches and its (my, mask, x, d)."""
+    planted; 20 outer iterations in f32 (the inner gradient on the packed
+    route) and 10 in bf16 (on the dense one) at tol 0, 15 inner iterations
+    each (lasso_tol 0: a fixed inner budget). Returns the f32 run's
+    masked_grad_dict launches and its (my, mask, x, d)."""
     alpha, inner = 0.05, 15
     g = torch.Generator(device=dev).manual_seed(15)
     d_true = torch.randn((k, n), generator=g, device=dev)
@@ -1448,6 +1507,9 @@ def masked_dl_phase(dl, dev, card, reset_counts, read_counts, m, n, k):
         ms, res = event_ms(solve)
         launches[dt] = read_counts({"masked_grad_dict": iters,
                                     "masked_grad_rows": iters * inner})
+        routes = grad_routes()
+        want = ((iters * inner, 0) if dt == torch.float32
+                else (0, iters * inner))
         comp_ms, comp = event_ms(lambda: solve(use_kernel=False))
         obj1 = objective(first.x, first.d, my_, mask_)
         obj = objective(res.x, res.d, my_, mask_)
@@ -1460,8 +1522,10 @@ def masked_dl_phase(dl, dev, card, reset_counts, read_counts, m, n, k):
               f"{obj1:.6e}, after {iters} {obj:.6e}; rel_fro vs composition "
               f"d {err_d:.3e}, x {err_x:.3e} (limit {lim:g}); launches "
               f"masked_grad_dict {launches[dt]['masked_grad_dict']}, "
-              f"masked_grad_rows {launches[dt]['masked_grad_rows']}",
-              flush=True)
+              f"masked_grad_rows {launches[dt]['masked_grad_rows']} "
+              f"(packed, dense route {routes})", flush=True)
+        check(routes == want, f"{tag}: masked_grad_rows routes {routes}, "
+              f"expected {want}")
         check(res.niter == iters, f"{tag}: niter {res.niter} != {iters}")
         check(bool(torch.isfinite(res.d).all())
               and bool(torch.isfinite(res.x).all()), f"{tag}: non-finite "
@@ -1543,6 +1607,13 @@ def main():
         cuda_mu.mu_stats_dense.tma_launches = 0
         cuda_lasso.solve_rows.complex_launches = 0
         cuda_lasso.solve_rows.tma_launches = 0
+        cuda_lasso.masked_grad_rows.packed_launches = 0
+        cuda_lasso.masked_grad_rows.dense_launches = 0
+
+    def grad_routes():
+        """masked_grad_rows' launches since the reset: (packed, dense)."""
+        w = cuda_lasso.masked_grad_rows
+        return w.packed_launches, w.dense_launches
 
     def read_counts(expected, launches=None):
         """The counts after one path: ``expected`` launched ``launches``
@@ -1940,6 +2011,16 @@ def main():
         for dt in (f32, bf16):
             compare_grad(cuda_lasso, "masked_grad_rows",
                          grad_inputs(gen, dev, m_, n_, f_, dt))
+    # The packed route (f32 data, the mask as bits): N % 4 != 0 at 257
+    # (my's padded copy), 7 rows (fewer than a stripe), F = 1, F = 64 (the
+    # 64-feature tile), and log-normal my, x and a over six decades.
+    for m_, n_, f_ in ((1000, 1000, 100), (333, 257, 7), (7, 1000, 100),
+                       (1000, 1000, 1), (1000, 1000, 64)):
+        compare_grad(cuda_lasso, "masked_grad_rows",
+                     grad_inputs(gen, dev, m_, n_, f_, f32), packed=True)
+    compare_grad(cuda_lasso, "masked_grad_rows",
+                 lognormal_inputs(gen, dev, 100_000, 1024, 128), packed=True,
+                 tag="log-normal", f64=True)
     t_phase = phase("9 lasso kernels vs twins", t_phase)
 
     # Phase 10: batch lasso at BASELINE config 2.
@@ -1956,8 +2037,9 @@ def main():
     t_phase = phase("10c config-2-complex", t_phase)
 
     # Phase 11: the masked lasso.
-    launches_grad = masked_lasso_phase(lasso, dev, card, reset_counts,
-                                       read_counts, 100_000, 1024, 128)
+    launches_grad, launches_grad_dense = masked_lasso_phase(
+        lasso, dev, card, reset_counts, read_counts, grad_routes, 100_000,
+        1024, 128)
     t_phase = phase("11 masked lasso", t_phase)
 
     # Phase 12: the lasso kernels' times against their twins.
@@ -1989,7 +2071,7 @@ def main():
     # Phase 15: masked dictionary learning.
     launches_gd, masked15 = masked_dl_phase(dictionary_learning, dev, card,
                                             reset_counts, read_counts,
-                                            100_000, 1024, 128)
+                                            grad_routes, 100_000, 1024, 128)
     t_phase = phase("15 masked dictionary learning", t_phase)
 
     # Phase 16: the dictionary-learning kernels' times against their twins.
@@ -2012,7 +2094,8 @@ def main():
     main_launches = {"mu_stats_dense": launches, "mu_stats_masked": launches4,
                      **kl_launches, "solve_rows": launches2,
                      "solve_rows_complex": launches2c,
-                     "masked_grad_rows": launches_grad,
+                     "masked_grad_rows": launches_grad_dense,
+                     "masked_grad_rows_packed": launches_grad,
                      "bcd_sweep": launches3, "masked_grad_dict": launches_gd}
     kernels = {"mu_stats_dense": ("mu_dense_tma", "pallas_mu.py:438"),
                **{name: (src, rep) for name, (src, _, rep)
@@ -2021,6 +2104,8 @@ def main():
                "solve_rows_complex": ("lasso_fista_tma",
                                       "pallas_fista.py:349 (group_fc)"),
                "masked_grad_rows": ("lasso_grad", "pallas_lasso.py:159"),
+               "masked_grad_rows_packed": ("lasso_grad_packed",
+                                           "pallas_lasso.py:159"),
                "bcd_sweep": ("dl_bcd", "pallas_bcd.py:115"),
                "masked_grad_dict": ("mu_kl_stats", "pallas_lasso.py:225")}
     entries = []

@@ -81,39 +81,6 @@ constexpr int BNS = 128;   // columns per block of the statistics pass
 constexpr int SR = 32;     // rows per statistics stage
 constexpr int kStages = 2;
 
-// An f32 tile as TMA leaves it with the 128-byte swizzle: boxes of 32
-// columns (128-byte rows) and BOX_ROWS rows, side by side along the
-// columns; the 16-byte chunk index is XORed with the row's low 3 bits.
-template <int BOX_ROWS>
-struct SwzF {
-  const float* p;
-  __device__ __forceinline__ float at(int r, int c) const {
-    uint32_t off = (uint32_t)((c / 32) * (128 * BOX_ROWS) + r * 128 +
-                              (c % 32) * 4);
-    off ^= (off >> 3) & (7u << 4);
-    return *reinterpret_cast<const float*>(
-        reinterpret_cast<const char*>(p) + off);
-  }
-};
-
-// The three round-to-nearest bf16 limbs of v; the residuals are exact.
-__device__ __forceinline__ void split3(float v, bf16 (&l)[3]) {
-  l[0] = __float2bfloat16_rn(v);
-  const float r = __fsub_rn(v, __bfloat162float(l[0]));
-  l[1] = __float2bfloat16_rn(r);
-  l[2] = __float2bfloat16_rn(__fsub_rn(r, __bfloat162float(l[1])));
-}
-
-// The limbs of (lo, hi) as three bf16 pairs, lo in the lower half.
-__device__ __forceinline__ void split_pair(float lo, float hi,
-                                           uint32_t (&f)[3]) {
-  bf16 a[3], b[3];
-  split3(lo, a);
-  split3(hi, b);
-#pragma unroll
-  for (int l = 0; l < 3; ++l) f[l] = pack(a[l], b[l]);
-}
-
 // Two 0/1 bits as a bf16 pair (1.0 = 0x3F80), lo in the lower half.
 __device__ __forceinline__ uint32_t bit_pair(uint32_t lo, uint32_t hi) {
   return (lo & 1u) * 0x3F80u | (hi & 1u) * 0x3F800000u;

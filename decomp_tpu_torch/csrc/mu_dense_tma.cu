@@ -85,22 +85,6 @@ constexpr int kX2 = 2 * BOX;
 constexpr int kSlot2 = kX2 + 2 * BOX;
 constexpr size_t kSmem2 = 1024 + (size_t)kRing2 * kSlot2 + 16 * kRing2;
 
-// The wgmma descriptor of a 128-byte-swizzled bf16 operand at p: lbo, the
-// byte stride between 64-element chunks of the M / N dimension (MN-major;
-// unused K-major), and sbo, between groups of 8 rows.
-__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
-                                              uint32_t sbo) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFFu) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFFu) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFFu) << 32) | (1ull << 62);
-}
-
-template <int N>
-__device__ __forceinline__ void fence_operand(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
 // d (64 x 128 per warpgroup, f32) = A B, or += when accumulate; TRANS:
 // both operands MN-major. Register i of a thread of warp w holds row
 // 16 w + lane / 4 + 8 ((i / 2) % 2), column 8 (i / 4) + 2 (lane % 4) +

@@ -121,12 +121,15 @@ def solve(
         sparse coding as ``lasso_iter`` iterations of
         ``cuda_lasso.solve_rows`` (float32, scalar alpha, per-row stopping
         at ``lasso_tol``, its fixed-budget mode at ``lasso_tol <= 0``).
-        'auto' takes the masked kernels for a CUDA ``y`` of dtype bf16 or
-        f32 with at most 128 atoms, and never the whole-solve kernel (a
-        fixed short inner budget leaves it nothing to gain). On a CPU tensor
-        each kernel's plain twin runs. ``use_kernel=False`` also vetoes the
-        BCD sweep kernel, which 'auto' takes for unmasked real f32 data on
-        the card whose K x N fits ``cuda_dl.bcd_fits``.
+        A 0/1 mask goes to the inner gradient as bits, packed once per
+        solve, for f32 data (on the CPU, any data). 'auto' takes the masked
+        kernels for a CUDA ``y`` with at most 128 atoms where the card
+        measured them faster than the composition (bf16, or f32 with a 0/1
+        mask: ``lasso._auto_takes_masked``), and never the whole-solve
+        kernel (a fixed short inner budget leaves it nothing to gain). On
+        a CPU tensor each kernel's plain twin runs. ``use_kernel=False``
+        also vetoes the BCD sweep kernel, which 'auto' takes for unmasked
+        real f32 data on the card whose K x N fits ``cuda_dl.bcd_fits``.
     kernel_block_rows : rows per stripe of the whole-solve inner kernel (16
         or 32); refused where that kernel does not run.
     _bcd_kernel : private override of the BCD sweep kernel: None (auto),
@@ -217,7 +220,7 @@ def solve(
         forget=float(forget), maxiter=int(maxiter),
         lasso_method=lasso_method, lasso_iter=int(lasso_iter),
         minibatch=minibatch, record_objective=bool(record_objective),
-        kernel=mode, hi_lo=precision == "high",
+        kernel=mode, auto=use_kernel == "auto", hi_lo=precision == "high",
         block_rows=kernel_block_rows, bcd_kernel=bcd,
         random_seed=int(random_seed))
 
@@ -284,12 +287,14 @@ def _bcd_mode(override, use_kernel, y, n_atoms, n_channels, masked=False):
 
 def _solve(y, d, x, mask, val, alpha, *, tol, lasso_tol, forget, maxiter,
            lasso_method, lasso_iter, minibatch, record_objective,
-           kernel=None, hi_lo=False, block_rows=None, bcd_kernel=False,
-           random_seed=0, batch_idx=None):
+           kernel=None, auto=False, hi_lo=False, block_rows=None,
+           bcd_kernel=False, random_seed=0, batch_idx=None):
     """The alternation, after ``solve``'s checks. ``val``: the held-out
     validation set (0/1, inside ``mask``) under stop='heldout', else None;
     ``solve`` draws it with ``nmf._heldout_reserve``, and a parity test may
-    pass ``decomp_tpu``'s. ``kernel``: ``_kernel_mode``'s answer.
+    pass ``decomp_tpu``'s. ``kernel``: ``_kernel_mode``'s answer; with
+    ``auto``, the masked kernels are also subject to
+    ``lasso._auto_takes_masked`` once the mask is known to pack.
     ``batch_idx``: the minibatch rows of each outer iteration, (maxiter,
     minibatch), instead of the seeded draws (a parity test passes
     ``decomp_tpu``'s)."""
@@ -303,6 +308,13 @@ def _solve(y, d, x, mask, val, alpha, *, tol, lasso_tol, forget, maxiter,
     if val is not None:
         mask, hd = _nmf._heldout_split(y, mask, val)
     my = y if mask is None else mask * y
+    kernel_mask = None
+    if kernel == "masked":
+        # The inner gradient's mask, packed once per solve (the training
+        # mask under stop='heldout').
+        kernel_mask = _lasso._kernel_mask(mask, y, auto)
+        if kernel_mask is None:
+            kernel = None
 
     if kernel == "whole":
         # The inner coding in one solve_rows launch per outer iteration,
@@ -320,7 +332,8 @@ def _solve(y, d, x, mask, val, alpha, *, tol, lasso_tol, forget, maxiter,
             return _lasso._solve(
                 y_, d_, alpha, x_, mask_, None, lasso_tol,
                 method=lasso_method, maxiter=lasso_iter,
-                record_objective=False, use_kernel=kernel == "masked").x
+                record_objective=False, use_kernel=kernel == "masked",
+                kernel_mask=kernel_mask).x
 
     def objective(state):
         recon = state[0] @ state[1]

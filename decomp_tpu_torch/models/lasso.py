@@ -25,7 +25,7 @@ Entry points run on the card unless the caller asks for the CPU: see
 import numpy as np
 import torch
 
-from decomp_tpu_torch.ops import cuda_lasso
+from decomp_tpu_torch.ops import cuda_lasso, cuda_mu
 from decomp_tpu_torch.ops.loop import run_iterations
 from decomp_tpu_torch.ops.soft_threshold import soft_threshold
 from decomp_tpu_torch.ops.spectral import spectral_norm_psd
@@ -108,13 +108,15 @@ def solve(
         gradient method, scalar or per-feature alpha, no
         ``record_objective``, precision 'highest' or 'high'); masked (real
         data only), the gradient in one
-        ``cuda_lasso.masked_grad_rows`` call per iteration. On a CUDA
-        tensor the hand-written kernel runs, on a CPU tensor its plain
-        twin. 'auto' takes each kernel on a CUDA tensor wherever its
-        contract holds (real bf16/f32 data and F <= 128 for the masked
-        kernel; f32 and F <= 1024 for the whole solve, complex64 under
-        'high' and F <= 512, or under 'highest' and F <= 256, where the
-        card measured the kernel faster); it is False on the CPU.
+        ``cuda_lasso.masked_grad_rows`` call per iteration, a 0/1 mask
+        packed into bits once per solve for f32 data (on the CPU, any
+        data). On a CUDA tensor the hand-written kernel runs, on a CPU
+        tensor its plain twin. 'auto' takes each kernel on a CUDA tensor
+        where the card measured it faster than the composition and its
+        contract holds (F <= 128 for the masked kernel, bf16 data or f32
+        data with a 0/1 mask; f32 and F <= 1024 for the whole solve,
+        complex64 under 'high' and F <= 512, or under 'highest' and F <=
+        256); it is False on the CPU.
     kernel_block_rows : rows per stripe of the whole-solve kernel, 16 or
         32 (32 only at F <= 512); default by F. Results do not depend on it.
     return_state : momentum methods also return ``aux={"z", "t"}``; passing
@@ -229,6 +231,11 @@ def solve(
 
     mode = _kernel_mode(use_kernel, y, mask, method, dtype, n_features,
                         per_problem, record_objective, precision, alpha)
+    kernel_mask = None
+    if mode == "masked":
+        kernel_mask = _kernel_mask(mask, y, use_kernel == "auto")
+        if kernel_mask is None:
+            mode = None
     if kernel_block_rows is not None and mode != "whole":
         raise DecompError("kernel_block_rows sets the stripe height of the "
                           "whole-solve kernel, which this call does not run")
@@ -248,8 +255,9 @@ def solve(
             y, a, alpha, x, mask, lip, float(tol), method=method,
             maxiter=int(maxiter), record_objective=bool(record_objective),
             check_every=int(check_every), per_problem=bool(per_problem),
-            use_kernel=mode == "masked", return_state=bool(return_state),
-            momentum_state=mstate, per_problem_state=ppstate)
+            use_kernel=mode == "masked", kernel_mask=kernel_mask,
+            return_state=bool(return_state), momentum_state=mstate,
+            per_problem_state=ppstate)
     if squeeze:
         res = res._replace(x=res.x[0])
         if per_problem:
@@ -362,11 +370,43 @@ def _kernel_mode(use_kernel, y, mask, method, dtype, n_features, per_problem,
     return "whole"
 
 
+def _auto_takes_masked(dtype, binary):
+    """Whether ``use_kernel='auto'`` keeps masked data of ``dtype`` on the
+    card on the masked-gradient kernels, which it does where the card
+    measured them faster than the composition (PERF.md §6; chip_smoke.py
+    phases 11 and 15, the masked lasso and masked dictionary learning):
+    bf16 data (``csrc/lasso_grad.cu``), and f32 data with a 0/1 mask
+    (``binary``: it packs; ``csrc/lasso_grad_packed.cu``). A weighted f32
+    mask would take ``csrc/lasso_grad.cu``'s f32 path, which loses, so it
+    runs the composition."""
+    return dtype == torch.bfloat16 or (dtype == torch.float32 and binary)
+
+
+def _kernel_mask(mask, y, auto):
+    """The mask the masked-gradient kernel route reads: the bits of a 0/1
+    mask (``cuda_mu.pack_mask``: one host read, once per solve) where the
+    route takes bits (``cuda_lasso.grad_takes_packed``: f32 data on the
+    card, any data on the CPU), else the dense mask. Under 'auto'
+    (``auto``) None where ``_auto_takes_masked`` sends the solve to the
+    composition instead."""
+    packed = (cuda_mu.pack_mask(mask) if cuda_lasso.grad_takes_packed(y)
+              else None)
+    if auto and not _auto_takes_masked(y.dtype, packed is not None):
+        return None
+    return mask if packed is None else packed
+
+
 def build_solver(y, a, alpha, x, mask, lipschitz, *, method,
                  per_problem=False, tol=None, use_kernel=False,
-                 momentum_init=None, per_problem_init=None):
+                 kernel_mask=None, momentum_init=None, per_problem_init=None):
     """The iteration machinery of one lasso method: ``(step, init, diff_fn,
     obj_fn)`` for ``run_iterations``.
+
+    use_kernel=True with a mask: the gradient is one
+    ``cuda_lasso.masked_grad_rows`` call per iteration, reading
+    ``kernel_mask`` (``_kernel_mask``'s answer, made once per solve by the
+    caller) or, when None, the dense mask; a packed mask goes with a's
+    limbs, split here once.
 
     per_problem=True (ista / fista / acc_ista / parallel_cd; requires
     ``tol``): every row converges independently. The state carries a
@@ -393,8 +433,13 @@ def build_solver(y, a, alpha, x, mask, lipschitz, *, method,
     elif use_kernel:
         # The masked gradient in one kernel: the M x N reconstruction never
         # reaches device memory.
+        mask_k = mask if kernel_mask is None else kernel_mask
+        limbs = (cuda_lasso.grad_limbs(a)
+                 if mask_k.dtype == torch.int32 and a.is_cuda else None)
+
         def grad(x_):
-            return cuda_lasso.masked_grad_rows(my, mask, x_, a)
+            return cuda_lasso.masked_grad_rows(my, mask_k, x_, a,
+                                               a_limbs=limbs)
     else:
         def grad(x_):
             return (mask * (x_ @ a) - my) @ ah
@@ -569,14 +614,15 @@ def _cd_machinery(gram, yah, x, alpha, dtype, rel_change, objective):
 
 def _solve(y, a, alpha, x, mask, lipschitz, tol, *, method, maxiter,
            record_objective, check_every=1, per_problem=False,
-           use_kernel=False, return_state=False, momentum_state=None,
-           per_problem_state=None):
-    """The composition path (and the masked kernel path) on
-    ``run_iterations``."""
+           use_kernel=False, kernel_mask=None, return_state=False,
+           momentum_state=None, per_problem_state=None):
+    """The composition path (and the masked kernel path, reading
+    ``kernel_mask`` as ``build_solver`` says) on ``run_iterations``."""
     step, init, diff_fn, obj_fn = build_solver(
         y, a, alpha, x, mask, lipschitz, method=method,
         per_problem=per_problem, tol=tol, use_kernel=use_kernel,
-        momentum_init=momentum_state, per_problem_init=per_problem_state)
+        kernel_mask=kernel_mask, momentum_init=momentum_state,
+        per_problem_init=per_problem_state)
     # per_problem's diff_fn is the COUNT of unconverged rows, so the loop
     # threshold is a fixed 0.5 (count == 0), never the user tol: a tol > 1
     # must not stop the loop early.

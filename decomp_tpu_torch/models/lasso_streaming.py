@@ -43,7 +43,8 @@ def solve_streaming(
     iteration count and ``converged`` is True only if every chunk
     converged; with ``per_problem=True`` both are host arrays of shape
     (n_samples,), as in the in-core per-problem solve. Each chunk takes
-    ``lasso.solve``'s ``use_kernel='auto'`` route.
+    ``lasso.solve``'s ``use_kernel='auto'`` route, which packs a 0/1 mask
+    into bits once per chunk where the masked kernel reads bits.
     """
     y = np.asarray(y)
     a_np = np.asarray(a)

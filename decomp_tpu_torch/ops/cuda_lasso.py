@@ -40,21 +40,27 @@ order.
 ``masked_grad_rows`` keeps the quantisation points of
 ``pallas_lasso.py:144-156``: products take the data's dtype (``cdt``) as
 operands and sum in f32, the residual ``cdt(f32(mask) * (x a) - f32(my))``
-is formed in f32 and cast to ``cdt``, and ``g`` is stored in x's dtype.
+is formed in f32 and cast to ``cdt``, and ``g`` is stored in x's dtype. Its
+mask is dense, in my's shape, or the bits of a 0/1 mask
+(``cuda_mu.pack_mask``, int32).
 
 On a CUDA tensor a wrapper launches its kernel (``solve_rows``: f32
 with 1 <= F <= ``SOLVE_MAX_FEATURES``, or complex64 with 1 <= Fc <=
 ``SOLVE_MAX_COMPLEX_FEATURES``, on ``csrc/lasso_fista_tma.cu`` for
 ``hi_lo=True`` and ``csrc/lasso_fista.cu`` for ``hi_lo=False``;
-``masked_grad_rows``: ``csrc/lasso_grad.cu``, bf16 or f32 data with every
-operand in the data's dtype, 1 <= F <= ``GRAD_MAX_FEATURES``) and raises
-on anything else. On a CPU tensor it runs its ``*_plain`` twin. It never
-falls back from one to the other. Each wrapper counts its kernel launches
-in ``.launches``; ``solve_rows`` counts its complex-mode launches in
-``.complex_launches`` and its launches of the 'high' kernel in
-``.tma_launches`` as well. The 'high' kernel gives, row for row, the bits
-of ``csrc/lasso_fista.cu``'s 'high' path, which ``_solve_rows_mma`` still
-launches for comparison.
+``masked_grad_rows``, 1 <= F <= ``GRAD_MAX_FEATURES``: a packed mask with
+f32 data on ``csrc/lasso_grad_packed.cu``, whose f32 products run as bf16x6
+limb products on wgmma (a's limbs from ``grad_limbs``); a dense mask, bf16
+or f32 data with every operand in the data's dtype, on
+``csrc/lasso_grad.cu``) and raises on anything else. On a CPU tensor it
+runs its ``*_plain`` twin (a packed mask unpacked to my's dtype first). It
+never falls back from one to the other. Each wrapper counts its kernel
+launches in ``.launches``; ``solve_rows`` counts its complex-mode launches
+in ``.complex_launches`` and its launches of the 'high' kernel in
+``.tma_launches`` as well; ``masked_grad_rows`` counts each route, in
+``.packed_launches`` and ``.dense_launches``. The 'high' kernel gives,
+row for row, the bits of ``csrc/lasso_fista.cu``'s 'high' path, which
+``_solve_rows_mma`` still launches for comparison.
 
 Not ported: the TPU kernels' VMEM calibrations and 128-alignment padding
 (``default_block_rows``, ``fits_vmem``, ``auto_wins``,
@@ -64,6 +70,7 @@ ragged rows and features themselves.
 
 import torch
 
+from decomp_tpu_torch.ops import cuda_mu
 from decomp_tpu_torch.ops.cuda_mu import (_F, _I, _P, _c_function, _launch,
                                           _runs_plain, _work_dtype)
 from decomp_tpu_torch.utils.exceptions import (DecompError, DtypeError,
@@ -566,12 +573,128 @@ def check_masked_grad_args(my, mask, x, a):
         raise ShapeError(f"my's sides must be < 2^31, got {tuple(my.shape)}")
 
 
-def masked_grad_rows(my, mask, x, a):
+def masked_grad_rows(my, mask, x, a, *, a_limbs=None):
     """The masked lasso gradient ``(mask * (x a) - my) a^T`` (M, F) in x's
     dtype; ``my`` is the pre-masked data ``mask * y`` (M, N), ``x`` (M, F),
-    ``a`` (F, N). The M x N reconstruction never reaches device memory."""
+    ``a`` (F, N). The M x N reconstruction never reaches device memory.
+
+    ``mask`` is dense, in my's shape, or the bits of a 0/1 mask from
+    ``cuda_mu.pack_mask`` (int32). On a CUDA tensor a packed mask launches
+    ``csrc/lasso_grad_packed.cu`` (f32 data only) and counts it in
+    ``.packed_launches``; a dense mask launches ``csrc/lasso_grad.cu`` and
+    counts it in ``.dense_launches``; ``.launches`` counts both. The packed
+    route reads a as ``a_limbs``, ``grad_limbs(a)`` made once by a caller
+    that keeps a for many calls, or here when None. On a CPU tensor a
+    packed mask is unpacked to my's dtype for the twin, which then gives
+    the dense mask's bits, and ``a_limbs`` is not read."""
+    packed = mask.dtype == torch.int32
+    if packed:
+        cuda_mu._check_packed(my, mask)
     if _runs_plain(my):
+        if packed:
+            mask = cuda_mu.unpack_mask(mask, my.shape[1], my.dtype)
         return masked_grad_rows_plain(my, mask, x, a)
+    if packed:
+        g = _grad_packed_launch(my, mask, x, a, a_limbs)
+        masked_grad_rows.packed_launches += 1
+    else:
+        g = _grad_dense_launch(my, mask, x, a)
+        masked_grad_rows.dense_launches += 1
+    masked_grad_rows.launches += 1
+    return g
+
+
+masked_grad_rows.launches = 0
+masked_grad_rows.packed_launches = 0
+masked_grad_rows.dense_launches = 0
+
+
+def grad_takes_packed(my):
+    """Whether ``masked_grad_rows`` runs ``my`` with a packed mask: f32
+    data on the card (``csrc/lasso_grad_packed.cu``), any data on the CPU
+    (the twin)."""
+    return my.dtype == torch.float32 or my.device.type == "cpu"
+
+
+def grad_tile(f: int) -> int:
+    """The packed kernel's feature tile at F features: 64 or 128; F
+    outside 1 .. ``GRAD_MAX_FEATURES`` is refused."""
+    if not 1 <= f <= GRAD_MAX_FEATURES:
+        raise ShapeError(f"the masked-gradient kernel takes 1 <= F <= "
+                         f"{GRAD_MAX_FEATURES} features, got {f} (wider "
+                         "dictionaries: use_kernel=False)")
+    return 64 if f <= 64 else 128
+
+
+def grad_limbs(a):
+    """a (F, N) as the packed kernel reads it: (N, 3 KT) bf16 with KT =
+    ``grad_tile(F)``, row n = [limb 0 of a[:, n] | limb 1 | limb 2] in
+    ``cuda_mu.split_bf16x3``'s round-to-nearest limbs, each zero past F.
+    A solve makes it once for its fixed a."""
+    f, n = a.shape
+    kt = grad_tile(f)
+    out = torch.zeros((n, 3, kt), dtype=torch.bfloat16, device=a.device)
+    out[:, :, :f] = cuda_mu.split_bf16x3(a).permute(2, 0, 1)
+    return out.view(n, 3 * kt)
+
+
+def check_packed_grad_args(my, packed, x, a, a_limbs=None):
+    """Refuse what ``csrc/lasso_grad_packed.cu`` does not take, before any
+    launch: a packed mask of another shape or device, data other than f32,
+    F outside 1 .. ``GRAD_MAX_FEATURES``, ``a_limbs`` other than
+    ``grad_limbs(a)``'s shape."""
+    cuda_mu._check_packed(my, packed)
+    for name, t in (("my", my), ("x", x), ("a", a)):
+        if t.device != my.device:
+            raise DecompError(f"{name} is on {t.device}, my on {my.device}")
+        if t.dim() != 2:
+            raise ShapeError(f"{name} must be 2-D, got {tuple(t.shape)}")
+        if t.dtype != torch.float32:
+            raise DtypeError(f"the packed-mask gradient kernel takes f32 "
+                             f"data, got {name} {t.dtype}")
+    m, n = my.shape
+    f = a.shape[0]
+    if x.shape != (m, f) or a.shape != (f, n):
+        raise ShapeError(f"x {tuple(x.shape)} and a {tuple(a.shape)} do not "
+                         f"fit my {tuple(my.shape)}")
+    if max(m, n) >= 2 ** 31:
+        raise ShapeError(f"my's sides must be < 2^31, got {tuple(my.shape)}")
+    want = (n, 3 * grad_tile(f))
+    if a_limbs is not None and (
+            a_limbs.dtype != torch.bfloat16 or a_limbs.device != my.device
+            or tuple(a_limbs.shape) != want or not a_limbs.is_contiguous()):
+        raise ShapeError(f"a_limbs must be grad_limbs(a): contiguous bf16 "
+                         f"{want} on {my.device}, got {a_limbs.dtype} "
+                         f"{tuple(a_limbs.shape)} on {a_limbs.device}")
+
+
+def _grad_packed_launch(my, packed, x, a, a_limbs):
+    """Launch ``csrc/lasso_grad_packed.cu`` on f32 ``my`` and the packed
+    mask (``masked_grad_rows``' packed route)."""
+    check_packed_grad_args(my, packed, x, a, a_limbs)
+    m, n = my.shape
+    f = a.shape[0]
+    kt = grad_tile(f)
+    if a_limbs is None:
+        a_limbs = grad_limbs(a)
+    packed = packed.contiguous()
+    if packed.data_ptr() % 16:
+        packed = packed.clone()
+    fn = _c_function("lasso_grad_packed", "lasso_grad_packed_launch",
+                     (_I, _P, _I, _P, _I, _P, _P) + (_I,) * 3 + (_P,))
+    with torch.cuda.device(my.device):
+        my_t, ld_my = cuda_mu._tma_rows(my.contiguous())
+        xc = x.contiguous()
+        g = torch.empty((m, f), dtype=torch.float32, device=my.device)
+        _launch("masked_grad_rows (packed)", fn, my.device, kt,
+                my_t.data_ptr(), ld_my, packed.data_ptr(), packed.shape[1],
+                xc.data_ptr(), a_limbs.data_ptr(), m, n, f, g.data_ptr())
+    return g
+
+
+def _grad_dense_launch(my, mask, x, a):
+    """Launch ``csrc/lasso_grad.cu`` on a dense mask (``masked_grad_rows``'
+    dense route)."""
     check_masked_grad_args(my, mask, x, a)
     m, n = my.shape
     f = a.shape[0]
@@ -584,8 +707,4 @@ def masked_grad_rows(my, mask, x, a):
                 int(my.dtype == torch.bfloat16), myc.data_ptr(),
                 maskc.data_ptr(), xc.data_ptr(), ac.data_ptr(), m, n, f,
                 g.data_ptr())
-    masked_grad_rows.launches += 1
     return g
-
-
-masked_grad_rows.launches = 0

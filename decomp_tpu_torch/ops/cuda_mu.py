@@ -498,7 +498,8 @@ def packed_words(n: int) -> int:
 
 def pack_mask(mask):
     """The bits of a 0/1 mask, for the packed routes of
-    ``mu_stats_masked`` and ``kl_stats_masked``: an int32 tensor (M,
+    ``mu_stats_masked``, ``kl_stats_masked`` and
+    ``cuda_lasso.masked_grad_rows``: an int32 tensor (M,
     ``packed_words(N)``) on the mask's device, bit j of word w of row r
     set where ``mask[r, 32 w + j] != 0``, pad bits 0.
     Returns None for a mask holding any value other than 0 and 1 (checked
