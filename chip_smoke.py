@@ -16,7 +16,9 @@ for sm_90a (one nvcc per source, all at once), and then:
    route to ``csrc/mu_dense_tma.cu`` (TMA ring, wgmma) at 1000 x 1000
    K = 100 (inner_iter 1 and 3) and K = 64, a ragged 333 x 257 K = 7,
    65,537 x 10,112 and 65,536 x 10,112 K = 128;
-3. holds ``mu_stats_masked`` (on a dense mask), ``kl_stats_dense`` and
+3. holds ``mu_stats_masked`` (on a dense mask), ``kl_stats_dense`` (bf16
+   data on ``csrc/mu_kl_stats.cu``, and f32 data on that kernel through
+   the private ``cuda_mu._kl_dense_mu_launch``, which no path takes) and
    ``kl_stats_masked`` (on a dense mask: bf16 data, and f32 data with a
    weighted mask) against their twins the same way, at 1000 x 1000
    K = 100, 100,000 x 1,000 K = 50 and 65,536 x 10,112 K = 128; then
@@ -29,6 +31,14 @@ for sm_90a (one nvcc per source, all at once), and then:
    333 x 257 K = 7, and on log-normal my, x and d over six decades at
    65,536 x 1,024 K = 128, within the f32 limit of the full-f32 twin, and
    the dense-mask KL kernel at the same ragged shapes, K = 1 and eps = 0;
+   and (3d) ``kl_stats_dense`` on f32 data (the kernel of
+   ``csrc/kl_dense_packed.cu``, bf16x6 products on wgmma) at 1000 x 1000
+   K = 100, 100,000 x 1,000 K = 50, 65,536 x 10,112 K = 128, 333 x 257
+   K = 7 with eps = EPS and eps = 0, 1000 x 1000 K = 64 and K = 1, and on
+   log-normal my, x and d over six decades at 65,536 x 1,024 K = 128,
+   and at 1000 x 1000 K = 1 with x d above 2^126 (E's division scales
+   such divisors), within the f32 limit of the full-f32 twin, each with a
+   bit-identical rerun;
 4. drives the dense main path, ``decomp_tpu_torch.nmf.solve`` on a
    1,048,576 x 10,112 bf16 matrix at rank 128 with f32 factors, 20
    iterations, and checks that every iteration went through the TMA
@@ -47,14 +57,18 @@ for sm_90a (one nvcc per source, all at once), and then:
    the factors;
 7. drives KL-MU, ``nmf.solve(method='kl-mu')`` at 100,000 x 1,024 rank
    128 f32, dense and masked, 20 iterations each, and checks one kernel
-   launch per iteration (masked: all on the packed route, none on the
-   dense one) and a falling KL objective;
+   launch per iteration (dense: all on ``csrc/kl_dense_packed.cu``, none
+   on ``csrc/mu_kl_stats.cu``; masked: all on the packed route, none on
+   the dense one) and a falling KL objective;
 8. times each new kernel against its twin per call at its path's shape;
    masked MU's packed-mask kernel in turns with the dense-mask kernel on
    the same inputs, at config 4 and at 262,144 x 10,112 K = 128 bf16, and
    the dense-mask kernel on f32 data at config 4's shape; masked KL's
    packed-mask kernel in turns with its dense-mask kernel at phase 7's
-   shape, with each pass from ``torch.profiler``;
+   shape, with each pass from ``torch.profiler``; dense KL's f32 kernel
+   (``csrc/kl_dense_packed.cu``) in turns with ``csrc/mu_kl_stats.cu``'s
+   f32 path on the same inputs at phase 7's shape, with each pass, and
+   its bf16 route (``csrc/mu_kl_stats.cu``) at that shape;
 9. holds the lasso kernel ``solve_rows`` against its twin at a ragged
    1,000 x 200 and 300 x 1,000, at 10,000 x 512, at 7 x 200 (fewer rows
    than one block's slots) and at 4,229 x 200 (a queue ragged past one
@@ -242,12 +256,12 @@ UNIT_LIMIT = 1e-5
 MASKED_DL_LIMIT = {torch.float32: 2e-6, torch.bfloat16: 5e-2}
 EPS = 1e-6
 SOURCES = ("mu_stats_dense", "mu_dense_tma", "mu_kl_stats", "mu_masked_packed",
-           "kl_masked_packed", "lasso_fista", "lasso_fista_tma", "lasso_grad",
-           "lasso_grad_packed", "dl_bcd")
+           "kl_masked_packed", "kl_dense_packed", "lasso_fista",
+           "lasso_fista_tma", "lasso_grad", "lasso_grad_packed", "dl_bcd")
 # name -> (source, masked, the TPU kernel it replaces)
 NEW_KERNELS = {
     "mu_stats_masked": ("mu_masked_packed", True, "pallas_mu.py:522"),
-    "kl_stats_dense": ("mu_kl_stats", False, "pallas_mu.py:603"),
+    "kl_stats_dense": ("kl_dense_packed", False, "pallas_mu.py:603"),
     "kl_stats_masked": ("kl_masked_packed", True, "pallas_mu.py:678"),
 }
 # The H100's data-sheet rates (SXM, dense) that bound a kernel.
@@ -403,29 +417,34 @@ def stats_inputs(gen, dev, m, n, k, ydt, xdt, masked):
     return (my, mask, x, d) if masked else (my, x, d)
 
 
-def compare_new(cuda_mu, name, args, packed=False, eps=EPS, tag=""):
+def compare_new(cuda_mu, name, args, packed=False, eps=EPS, tag="", fn=None,
+                route=None):
     """One of the masked-MU / KL kernels against its twin on ``args``;
     returns the outputs' max abs error. ``packed``: ``mu_stats_masked`` or
     ``kl_stats_masked`` takes the mask as its bits (the kernel of
     csrc/mu_masked_packed.cu or csrc/kl_masked_packed.cu), the twin the
     dense mask; a masked wrapper given the dense mask must take its dense
-    route. ``tag`` names the inputs in the printed line."""
+    route. ``route``: the wrapper's counter of the route the call must
+    take (by default the packed or dense mask's). ``fn``: a private launch
+    helper called instead of the wrapper, which must count nothing.
+    ``tag`` names the inputs in the printed line."""
     wrapper = getattr(cuda_mu, name)
     kargs = args
-    route = "packed_launches" if packed else "dense_launches"
+    route = route or ("packed_launches" if packed else "dense_launches")
     if packed:
         bits = cuda_mu.pack_mask(args[1])
         check(bits is not None, "pack_mask refused a 0/1 mask")
         kargs = (args[0], bits) + tuple(args[2:])
     before = getattr(wrapper, route, 0)
-    out = wrapper(*kargs, eps)
-    again = wrapper(*kargs, eps)
+    out = (fn or wrapper)(*kargs, eps)
+    again = (fn or wrapper)(*kargs, eps)
     ref = getattr(cuda_mu, f"{name}_plain")(*args, eps)
     torch.cuda.synchronize()
     if hasattr(wrapper, route):
-        check(getattr(wrapper, route) == before + 2,
-              f"{name}: the {'packed' if packed else 'dense'} mask did not "
-              "take its route")
+        check(getattr(wrapper, route) == before + (0 if fn else 2),
+              f"{name}: {route} moved by "
+              f"{getattr(wrapper, route) - before}, the call did not take "
+              "its route")
     my, x = args[0], args[-2]
     errs = [rel_fro(a, b) for a, b in zip(out, ref)]
     limits = [X_BF16_LIMIT if x.dtype == torch.bfloat16 else LIMIT[my.dtype]]
@@ -469,8 +488,10 @@ def time_packed(cuda_mu, name, args, reps=10):
 
 def pass_times(fn, nbytes, tag, card, calls=5, ops=None):
     """Each launch of ``fn`` whose kernel is named by a key of ``nbytes``
-    (``::key`` in the profiler's name, so that cuBLAS's splitKreduce_kernel
-    is not taken for reduce_kernel), timed apart by torch.profiler over
+    (``namespace)::key`` in the profiler's name: the port's kernels live in
+    anonymous namespaces, so that neither cuBLAS's splitKreduce_kernel nor
+    PyTorch's at::native::reduce_kernel is taken for reduce_kernel), timed
+    apart by torch.profiler over
     ``calls`` calls, beside the HBM bytes it must move and the rate that
     makes; ``ops``: the bf16 MMA operations of some of the launches, by
     the same keys, and the rate those make."""
@@ -483,7 +504,8 @@ def pass_times(fn, nbytes, tag, card, calls=5, ops=None):
             fn()
         torch.cuda.synchronize()
     for e in prof.key_averages():
-        name = next((p for p in nbytes if f"::{p}" in e.key), None)
+        name = next((p for p in nbytes if f"namespace)::{p}" in e.key),
+                    None)
         if name is None or not str(e.device_type).endswith("CUDA"):
             continue
         ms = e.self_device_time_total / calls / 1e3
@@ -539,14 +561,40 @@ def kl_packed_passes(cuda_mu, args, card):
                ops={"kl_x_update": per_pass, "kl_stats": per_pass})
 
 
-def lognormal_inputs(gen, dev, m, n, k):
+def kl_dense_passes(cuda_mu, args, card):
+    """The dense KL kernel's four launches: the x update reads my, x and
+    d's three limbs and writes x_new, its limbs xc (M x 3 KT bf16) and the
+    16-row groups' column sums; the statistics read my, xc and each N
+    tile's limbs of d and write the partials; the reductions read the
+    partials and write numd, and the column sums and write xsum."""
+    my, x, d = args
+    (m, n), k = my.shape, d.shape[0]
+    kt = 64 if k <= 64 else 128
+    chunks, groups = cuda_mu.kl_dense_partials(m, n)
+    mn, xb = m * n * 4, m * k * 4
+    limbs, xc = 3 * kt * n * 2, m * 3 * kt * 2
+    part, xpart = chunks * k * n * 4, groups * k * 4
+    nbytes = {"dense_x_update": mn + 2 * xb + limbs + xc + xpart,
+              "dense_stats": mn + xc + limbs + part,
+              "reduce_kernel": part + k * n * 4,
+              "reduce_long_kernel": xpart + k * 4}
+    # Each data pass: 6 + 6 bf16 passes of 2MNK at the rank tile KT.
+    per_pass = 12 * 2.0 * m * n * kt
+    pass_times(lambda: cuda_mu.kl_stats_dense(my, x, d, EPS), nbytes,
+               f"{m}x{n} K={k} ({chunks} chunks, {groups} row groups)", card,
+               ops={"dense_x_update": per_pass, "dense_stats": per_pass})
+
+
+def lognormal_inputs(gen, dev, m, n, k, missing=0.3):
     """Masked KL (and masked lasso gradient: d is a) inputs whose my, x
     and d are log-normal, e^(ln 10 z) for standard normal z: 99.7% of the
-    values within 10^-3 .. 10^3, about six decades; 30% of the entries
-    missing. A product split into two bf16 limbs (bf16x3) breaks LIMIT[f32]
-    on such data, one of three limbs (bf16x6) does not."""
+    values within 10^-3 .. 10^3, about six decades; a share ``missing`` of
+    the entries missing (none: dense KL's). A product split into two bf16
+    limbs (bf16x3) breaks LIMIT[f32] on such data, one of three limbs
+    (bf16x6) does not."""
     ln10 = float(np.log(10.0))
-    mask = (torch.rand((m, n), generator=gen, device=dev) >= 0.3).float()
+    mask = (torch.rand((m, n), generator=gen, device=dev)
+            >= missing).float()
     my = mask * torch.exp(ln10 * torch.randn((m, n), generator=gen,
                                              device=dev))
     x = torch.exp(ln10 * torch.randn((m, k), generator=gen, device=dev))
@@ -1605,6 +1653,8 @@ def main():
             w.packed_launches = 0
             w.dense_launches = 0
         cuda_mu.mu_stats_dense.tma_launches = 0
+        cuda_mu.kl_stats_dense.packed_launches = 0
+        cuda_mu.kl_stats_dense.mu_kl_launches = 0
         cuda_lasso.solve_rows.complex_launches = 0
         cuda_lasso.solve_rows.tma_launches = 0
         cuda_lasso.masked_grad_rows.packed_launches = 0
@@ -1670,7 +1720,9 @@ def main():
     # Phase 3: the masked-MU and KL kernels against their twins, the masked
     # ones on their dense-mask routes (csrc/mu_kl_stats.cu). f32 data with
     # a 0/1 mask take the packed KL kernel (phase 3c), so the dense-mask
-    # KL kernel is held on f32 data with a weighted mask.
+    # KL kernel is held on f32 data with a weighted mask; f32 dense KL
+    # takes csrc/kl_dense_packed.cu (phase 3d), so csrc/mu_kl_stats.cu's
+    # f32 dense KL is held through its private launch helper.
     variants = {"mu_stats_masked": [(bf16, f32), (bf16, bf16), (f32, f32)],
                 "kl_stats_dense": [(bf16, bf16), (f32, f32)],
                 "kl_stats_masked": [(bf16, bf16), (f32, f32)]}
@@ -1680,10 +1732,16 @@ def main():
             for ydt, xdt in dts:
                 args = stats_inputs(gen, dev, m, n, k, ydt, xdt,
                                     NEW_KERNELS[name][1])
-                tag = ""
+                kw = {}
                 if name == "kl_stats_masked" and ydt == f32:
-                    args, tag = weighted(gen, args), "weighted mask"
-                compare_new(cuda_mu, name, args, tag=tag)
+                    args, kw["tag"] = weighted(gen, args), "weighted mask"
+                if name == "kl_stats_dense" and ydt == bf16:
+                    kw["route"] = "mu_kl_launches"
+                if name == "kl_stats_dense" and ydt == f32:
+                    kw = dict(fn=cuda_mu._kl_dense_mu_launch,
+                              route="packed_launches",
+                              tag="csrc/mu_kl_stats.cu (private helper)")
+                compare_new(cuda_mu, name, args, **kw)
                 del args
     t_phase = phase("3 masked-MU and KL kernels vs twins", t_phase)
 
@@ -1729,6 +1787,36 @@ def main():
             compare_new(cuda_mu, "kl_stats_masked", args, eps=eps, tag=tag)
             del args
     t_phase = phase("3c packed-mask KL kernel vs twin", t_phase)
+
+    # Phase 3d: the dense KL kernel on f32 data (csrc/kl_dense_packed.cu,
+    # bf16x6 on wgmma) against its full-f32 twin: phase 3's shapes, ragged
+    # ones with eps = 0 (no NaN at the edges), K = 64 and 1, and log-normal
+    # data over six decades.
+    for m, n, k, eps in ((1000, 1000, 100, EPS), (100_000, 1000, 50, EPS),
+                         (65536, 10112, 128, EPS), (333, 257, 7, EPS),
+                         (333, 257, 7, 0.0), (1000, 1000, 64, EPS),
+                         (1000, 1000, 1, EPS)):
+        args = stats_inputs(gen, dev, m, n, k, f32, f32, False)
+        compare_new(cuda_mu, "kl_stats_dense", args, eps=eps,
+                    route="packed_launches")
+        del args
+    my, _, x, d = lognormal_inputs(gen, dev, 65536, 1024, 128, missing=0.0)
+    lo, hi = (float(q) for q in torch.quantile(
+        torch.log10(my.flatten()[:1 << 20]),
+        torch.tensor([0.0015, 0.9985], device=dev)))
+    compare_new(cuda_mu, "kl_stats_dense", (my, x, d),
+                route="packed_launches",
+                tag=f"log-normal, 99.7% of my over {hi - lo:.1f} decades")
+    # x d above 2^126 in the x update: E's division scales such divisors.
+    my = 1e30 * (0.5 + torch.rand((1000, 1000), generator=gen, device=dev))
+    x = 1e19 * (0.8 + 0.2 * torch.rand((1000, 1), generator=gen, device=dev))
+    d = 1e19 * (1.0 + 0.6 * torch.rand((1, 1000), generator=gen, device=dev))
+    share = float(((x @ d) > 2.0 ** 126).float().mean())
+    compare_new(cuda_mu, "kl_stats_dense", (my, x, d),
+                route="packed_launches",
+                tag=f"x d above 2^126 in {share:.1%} of the entries")
+    del my, x, d
+    t_phase = phase("3d dense KL kernel vs twin", t_phase)
 
     # Phase 4: the dense main path at the real size.
     m, n, k, iters = 1 << 20, 10112, 128, 20
@@ -1913,7 +2001,15 @@ def main():
         torch.cuda.synchronize()
         kl_launches[name] = read_counts(name, iters)
         routes = ""
-        if mk is not None:   # f32 data and a 0/1 mask: the packed route
+        if mk is None:   # f32 data: csrc/kl_dense_packed.cu
+            got = (cuda_mu.kl_stats_dense.packed_launches,
+                   cuda_mu.kl_stats_dense.mu_kl_launches)
+            check(got == (iters, 0), f"dense KL-MU: (kl_dense_packed.cu, "
+                  f"mu_kl_stats.cu) route launches {got}, expected "
+                  f"({iters}, 0)")
+            routes = (f" (kl_dense_packed.cu route {got[0]}, mu_kl_stats.cu "
+                      f"route {got[1]})")
+        else:   # f32 data and a 0/1 mask: the packed route
             got = (cuda_mu.kl_stats_masked.packed_launches,
                    cuda_mu.kl_stats_masked.dense_launches)
             check(got == (iters, 0), f"masked KL-MU: (packed, dense) route "
@@ -1968,16 +2064,46 @@ def main():
           f"f32-FMA {b_fma[0]:.3f} ms ({card}); max_abs_err {e:.3e}",
           flush=True)
     del args
+    # Dense KL on f32 data runs its main path's route, csrc/kl_dense_packed.cu,
+    # timed in turns with csrc/mu_kl_stats.cu's f32 path on the same inputs.
     args = stats_inputs(gen, dev, m7, n7, k7, f32, f32, False)
-    errs_abs["kl_stats_dense"] = compare_new(cuda_mu, "kl_stats_dense", args)
-    times["kl_stats_dense"] = time_new(cuda_mu, "kl_stats_dense", args)
+    errs_abs["kl_stats_dense"] = compare_new(cuda_mu, "kl_stats_dense", args,
+                                             route="packed_launches")
+
+    def kl_new():
+        return cuda_mu.kl_stats_dense(*args, EPS)
+
+    def kl_old():
+        return cuda_mu._kl_dense_mu_launch(*args, EPS)
+
+    t = [cuda_ms(f, 10) for f in (kl_old, kl_new, kl_new, kl_old)]
+    kl_ms, kl_old_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+    kl_plain_ms = cuda_ms(lambda: cuda_mu.kl_stats_dense_plain(*args, EPS), 2)
+    times["kl_stats_dense"] = (kl_ms, kl_plain_ms)
     b = stats_bound("kl_stats_dense", m7, n7, k7, f32, f32)
     b_fma = stats_bound("kl_stats_dense", m7, n7, k7, f32, f32, fma=True)
-    print(f"kl_stats_dense {m7}x{n7} K={k7} data=float32 x=float32: kernel "
-          f"{times['kl_stats_dense'][0]:.3f} ms, plain twin "
-          f"{times['kl_stats_dense'][1]:.3f} ms per call, bound bf16x6 "
-          f"{b[0]:.3f} ms ({b[1]}), f32-FMA {b_fma[0]:.3f} ms ({card}); "
-          f"max_abs_err {errs_abs['kl_stats_dense']:.3e}", flush=True)
+    print(f"kl_stats_dense {m7}x{n7} K={k7} data=float32 x=float32: "
+          f"kl_dense_packed.cu (bf16x6, wgmma) {kl_ms:.3f} ms ({t[1]:.4f}, "
+          f"{t[2]:.4f}), mu_kl_stats.cu (f32 FMA) {kl_old_ms:.3f} ms "
+          f"({t[0]:.4f}, {t[3]:.4f}), plain twin {kl_plain_ms:.3f} ms per "
+          f"call; new / old {kl_ms / kl_old_ms:.3f}; bound bf16x6 "
+          f"{b[0]:.3f} ms ({b[1]}, {b[0] / kl_ms:.1%} of it), f32-FMA "
+          f"{b_fma[0]:.3f} ms ({card}); max_abs_err "
+          f"{errs_abs['kl_stats_dense']:.3e}", flush=True)
+    kl_dense_passes(cuda_mu, args, card)
+    del args
+    # Its bf16 route (csrc/mu_kl_stats.cu) at the same shape.
+    args = stats_inputs(gen, dev, m7, n7, k7, bf16, bf16, False)
+    e = compare_new(cuda_mu, "kl_stats_dense", args, route="mu_kl_launches")
+    t = time_new(cuda_mu, "kl_stats_dense", args)
+    b = stats_bound("kl_stats_dense", m7, n7, k7, bf16, bf16)
+    nbytes = m7 * n7 * 2 + 2 * m7 * k7 * 2 + n7 * k7 * 2 + n7 * k7 * 4
+    print(f"kl_stats_dense {m7}x{n7} K={k7} data=bfloat16 x=bfloat16 "
+          f"(csrc/mu_kl_stats.cu): kernel {t[0]:.3f} ms, plain twin "
+          f"{t[1]:.3f} ms per call, bound {b[0]:.3f} ms ({b[1]}; bytes "
+          f"{nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms, one bf16 pass of 8MNK "
+          f"{8.0 * m7 * n7 * k7 / PEAK_OPS[bf16] * 1e3:.3f} ms) ({card}); "
+          f"max_abs_err {e:.3e}", flush=True)
     del args
     # Masked KL runs its main path's route, the packed mask, timed in turns
     # with the dense-mask kernel of csrc/mu_kl_stats.cu on the same inputs.

@@ -95,71 +95,6 @@ struct Cfg {
       1024 + (size_t)kStages * kSlot + kX + 16 * kStages;
 };
 
-// d (64 x N per warpgroup, f32; N = 2 x the registers of d: 32 or 64)
-// = A B, or += when accumulate; A and B K-major bf16 in shared memory.
-// Register i of a thread of warp w holds row 16 w + lane / 4 + 8 ((i / 2)
-// % 2), column 8 (i / 4) + 2 (lane % 4) + i % 2.
-__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a,
-                                         uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
-                                         uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// d (64 x 64) = A B, or += when accumulate; A from registers, each warp's
-// 16 rows in mma.sync's A fragment layout; B MN-major (read transposed).
-__device__ __forceinline__ void wgmma_rs(float (&d)[32],
-                                         const uint32_t (&a)[4], uint64_t b,
-                                         int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
-        "r"(accumulate));
-}
-
-__device__ __forceinline__ void bar_sync(int id) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
-}
-
 template <int KT>
 __global__ void __launch_bounds__(kThreads, 1)
     grad_packed(const __grid_constant__ CUtensorMap tm_my,

@@ -350,25 +350,6 @@ __global__ void __launch_bounds__(THREADS)
       }
 }
 
-// out[i] = sum over c < count of part[c * S + i], one block per i: each
-// thread sums a fixed strided subset in order, then a fixed tree in shared
-// memory, so the result does not depend on scheduling.
-__global__ void __launch_bounds__(THREADS)
-    reduce_long_kernel(const float* __restrict__ part, int S, int count,
-                       float* __restrict__ out) {
-  __shared__ float sh[THREADS];
-  float s = 0.f;
-  for (int c = threadIdx.x; c < count; c += THREADS)
-    s += part[(long long)c * S + blockIdx.x];
-  sh[threadIdx.x] = s;
-  __syncthreads();
-  for (int w = THREADS / 2; w > 0; w >>= 1) {
-    if (threadIdx.x < w) sh[threadIdx.x] += sh[threadIdx.x + w];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) out[blockIdx.x] = sh[0];
-}
-
 struct Args {
   const void *my, *mask, *x, *d, *dsum;
   float eps;
@@ -432,10 +413,8 @@ int launch(const Args& a) {
 
   const int rc = launch_stats<V, T, X>(a, a.x_new);
   if (rc != 0 || V != KL_DENSE) return rc;
-  reduce_long_kernel<<<a.K, THREADS, 0, a.stream>>>(
-      static_cast<const float*>(a.xpart), a.K, blocks1,
-      static_cast<float*>(a.xsum));
-  return (int)cudaGetLastError();
+  return launch_reduce_long(static_cast<const float*>(a.xpart), a.K, blocks1,
+                            static_cast<float*>(a.xsum), a.stream);
 }
 
 bool bad_shape(const Args& a) {

@@ -1,7 +1,7 @@
 // Building blocks shared by the NMF statistics kernels (mu_stats_dense.cu,
 // mu_kl_stats.cu): dtype casts, register-staged tile loads, the warp-level
 // product on mma.sync (bf16) or full-f32 FMAs (f32), stage-wise f32
-// summation, and the fixed-order reduction of per-chunk partials.
+// summation, and the fixed-order reductions of per-chunk partials.
 //
 // Every kernel here runs THREADS = 256 threads (8 warps) per block. A warp
 // product covers a 32-row window of 16 x 8 mma tiles; the accumulator
@@ -258,6 +258,32 @@ inline int launch_reduce(const float* part, long long S, int chunks,
   const long long blocks = (S + THREADS - 1) / THREADS;
   reduce_kernel<<<(int)(blocks < 8192 ? blocks : 8192), THREADS, 0,
                   stream>>>(part, S, chunks, out);
+  return (int)cudaGetLastError();
+}
+
+// out[i] = sum over c < count of part[c * S + i] for few outputs and many
+// partials (the dense KL kernels' column sums of x_new), one block per i:
+// each thread sums a fixed strided subset in order, then a fixed tree in
+// shared memory, so the result does not depend on scheduling.
+__global__ void __launch_bounds__(THREADS)
+    reduce_long_kernel(const float* __restrict__ part, int S, int count,
+                       float* __restrict__ out) {
+  __shared__ float sh[THREADS];
+  float s = 0.f;
+  for (int c = threadIdx.x; c < count; c += THREADS)
+    s += part[(long long)c * S + blockIdx.x];
+  sh[threadIdx.x] = s;
+  __syncthreads();
+  for (int w = THREADS / 2; w > 0; w >>= 1) {
+    if (threadIdx.x < w) sh[threadIdx.x] += sh[threadIdx.x + w];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) out[blockIdx.x] = sh[0];
+}
+
+inline int launch_reduce_long(const float* part, int S, int count, float* out,
+                              cudaStream_t stream) {
+  reduce_long_kernel<<<S, THREADS, 0, stream>>>(part, S, count, out);
   return (int)cudaGetLastError();
 }
 

@@ -630,12 +630,8 @@ def grad_limbs(a):
     """a (F, N) as the packed kernel reads it: (N, 3 KT) bf16 with KT =
     ``grad_tile(F)``, row n = [limb 0 of a[:, n] | limb 1 | limb 2] in
     ``cuda_mu.split_bf16x3``'s round-to-nearest limbs, each zero past F.
-    A solve makes it once for its fixed a."""
-    f, n = a.shape
-    kt = grad_tile(f)
-    out = torch.zeros((n, 3, kt), dtype=torch.bfloat16, device=a.device)
-    out[:, :, :f] = cuda_mu.split_bf16x3(a).permute(2, 0, 1)
-    return out.view(n, 3 * kt)
+    A solve makes it once for its fixed a (``cuda_mu.column_limbs``)."""
+    return cuda_mu.column_limbs(a, grad_tile(a.shape[0]))
 
 
 def check_packed_grad_args(my, packed, x, a, a_limbs=None):

@@ -38,14 +38,18 @@ kernels). The routes, by dtype and by the mask's form:
   products on the tensor cores (``split_bf16x3``; the TPU's
   ``Precision.HIGHEST``); a dense mask (bf16 data, or a weighted mask,
   which ``pack_mask`` refuses) to ``csrc/mu_kl_stats.cu``;
-- ``kl_stats_dense``: ``csrc/mu_kl_stats.cu``.
+- ``kl_stats_dense``: f32 data to ``csrc/kl_dense_packed.cu``
+  (``kl_dense_route``), whose f32 products run as bf16x6 limb
+  products on ``wgmma`` with d's limbs from ``column_limbs``; bf16 data to
+  ``csrc/mu_kl_stats.cu``.
 
 ``nmf.solve`` packs a 0/1 mask once per solve where ``takes_packed`` (MU)
 or ``kl_takes_packed`` (KL) says the route takes bits. On a CPU tensor a
 wrapper runs its ``*_plain`` twin (unpacking a packed mask first). It
 never falls back from one to the other. Each wrapper counts its kernel
 launches in ``.launches``; the masked ones also per route, in
-``.packed_launches`` and ``.dense_launches``.
+``.packed_launches`` and ``.dense_launches``, and ``kl_stats_dense`` in
+``.packed_launches`` and ``.mu_kl_launches``.
 
 Not ported: ``calibrated_tpu``, ``fits_vmem`` and ``default_block_rows``,
 which encode TPU v5e VMEM calibrations.
@@ -65,9 +69,12 @@ KERNEL_MAX_RANK = 128
 _TARGET_CHUNKS = 128
 _MIN_CHUNK_ROWS = 256
 _MAX_GRID_Y = 65535
-# Rows per stripe of csrc/mu_kl_stats.cu's x update (BM1 there): the KL
-# dense kernel writes one partial column sum of x_new per stripe.
+# Rows per partial column sum of x_new in the dense KL kernels' x update:
+# one per 64-row stripe in csrc/mu_kl_stats.cu (BM1 there), one per warp's
+# 16 rows in csrc/kl_dense_packed.cu (whose stripes are 128 rows).
 _X_STRIPE_ROWS = 64
+_KL_DENSE_STRIPE_ROWS = 128
+_KL_DENSE_SUM_ROWS = 16
 # The packed kernel's statistics pass (csrc/mu_masked_packed.cu): 64-column
 # N tiles and 64-row stages, and two waves of its resident blocks, 2 per SM
 # (kBlocks there) on the H100's 132 SMs.
@@ -84,9 +91,9 @@ _TMA_STAGE_ROWS = 64
 _TMA_RESIDENT = 132
 _TMA_WAVE_FILL = 0.95
 _TMA_MAX_CHUNKS = 64
-# The packed KL kernel's statistics pass (csrc/kl_masked_packed.cu):
-# 128-column N tiles and 32-row stages, one resident block per SM on the
-# H100's 132 SMs.
+# The packed KL kernels' statistics pass (csrc/kl_masked_packed.cu,
+# csrc/kl_dense_packed.cu): 128-column N tiles and 32-row stages, one
+# resident block per SM on the H100's 132 SMs.
 _KL_N_TILE = 128
 _KL_STAGE_ROWS = 32
 _KL_RESIDENT = 132
@@ -610,10 +617,91 @@ def _packed_launch(my, packed, x, d, eps, block_rows):
 def kl_stats_dense(my, x, d, eps, *, block_rows=None):
     """The dense KL-MU statistics ``(x_new, numd, xsum)``; see the module
     docstring. ``dsum``, the row sums of ``d`` in f32, is formed here,
-    outside the kernel (``pallas_mu.py:618``)."""
+    outside the kernel (``pallas_mu.py:618``).
+
+    On a CUDA tensor f32 data launch ``csrc/kl_dense_packed.cu`` (bf16x6
+    products on ``wgmma``; ``block_rows`` is rounded up to whole 32-row
+    stages) and count it in ``.packed_launches``; bf16 data launch the
+    KL_DENSE kernel of ``csrc/mu_kl_stats.cu`` and count it in
+    ``.mu_kl_launches``; ``.launches`` counts both."""
     validate_block_rows(block_rows)
-    if _runs_plain(my):
+    route = kl_dense_route(my.dtype, my.device)
+    if route == "plain":
         return kl_stats_dense_plain(my, x, d, eps, block_rows=block_rows)
+    if route == "packed":
+        out = _kl_dense_packed_launch(my, x, d, eps, block_rows)
+        kl_stats_dense.packed_launches += 1
+    else:
+        out = _kl_dense_mu_launch(my, x, d, eps, block_rows)
+        kl_stats_dense.mu_kl_launches += 1
+    kl_stats_dense.launches += 1
+    return out
+
+
+kl_stats_dense.launches = 0
+kl_stats_dense.packed_launches = 0
+kl_stats_dense.mu_kl_launches = 0
+
+
+def kl_dense_block_rows(m: int, n: int, block_rows=None) -> int:
+    """Rows per partial of ``csrc/kl_dense_packed.cu``'s statistics pass:
+    ``kl_packed_block_rows`` (the masked KL kernel's grid: two waves of
+    128-column N tiles), or ``block_rows`` rounded up to whole 32-row
+    stages."""
+    if block_rows is None:
+        return kl_packed_block_rows(m, n)
+    return -(-block_rows // _KL_STAGE_ROWS) * _KL_STAGE_ROWS
+
+
+def kl_dense_partials(m: int, n: int, block_rows=None):
+    """``(chunks, groups)`` of ``csrc/kl_dense_packed.cu`` at M x N: the
+    statistics pass's row chunks, each writing a partial numd, and the x
+    update's 16-row groups (8 per 128-row stripe, one per warp), each
+    writing a partial xsum. A function of the shape (and ``block_rows``)
+    alone, so the summation order, and every bit of the result, is."""
+    stripes = -(-m // _KL_DENSE_STRIPE_ROWS)
+    return (-(-m // kl_dense_block_rows(m, n, block_rows)),
+            stripes * (_KL_DENSE_STRIPE_ROWS // _KL_DENSE_SUM_ROWS))
+
+
+def _kl_dense_packed_launch(my, x, d, eps, block_rows):
+    """Launch ``csrc/kl_dense_packed.cu`` on f32 ``my`` (``kl_stats_dense``'s
+    f32 route). d's limbs go to the kernel as ``column_limbs(d, KT)``,
+    made once per call."""
+    m, n = my.shape
+    k = d.shape[0]
+    rows = kl_dense_block_rows(m, n, block_rows)
+    chunks, groups = kl_dense_partials(m, n, block_rows)
+    _check_kernel_args(my, x, d, 1, rows, wide_x=False)
+    if my.dtype != torch.float32:
+        raise DtypeError(f"the packed dense KL kernel takes f32 data, got "
+                         f"{my.dtype}")
+    kt = 64 if k <= 64 else 128
+    fn = _c_function("kl_dense_packed", "kl_dense_packed_launch",
+                     (_I, _P, _I, _P, _P, _P, _F) + (_I,) * 4 + (_P,) * 7)
+    with torch.cuda.device(my.device):
+        my_t, ld_my = _tma_rows(my)
+        limbs = column_limbs(d, kt)
+        dsum = _dsum(d)
+        x_new = torch.empty_like(x)
+        xc = torch.empty((m, 3 * kt), dtype=torch.bfloat16, device=my.device)
+        xpart = _f32(groups * k, my.device)
+        xsum = _f32((1, k), my.device)
+        part = _f32(chunks * k * n, my.device)
+        out = _f32(k * n, my.device)
+        _launch("kl_stats_dense (packed)", fn, my.device, kt,
+                my_t.data_ptr(), ld_my, x.data_ptr(), limbs.data_ptr(),
+                dsum.data_ptr(), float(eps), m, n, k, rows,
+                x_new.data_ptr(), xc.data_ptr(), xpart.data_ptr(),
+                xsum.data_ptr(), part.data_ptr(), out.data_ptr())
+    return x_new, out.view(k, n), xsum
+
+
+def _kl_dense_mu_launch(my, x, d, eps, block_rows=None):
+    """Launch the KL_DENSE kernel of ``csrc/mu_kl_stats.cu``
+    (``kl_stats_dense``'s bf16 route). It takes f32 data too, so that both
+    designs can be timed on the same inputs; nothing on the main path
+    calls it with f32."""
     rows = block_rows or default_block_rows(my.shape[0])
     _check_kernel_args(my, x, d, 1, rows, wide_x=False)
     m, n = my.shape
@@ -631,11 +719,7 @@ def kl_stats_dense(my, x, d, eps, *, block_rows=None):
                 my.data_ptr(), x.data_ptr(), d.data_ptr(), dsum.data_ptr(),
                 float(eps), m, n, k, rows, x_new.data_ptr(), part.data_ptr(),
                 out.data_ptr(), xpart.data_ptr(), xsum.data_ptr())
-    kl_stats_dense.launches += 1
     return x_new, out.view(k, n), xsum
-
-
-kl_stats_dense.launches = 0
 
 
 def kl_stats_masked(my, mask, x, d, eps, *, block_rows=None):
@@ -666,19 +750,46 @@ def kl_takes_packed(my):
     return my.dtype == torch.float32 or my.device.type == "cpu"
 
 
+def kl_dense_route(dtype, device):
+    """Which code ``kl_stats_dense`` runs for data of ``dtype`` on
+    ``device``: ``'plain'`` (the twin) on the CPU; on the card
+    ``'packed'`` (``csrc/kl_dense_packed.cu``, bf16x6 on ``wgmma``) for
+    f32 data and ``'mu_kl'`` (``csrc/mu_kl_stats.cu``) for any other
+    dtype, whose checks refuse all but bf16. Other devices raise. A route
+    by dtype, never a fallback."""
+    kind = torch.device(device).type
+    if kind == "cpu":
+        return "plain"
+    if kind != "cuda":
+        raise DecompError(f"no kernel for device {device}")
+    return "packed" if dtype == torch.float32 else "mu_kl"
+
+
 def split_bf16x3(t):
     """The three round-to-nearest bf16 limbs of f32 ``t``, stacked (3,
     *t.shape): ``t0 = bf16(t)``, ``t1 = bf16(t - t0)``, ``t2 = bf16(t - t0
     - t1)``, each residual exact in f32, so that ``t0 + t1 + t2`` gives
     back ``t`` to within 2^-24 |t|. The operand split of the bf16x6
     products of ``csrc/kl_masked_packed.cu``, made once per call for
-    ``d``."""
+    ``d``, and of ``column_limbs``."""
     t = t.to(torch.float32)
     t0 = t.to(torch.bfloat16)
     r = t - t0.to(torch.float32)
     t1 = r.to(torch.bfloat16)
     t2 = (r - t1.to(torch.float32)).to(torch.bfloat16)
     return torch.stack((t0, t1, t2))
+
+
+def column_limbs(t, kt):
+    """``t`` (K, N), K <= ``kt``, as the bf16x6 ``wgmma`` kernels read it:
+    (N, 3 kt) bf16, row n = [limb 0 of t[:, n] | limb 1 | limb 2] in
+    ``split_bf16x3``'s round-to-nearest limbs, each zero past K. d's
+    limbs for ``csrc/kl_dense_packed.cu`` (made once per call) and a's for
+    ``csrc/lasso_grad_packed.cu`` (``cuda_lasso.grad_limbs``)."""
+    k, n = t.shape
+    out = torch.zeros((n, 3, kt), dtype=torch.bfloat16, device=t.device)
+    out[:, :, :k] = split_bf16x3(t).permute(2, 0, 1)
+    return out.view(n, 3 * kt)
 
 
 def kl_packed_block_rows(m: int, n: int) -> int:
