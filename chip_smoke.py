@@ -9,7 +9,9 @@ It builds the port's CUDA kernels from ``decomp_tpu_torch/csrc`` with nvcc
 for sm_90a (one nvcc per source, all at once), and then:
 
 1. prints the card's name and power limit (nvidia-smi), the build time
-   and ptxas' register-spill report;
+   and ptxas' register-spill report, and fails where an instance of the
+   bf16x6 wgmma chain (``csrc/kl_dense_packed.cu``,
+   ``csrc/grad_dict_packed.cu``) spills;
 2. holds the kernel ``mu_stats_dense`` against its plain PyTorch twin on
    the card and checks that two runs give the same bits: f32 data on
    ``csrc/mu_stats_dense.cu``, and bf16 data with f32 or bf16 x on the
@@ -129,8 +131,14 @@ for sm_90a (one nvcc per source, all at once), and then:
 13. holds the dictionary-learning kernels against their twins:
     ``bcd_sweep`` at K = 256, N = 64 (config 3), at a ragged K = 37, N =
     50 and at the largest K x N it takes (256 x 208) with one all-zero
-    atom, which must be kept; ``masked_grad_dict`` at 1,000 x 1,000 K =
-    100 and a ragged 333 x 257 K = 7, in f32 and bf16; each with a
+    atom, which must be kept; ``masked_grad_dict`` on a dense mask
+    (``csrc/mu_kl_stats.cu``) at 1,000 x 1,000 K = 100 and a ragged 333 x
+    257 K = 7, in f32 and bf16, and on a packed mask with f32 data
+    (``csrc/grad_dict_packed.cu``, bf16x6 products on wgmma) at 1,000 x
+    1,000 K = 100, 333 x 257 K = 7 (the KT = 64 instance) and on
+    log-normal my, x and d at 100,000 x 1,024 K = 128, within the f32
+    limit of the full-f32 twin, with x's limbs from its split launch
+    held bit for bit to ``cuda_mu.column_limbs``; each with a
     bit-identical rerun;
 14. drives dictionary learning at BASELINE config 3,
     ``dictionary_learning.solve`` on bench.py's 20,000 x 64 patches with
@@ -145,18 +153,22 @@ for sm_90a (one nvcc per source, all at once), and then:
     missing (planted: unit atoms, truth 10% sparse, 0.01 noise), 20 outer
     iterations at tol 0 with lasso_iter 15 in f32, then 10 in bf16, and
     checks ``niter`` launches of ``masked_grad_dict`` and ``niter x 15``
-    of ``masked_grad_rows`` (f32 on the packed route, bf16 on the dense
-    one), a falling objective and the agreement with the composition run;
+    of ``masked_grad_rows`` (both f32 on the packed route, bf16 on the
+    dense one), a falling objective and the agreement with the
+    composition run;
 16. times the dictionary-learning kernels against their twins per call,
     with their bounds: ``bcd_sweep`` on config 3's statistics (also per
-    atom), ``masked_grad_dict`` at 100,000 x 1,024, K = 128 in f32 and
-    bf16 on phase 15's factors.
+    atom), ``masked_grad_dict`` at 100,000 x 1,024, K = 128 on phase
+    15's factors: f32 on the packed route in turns with the dense-mask
+    kernel's f32 path on the same inputs, with each pass from
+    ``torch.profiler``, and bf16 on the dense route.
 
 Each path runs with every launch count set to 0 just before it and read
 just after. It exits non-zero on any failure, without a CUDA device, and
 where the package is absent. The line before the last is a JSON summary
-of the kernels (the eight, and ``solve_rows``' complex mode and
-``masked_grad_rows``' packed route as entries of their own), each with
+of the kernels (the eight, and ``solve_rows``' complex mode and the
+packed routes of ``masked_grad_rows`` and ``masked_grad_dict`` as
+entries of their own), each with
 its bound: the larger of its bytes (each input
 read once, each output written once) over 3.35 TB/s and its operations
 over the H100's peak for their type: 989 TFLOP/s for bf16 on the tensor
@@ -257,7 +269,8 @@ MASKED_DL_LIMIT = {torch.float32: 2e-6, torch.bfloat16: 5e-2}
 EPS = 1e-6
 SOURCES = ("mu_stats_dense", "mu_dense_tma", "mu_kl_stats", "mu_masked_packed",
            "kl_masked_packed", "kl_dense_packed", "lasso_fista",
-           "lasso_fista_tma", "lasso_grad", "lasso_grad_packed", "dl_bcd")
+           "lasso_fista_tma", "lasso_grad", "lasso_grad_packed", "dl_bcd",
+           "grad_dict_packed")
 # name -> (source, masked, the TPU kernel it replaces)
 NEW_KERNELS = {
     "mu_stats_masked": ("mu_masked_packed", True, "pallas_mu.py:522"),
@@ -780,15 +793,16 @@ def grad_inputs(gen, dev, m, n, f, dt):
 def compare_grad(module, name, args, packed=False, tag="", f64=False):
     """The masked gradient ``name`` of ``module`` (masked_grad_rows, or
     cuda_dl's masked_grad_dict) against its twin; ``packed``: on the
-    mask's bits (masked_grad_rows' packed route); ``f64``: also both
-    against masked_grad_rows' function in f64. Returns the max abs
-    error."""
+    mask's bits (the packed route), else on the dense mask (the dense
+    route), each call counted on that route; ``f64``: also both against
+    the function in f64. Returns the max abs error."""
     from decomp_tpu_torch.ops.cuda_mu import pack_mask
 
     my, mask, x, a = args
     fn = getattr(module, name)
     kargs = (my, pack_mask(mask), x, a) if packed else args
-    before = getattr(fn, "packed_launches", 0)
+    route = "packed_launches" if packed else "dense_launches"
+    before = getattr(fn, route, 0)
     out = fn(*kargs)
     again = fn(*kargs)
     ref = getattr(module, f"{name}_plain")(*args)
@@ -801,20 +815,33 @@ def compare_grad(module, name, args, packed=False, tag="", f64=False):
            f"{str(my.dtype)[6:]}{', ' + tag if tag else ''}")
     exact = ""
     if f64:
-        ad = a.double()
-        g64 = (mask.double() * (x.double() @ ad) - my.double()) @ ad.T
+        xd, ad = x.double(), a.double()
+        r64 = mask.double() * (xd @ ad) - my.double()
+        g64 = xd.T @ r64 if name.endswith("dict") else r64 @ ad.T
         exact = (f"; against f64: kernel {rel_fro(out, g64):.3e}, twin "
                  f"{rel_fro(ref, g64):.3e}")
-        del ad, g64
+        del xd, ad, r64, g64
     print(f"kernel vs twin {tag}: rel_fro {err:.3e} (limit {lim:g}); "
           f"bit-identical rerun: {same}{exact}", flush=True)
-    if packed:
-        check(fn.packed_launches == before + 2,
-              f"{tag}: not on the packed route")
+    if hasattr(fn, route):
+        check(getattr(fn, route) == before + 2,
+              f"{tag}: not on the {route[:-len('_launches')]} route")
     check(np.isfinite(err) and err <= lim, f"{tag}: kernel disagrees with "
           "twin")
     check(same, f"{tag}: two kernel runs differ")
     return max_abs([out], [ref])
+
+
+def compare_split(cd, cuda_mu, x):
+    """x's limbs as csrc/grad_dict_packed.cu's split launch writes them,
+    bit for bit against ``cuda_mu.column_limbs(x^T, KT)``: (M, 3 KT) bf16,
+    split_bf16x3's round-to-nearest limbs, zero past K."""
+    kt = 64 if x.shape[1] <= 64 else 128
+    got = cd._split_rows(x, kt)
+    same = torch.equal(got, cuda_mu.column_limbs(x.T, kt))
+    print(f"masked_grad_dict packed: x's limbs {tuple(got.shape)} from the "
+          f"split launch equal column_limbs(x^T, {kt}): {same}", flush=True)
+    check(same, "grad_dict_packed.cu's split launch: x's limbs differ")
 
 
 def config2_data():
@@ -1517,12 +1544,13 @@ def config3_phase(dl, dev, card, reset_counts, read_counts):
 
 
 def masked_dl_phase(dl, dev, card, reset_counts, read_counts, grad_routes,
-                    m, n, k):
+                    dict_routes, m, n, k):
     """Phase 15: masked dictionary learning at M x N, K atoms, 30% missing,
-    planted; 20 outer iterations in f32 (the inner gradient on the packed
+    planted; 20 outer iterations in f32 (both gradients on the packed
     route) and 10 in bf16 (on the dense one) at tol 0, 15 inner iterations
-    each (lasso_tol 0: a fixed inner budget). Returns the f32 run's
-    masked_grad_dict launches and its (my, mask, x, d)."""
+    each (lasso_tol 0: a fixed inner budget). Returns masked_grad_dict's
+    launches on the f32 run's packed route and the bf16 run's dense one,
+    and the f32 run's (my, mask, x, d)."""
     alpha, inner = 0.05, 15
     g = torch.Generator(device=dev).manual_seed(15)
     d_true = torch.randn((k, n), generator=g, device=dev)
@@ -1555,9 +1583,10 @@ def masked_dl_phase(dl, dev, card, reset_counts, read_counts, grad_routes,
         ms, res = event_ms(solve)
         launches[dt] = read_counts({"masked_grad_dict": iters,
                                     "masked_grad_rows": iters * inner})
-        routes = grad_routes()
+        routes, d_routes = grad_routes(), dict_routes()
         want = ((iters * inner, 0) if dt == torch.float32
                 else (0, iters * inner))
+        d_want = (iters, 0) if dt == torch.float32 else (0, iters)
         comp_ms, comp = event_ms(lambda: solve(use_kernel=False))
         obj1 = objective(first.x, first.d, my_, mask_)
         obj = objective(res.x, res.d, my_, mask_)
@@ -1569,11 +1598,15 @@ def masked_dl_phase(dl, dev, card, reset_counts, read_counts, grad_routes,
               f"{comp_ms / iters:.3f} ms; objective after 1 iteration "
               f"{obj1:.6e}, after {iters} {obj:.6e}; rel_fro vs composition "
               f"d {err_d:.3e}, x {err_x:.3e} (limit {lim:g}); launches "
-              f"masked_grad_dict {launches[dt]['masked_grad_dict']}, "
-              f"masked_grad_rows {launches[dt]['masked_grad_rows']} "
-              f"(packed, dense route {routes})", flush=True)
+              f"masked_grad_dict {launches[dt]['masked_grad_dict']} "
+              f"(packed, dense route {d_routes}), masked_grad_rows "
+              f"{launches[dt]['masked_grad_rows']} (packed, dense route "
+              f"{routes})", flush=True)
         check(routes == want, f"{tag}: masked_grad_rows routes {routes}, "
               f"expected {want}")
+        check(d_routes == d_want, f"{tag}: masked_grad_dict routes "
+              f"{d_routes}, expected {d_want}")
+        launches[dt]["routes"] = d_routes
         check(res.niter == iters, f"{tag}: niter {res.niter} != {iters}")
         check(bool(torch.isfinite(res.d).all())
               and bool(torch.isfinite(res.x).all()), f"{tag}: non-finite "
@@ -1585,15 +1618,42 @@ def masked_dl_phase(dl, dev, card, reset_counts, read_counts, grad_routes,
         if dt == torch.float32:
             kept = (my_, mask_, res.x, res.d)
         del first, res, comp
-    return launches[torch.float32]["masked_grad_dict"], kept
+    return (launches[torch.float32]["routes"][0],
+            launches[torch.bfloat16]["routes"][1], kept)
+
+
+def grad_dict_passes(cd, cuda_mu, args, card):
+    """csrc/grad_dict_packed.cu's three launches: the split reads x and
+    writes its limbs xc (M x 3 KT bf16); the statistics read my, the bits,
+    xc and each N tile's limbs of d and write the partials; the reduction
+    reads the partials and writes G."""
+    my, mask, x, d = args
+    bits = cuda_mu.pack_mask(mask)
+    (m, n), k = my.shape, d.shape[0]
+    kt = 64 if k <= 64 else 128
+    rows = cd.grad_dict_packed_rows(m, n)
+    chunks = -(-m // rows)
+    xc, part = m * 3 * kt * 2, chunks * k * n * 4
+    nbytes = {"split_rows": m * k * 4 + xc,
+              "grad_dict_stats": (m * n * 4 + bits.numel() * 4 + xc
+                                  + 3 * kt * n * 2 + part),
+              "reduce_kernel": part + k * n * 4}
+    # Two products, 6 bf16 passes of 2MNK each at the rank tile KT.
+    pass_times(lambda: cd.masked_grad_dict(my, bits, x, d), nbytes,
+               f"{m}x{n} K={k} ({chunks} chunks of {rows} rows)", card,
+               ops={"grad_dict_stats": 12 * 2.0 * m * n * kt})
 
 
 def dl_times(cd, card, c3, c3_marg, c3_niter, masked):
     """Phase 16: the dictionary-learning kernels against their twins per
     call, with their bounds: bcd_sweep on config 3's statistics ``c3`` =
-    (A, B, d), masked_grad_dict on phase 15's (my, mask, x, d) in f32 and
-    bf16. Returns {name: (max_abs_err, ms, plain_ms, bound_ms,
+    (A, B, d), masked_grad_dict on phase 15's (my, mask, x, d): f32 on the
+    packed route (csrc/grad_dict_packed.cu) in turns with the dense-mask
+    kernel's f32 path on the same inputs (old, new, new, old), bf16 on the
+    dense route. Returns {name: (max_abs_err, ms, plain_ms, bound_ms,
     bound_by)}."""
+    from decomp_tpu_torch.ops import cuda_mu
+
     out = {}
     a, b, d = c3
     k, n = d.shape
@@ -1610,20 +1670,44 @@ def dl_times(cd, card, c3, c3_marg, c3_niter, masked):
     my, mask, x, dd = masked
     m, n = my.shape
     k = dd.shape[0]
-    for dt in (torch.float32, torch.bfloat16):
-        args = tuple(t.to(dt) for t in (my, mask, x, dd))
-        e = compare_grad(cd, "masked_grad_dict", args)
-        k_ms = cuda_ms(lambda: cd.masked_grad_dict(*args), 5)
-        p_ms = cuda_ms(lambda: cd.masked_grad_dict_plain(*args), 2)
-        bnd, fma = dtype_bounds(
-            (2 * m * n + m * k + k * n) * dt.itemsize + 4 * k * n,
-            4.0 * m * n * k, dt)
-        print(f"masked_grad_dict {m}x{n} K={k} {str(dt)[6:]}: kernel "
-              f"{k_ms:.3f} ms, plain twin {p_ms:.3f} ms per call, bound "
-              f"{bound_text(bnd, fma)} ({card})", flush=True)
-        if dt == torch.float32:
-            out["masked_grad_dict"] = (e, k_ms, p_ms) + bnd
-        del args
+    args = (my, mask, x, dd)
+    e = compare_grad(cd, "masked_grad_dict", args, packed=True, f64=True)
+    compare_grad(cd, "masked_grad_dict", args)
+    bits = cuda_mu.pack_mask(mask)
+    t = [cuda_ms(fn, 10) for fn in (
+        lambda: cd.masked_grad_dict(my, mask, x, dd),
+        lambda: cd.masked_grad_dict(my, bits, x, dd))]
+    t += [cuda_ms(fn, 10) for fn in (
+        lambda: cd.masked_grad_dict(my, bits, x, dd),
+        lambda: cd.masked_grad_dict(my, mask, x, dd))]
+    k_ms, old_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+    p_ms = cuda_ms(lambda: cd.masked_grad_dict_plain(*args), 2)
+    # my, the bits, x, d and G; both products bf16x6.
+    bnd, fma = f32_bounds(4 * (m * n + m * bits.shape[1] + m * k + 2 * k * n),
+                          4.0 * m * n * k)
+    print(f"masked_grad_dict {m}x{n} K={k} float32: packed-mask kernel "
+          f"(bf16x6 on wgmma) {k_ms:.4f} ms ({t[1]:.4f}, {t[2]:.4f}), "
+          f"mu_kl_stats.cu f32 {old_ms:.4f} ms ({t[0]:.4f}, {t[3]:.4f}) in "
+          f"turns, new / old {k_ms / old_ms:.3f}; plain twin {p_ms:.3f} ms "
+          f"per call; bound {bound_text(bnd, fma)}, new kernel at "
+          f"{bnd[0] / k_ms * 100:.1f}% of it ({card})", flush=True)
+    out["masked_grad_dict_packed"] = (e, k_ms, p_ms) + bnd
+    grad_dict_passes(cd, cuda_mu, args, card)
+    limbs_ms = cuda_ms(lambda: cuda_mu.column_limbs(dd, 128), 10)
+    print(f"  d's limbs (cuda_mu.column_limbs, torch ops, once per call): "
+          f"{limbs_ms:.4f} ms per call ({card})", flush=True)
+    del bits
+    args = tuple(v.to(torch.bfloat16) for v in args)
+    e = compare_grad(cd, "masked_grad_dict", args)
+    k_ms = cuda_ms(lambda: cd.masked_grad_dict(*args), 5)
+    p_ms = cuda_ms(lambda: cd.masked_grad_dict_plain(*args), 2)
+    bnd = bound((2 * m * n + m * k + k * n) * 2 + 4 * k * n,
+                4.0 * m * n * k, torch.bfloat16)
+    print(f"masked_grad_dict {m}x{n} K={k} bfloat16 (dense mask, "
+          f"mu_kl_stats.cu): kernel {k_ms:.3f} ms, plain twin {p_ms:.3f} ms "
+          f"per call, bound {bound_text(bnd, None)} ({card})", flush=True)
+    out["masked_grad_dict"] = (e, k_ms, p_ms) + bnd
+    del args
     return out
 
 
@@ -1657,12 +1741,18 @@ def main():
         cuda_mu.kl_stats_dense.mu_kl_launches = 0
         cuda_lasso.solve_rows.complex_launches = 0
         cuda_lasso.solve_rows.tma_launches = 0
-        cuda_lasso.masked_grad_rows.packed_launches = 0
-        cuda_lasso.masked_grad_rows.dense_launches = 0
+        for w in (cuda_lasso.masked_grad_rows, cuda_dl.masked_grad_dict):
+            w.packed_launches = 0
+            w.dense_launches = 0
 
     def grad_routes():
         """masked_grad_rows' launches since the reset: (packed, dense)."""
         w = cuda_lasso.masked_grad_rows
+        return w.packed_launches, w.dense_launches
+
+    def dict_routes():
+        """masked_grad_dict's launches since the reset: (packed, dense)."""
+        w = cuda_dl.masked_grad_dict
         return w.packed_launches, w.dense_launches
 
     def read_counts(expected, launches=None):
@@ -1698,6 +1788,8 @@ def main():
                   and " 0 bytes spill stores, 0 bytes spill loads" not in ln]
         print(f"built decomp_tpu_torch/csrc/{s}.cu with nvcc for sm_90a; "
               f"register spills: {spills or 'none'}", flush=True)
+        if s in ("kl_dense_packed", "grad_dict_packed"):
+            check(not spills, f"{s}.cu: the wgmma chain's instances spill")
     print(f"{len(SOURCES)} sources built in parallel in {build_s:.1f} s "
           f"(0 s = already built); torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
@@ -2187,6 +2279,20 @@ def main():
         for dt in (f32, bf16):
             compare_grad(cuda_dl, "masked_grad_dict",
                          grad_inputs(gen, dev, m_, n_, k_, dt))
+    # The packed route (csrc/grad_dict_packed.cu: f32 data, the mask as
+    # bits): K = 100, a ragged 333 x 257 K = 7 (the KT = 64 instance; my's
+    # padded copy) and log-normal my, x and d over six decades at masked
+    # DL's shape; x's limbs from its split launch.
+    for m_, n_, k_ in ((1000, 1000, 100), (333, 257, 7)):
+        args = grad_inputs(gen, dev, m_, n_, k_, f32)
+        compare_grad(cuda_dl, "masked_grad_dict", args, packed=True)
+        compare_split(cuda_dl, cuda_mu, args[2])
+        del args
+    args = lognormal_inputs(gen, dev, 100_000, 1024, 128)
+    compare_grad(cuda_dl, "masked_grad_dict", args, packed=True,
+                 tag="log-normal", f64=True)
+    compare_split(cuda_dl, cuda_mu, args[2])
+    del args
     t_phase = phase("13 dictionary-learning kernels vs twins", t_phase)
 
     # Phase 14: dictionary learning at BASELINE config 3.
@@ -2195,9 +2301,9 @@ def main():
     t_phase = phase("14 config 3", t_phase)
 
     # Phase 15: masked dictionary learning.
-    launches_gd, masked15 = masked_dl_phase(dictionary_learning, dev, card,
-                                            reset_counts, read_counts,
-                                            grad_routes, 100_000, 1024, 128)
+    launches_gd, launches_gd_dense, masked15 = masked_dl_phase(
+        dictionary_learning, dev, card, reset_counts, read_counts,
+        grad_routes, dict_routes, 100_000, 1024, 128)
     t_phase = phase("15 masked dictionary learning", t_phase)
 
     # Phase 16: the dictionary-learning kernels' times against their twins.
@@ -2222,7 +2328,9 @@ def main():
                      "solve_rows_complex": launches2c,
                      "masked_grad_rows": launches_grad_dense,
                      "masked_grad_rows_packed": launches_grad,
-                     "bcd_sweep": launches3, "masked_grad_dict": launches_gd}
+                     "bcd_sweep": launches3,
+                     "masked_grad_dict": launches_gd_dense,
+                     "masked_grad_dict_packed": launches_gd}
     kernels = {"mu_stats_dense": ("mu_dense_tma", "pallas_mu.py:438"),
                **{name: (src, rep) for name, (src, _, rep)
                   in NEW_KERNELS.items()},
@@ -2233,7 +2341,9 @@ def main():
                "masked_grad_rows_packed": ("lasso_grad_packed",
                                            "pallas_lasso.py:159"),
                "bcd_sweep": ("dl_bcd", "pallas_bcd.py:115"),
-               "masked_grad_dict": ("mu_kl_stats", "pallas_lasso.py:225")}
+               "masked_grad_dict": ("mu_kl_stats", "pallas_lasso.py:225"),
+               "masked_grad_dict_packed": ("grad_dict_packed",
+                                           "pallas_lasso.py:225")}
     entries = []
     for name, (source, replaces) in kernels.items():
         err, ms, p_ms, b_ms, b_by = stats[name]

@@ -23,7 +23,8 @@ one. On a CPU tensor each wrapper runs its plain twin.
 Entry points run on the card unless the caller asks for the CPU
 (``utils.device``). Not ported, and refused with ``DecompError``:
 ``solve_split`` (the split-complex machinery is not ported; complex data runs
-natively through ``solve``) and ``solve_streaming`` (ROADMAP Queue 1 #6).
+natively through ``solve``) and ``solve_streaming`` (ROADMAP Queue 1,
+``models/dl_streaming.py``).
 """
 
 from typing import Optional
@@ -121,7 +122,7 @@ def solve(
         sparse coding as ``lasso_iter`` iterations of
         ``cuda_lasso.solve_rows`` (float32, scalar alpha, per-row stopping
         at ``lasso_tol``, its fixed-budget mode at ``lasso_tol <= 0``).
-        A 0/1 mask goes to the inner gradient as bits, packed once per
+        A 0/1 mask goes to both gradients as bits, packed once per
         solve, for f32 data (on the CPU, any data). 'auto' takes the masked
         kernels for a CUDA ``y`` with at most 128 atoms where the card
         measured them faster than the composition (bf16, or f32 with a 0/1
@@ -310,8 +311,9 @@ def _solve(y, d, x, mask, val, alpha, *, tol, lasso_tol, forget, maxiter,
     my = y if mask is None else mask * y
     kernel_mask = None
     if kernel == "masked":
-        # The inner gradient's mask, packed once per solve (the training
-        # mask under stop='heldout').
+        # The masked kernels' mask, packed once per solve (the training
+        # mask under stop='heldout'): the inner gradient's and the
+        # dictionary gradient's.
         kernel_mask = _lasso._kernel_mask(mask, y, auto)
         if kernel_mask is None:
             kernel = None
@@ -358,8 +360,10 @@ def _solve(y, d, x, mask, val, alpha, *, tol, lasso_tol, forget, maxiter,
                 return _bcd_dict_update(xh @ x_, xh @ my, d_, bcd_kernel)
         else:
             def update_d(x_, d_):
-                return _masked_grad_dict_update(
-                    my, x_, d_, mask, use_kernel=kernel == "masked")
+                if kernel == "masked":
+                    return _masked_grad_dict_update(my, x_, d_, kernel_mask,
+                                                    use_kernel=True)
+                return _masked_grad_dict_update(my, x_, d_, mask)
 
         def step(state, it):
             x_ = sparse_code(y, state[1], state[0], mask)
@@ -426,7 +430,8 @@ def _masked_grad_dict_update(my, x, d, mask, use_kernel=False):
     renormalisation. Step 1/lambda_max(x^H x), a Lipschitz bound that stays
     valid under masking (masking only shrinks the curvature). With
     ``use_kernel`` the gradient x^H (mask * (x d) - my) is one
-    ``cuda_dl.masked_grad_dict`` call."""
+    ``cuda_dl.masked_grad_dict`` call, and ``mask`` may be the bits of a
+    0/1 mask (``lasso._kernel_mask``'s answer), which it routes on."""
     rdt = real_dtype(d.dtype)
     gram = x.conj().T @ x
     lip = torch.clamp(spectral_norm_psd(gram), min=torch.finfo(rdt).tiny)
@@ -448,5 +453,6 @@ def solve_split(*args, **kwargs):
 def solve_streaming(*args, **kwargs):
     """Not ported yet: the out-of-core variant (``dl_streaming``)."""
     raise DecompError("dictionary_learning.solve_streaming is not ported to "
-                      "decomp_tpu_torch yet (ROADMAP Queue 1 #6); use "
+                      "decomp_tpu_torch yet (ROADMAP Queue 1, "
+                      "models/dl_streaming.py); use "
                       "decomp_tpu")

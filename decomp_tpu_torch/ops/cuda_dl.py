@@ -18,15 +18,21 @@ the data's dtype (full f32 or f64, never TF32; real or complex).
 ``masked_grad_dict`` keeps the quantisation points of ``pallas_lasso.py:
 201-218``: products take the data's dtype (``cdt``) as operands and sum in
 f32, the residual ``cdt(f32(mask) * (x d) - f32(my))`` is formed in f32 and
-cast to ``cdt``, and ``g`` is f32 (K, N).
+cast to ``cdt``, and ``g`` is f32 (K, N). Its mask is dense, in my's shape,
+or the bits of a 0/1 mask from ``cuda_mu.pack_mask`` (int32).
 
-On a CUDA tensor a wrapper launches its kernel (``csrc/dl_bcd.cu``: f32,
-one thread block, d resident in shared memory, so K x N is bounded by
-``bcd_fits``; ``csrc/mu_kl_stats.cu``'s GRAD_DICT variant: bf16 or f32 data
-with every operand in the data's dtype, 1 <= K <= ``GRAD_DICT_MAX_ATOMS``)
-and raises on anything else. On a CPU tensor it runs its ``*_plain`` twin.
-It never falls back from one to the other. Each wrapper counts its kernel
-launches in ``.launches``.
+On a CUDA tensor a wrapper launches its kernel and raises on anything else:
+``csrc/dl_bcd.cu`` (f32, one thread block, d resident in shared memory, so
+K x N is bounded by ``bcd_fits``); for ``masked_grad_dict`` a packed mask
+with f32 data launches ``csrc/grad_dict_packed.cu`` (bf16x6 limb products
+on ``wgmma``, the statistics chain of ``csrc/wgmma_chain.cuh``), a dense
+mask the GRAD_DICT variant of ``csrc/mu_kl_stats.cu`` (bf16 data, weighted
+f32 masks; every operand in the data's dtype), both for 1 <= K <=
+``GRAD_DICT_MAX_ATOMS``. On a CPU tensor it runs its ``*_plain`` twin (a
+packed mask unpacked to my's dtype first). It never falls back from one to
+the other. Each wrapper counts its kernel launches in ``.launches``;
+``masked_grad_dict`` also per route, in ``.packed_launches`` and
+``.dense_launches``.
 
 Not ported: the TPU kernels' VMEM gates and alignment padding
 (``pallas_bcd.py:44-79``, ``pallas_lasso.py:58-132``): the CUDA kernels
@@ -35,8 +41,11 @@ mask ragged K and N themselves.
 
 import torch
 
+from decomp_tpu_torch.ops import cuda_mu
 from decomp_tpu_torch.ops.cuda_lasso import (GRAD_MAX_FEATURES,
-                                             check_masked_grad_args)
+                                             check_masked_grad_args,
+                                             check_packed_grad_args,
+                                             grad_tile)
 from decomp_tpu_torch.ops.cuda_mu import (_I, _P, _c_function, _f32, _launch,
                                           _runs_plain, _work_dtype)
 from decomp_tpu_torch.utils.dtypes import real_dtype
@@ -164,9 +173,100 @@ def grad_dict_chunk_rows(m: int, n: int) -> int:
 def masked_grad_dict(my, mask, x, d):
     """The masked dictionary gradient ``x^T (mask * (x d) - my)`` (K, N) in
     f32; ``my`` is the pre-masked data ``mask * y`` (M, N), ``x`` (M, K),
-    ``d`` (K, N). The M x N residual never reaches device memory."""
+    ``d`` (K, N). The M x N residual never reaches device memory.
+
+    ``mask`` is dense, in my's shape, or the bits of a 0/1 mask from
+    ``cuda_mu.pack_mask`` (int32). On a CUDA tensor a packed mask launches
+    ``csrc/grad_dict_packed.cu`` (f32 data only) and counts it in
+    ``.packed_launches``; a dense mask launches the GRAD_DICT variant of
+    ``csrc/mu_kl_stats.cu`` and counts it in ``.dense_launches``;
+    ``.launches`` counts both. On a CPU tensor a packed mask is unpacked to
+    my's dtype for the twin, which then gives the dense mask's bits."""
+    packed = mask.dtype == torch.int32
+    if packed:
+        cuda_mu._check_packed(my, mask)
     if _runs_plain(my):
+        if packed:
+            mask = cuda_mu.unpack_mask(mask, my.shape[1], my.dtype)
         return masked_grad_dict_plain(my, mask, x, d)
+    if packed:
+        g = _grad_dict_packed_launch(my, mask, x, d)
+        masked_grad_dict.packed_launches += 1
+    else:
+        g = _grad_dict_dense_launch(my, mask, x, d)
+        masked_grad_dict.dense_launches += 1
+    masked_grad_dict.launches += 1
+    return g
+
+
+masked_grad_dict.launches = 0
+masked_grad_dict.packed_launches = 0
+masked_grad_dict.dense_launches = 0
+
+
+def grad_dict_packed_rows(m: int, n: int) -> int:
+    """Rows per partial of ``csrc/grad_dict_packed.cu``: the grid of dense
+    KL's statistics pass, whose chain it runs (``cuda_mu.
+    kl_packed_block_rows``: two waves of 128-column N tiles over the H100's
+    132 SMs, whole 32-row stages; 33 chunks of 3,040 rows at 100,000 x
+    1,024). A function of the shape alone, so the summation order, and
+    every bit of G, is."""
+    return cuda_mu.kl_packed_block_rows(m, n)
+
+
+def _split_rows(x, kt):
+    """x (M, K) as ``csrc/grad_dict_packed.cu`` streams it: (M, 3 kt) bf16,
+    row m = [limb 0 of x[m] | limb 1 | limb 2] in ``cuda_mu.split_bf16x3``'s
+    round-to-nearest limbs, each zero past K: ``cuda_mu.column_limbs(x^T,
+    kt)``. On a CUDA tensor the kernel's own split launch writes it (the
+    card's check of its layout; the main path runs it inside
+    ``masked_grad_dict``); on a CPU tensor ``column_limbs``."""
+    if _runs_plain(x):
+        return cuda_mu.column_limbs(x.T, kt)
+    m, k = x.shape
+    fn = _c_function("grad_dict_packed", "grad_dict_split_launch",
+                     (_I, _P, _I, _I, _P))
+    with torch.cuda.device(x.device):
+        xc = x.contiguous()
+        out = torch.empty((m, 3 * kt), dtype=torch.bfloat16, device=x.device)
+        _launch("masked_grad_dict (split)", fn, x.device, kt, xc.data_ptr(),
+                m, k, out.data_ptr())
+    return out
+
+
+def _grad_dict_packed_launch(my, packed, x, d):
+    """Launch ``csrc/grad_dict_packed.cu`` on f32 ``my`` and the packed
+    mask (``masked_grad_dict``'s packed route). d's limbs go to the kernel
+    as ``cuda_mu.column_limbs(d, KT)``, made once per call; x's limbs are
+    split by the kernel's first launch."""
+    check_packed_grad_args(my, packed, x, d)
+    m, n = my.shape
+    k = d.shape[0]
+    kt = grad_tile(k)
+    rows = grad_dict_packed_rows(m, n)
+    packed = packed.contiguous()
+    if packed.data_ptr() % 16:
+        packed = packed.clone()
+    fn = _c_function("grad_dict_packed", "grad_dict_packed_launch",
+                     (_I, _P, _I, _P, _I, _P, _P) + (_I,) * 4 + (_P,) * 3)
+    with torch.cuda.device(my.device):
+        my_t, ld_my = cuda_mu._tma_rows(my.contiguous())
+        xc = x.contiguous()
+        limbs = cuda_mu.column_limbs(d, kt)
+        x_limbs = torch.empty((m, 3 * kt), dtype=torch.bfloat16,
+                              device=my.device)
+        part = _f32(-(-m // rows) * k * n, my.device)
+        out = _f32(k * n, my.device)
+        _launch("masked_grad_dict (packed)", fn, my.device, kt,
+                my_t.data_ptr(), ld_my, packed.data_ptr(), packed.shape[1],
+                xc.data_ptr(), limbs.data_ptr(), m, n, k, rows,
+                x_limbs.data_ptr(), part.data_ptr(), out.data_ptr())
+    return out.view(k, n)
+
+
+def _grad_dict_dense_launch(my, mask, x, d):
+    """Launch the GRAD_DICT variant of ``csrc/mu_kl_stats.cu`` on a dense
+    mask (``masked_grad_dict``'s dense route)."""
     check_masked_grad_args(my, mask, x, d)
     m, n = my.shape
     k = d.shape[0]
@@ -181,8 +281,4 @@ def masked_grad_dict(my, mask, x, d):
                 int(my.dtype == torch.bfloat16), myc.data_ptr(),
                 maskc.data_ptr(), xc.data_ptr(), dc.data_ptr(), m, n, k, rows,
                 part.data_ptr(), out.data_ptr())
-    masked_grad_dict.launches += 1
     return out.view(k, n)
-
-
-masked_grad_dict.launches = 0

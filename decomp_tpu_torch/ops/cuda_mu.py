@@ -92,8 +92,9 @@ _TMA_RESIDENT = 132
 _TMA_WAVE_FILL = 0.95
 _TMA_MAX_CHUNKS = 64
 # The packed KL kernels' statistics pass (csrc/kl_masked_packed.cu,
-# csrc/kl_dense_packed.cu): 128-column N tiles and 32-row stages, one
-# resident block per SM on the H100's 132 SMs.
+# csrc/kl_dense_packed.cu, and csrc/grad_dict_packed.cu, which runs dense
+# KL's): 128-column N tiles and 32-row stages, one resident block per SM
+# on the H100's 132 SMs.
 _KL_N_TILE = 128
 _KL_STAGE_ROWS = 32
 _KL_RESIDENT = 132
@@ -784,8 +785,9 @@ def column_limbs(t, kt):
     """``t`` (K, N), K <= ``kt``, as the bf16x6 ``wgmma`` kernels read it:
     (N, 3 kt) bf16, row n = [limb 0 of t[:, n] | limb 1 | limb 2] in
     ``split_bf16x3``'s round-to-nearest limbs, each zero past K. d's
-    limbs for ``csrc/kl_dense_packed.cu`` (made once per call) and a's for
-    ``csrc/lasso_grad_packed.cu`` (``cuda_lasso.grad_limbs``)."""
+    limbs for ``csrc/kl_dense_packed.cu`` and ``csrc/grad_dict_packed.cu``
+    (made once per call) and a's for ``csrc/lasso_grad_packed.cu``
+    (``cuda_lasso.grad_limbs``)."""
     k, n = t.shape
     out = torch.zeros((n, 3, kt), dtype=torch.bfloat16, device=t.device)
     out[:, :, :k] = split_bf16x3(t).permute(2, 0, 1)

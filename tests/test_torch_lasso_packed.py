@@ -259,8 +259,9 @@ def test_masked_dictionary_learning_packs_once_per_solve(monkeypatch,
                                                          heldout):
     """Masked dictionary learning on the kernel route packs the (training)
     mask once per solve, not once per outer iteration, and every inner
-    gradient takes the packed route; the dictionary gradient keeps the
-    dense mask."""
+    gradient and every dictionary gradient takes the packed route (on CPU
+    each twin unpacks: 5 inner and 1 dictionary gradient per outer
+    iteration)."""
     spy = _RouteSpy(monkeypatch)
     rng = np.random.default_rng(56)
     m, n, k = 60, 24, 6
@@ -273,7 +274,7 @@ def test_masked_dictionary_learning_packs_once_per_solve(monkeypatch,
         kw.update(stop="heldout", maxiter=12)
     res = tdl.solve(_t(y), _t(d0), ALPHA, mask=_t(mask), **kw)
     assert spy.packed == [True]
-    assert spy.unpacked == res.niter * 5
+    assert spy.unpacked == res.niter * 6
     if not heldout:
         ref = tdl.solve(_t(y), _t(d0), ALPHA, mask=_t(mask),
                         **{**kw, "use_kernel": False})

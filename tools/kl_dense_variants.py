@@ -1,8 +1,8 @@
 """Time design variants of the dense KL kernel, csrc/kl_dense_packed.cu,
 against the kernel as it stands, on one CUDA card.
 
-Each variant is a list of text edits to the source; the script applies
-them to a copy in the package's (gitignored) build directory under
+Each variant is a list of text edits to the source (with the chain it
+includes, csrc/wgmma_chain.cuh, inlined); the script applies them to a copy in the package's (gitignored) build directory under
 ``_build/variants/``, builds every copy with nvcc for
 sm_90a (one nvcc each, in parallel, with the package's flags), and then,
 at 100,000 x 1,024, K = 128, f32 (the dense KL-MU path's shape), holds
@@ -107,7 +107,11 @@ VARIANTS = {
 
 
 def variant_source(edits):
-    src = (_build.SRC_DIR / "kl_dense_packed.cu").read_text()
+    """The source with ``edits`` applied; the chain it includes
+    (wgmma_chain.cuh) is inlined first, so that edits reach its text."""
+    chain = (_build.SRC_DIR / "wgmma_chain.cuh").read_text()
+    src = (_build.SRC_DIR / "kl_dense_packed.cu").read_text().replace(
+        '#include "wgmma_chain.cuh"', chain.replace("#pragma once\n", ""))
     for old, new in edits:
         if isinstance(old, re.Pattern):
             src, n = old.subn(lambda _: new, src)
