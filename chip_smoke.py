@@ -129,9 +129,16 @@ for sm_90a (one nvcc per source, all at once), and then:
     1,024, F = 128: f32 on the packed route timed in turns with
     ``csrc/lasso_grad.cu``'s f32 path on the same inputs, and bf16;
 13. holds the dictionary-learning kernels against their twins:
-    ``bcd_sweep`` at K = 256, N = 64 (config 3), at a ragged K = 37, N =
-    50 and at the largest K x N it takes (256 x 208) with one all-zero
-    atom, which must be kept; ``masked_grad_dict`` on a dense mask
+    ``bcd_sweep``'s register route (``csrc/dl_bcd_sm90.cu``) at K = 256,
+    N = 64 (config 3, and the largest K x N of its one instance), a
+    ragged K = 37, N = 50, ragged 256 x 61 and 250 x 64, 256 x 64 with one
+    all-zero atom, which must be kept, and (after phase 14) on config 3's
+    final statistics, and bit for bit where its division leaves the fast
+    path (subnormal quotients, a tie at the least subnormal, an infinite
+    norm); its shared-memory route (``csrc/dl_bcd.cu``) at the
+    largest K x N it takes (256 x 208) with an all-zero atom, and on 256
+    x 64 through its private launch; each launch checked on its route;
+    ``masked_grad_dict`` on a dense mask
     (``csrc/mu_kl_stats.cu``) at 1,000 x 1,000 K = 100 and a ragged 333 x
     257 K = 7, in f32 and bf16, and on a packed mask with f32 data
     (``csrc/grad_dict_packed.cu``, bf16x6 products on wgmma) at 1,000 x
@@ -144,11 +151,13 @@ for sm_90a (one nvcc per source, all at once), and then:
     ``dictionary_learning.solve`` on bench.py's 20,000 x 64 patches with
     256 atoms (alpha 0.05, tol 1e-5, 60 outer iterations, lasso_iter 15,
     precision 'high'), and checks one ``bcd_sweep`` launch per outer
-    iteration and none of the masked kernels, unit atoms, a falling
-    objective and the agreement with the composition run; it prints the
-    time per solve, the marginal per solve over a chain of 6 beside the
-    sweep's share of it, and the device's busy share from one
-    ``torch.profiler`` run;
+    iteration, all on the register route and none on the shared-memory
+    one, none of the masked kernels, unit atoms, a falling objective and
+    the agreement with the composition run; it prints the time per solve,
+    the marginal per solve over a chain of 6 beside the sweep's share of
+    it, and the device's busy share from one ``torch.profiler`` run; then
+    (14b) dictionary learning on 20,000 x 208 data, 256 atoms, 5 outer
+    iterations, whose every sweep takes the shared-memory route;
 15. drives masked dictionary learning at 100,000 x 1,024, 128 atoms, 30%
     missing (planted: unit atoms, truth 10% sparse, 0.01 noise), 20 outer
     iterations at tol 0 with lasso_iter 15 in f32, then 10 in bf16, and
@@ -157,8 +166,10 @@ for sm_90a (one nvcc per source, all at once), and then:
     dense one), a falling objective and the agreement with the
     composition run;
 16. times the dictionary-learning kernels against their twins per call,
-    with their bounds: ``bcd_sweep`` on config 3's statistics (also per
-    atom), ``masked_grad_dict`` at 100,000 x 1,024, K = 128 on phase
+    with their bounds: ``bcd_sweep`` on config 3's statistics, the
+    register route in turns with the shared-memory one on the same inputs
+    (old, new, new, old), each per sweep, per atom and as a share of
+    config 3's marginal per solve, ``masked_grad_dict`` at 100,000 x 1,024, K = 128 on phase
     15's factors: f32 on the packed route in turns with the dense-mask
     kernel's f32 path on the same inputs, with each pass from
     ``torch.profiler``, and bf16 on the dense route.
@@ -166,9 +177,9 @@ for sm_90a (one nvcc per source, all at once), and then:
 Each path runs with every launch count set to 0 just before it and read
 just after. It exits non-zero on any failure, without a CUDA device, and
 where the package is absent. The line before the last is a JSON summary
-of the kernels (the eight, and ``solve_rows``' complex mode and the
-packed routes of ``masked_grad_rows`` and ``masked_grad_dict`` as
-entries of their own), each with
+of the kernels (the eight, and ``solve_rows``' complex mode, the packed
+routes of ``masked_grad_rows`` and ``masked_grad_dict`` and the
+shared-memory route of ``bcd_sweep`` as entries of their own), each with
 its bound: the larger of its bytes (each input
 read once, each output written once) over 3.35 TB/s and its operations
 over the H100's peak for their type: 989 TFLOP/s for bf16 on the tensor
@@ -254,9 +265,12 @@ C2C_KKT_LIMIT = 4.0
 # rounds each product to bf16 and the kernel forms the residual in f32).
 MASKED_X_LIMIT = {torch.float32: 5e-7, torch.bfloat16: 2e-2}
 # bcd_sweep against its twin (relative Frobenius of d after one sweep on
-# unit atoms, A = x^T x from random x): the kernel sums a_k d in another
-# order than cuBLAS. Measured on the H100 at 700 W: at most 7.3e-7 over
-# K x N = 256 x 64, 37 x 50, 256 x 208, 16 x 3,000 and 1,024 x 52.
+# unit atoms, A = x^T x from random x): the kernels sum a_k d in another
+# order than cuBLAS. Measured on the H100 at 700 W: csrc/dl_bcd.cu at most
+# 7.3e-7 over K x N = 256 x 64, 37 x 50, 256 x 208, 16 x 3,000 and 1,024 x
+# 52; csrc/dl_bcd_sm90.cu at most 7.9e-7 over 256 x 64, 37 x 50, 256 x
+# 61, 250 x 64, 32 x 64 and 200 x 16 (2.2e-6 to 3.6e-6 at 5 x 3, where
+# one rounding is a large share of 15 entries).
 BCD_LIMIT = 5e-6
 # Config 3: d of the kernel run against the composition run after 60
 # outer iterations (measured 2.5e-6, x 1.0e-5), and the atoms' norms.
@@ -270,7 +284,7 @@ EPS = 1e-6
 SOURCES = ("mu_stats_dense", "mu_dense_tma", "mu_kl_stats", "mu_masked_packed",
            "kl_masked_packed", "kl_dense_packed", "lasso_fista",
            "lasso_fista_tma", "lasso_grad", "lasso_grad_packed", "dl_bcd",
-           "grad_dict_packed")
+           "dl_bcd_sm90", "grad_dict_packed")
 # name -> (source, masked, the TPU kernel it replaces)
 NEW_KERNELS = {
     "mu_stats_masked": ("mu_masked_packed", True, "pallas_mu.py:522"),
@@ -1458,19 +1472,33 @@ def bcd_inputs(gen, dev, k, n, dead=None):
                                                           keepdim=True)
 
 
-def compare_bcd(cd, a, b, d, tag, dead=None):
+def compare_bcd(cd, a, b, d, tag, dead=None, route=None):
     """bcd_sweep against its twin, with a bit-identical rerun; atom
-    ``dead`` must be kept. Returns the max abs error."""
-    out = cd.bcd_sweep(a, b, d)
-    again = cd.bcd_sweep(a, b, d)
+    ``dead`` must be kept. ``route``: None, the public wrapper, whose two
+    launches must take ``cd.bcd_route``'s route; 'shared', the
+    shared-memory kernel through its private launch. Returns the max abs
+    error."""
+    if route == "shared":
+        sweep = cd._bcd_shared_launch
+    else:
+        sweep, route = cd.bcd_sweep, cd.bcd_route(*d.shape)
+    counter = {"registers": "register_launches",
+               "shared": "shared_launches"}[route]
+    before = getattr(cd.bcd_sweep, counter)
+    out = sweep(a, b, d)
+    again = sweep(a, b, d)
     ref = cd.bcd_sweep_plain(a, b, d)
     torch.cuda.synchronize()
     err = rel_fro(out, ref)
     same = torch.equal(out, again)
     kept = dead is None or torch.equal(out[dead], d[dead])
-    tag = f"bcd_sweep {tag}"
+    src = "dl_bcd_sm90.cu" if route == "registers" else "dl_bcd.cu"
+    tag = f"bcd_sweep {tag} ({route} route, {src})"
     print(f"kernel vs twin {tag}: rel_fro {err:.3e} (limit {BCD_LIMIT:g}); "
           f"bit-identical rerun: {same}; dead atom kept: {kept}", flush=True)
+    if sweep is cd.bcd_sweep:
+        check(getattr(cd.bcd_sweep, counter) - before == 2,
+              f"{tag}: the launches did not take the {route} route")
     check(np.isfinite(err) and err <= BCD_LIMIT, f"{tag}: kernel disagrees "
           "with twin")
     check(same, f"{tag}: two kernel runs differ")
@@ -1478,7 +1506,26 @@ def compare_bcd(cd, a, b, d, tag, dead=None):
     return max_abs([out], [ref])
 
 
-def config3_phase(dl, dev, card, reset_counts, read_counts):
+def compare_bcd_edges(cd, dev):
+    """The register route's division where it leaves div.rn's fast path,
+    against the twin bit for bit: K = 1, A = [[1]] and d = 0, so u = b and
+    the row comes back b / ||b||, with a subnormal quotient (3e-40 /
+    sqrt(10)), one exactly halfway between 0 and the least subnormal
+    (1e-45 / 2), and an infinite norm (||b||^2 overflows: every quotient
+    is 0)."""
+    a, d = torch.ones((1, 1), device=dev), torch.zeros((1, 4), device=dev)
+    for row in ([3.0, 3e-40, 0.0, 1.0], [0.0, 1e-45, 2.0, 0.0],
+                [3e38, 3e38, -1.0, 0.0]):
+        b = torch.tensor([row], device=dev)
+        out, ref = cd.bcd_sweep(a, b, d), cd.bcd_sweep_plain(a, b, d)
+        same = torch.equal(out.view(torch.int32), ref.view(torch.int32))
+        print(f"bcd_sweep (registers route, dl_bcd_sm90.cu) b = {row}: "
+              f"{out.tolist()[0]}; the twin's bits: {same}", flush=True)
+        check(same, f"bcd_sweep b = {row}: the division differs from the "
+              "twin's")
+
+
+def config3_phase(dl, dev, card, reset_counts, read_counts, bcd_routes):
     """Phase 14: BASELINE config 3 end to end through
     ``dictionary_learning.solve``. Returns the main run's bcd_sweep
     launches, its final statistics (A, B, d) and the marginal ms per
@@ -1500,6 +1547,9 @@ def config3_phase(dl, dev, card, reset_counts, read_counts):
     reset_counts()
     ms, res = event_ms(solve)
     launches = read_counts("bcd_sweep", res.niter)
+    routes = bcd_routes()
+    check(routes == (launches, 0), f"config 3: bcd_sweep routes {routes} "
+          f"(register, shared), expected ({launches}, 0)")
     comp_ms, comp = event_ms(lambda: solve(use_kernel=False))
     rec = solve(record_objective=True)
     obj = rec.objective[:rec.niter]
@@ -1521,7 +1571,8 @@ def config3_phase(dl, dev, card, reset_counts, read_counts):
           f"{d0.shape[0]} atoms, tol 1e-5, 60 outer x 15 inner, 'high' "
           f"({card}): {ms:.3f} ms per solve, marginal per solve (chain of 6) "
           f"{marg:.3f} ms; niter {res.niter}, converged {res.converged}; "
-          f"bcd_sweep launches {launches}; use_kernel=False {comp_ms:.3f} ms",
+          f"bcd_sweep launches {launches} (register, shared route "
+          f"{routes}); use_kernel=False {comp_ms:.3f} ms",
           flush=True)
     print(f"  objective {float(obj[0]):.6e} -> {float(obj[-1]):.6e}; max "
           f"| ||d_k|| - 1 | {unit:.2e} (limit {UNIT_LIMIT:g}); rel_fro d vs "
@@ -1541,6 +1592,39 @@ def config3_phase(dl, dev, card, reset_counts, read_counts):
     check(err_d <= C3_D_LIMIT, "config 3: d disagrees with the composition")
     x = res.x
     return launches, (x.T @ x, x.T @ y, res.d), marg
+
+
+def shared_route_phase(dl, dev, card, reset_counts, read_counts, bcd_routes,
+                       m=20_000, n=208, k=256, iters=5):
+    """Phase 14b: dictionary learning whose sweep takes bcd_sweep's
+    shared-memory route (csrc/dl_bcd.cu): M x N data with N above the
+    register route's 64 channels, K atoms (256 x 208 is the largest K x N
+    the route takes), ``iters`` outer iterations at tol 0 ('high').
+    Returns the run's shared-route launches."""
+    g = torch.Generator(device=dev).manual_seed(141)
+    y = torch.randn((m, n), generator=g, device=dev)
+    d0 = torch.randn((k, n), generator=g, device=dev)
+
+    def solve():
+        return dl.solve(y, d0, 0.05, tol=0.0, maxiter=iters, lasso_iter=15,
+                        precision="high")
+
+    solve()   # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    ms, res = event_ms(solve)
+    launches = read_counts("bcd_sweep", iters)
+    routes = bcd_routes()
+    unit = float((torch.linalg.vector_norm(res.d, dim=1) - 1).abs().max())
+    print(f"dictionary_learning.solve {m}x{n}, {k} atoms, {iters} outer x 15 "
+          f"inner, 'high' ({card}): {ms:.3f} ms; bcd_sweep launches "
+          f"{launches} (register, shared route {routes}); max | ||d_k|| - 1 "
+          f"| {unit:.2e}", flush=True)
+    check(routes == (0, iters), f"phase 14b: bcd_sweep routes {routes}, "
+          f"expected (0, {iters})")
+    check(bool(torch.isfinite(res.d).all()) and unit <= UNIT_LIMIT,
+          "phase 14b: non-finite or non-unit atoms")
+    return launches
 
 
 def masked_dl_phase(dl, dev, card, reset_counts, read_counts, grad_routes,
@@ -1657,16 +1741,31 @@ def dl_times(cd, card, c3, c3_marg, c3_niter, masked):
     out = {}
     a, b, d = c3
     k, n = d.shape
-    e = compare_bcd(cd, a, b, d, "on config 3's statistics")
-    k_ms = cuda_ms(lambda: cd.bcd_sweep(a, b, d), 20)
+    # Phase 13's check on phase 14's final statistics, both routes.
+    e = compare_bcd(cd, a, b, d, "on config 3's final statistics")
+    e_old = compare_bcd(cd, a, b, d, "on config 3's final statistics",
+                        route="shared")
+    t = [cuda_ms(fn, 20) for fn in (
+        lambda: cd._bcd_shared_launch(a, b, d),
+        lambda: cd.bcd_sweep(a, b, d))]
+    t += [cuda_ms(fn, 20) for fn in (
+        lambda: cd.bcd_sweep(a, b, d),
+        lambda: cd._bcd_shared_launch(a, b, d))]
+    k_ms, old_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
     p_ms = cuda_ms(lambda: cd.bcd_sweep_plain(a, b, d), 2)
     bnd = bound(4 * (k * k + 3 * k * n), 2.0 * k * k * n, torch.float32)
     out["bcd_sweep"] = (e, k_ms, p_ms) + bnd
-    print(f"bcd_sweep config 3 (K={k}, N={n}): kernel {k_ms:.4f} ms per "
-          f"sweep ({k_ms * 1e3 / k:.3f} us per atom), plain twin "
-          f"{p_ms:.3f} ms, bound {bnd[0] * 1e3:.4f} us ({bnd[1]}) ({card}); "
-          f"{c3_niter} sweeps = {c3_niter * k_ms / c3_marg * 100:.1f}% of "
-          "config 3's marginal per solve", flush=True)
+    out["bcd_sweep_shared"] = (e_old, old_ms, p_ms) + bnd
+    print(f"bcd_sweep config 3 (K={k}, N={n}), in turns on the same inputs: "
+          f"register route (dl_bcd_sm90.cu) {k_ms:.4f} ms per sweep "
+          f"({t[1]:.4f}, {t[2]:.4f}; {k_ms * 1e3 / k:.3f} us per atom), "
+          f"shared-memory route (dl_bcd.cu) {old_ms:.4f} ms ({t[0]:.4f}, "
+          f"{t[3]:.4f}; {old_ms * 1e3 / k:.3f} us per atom), new / old "
+          f"{k_ms / old_ms:.3f}; plain twin {p_ms:.3f} ms, bound "
+          f"{bnd[0] * 1e3:.4f} us ({bnd[1]}) ({card}); {c3_niter} sweeps = "
+          f"{c3_niter * k_ms / c3_marg * 100:.1f}% of config 3's marginal "
+          f"per solve ({c3_niter * old_ms / c3_marg * 100:.1f}% on the "
+          "shared-memory route)", flush=True)
     my, mask, x, dd = masked
     m, n = my.shape
     k = dd.shape[0]
@@ -1744,6 +1843,8 @@ def main():
         for w in (cuda_lasso.masked_grad_rows, cuda_dl.masked_grad_dict):
             w.packed_launches = 0
             w.dense_launches = 0
+        cuda_dl.bcd_sweep.register_launches = 0
+        cuda_dl.bcd_sweep.shared_launches = 0
 
     def grad_routes():
         """masked_grad_rows' launches since the reset: (packed, dense)."""
@@ -1754,6 +1855,11 @@ def main():
         """masked_grad_dict's launches since the reset: (packed, dense)."""
         w = cuda_dl.masked_grad_dict
         return w.packed_launches, w.dense_launches
+
+    def bcd_routes():
+        """bcd_sweep's launches since the reset: (register, shared)."""
+        w = cuda_dl.bcd_sweep
+        return w.register_launches, w.shared_launches
 
     def read_counts(expected, launches=None):
         """The counts after one path: ``expected`` launched ``launches``
@@ -1790,6 +1896,8 @@ def main():
               f"register spills: {spills or 'none'}", flush=True)
         if s in ("kl_dense_packed", "grad_dict_packed"):
             check(not spills, f"{s}.cu: the wgmma chain's instances spill")
+        if s == "dl_bcd_sm90":
+            check(not spills, f"{s}.cu: d, held in registers, spills")
     print(f"{len(SOURCES)} sources built in parallel in {build_s:.1f} s "
           f"(0 s = already built); torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
@@ -2272,9 +2380,16 @@ def main():
     t_phase = phase("12 lasso kernel times", t_phase)
 
     # Phase 13: the dictionary-learning kernels against their twins.
-    for k_, n_, dead in ((256, 64, None), (37, 50, None), (256, 208, 3)):
+    # bcd_sweep: the register route at config 3's shape (its instance's
+    # largest K x N), ragged shapes and a dead atom; the shared-memory
+    # route at its largest K x N with a dead atom and at config 3's shape.
+    for k_, n_, dead in ((256, 64, None), (37, 50, None), (256, 61, None),
+                         (250, 64, None), (256, 64, 3), (256, 208, 3)):
         compare_bcd(cuda_dl, *bcd_inputs(gen, dev, k_, n_, dead),
                     f"K={k_} N={n_}", dead)
+    compare_bcd(cuda_dl, *bcd_inputs(gen, dev, 256, 64), "K=256 N=64",
+                route="shared")
+    compare_bcd_edges(cuda_dl, dev)
     for m_, n_, k_ in ((1000, 1000, 100), (333, 257, 7)):
         for dt in (f32, bf16):
             compare_grad(cuda_dl, "masked_grad_dict",
@@ -2297,8 +2412,12 @@ def main():
 
     # Phase 14: dictionary learning at BASELINE config 3.
     launches3, c3, marg3 = config3_phase(dictionary_learning, dev, card,
-                                         reset_counts, read_counts)
+                                         reset_counts, read_counts,
+                                         bcd_routes)
     t_phase = phase("14 config 3", t_phase)
+    launches14b = shared_route_phase(dictionary_learning, dev, card,
+                                     reset_counts, read_counts, bcd_routes)
+    t_phase = phase("14b shared-memory sweep route", t_phase)
 
     # Phase 15: masked dictionary learning.
     launches_gd, launches_gd_dense, masked15 = masked_dl_phase(
@@ -2329,6 +2448,7 @@ def main():
                      "masked_grad_rows": launches_grad_dense,
                      "masked_grad_rows_packed": launches_grad,
                      "bcd_sweep": launches3,
+                     "bcd_sweep_shared": launches14b,
                      "masked_grad_dict": launches_gd_dense,
                      "masked_grad_dict_packed": launches_gd}
     kernels = {"mu_stats_dense": ("mu_dense_tma", "pallas_mu.py:438"),
@@ -2340,7 +2460,8 @@ def main():
                "masked_grad_rows": ("lasso_grad", "pallas_lasso.py:159"),
                "masked_grad_rows_packed": ("lasso_grad_packed",
                                            "pallas_lasso.py:159"),
-               "bcd_sweep": ("dl_bcd", "pallas_bcd.py:115"),
+               "bcd_sweep": ("dl_bcd_sm90", "pallas_bcd.py:115"),
+               "bcd_sweep_shared": ("dl_bcd", "pallas_bcd.py:115"),
                "masked_grad_dict": ("mu_kl_stats", "pallas_lasso.py:225"),
                "masked_grad_dict_packed": ("grad_dict_packed",
                                            "pallas_lasso.py:225")}

@@ -9,6 +9,13 @@
 // step k wrote, so the sweep is sequential over atoms: one thread block
 // runs all of it.
 //
+// Two routes, chosen from K and N alone (ops/cuda_dl.py: bcd_route).
+// Where d fits the registers of one 512-thread block, K <= 256 atoms and
+// N <= 64 channels (BASELINE config 3 is 256 x 64), csrc/dl_bcd_sm90.cu
+// runs the sweep with d in registers and one barrier per atom. This
+// kernel, d resident in shared memory, takes every other shape up to the
+// limit below.
+//
 // What bounds it on an H100. 2 K^2 N FLOP against 4 (K^2 + 3 K N) bytes:
 // at K = 256, N = 64 (BASELINE config 3) 8.4 MFLOP and 0.46 MB, 0.13 us at
 // either peak. Neither is the limit: K dependent steps are, each a short

@@ -21,22 +21,29 @@ f32, the residual ``cdt(f32(mask) * (x d) - f32(my))`` is formed in f32 and
 cast to ``cdt``, and ``g`` is f32 (K, N). Its mask is dense, in my's shape,
 or the bits of a 0/1 mask from ``cuda_mu.pack_mask`` (int32).
 
-On a CUDA tensor a wrapper launches its kernel and raises on anything else:
-``csrc/dl_bcd.cu`` (f32, one thread block, d resident in shared memory, so
-K x N is bounded by ``bcd_fits``); for ``masked_grad_dict`` a packed mask
+On a CUDA tensor a wrapper launches its kernel and raises on anything else.
+``bcd_sweep`` (f32, one thread block, K x N bounded by ``bcd_fits``) has two
+routes, chosen by ``bcd_route`` from K and N alone: where d fits the
+registers of one 512-thread block (K <= 256 atoms, N <= 64 channels:
+``BCD_REG_MAX_ATOMS``, ``BCD_REG_MAX_CHANNELS``) ``csrc/dl_bcd_sm90.cu``
+(d in registers, one barrier per atom, rows of A and B by bulk copies);
+every other shape ``csrc/dl_bcd.cu`` (d resident in shared memory, two
+barriers per atom). For ``masked_grad_dict`` a packed mask
 with f32 data launches ``csrc/grad_dict_packed.cu`` (bf16x6 limb products
 on ``wgmma``, the statistics chain of ``csrc/wgmma_chain.cuh``), a dense
 mask the GRAD_DICT variant of ``csrc/mu_kl_stats.cu`` (bf16 data, weighted
 f32 masks; every operand in the data's dtype), both for 1 <= K <=
 ``GRAD_DICT_MAX_ATOMS``. On a CPU tensor it runs its ``*_plain`` twin (a
 packed mask unpacked to my's dtype first). It never falls back from one to
-the other. Each wrapper counts its kernel launches in ``.launches``;
-``masked_grad_dict`` also per route, in ``.packed_launches`` and
-``.dense_launches``.
+the other. Each wrapper counts its kernel launches in ``.launches``, and
+per route: ``bcd_sweep`` in ``.register_launches`` and ``.shared_launches``,
+``masked_grad_dict`` in ``.packed_launches`` and ``.dense_launches``.
 
 Not ported: the TPU kernels' VMEM gates and alignment padding
 (``pallas_bcd.py:44-79``, ``pallas_lasso.py:58-132``): the CUDA kernels
-mask ragged K and N themselves.
+mask ragged K and N themselves (``bcd_sweep``'s register route reads A and
+B in row strides of 8 and 4 floats, and pads a copy where K or N is
+ragged).
 """
 
 import torch
@@ -59,6 +66,12 @@ from decomp_tpu_torch.utils.normalize import l2_norm
 BCD_MAX_ELEMS = 53_248
 _BCD_WARPS = 16
 _MAX_BLOCK_SMEM = 232_448      # 227 KB, the most one block may take
+# bcd_sweep's register route (csrc/dl_bcd_sm90.cu): a thread holds 8 rows
+# x 4 columns of d (32 f32), a warp 4 columns of up to 32 x 8 = 256 rows,
+# and one block at most 16 warps, 512 threads, so that each may take 128
+# of the SM's 65,536 registers: K <= 256 and N <= 64.
+BCD_REG_MAX_ATOMS = 256
+BCD_REG_MAX_CHANNELS = 64
 # Largest K of masked_grad_dict's kernel: its rank tile (KP in
 # csrc/nmf_common.cuh), as for masked_grad_rows.
 GRAD_DICT_MAX_ATOMS = GRAD_MAX_FEATURES
@@ -81,6 +94,37 @@ def bcd_fits(k: int, n: int) -> bool:
     """Whether ``bcd_sweep``'s kernel takes K x N: at most
     ``BCD_MAX_ELEMS`` entries, and the shared memory fits one block."""
     return k * n <= BCD_MAX_ELEMS and bcd_smem_bytes(k, n) <= _MAX_BLOCK_SMEM
+
+
+def bcd_route(k: int, n: int) -> str:
+    """Which kernel ``bcd_sweep`` launches for K atoms and N channels:
+    ``'registers'`` (``csrc/dl_bcd_sm90.cu``) where d fits the registers of
+    one block, 1 <= K <= ``BCD_REG_MAX_ATOMS`` and 1 <= N <=
+    ``BCD_REG_MAX_CHANNELS``; ``'shared'`` (``csrc/dl_bcd.cu``) for every
+    other shape, which ``check_bcd_args`` then holds to ``bcd_fits``. A
+    function of the shape only: no shape moves to the other route on a
+    failure."""
+    if 1 <= k <= BCD_REG_MAX_ATOMS and 1 <= n <= BCD_REG_MAX_CHANNELS:
+        return "registers"
+    return "shared"
+
+
+def bcd_reg_strides(k: int, n: int) -> tuple:
+    """The row strides (lda, ldb) in which the register route reads A and
+    B: K rounded up to 8 (a lane's 8 entries of a row of A are two float4
+    loads) and N up to 4 (a warp's 4 columns of a row of B are one)."""
+    return -(-k // 8) * 8, -(-n // 4) * 4
+
+
+def _bcd_rows(t, ld):
+    """``t`` (rows, cols) as contiguous rows of stride ``ld``, zero past
+    ``cols``, 16-byte aligned (the bulk copies' rule): ``t`` itself where
+    it already is, else a padded copy."""
+    if (t.shape[1] == ld and t.is_contiguous() and t.data_ptr() % 16 == 0):
+        return t
+    out = torch.zeros((t.shape[0], ld), dtype=t.dtype, device=t.device)
+    out[:, :t.shape[1]] = t
+    return out
 
 
 def bcd_sweep_plain(stats_a, stats_b, d):
@@ -123,10 +167,45 @@ def check_bcd_args(stats_a, stats_b, d):
 def bcd_sweep(stats_a, stats_b, d):
     """One BCD pass over the atoms; see the module docstring. ``stats_a``
     (K, K), ``stats_b`` and ``d`` (K, N). Returns the swept (K, N)
-    dictionary as a new tensor."""
+    dictionary as a new tensor. On a CUDA tensor it launches the kernel of
+    ``bcd_route(K, N)`` and counts it in ``.register_launches`` or
+    ``.shared_launches``; ``.launches`` counts both."""
     if _runs_plain(d):
         return bcd_sweep_plain(stats_a, stats_b, d)
     check_bcd_args(stats_a, stats_b, d)
+    if bcd_route(*d.shape) == "registers":
+        out = _bcd_registers_launch(stats_a, stats_b, d)
+        bcd_sweep.register_launches += 1
+    else:
+        out = _bcd_shared_launch(stats_a, stats_b, d)
+        bcd_sweep.shared_launches += 1
+    bcd_sweep.launches += 1
+    return out
+
+
+bcd_sweep.launches = 0
+bcd_sweep.register_launches = 0
+bcd_sweep.shared_launches = 0
+
+
+def _bcd_registers_launch(stats_a, stats_b, d):
+    """Launch ``csrc/dl_bcd_sm90.cu`` (``bcd_sweep``'s register route), A
+    and B in the row strides of ``bcd_reg_strides``."""
+    k, n = d.shape
+    lda, ldb = bcd_reg_strides(k, n)
+    fn = _c_function("dl_bcd_sm90", "bcd_sweep_sm90_launch",
+                     (_P,) * 3 + (_I,) * 4 + (_P,) * 2)
+    with torch.cuda.device(d.device):
+        ac, bc = _bcd_rows(stats_a, lda), _bcd_rows(stats_b, ldb)
+        dc = d.contiguous()
+        out = torch.empty((k, n), dtype=torch.float32, device=d.device)
+        _launch("bcd_sweep", fn, d.device, ac.data_ptr(), bc.data_ptr(),
+                dc.data_ptr(), k, n, lda, ldb, out.data_ptr())
+    return out
+
+
+def _bcd_shared_launch(stats_a, stats_b, d):
+    """Launch ``csrc/dl_bcd.cu`` (``bcd_sweep``'s shared-memory route)."""
     k, n = d.shape
     fn = _c_function("dl_bcd", "bcd_sweep_launch",
                      (_P,) * 3 + (_I,) * 2 + (_P,) * 2)
@@ -135,11 +214,7 @@ def bcd_sweep(stats_a, stats_b, d):
         out = torch.empty((k, n), dtype=torch.float32, device=d.device)
         _launch("bcd_sweep", fn, d.device, ac.data_ptr(), bc.data_ptr(),
                 dc.data_ptr(), k, n, out.data_ptr())
-    bcd_sweep.launches += 1
     return out
-
-
-bcd_sweep.launches = 0
 
 
 def masked_grad_dict_plain(my, mask, x, d, *, block_rows=None):
