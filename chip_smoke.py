@@ -165,14 +165,35 @@ for sm_90a (one nvcc per source, all at once), and then:
     of ``masked_grad_rows`` (both f32 on the packed route, bf16 on the
     dense one), a falling objective and the agreement with the
     composition run;
-16. times the dictionary-learning kernels against their twins per call,
+15b. times the dictionary-learning kernels against their twins per call,
     with their bounds: ``bcd_sweep`` on config 3's statistics, the
     register route in turns with the shared-memory one on the same inputs
     (old, new, new, old), each per sweep, per atom and as a share of
     config 3's marginal per solve, ``masked_grad_dict`` at 100,000 x 1,024, K = 128 on phase
     15's factors: f32 on the packed route in turns with the dense-mask
     kernel's f32 path on the same inputs, with each pass from
-    ``torch.profiler``, and bf16 on the dense route.
+    ``torch.profiler``, and bf16 on the dense route;
+16. drives ``nmf.solve(method='hals')``: at BASELINE config 1 (planted
+    1000 x 500 rank 10 f32) HALS and MU from the same factors, each to its
+    own stop at tol 1e-4 and at equal iteration counts, with their
+    objectives (BASELINE.md:110's claim), and HALS on the card against
+    HALS on the CPU from the same inputs; then 100,000 x 1,024 f32, rank
+    128, 10 iterations at tol 0: ms per iteration by CUDA events, split
+    into the products A, B, C, E and the two component sweeps, the device's
+    busy share and the launches per iteration from ``torch.profiler``,
+    and checks a falling objective, nonnegative finite factors and a
+    bit-identical rerun;
+17. drives minibatch NMF at 100,000 x 1,024 f32, rank 128, minibatch
+    8,192, forget 0.9, 50 iterations at tol 0, MU and KL-MU, dense and 30%
+    missing: ms per iteration, a falling objective and a bit-identical
+    seeded rerun;
+18. drives ``utils.checkpoint.checkpointed_solve`` into a temporary
+    directory: config 4's masked MU (bf16 data, f32 factors, the packed
+    ``mu_stats_masked`` route) for 100 iterations as four chunks of 25 and
+    as an interrupted run resumed by a second call, and config 2's
+    per-problem acc_ista on ``solve_rows`` in chunks of 100, each equal to
+    its straight run bit for bit (row for row in x and niter), with the
+    routes and the ms a snapshot costs.
 
 Each path runs with every launch count set to 0 just before it and read
 just after. It exits non-zero on any failure, without a CUDA device, and
@@ -192,6 +213,7 @@ is ``{"ok": true, "device": {...}}``.
 import concurrent.futures
 import itertools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -280,6 +302,12 @@ UNIT_LIMIT = 1e-5
 # x after 20 f32 / 10 bf16 outer iterations; measured 1.7e-7 f32, 8.2e-3
 # bf16, where the composition rounds each product to bf16).
 MASKED_DL_LIMIT = {torch.float32: 2e-6, torch.bfloat16: 5e-2}
+# HALS on the card against HALS on the CPU, config 1 from the same
+# factors, HALS_CPU_ITERS iterations: f32 products summed in other orders
+# (cuBLAS against the CPU's BLAS); the limit is the f32 parity limit of
+# tests/test_torch_nmf_hals.py, where 30 iterations measured 2.6e-6.
+HALS_CPU_ITERS = 20
+HALS_CPU_LIMIT = 1e-4
 EPS = 1e-6
 SOURCES = ("mu_stats_dense", "mu_dense_tma", "mu_kl_stats", "mu_masked_packed",
            "kl_masked_packed", "kl_dense_packed", "lasso_fista",
@@ -1810,6 +1838,315 @@ def dl_times(cd, card, c3, c3_marg, c3_niter, masked):
     return out
 
 
+def profiled(fn):
+    """(device busy ms, kernel launches, wall ms) of one call of ``fn``
+    under ``torch.profiler`` (device activity only: host-side events would
+    slow a host loop, whose pace sets the wall)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+    return (sum(e.self_device_time_total for e in kernels) / 1e3,
+            sum(e.count for e in kernels), wall)
+
+
+def planted_config1(dev):
+    """BASELINE config 1 as benchmarks/run_configs.py:112-118 (and phase 5)
+    make it: 1000 x 500, planted rank 10, 0.01 noise, f32 on the card."""
+    rng = np.random.default_rng(0)
+    xt, dt = rng.uniform(0, 1, (1000, 10)), rng.uniform(0, 1, (10, 500))
+    yp = np.maximum(xt @ dt + 0.01 * rng.normal(size=(1000, 500)), 0.0)
+    return torch.from_numpy(yp.astype(np.float32)).to(dev)
+
+
+def hals_phase(nmf, nmf_mod, dev, card, reset_counts, read_counts):
+    """Phase 16: nmf.solve(method='hals'), a composition of torch products
+    and a host loop over the components (no kernel of the port)."""
+    f32 = torch.float32
+    # (a) Config 1: HALS and MU from the same factors, each to its own
+    # stop (tol 1e-4, as benchmarks/run_configs.py:119-142 ran them) and at
+    # equal iteration counts; then HALS on the card against HALS on the
+    # CPU from the same inputs.
+    yp = planted_config1(dev)
+    d0, x0 = nmf_mod._init_factors(torch.Generator(device=dev).manual_seed(1),
+                                   yp, None, None, 10)
+
+    def obj(r):
+        return float(0.5 * nmf_mod._sq_resid(yp.double(), r.x.double(),
+                                             r.d.double(), torch.float64))
+
+    def run(method, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = nmf.solve(yp, d0, x=x0, method=method, **kw)
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t0) * 1e3
+
+    own = {m: run(m, tol=1e-4, maxiter=5000) for m in ("mu", "hals")}
+    eq = {m: run(m, tol=0.0, maxiter=own[o][0].niter)[0]
+          for m, o in (("hals", "mu"), ("mu", "hals"))}
+    print(f"config 1 planted 1000x500 rank 10 f32, same x0 and d0 "
+          f"(torch seed 1) ({card}): to tol 1e-4: MU {own['mu'][0].niter} "
+          f"iterations, {own['mu'][1]:.3f} ms, objective "
+          f"{obj(own['mu'][0]):.4f}; HALS {own['hals'][0].niter} iterations, "
+          f"{own['hals'][1]:.3f} ms, objective {obj(own['hals'][0]):.4f}; at "
+          f"equal iterations: HALS after MU's {own['mu'][0].niter} "
+          f"{obj(eq['hals']):.4f}, MU after HALS's {own['hals'][0].niter} "
+          f"{obj(eq['mu']):.4f}", flush=True)
+    for m in ("mu", "hals"):
+        check(own[m][0].converged, f"config 1: {m} did not converge")
+    print(f"  the claim of BASELINE.md:110 (HALS's objective below MU's at "
+          f"config 1) holds on the card: "
+          f"{obj(own['hals'][0]) < obj(own['mu'][0])} at each one's stop, "
+          f"{obj(eq['hals']) < obj(own['mu'][0])} at MU's iterations",
+          flush=True)
+    card_r = nmf.solve(yp, d0, x=x0, method="hals", tol=0.0,
+                       maxiter=HALS_CPU_ITERS)
+    cpu_r = nmf.solve(yp.cpu(), d0.cpu(), x=x0.cpu(), method="hals",
+                      tol=0.0, maxiter=HALS_CPU_ITERS)
+    errs = [rel_fro(a.cpu(), b) for a, b in ((card_r.x, cpu_r.x),
+                                             (card_r.d, cpu_r.d))]
+    print(f"  HALS {HALS_CPU_ITERS} iterations on the card vs the CPU: "
+          f"rel_fro x {errs[0]:.3e}, d {errs[1]:.3e} (limit "
+          f"{HALS_CPU_LIMIT:g})", flush=True)
+    check(max(errs) <= HALS_CPU_LIMIT, "config 1: HALS on the card "
+          "disagrees with HALS on the CPU")
+    del yp
+
+    # (b) 100,000 x 1,024 f32, rank 128, tol 0, 10 iterations.
+    m, n, k, iters = 100_000, 1024, 128, 10
+    y = torch.rand((m, n), generator=torch.Generator(device=dev)
+                   .manual_seed(16), device=dev)
+    d0, x0 = nmf_mod._init_factors(torch.Generator(device=dev).manual_seed(0),
+                                   y, None, None, k)
+
+    def solve():
+        return nmf.solve(y, d0, x=x0, method="hals", tol=0.0, maxiter=iters)
+
+    solve()   # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    ms, res = event_ms(solve)
+    read_counts({})
+    again = solve()
+    obj0 = float(0.5 * nmf_mod._sq_resid(y, x0, d0, f32))
+    obj1 = float(0.5 * nmf_mod._sq_resid(y, res.x, res.d, f32))
+    # The split: the four products and the two sweeps on the result's
+    # factors, each by CUDA events (a sweep repeated on its own buffer).
+    dd, xt = res.d, res.x.T.contiguous()
+    a, bt = dd @ dd.T, dd @ y.T
+    c, e = xt @ xt.T, xt @ y
+    xw, dw = xt.clone(), dd.clone()
+    split = {"A = d d^T": cuda_ms(lambda: dd @ dd.T, 10),
+             "B = d y^T": cuda_ms(lambda: dd @ y.T, 5),
+             "x sweep": cuda_ms(lambda: nmf_mod._hals_sweep(xw, a.T, bt), 3),
+             "C = x^T x": cuda_ms(lambda: xt @ xt.T, 10),
+             "E = x^T y": cuda_ms(lambda: xt @ y, 5),
+             "d sweep": cuda_ms(lambda: nmf_mod._hals_sweep(dw, c, e), 3)}
+    # The profiles last: the split's timings are taken without them.
+    busy, launches, prof_ms = profiled(solve)
+    sweep_busy, sweep_launches, sweep_ms = profiled(
+        lambda: nmf_mod._hals_sweep(xw, a.T, bt))
+    per = ms / iters
+    print(f"HALS nmf.solve(method='hals') {m}x{n} rank {k} f32, tol 0, "
+          f"{iters} iterations ({card}): {per:.3f} ms per iteration "
+          f"(CUDA events); objective {obj0:.6e} -> {obj1:.6e}; kernel "
+          f"launches per iteration {launches / iters:.1f}; device busy "
+          f"{busy:.3f} ms of a {prof_ms:.3f} ms profiled solve "
+          f"({busy / prof_ms:.3f}); no launch of the port's kernels",
+          flush=True)
+    print("  split per iteration (ms, CUDA events): " + ", ".join(
+        f"{name} {t:.3f}" for name, t in split.items())
+          + f"; sum {sum(split.values()):.3f}; one x sweep alone: "
+          f"{sweep_launches} launches, device busy {sweep_busy:.3f} of "
+          f"{sweep_ms:.3f} ms ({sweep_busy / sweep_ms:.3f})", flush=True)
+    for name, t in (("x", res.x), ("d", res.d)):
+        check(bool(torch.isfinite(t).all()), f"HALS: {name} is not finite")
+        check(bool((t >= 0).all()), f"HALS: {name} has negative values")
+    check(obj1 < obj0, f"HALS: the objective did not fall: {obj0} -> {obj1}")
+    check(torch.equal(res.x, again.x) and torch.equal(res.d, again.d),
+          "HALS: a rerun is not bit-identical")
+    return {"ms_per_iter": per, "launches_per_iter": launches / iters,
+            "busy": busy / prof_ms, "split": split}
+
+
+def minibatch_phase(nmf, nmf_mod, dev, card, reset_counts, read_counts):
+    """Phase 17: nmf.solve(minibatch=8192, forget=0.9) at 100,000 x 1,024
+    f32, rank 128, 50 iterations at tol 0: MU and KL-MU, dense and 30%
+    missing; a composition (no kernel of the port)."""
+    m, n, k, iters, batch = 100_000, 1024, 128, 50, 8192
+    g = torch.Generator(device=dev).manual_seed(17)
+    y = torch.rand((m, n), generator=g, device=dev)
+    mask = (torch.rand((m, n), generator=g, device=dev) >= 0.3).float()
+    eps = torch.tensor(EPS, dtype=torch.float32)
+    out = {}
+    for method, mk in itertools.product(("mu", "kl-mu"), (None, mask)):
+        kw = dict(rank=k, tol=0.0, eps=EPS, method=method, mask=mk,
+                  minibatch=batch, forget=0.9, random_seed=0)
+        my = y if mk is None else mk * y
+        d0, x0 = nmf_mod._init_factors(
+            torch.Generator(device=dev).manual_seed(0), my, None, None, k)
+        if method == "mu":
+            def objective(x, d):
+                return float(0.5 * nmf_mod._sq_resid(my, x, d, torch.float32,
+                                                     mk))
+        else:
+            def objective(x, d):
+                return float(nmf_mod._kl_objective(my, x, d, mk, eps))
+        obj0 = objective(x0, d0)
+        del d0, x0
+        nmf.solve(y, maxiter=2, **kw)   # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        ms, res = event_ms(lambda: nmf.solve(y, maxiter=iters, **kw))
+        read_counts({})
+        again = nmf.solve(y, maxiter=iters, **kw)
+        obj1 = objective(res.x, res.d)
+        tag = f"{method}, {'30% missing' if mk is not None else 'dense'}"
+        out[tag] = ms / iters
+        print(f"minibatch nmf.solve {m}x{n} rank {k} f32, {tag}, minibatch "
+              f"{batch}, forget 0.9, tol 0, {iters} iterations ({card}): "
+              f"{ms / iters:.3f} ms per iteration (CUDA events); objective "
+              f"{obj0:.6e} -> {obj1:.6e}", flush=True)
+        check(res.niter == iters, f"minibatch {tag}: niter {res.niter}")
+        check(np.isfinite(obj1) and obj1 < obj0,
+              f"minibatch {tag}: the objective did not fall: {obj0} -> "
+              f"{obj1}")
+        check(torch.equal(res.x, again.x) and torch.equal(res.d, again.d),
+              f"minibatch {tag}: a seeded rerun is not bit-identical")
+        del res, again, my
+    return out
+
+
+def checkpoint_phase(nmf, lasso, cuda_mu, cuda_lasso, dev, card, y2, a2,
+                     reset_counts, read_counts):
+    """Phase 18: utils.checkpoint.checkpointed_solve on the card, written
+    to a temporary directory: config 4's masked MU on the packed
+    mu_stats_masked route (four chunks of 25 iterations, and an interrupted
+    run resumed by a second call) and config 2's per-problem acc_ista on
+    the solve_rows route (chunks of 100), each against its straight run
+    bit for bit."""
+    import tempfile
+
+    from decomp_tpu_torch.utils.checkpoint import (CheckpointManager,
+                                                   checkpointed_solve)
+
+    out = {}
+    m4, n4, k4, iters = 100_000, 1000, 50, 100
+    g = torch.Generator(device=dev).manual_seed(3)
+    y4 = (torch.rand((m4, k4), generator=g, device=dev)
+          @ torch.rand((k4, n4), generator=g, device=dev))
+    mask4 = (torch.rand((m4, n4), generator=g, device=dev) >= 0.3).float()
+    # masked_completion's mixed point: bf16 data, f32 factors.
+    yb = (y4 * mask4).to(torch.bfloat16)
+    del y4
+    kw = dict(rank=k4, mask=mask4, tol=0.0, factor_dtype=torch.float32,
+              precision="default", random_seed=4)
+
+    def routes(want):
+        got = (cuda_mu.mu_stats_masked.packed_launches,
+               cuda_mu.mu_stats_masked.dense_launches)
+        check(got == (want, 0), f"config 4 checkpoint: (packed, dense) "
+              f"route launches {got}, expected ({want}, 0)")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t0) * 1e3
+
+    nmf.solve(yb, maxiter=2, **kw)   # warm-up
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts()
+        straight, straight_ms = timed(lambda: nmf.solve(yb, maxiter=iters,
+                                                        **kw))
+        read_counts("mu_stats_masked", iters)
+        routes(iters)
+        mgr = CheckpointManager(tmp + "/config4")
+        reset_counts()
+        (chunked, total), chunked_ms = timed(lambda: checkpointed_solve(
+            nmf.solve, yb, manager=mgr, chunk_iters=25, maxiter=iters,
+            **kw))
+        read_counts("mu_stats_masked", iters)
+        routes(iters)
+        check(total == iters, f"config 4 checkpoint: {total} iterations")
+        mgr2 = CheckpointManager(tmp + "/config4_interrupted")
+        reset_counts()
+        checkpointed_solve(nmf.solve, yb, manager=mgr2, chunk_iters=25,
+                           maxiter=iters // 2, **kw)
+        resumed, total2 = checkpointed_solve(
+            nmf.solve, yb, manager=mgr2, chunk_iters=25, maxiter=iters, **kw)
+        read_counts("mu_stats_masked", iters)
+        routes(iters)
+        same = [torch.equal(r.x, straight.x) and torch.equal(r.d, straight.d)
+                for r in (chunked, resumed)]
+        save_ms = sorted(timed(lambda: mgr.save(
+            iters, {"x": straight.x, "d": straight.d}))[1] for _ in range(3))
+        snap_mb = os.path.getsize(mgr.path) / 1e6
+        print(f"checkpointed_solve config 4 nmf.solve {m4}x{n4} rank {k4}, "
+              f"30% missing, bf16 data, f32 factors, tol 0, {iters} "
+              f"iterations ({card}): straight {straight_ms:.3f} ms; four "
+              f"chunks of 25 {chunked_ms:.3f} ms; route: every run's "
+              f"{iters} mu_stats_masked launches on the packed route "
+              f"(csrc/mu_masked_packed.cu); chunked == straight bit for bit "
+              f"{same[0]}, interrupted at {iters // 2} and resumed "
+              f"({total2}) == straight {same[1]}; one snapshot "
+              f"({snap_mb:.1f} MB .npz, x and d) {save_ms[1]:.3f} ms "
+              f"(median of 3)", flush=True)
+        check(all(same), "config 4 checkpoint: a chunked run differs from "
+              "the straight one")
+        out["config4_save_ms"] = save_ms[1]
+        del yb, mask4, straight, chunked, resumed
+
+        # Config 2: per-problem acc_ista, 'high', tol 1e-4 on the whole-
+        # solve kernel; each chunk is one solve_rows launch.
+        cfg = dict(tol=1e-4, method="acc_ista", per_problem=True,
+                   precision="high")
+        lasso.solve(y2, a2, 0.1, maxiter=4000, **cfg)   # warm-up
+        reset_counts()
+        st, st_ms = timed(lambda: lasso.solve(y2, a2, 0.1, maxiter=4000,
+                                              **cfg))
+        read_counts("solve_rows", 1)
+        check(cuda_lasso.solve_rows.tma_launches == 1, "config 2 "
+              "checkpoint: the straight run left lasso_fista_tma.cu")
+        mgr3 = CheckpointManager(tmp + "/config2")
+        reset_counts()
+        (ch, total3), ch_ms = timed(lambda: checkpointed_solve(
+            lasso.solve, y2, a2, 0.1, manager=mgr3, chunk_iters=100,
+            maxiter=4000, warm_fields=("x",), **cfg))
+        chunks = cuda_lasso.solve_rows.launches
+        read_counts("solve_rows", chunks)
+        check(cuda_lasso.solve_rows.tma_launches == chunks, "config 2 "
+              "checkpoint: a chunk left lasso_fista_tma.cu")
+        rows_x = bool((ch.x == st.x).all(dim=1).all())
+        rows_nit = torch.equal(ch.niter, st.niter)
+        rows_conv = torch.equal(ch.converged, st.converged)
+        save2 = sorted(timed(lambda: mgr3.save(total3, {
+            "x": ch.x, "__decomp_tpu_aux_z": ch.aux["z"],
+            "__decomp_tpu_aux_t": ch.aux["t"]}))[1] for _ in range(3))
+        print(f"checkpointed_solve config 2 lasso.solve {y2.shape[0]} "
+              f"problems x {a2.shape[0]} features, acc_ista, 'high', "
+              f"per_problem, tol 1e-4 ({card}): straight {st_ms:.3f} ms (one "
+              f"solve_rows launch); chunks of 100: {chunks} launches, all on "
+              f"lasso_fista_tma.cu, {ch_ms:.3f} ms, {total3} iterations "
+              f"charged (max niter {int(st.niter.max())}); chunked == "
+              f"straight row for row: x {rows_x}, niter {rows_nit}, "
+              f"converged {rows_conv}; one snapshot (x, z, t) "
+              f"{save2[1]:.3f} ms (median of 3)", flush=True)
+        check(rows_x and rows_nit and rows_conv, "config 2 checkpoint: a "
+              "chunked per-problem run differs from the straight one")
+        check(total3 == int(st.niter.max()), f"config 2 checkpoint: "
+              f"{total3} iterations charged")
+        out["config2_save_ms"] = save2[1]
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -2425,10 +2762,24 @@ def main():
         grad_routes, dict_routes, 100_000, 1024, 128)
     t_phase = phase("15 masked dictionary learning", t_phase)
 
-    # Phase 16: the dictionary-learning kernels' times against their twins.
+    # Phase 15b: the dictionary-learning kernels' times against their twins.
     dl_stats = dl_times(cuda_dl, card, c3, marg3, launches3, masked15)
     del masked15
-    phase("16 dictionary-learning kernel times", t_phase)
+    t_phase = phase("15b dictionary-learning kernel times", t_phase)
+
+    # Phase 16: NMF's HALS method.
+    hals_phase(nmf, nmf_mod, dev, card, reset_counts, read_counts)
+    t_phase = phase("16 HALS", t_phase)
+
+    # Phase 17: minibatch NMF.
+    minibatch_phase(nmf, nmf_mod, dev, card, reset_counts, read_counts)
+    t_phase = phase("17 minibatch NMF", t_phase)
+
+    # Phase 18: checkpointed solves on the packed mu_stats_masked and the
+    # solve_rows routes.
+    checkpoint_phase(nmf, lasso, cuda_mu, cuda_lasso, dev, card, y2, a2,
+                     reset_counts, read_counts)
+    phase("18 checkpointed solves", t_phase)
 
     bounds = {"mu_stats_dense": dense_b,
               "mu_stats_masked": stats_bound("mu_stats_masked", m4, n4, k4,

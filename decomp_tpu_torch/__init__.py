@@ -3,17 +3,20 @@
 It mirrors ``decomp_tpu``'s layout (``models/``, ``ops/``, ``utils/``) and
 ``solve()`` surface; its CUDA kernels live in ``csrc/`` and are built for
 Hopper (``sm_90a``) on first use. Ported so far:
-- multiplicative-update NMF (``nmf.solve``, methods 'mu' and 'kl-mu', full
-  batch, dense or masked, with ``inner_iter``, mixed precision and held-out
-  stopping; the ``nmf.masked_completion`` preset), whose x update and d
-  statistics run in the hand-written kernels of ``ops.cuda_mu``;
+- NMF (``nmf.solve``: methods 'mu' and 'kl-mu', full batch or minibatch,
+  dense or masked, with ``inner_iter``, mixed precision and held-out
+  stopping, and 'hals', dense full batch; the ``nmf.masked_completion``
+  preset), whose full-batch MU and KL x update and d statistics run in the
+  hand-written kernels of ``ops.cuda_mu``;
 - batch lasso (``lasso.solve``, methods 'ista', 'fista', 'acc_ista',
   'parallel_cd' and 'cd', masked or not, global or per-problem stopping,
   exact resume; ``lasso.solve_streaming``), whose per-problem solve and
   masked gradient run in the hand-written kernels of ``ops.cuda_lasso``;
 - dictionary learning (``dictionary_learning.solve``, full batch or
   minibatch, masked or not, held-out stopping, native complex), whose
-  dictionary updates run in the hand-written kernels of ``ops.cuda_dl``.
+  dictionary updates run in the hand-written kernels of ``ops.cuda_dl``;
+- chunked solves with atomic snapshots (``utils.checkpoint``), whose
+  snapshots pass between this package and ``decomp_tpu``.
 An entry point runs on the card unless the caller asks for the CPU: a
 tensor stays on its device, and host arrays go to ``device=`` or, by
 default, the CUDA device (``utils.device``). ``decomp_tpu`` (JAX) stays the

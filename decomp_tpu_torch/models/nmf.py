@@ -1,5 +1,5 @@
-"""Non-negative matrix factorisation by multiplicative updates (counterpart
-of ``decomp_tpu.models.nmf``).
+"""Non-negative matrix factorisation (counterpart of
+``decomp_tpu.models.nmf``).
 
     y ≈ x @ d,  x >= 0, d >= 0
     x <- x * (y @ d.T) / (x @ (d @ d.T) + eps)
@@ -8,23 +8,28 @@ of ``decomp_tpu.models.nmf``).
 Masked variant (mask == 1 observed, 0 missing): ``y`` becomes ``my = mask *
 y`` and every reconstruction ``x @ d`` becomes ``mask * (x @ d)``.
 ``method='kl-mu'`` runs the Lee-Seung updates of the generalised KL
-divergence instead. Full batch, with ``inner_iter`` x refinements per d
-update, the mixed-precision mode (``factor_dtype``: e.g. bf16 data, f32
-factors) and held-out stopping (``stop='heldout'``; the
-``masked_completion`` preset). Two paths run the same update: the kernel
-path (``use_kernel``), whose x update and d statistics are one call of an
-``ops.cuda_mu`` kernel (``mu_stats_dense``, ``mu_stats_masked``,
-``kl_stats_dense`` or ``kl_stats_masked``: the CUDA kernel on a CUDA
-tensor, its plain twin on a CPU tensor), and the composition path of
-plain torch products.
+divergence instead, and ``method='hals'`` hierarchical alternating least
+squares (exact per-component updates of the L2 loss, unmasked full batch
+only): a host loop over the K components, each a matrix-vector product
+and a few elementwise passes, on x held column-major during its sweep.
+Full batch, with ``inner_iter`` x refinements per d update, the
+mixed-precision mode (``factor_dtype``: e.g. bf16 data, f32 factors) and
+held-out stopping (``stop='heldout'``; the ``masked_completion`` preset);
+or online (``minibatch``: 'mu' and 'kl-mu', masked or not, d updated from
+statistics that decay by ``forget``). Two paths run the full-batch MU and
+KL updates: the kernel path (``use_kernel``), whose x update and d
+statistics are one call of an ``ops.cuda_mu`` kernel (``mu_stats_dense``,
+``mu_stats_masked``, ``kl_stats_dense`` or ``kl_stats_masked``: the CUDA
+kernel on a CUDA tensor, its plain twin on a CPU tensor), and the
+composition path of plain torch products. HALS and the minibatch variant
+are compositions, as in ``decomp_tpu``.
 
 Entry points run on the card unless the caller asks for the CPU: a tensor
 ``y`` stays on its device, host arrays go to ``device=`` or, by default,
 the CUDA device, and with no CUDA device and no ``device`` they raise
 (``utils.device``). The companions follow ``y``; a tensor on another device
 is refused, never moved. Not ported yet, and refused with ``DecompError``:
-``method='hals'``, ``minibatch``, ``masked_completion(mesh=...)`` and
-``solve_streaming``.
+``masked_completion(mesh=...)`` and ``solve_streaming``.
 """
 
 from typing import Optional
@@ -55,7 +60,7 @@ _CHUNK_ROWS = 8192
 
 def _not_ported(what, item):
     return DecompError(f"{what} is not ported to decomp_tpu_torch yet "
-                       f"(ROADMAP Queue 1 #{item}); use decomp_tpu")
+                       f"(ROADMAP Queue 1, {item}); use decomp_tpu")
 
 
 def _validate_inner_iter(inner_iter):
@@ -82,6 +87,7 @@ def solve(
     mask=None,
     minibatch: Optional[int] = None,
     inner_iter: int = 1,
+    forget: float = 0.9,
     random_seed: int = 0,
     eps: float = 1e-15,
     record_objective: bool = False,
@@ -107,22 +113,32 @@ def solve(
     x : (n_samples, rank) initial activations (warm start).
     tol : relative change of ``d`` below which iteration stops (0 = run
         all ``maxiter`` iterations, with no host read per iteration).
-    method : 'mu' (Lee-Seung multiplicative updates, L2 loss) or 'kl-mu'
-        (Lee-Seung updates of the generalised KL divergence). 'hals' is
-        not ported yet.
+    method : 'mu' (Lee-Seung multiplicative updates, L2 loss), 'kl-mu'
+        (Lee-Seung updates of the generalised KL divergence) or 'hals'
+        (hierarchical alternating least squares, L2 loss: exact
+        per-component updates, unmasked full batch only; a component
+        whose Gram diagonal is not above eps times the Gram's trace
+        keeps its value).
     mask : (n_samples, n_channels) 1/0 or bool tensor on y's device;
         1 = observed. Cast to y's dtype.
-    minibatch : not ported yet; raises DecompError.
+    minibatch : if set ('mu' and 'kl-mu'), each iteration draws this many
+        rows with replacement, refreshes their x with ``inner_iter``
+        updates, writes them back, and updates d from K x N statistics
+        that decay by ``forget`` and gain the batch's.
     inner_iter : x updates per d update; for dense 'mu' the extra
-        refinements reuse the y @ d.T numerator (accelerated MU).
-    random_seed : seed of the initial factors, drawn from
+        refinements reuse the y @ d.T numerator (accelerated MU); for
+        'hals' x sweeps per d sweep.
+    forget : decay of the minibatch statistics per iteration.
+    random_seed : seed of the initial factors and then of the minibatch
+        rows, drawn in turn from one
         ``torch.Generator(device=y.device).manual_seed(random_seed)``,
         and (salted) of the held-out reserve. The draws cannot reproduce
         ``jax.random``'s bits, so a seeded trajectory differs from
         ``decomp_tpu``'s: pass ``x`` and ``d`` to compare the two.
     eps : additive denominator guard of the multiplicative updates.
     record_objective : record the objective per iteration: 0.5 *
-        ||mask * (y - x@d)||^2 for 'mu', the KL divergence for 'kl-mu'.
+        ||mask * (y - x@d)||^2 for 'mu' and 'hals', the KL divergence for
+        'kl-mu'.
     precision : accepted for ``decomp_tpu`` compatibility and without
         effect: f32 products here keep f32 accuracy (never TF32): full f32,
         except masked 'kl-mu' on f32 data with a 0/1 mask on the card,
@@ -139,7 +155,7 @@ def solve(
         twin. 'auto' engages it for a CUDA ``y`` of dtype bf16 or f32 with
         rank <= 128, factors in y's dtype or f32 ('kl-mu': y's dtype
         only), and ``inner_iter == 1`` unless dense 'mu'; it is False on
-        CPU.
+        CPU, for 'hals' and with ``minibatch``, which run compositions.
     kernel_block_rows : rows per partial of the kernel's statistics pass
         (on CPU, rows per chunk of the twin); a positive multiple of 8.
     check_every : evaluate the stopping rule every this many iterations.
@@ -162,10 +178,6 @@ def solve(
     """
     if method not in _METHODS:
         raise DecompError(f"method must be one of {_METHODS}, got {method!r}")
-    if method == "hals":
-        raise _not_ported("method='hals'", 3)
-    if minibatch is not None:
-        raise _not_ported("minibatch", 3)
     if precision not in _PRECISIONS:
         raise DecompError(f"precision must be one of {_PRECISIONS}, "
                           f"got {precision!r}")
@@ -188,6 +200,12 @@ def solve(
             raise DecompError(
                 "factor_dtype must be at least as wide as y's dtype "
                 f"(got {factor_dtype} factors for {y.dtype} data)")
+        if method not in ("mu", "kl-mu"):
+            raise DecompError("factor_dtype supports methods 'mu' and "
+                              "'kl-mu' only")
+        if minibatch is not None:
+            raise DecompError("factor_dtype is incompatible with "
+                              "minibatch")
     fdt = y.dtype if factor_dtype is None else factor_dtype
 
     if d is None and rank is None:
@@ -209,11 +227,18 @@ def solve(
         mask = _device.on_device("mask", mask, y.device)
         assertion.assert_same_shape("mask", mask, "y", y)
         mask = mask.to(y.dtype)
+    if minibatch is not None:
+        minibatch = int(minibatch)
+        if not 0 < minibatch <= n_samples:
+            raise DecompError(f"minibatch must be in [1, n_samples="
+                              f"{n_samples}], got {minibatch}")
     inner_iter = _validate_inner_iter(inner_iter)
     cuda_mu.validate_block_rows(kernel_block_rows)
 
     if use_kernel == "auto":
         use_kernel = (y.is_cuda
+                      and minibatch is None
+                      and method in ("mu", "kl-mu")
                       and y.dtype in (torch.bfloat16, torch.float32)
                       and (inner_iter == 1
                            or (method == "mu" and mask is None))
@@ -221,6 +246,12 @@ def solve(
                       and fdt in (y.dtype, torch.float32)
                       and rank <= cuda_mu.KERNEL_MAX_RANK)
     use_kernel = bool(use_kernel)
+    if use_kernel and minibatch is not None:
+        raise DecompError("use_kernel=True is incompatible with minibatch")
+    if use_kernel and method not in ("mu", "kl-mu"):
+        raise DecompError("use_kernel=True supports methods 'mu'/'kl-mu' "
+                          "(HALS runs its component sweeps as a "
+                          "composition, as decomp_tpu does)")
     if use_kernel and method != "mu" and factor_dtype is not None:
         raise DecompError(f"use_kernel=True with method={method!r} does "
                           "not support factor_dtype")
@@ -229,6 +260,11 @@ def solve(
         raise DecompError("use_kernel=True supports inner_iter > 1 only "
                           "for dense method='mu' (the masked/KL "
                           "denominators need fresh data passes)")
+    if method == "hals" and mask is not None:
+        raise DecompError("method 'hals' does not support mask; use 'mu'")
+    if method == "hals" and minibatch is not None:
+        raise DecompError("method 'hals' does not support minibatch; "
+                          "use 'mu'")
     if stop not in ("rel_change", "heldout"):
         raise DecompError(f"stop must be 'rel_change' or 'heldout', "
                           f"got {stop!r}")
@@ -237,6 +273,12 @@ def solve(
         if mask is None:
             raise DecompError("stop='heldout' requires a mask (it "
                               "validates on reserved OBSERVED entries)")
+        if method not in ("mu", "kl-mu"):
+            raise DecompError("stop='heldout' supports methods "
+                              "'mu'/'kl-mu'")
+        if minibatch is not None:
+            raise DecompError("stop='heldout' is incompatible with "
+                              "minibatch")
         if record_objective:
             raise DecompError("stop='heldout' is incompatible with "
                               "record_objective (checks are amortised "
@@ -252,7 +294,8 @@ def solve(
         record_objective=bool(record_objective), factor_dtype=factor_dtype,
         use_kernel=use_kernel, kernel_block_rows=kernel_block_rows,
         check_every=int(check_every), verbose=bool(verbose),
-        random_seed=int(random_seed))
+        random_seed=int(random_seed), minibatch=minibatch,
+        forget=float(forget))
 
 
 def _heldout_reserve(mask, frac, random_seed):
@@ -285,11 +328,15 @@ def _heldout_split(y, mask, val):
 def _solve(y, d, x, mask, val, *, rank, method="mu", tol=1e-4, eps=1e-15,
            maxiter=1000, inner_iter=1, record_objective=False,
            factor_dtype=None, use_kernel=False, kernel_block_rows=None,
-           check_every=1, verbose=False, random_seed=0):
+           check_every=1, verbose=False, random_seed=0, minibatch=None,
+           forget=0.9, batch_idx=None):
     """The solve, after ``solve``'s checks. ``val``: the held-out
     validation set (0/1 in y's dtype, inside ``mask``) under
     stop='heldout', else None; ``solve`` draws it with
-    ``_heldout_reserve``, and a parity test may pass ``decomp_tpu``'s."""
+    ``_heldout_reserve``, and a parity test may pass ``decomp_tpu``'s.
+    ``batch_idx``: the minibatch rows of each iteration, (maxiter,
+    minibatch), instead of the seeded draws (a parity test passes
+    ``decomp_tpu``'s)."""
     rdt = real_dtype(y.dtype)
     acc = acc_dtype(rdt)
     tiny = torch.finfo(acc).tiny
@@ -301,10 +348,11 @@ def _solve(y, d, x, mask, val, *, rank, method="mu", tol=1e-4, eps=1e-15,
     if val is not None:
         mask, hd = _heldout_split(y, mask, val)
     my = y if mask is None else mask * y
+    # One generator: the initial factors' draws, then the minibatch rows.
+    gen = torch.Generator(device=y.device).manual_seed(random_seed)
     if d is None or x is None:
         # The init scale comes from the observed data: junk values at
         # missing entries cannot blow up the starting point.
-        gen = torch.Generator(device=y.device).manual_seed(random_seed)
         d, x = _init_factors(gen, my, d, x, rank, factor_dtype)
 
     def diff_fn(old, new):
@@ -319,7 +367,20 @@ def _solve(y, d, x, mask, val, *, rank, method="mu", tol=1e-4, eps=1e-15,
         def objective(state):
             return 0.5 * _sq_resid(my, state[0], state[1], acc, mask)
 
-    if use_kernel:
+    init = (x, d)
+    if minibatch is not None:
+        if batch_idx is not None:
+            batch_idx = torch.as_tensor(batch_idx, dtype=torch.int64,
+                                        device=y.device)
+        step = _minibatch_step(my, mask, method, eps_t, inner_iter,
+                               torch.tensor(forget, dtype=rdt), minibatch,
+                               gen, batch_idx)
+        den0 = (torch.zeros_like(d[:, :1]) if method == "kl-mu"
+                and mask is None else torch.zeros_like(d))
+        init = (x.clone(), d, torch.zeros_like(d), den0)
+    elif method == "hals":
+        step = _hals_step(my, inner_iter)
+    elif use_kernel:
         step = _kernel_step(my, mask, method, float(eps_t), kernel_block_rows,
                             inner_iter)
     else:
@@ -340,15 +401,109 @@ def _solve(y, d, x, mask, val, *, rank, method="mu", tol=1e-4, eps=1e-15,
         # report convergence
         min_iter = min(2 * check_every, max(maxiter - check_every, 0))
     res = run_iterations(
-        step, (x, d), tol=tol, maxiter=maxiter, diff_fn=diff_fn,
+        step, init, tol=tol, maxiter=maxiter, diff_fn=diff_fn,
         objective_fn=objective, record_objective=record_objective,
         check_every=check_every, verbose=verbose, min_iter=min_iter,
         diff_nonnegative=hd is None)
     aux = (None if val_sqerr is None
            else {"heldout_rel_err": torch.sqrt(val_sqerr(res.state))})
-    return NMFResult(x=res.state[0], d=res.state[1], niter=res.niter,
-                     converged=res.converged, objective=res.objective,
-                     aux=aux)
+    # HALS keeps x column-major; the result is row-major as on every path.
+    return NMFResult(x=res.state[0].contiguous(), d=res.state[1],
+                     niter=res.niter, converged=res.converged,
+                     objective=res.objective, aux=aux)
+
+
+def _hals_step(my, inner_iter):
+    """One HALS iteration (``decomp_tpu``'s ``_update_x_hals`` and
+    ``_update_d_hals``): A = d d^T and B = my d^T, ``inner_iter`` sweeps
+    over x's components, then C = x^T x and E = x^T my and one sweep over
+    d's. During the x sweeps x is held column-major, so each component
+    x_k is a contiguous row of x^T; A and B depend on d alone and serve
+    every x sweep. The state's x is the transposed view of that buffer."""
+    def step(state, it):
+        x_, d_ = state
+        a = d_ @ d_.T                       # (K, K)
+        bt = d_ @ my.T                      # (K, M) = (my d^T)^T
+        xt = x_.T.clone(memory_format=torch.contiguous_format)
+        for _ in range(inner_iter):
+            # x_k's update reads column k of A: row k of A^T.
+            _hals_sweep(xt, a.T, bt)
+        c = xt @ xt.T
+        e = xt @ my
+        d_new = d_.clone()
+        _hals_sweep(d_new, c, e)
+        return (xt.T, d_new)
+
+    return step
+
+
+def _hals_sweep(rows, g, stats):
+    """The sequential component sweep of HALS, in place on ``rows``
+    (K, L): for k = 0..K-1,
+    rows_k <- max(0, rows_k + (stats_k - rows^T g_k) / g_kk)
+    with the rows already updated. A component whose diagonal ``g_kk`` is
+    not above ``eps * max(trace(g), tiny)`` keeps its value
+    (``decomp_tpu``'s dead-component guard; dividing by a tiny diagonal
+    would blow the component up and NaN the next sweep). Five launches a
+    component (``addmv`` copies before its product) and no host read: the
+    guard's choice is a ``where`` on the device. The per-component views
+    come from ``unbind`` up front: the loop's host time sets its pace."""
+    rdt = real_dtype(rows.dtype)
+    fi = torch.finfo(rdt)
+    diag = torch.diagonal(g)
+    floor = fi.eps * torch.clamp(torch.trace(g), min=fi.tiny)
+    den = torch.maximum(diag, floor)
+    live = diag > floor
+    mat = rows.T
+    for row, s_k, g_k, den_k, live_k in zip(
+            rows.unbind(0), stats.unbind(0), g.unbind(0), den.unbind(0),
+            live.unbind(0)):
+        r = torch.addmv(s_k, mat, g_k, alpha=-1)
+        new = torch.addcdiv(row, r, den_k).clamp_min_(0)
+        torch.where(live_k, new, row, out=row)
+
+
+def _minibatch_step(my, mask, method, eps, inner_iter, forget, minibatch,
+                    gen, batch_idx):
+    """One online iteration (``decomp_tpu/models/nmf.py:440-476``) on the
+    state (x, d, num, den): draw ``minibatch`` rows with replacement (or
+    take ``batch_idx[it]``), refresh their x with ``inner_iter`` updates,
+    write them back, decay the K x N statistics by ``forget`` and add the
+    batch's, and set d <- d * num / (den + eps). 'mu' accumulates xb^T yb
+    and xb^T (mb * (xb d)); 'kl-mu' xb^T (yb / (xb d + eps)) and the
+    (K, 1) column sums of xb or xb^T mb. The state's x is the solve's own
+    copy, written in place."""
+    upd_x = _UPDATES[method, False][0]
+    m = my.shape[0]
+    rows = torch.arange(minibatch, device=my.device)
+
+    def step(state, it):
+        x_, d_, num, den = state
+        idx = (batch_idx[it] if batch_idx is not None
+               else torch.randint(0, m, (minibatch,), generator=gen,
+                                  device=my.device))
+        yb = my[idx]
+        mb = None if mask is None else mask[idx]
+        xb = x_[idx]
+        for _ in range(inner_iter):
+            xb = upd_x(yb, xb, d_, mb, eps)
+        # A row drawn twice is written from one batch position (its last),
+        # so the write-back does not depend on the order of the writes.
+        last = torch.full((m,), -1, dtype=rows.dtype, device=my.device)
+        last.scatter_reduce_(0, idx, rows, "amax")
+        x_.index_copy_(0, idx, xb[last[idx]])
+        if method == "mu":
+            recon = xb @ d_ if mb is None else mb * (xb @ d_)
+            num = forget * num + xb.T @ yb
+            den = forget * den + xb.T @ recon
+        else:
+            r = xb @ d_ + eps
+            num = forget * num + xb.T @ (yb / r)
+            den = forget * den + (torch.sum(xb, 0)[:, None] if mb is None
+                                  else xb.T @ mb)
+        return (x_, d_ * num / (den + eps), num, den)
+
+    return step
 
 
 def _kernel_step(my, mask, method, eps, block_rows, inner_iter):
@@ -439,7 +594,7 @@ def masked_completion(y, mask, rank=None, d=None, x=None, *, tol=1e-4,
     device, as in ``solve``.
     """
     if mesh is not None:
-        raise _not_ported("masked_completion(mesh=...)", 8)
+        raise _not_ported("masked_completion(mesh=...)", "parallel/")
     y = _device.on_device("y", y, _device.resolve(y, kwargs.get("device")))
     if mixed == "auto":
         mixed = y.is_cuda and y.dtype == torch.float32
@@ -463,7 +618,7 @@ def masked_completion(y, mask, rank=None, d=None, x=None, *, tol=1e-4,
 
 def solve_streaming(*args, **kwargs):
     """Not ported yet: one H100 holds the config-5 matrix in-core."""
-    raise _not_ported("solve_streaming", 7)
+    raise _not_ported("solve_streaming", "models/nmf_streaming.py")
 
 
 def _row_slices(m):

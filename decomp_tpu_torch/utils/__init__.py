@@ -1,8 +1,10 @@
 """Shared utilities: input validation, where an entry point runs
-(``device``), dtype helpers, normalisation, results, and the numpy bridge
-to ``decomp_tpu``. ``checkpoint`` is not ported yet (ROADMAP Queue 1)."""
+(``device``), dtype helpers, normalisation, results, the numpy bridge to
+``decomp_tpu`` (``convert``) and chunked solves with atomic snapshots
+(``checkpoint``)."""
 
-from decomp_tpu_torch.utils import assertion, convert, device, dtypes, normalize
+from decomp_tpu_torch.utils import (assertion, checkpoint, convert, device,
+                                    dtypes, normalize)
 from decomp_tpu_torch.utils.exceptions import DecompError, DtypeError, ShapeError
 from decomp_tpu_torch.utils.result import (
     DictionaryLearningResult,
@@ -12,6 +14,7 @@ from decomp_tpu_torch.utils.result import (
 
 __all__ = [
     "assertion",
+    "checkpoint",
     "convert",
     "device",
     "dtypes",

@@ -10,7 +10,10 @@ side, say) becomes that type; any other keeps its own class.
 The caller converts JAX arrays with ``np.asarray`` (or hands them over
 as they are: anything ``np.asarray`` accepts converts), so this module
 never imports JAX. ``lasso_resume`` turns a ``decomp_tpu`` lasso result
-into the warm start and ``state=`` that continue its trajectory here.
+into the warm start and ``state=`` that continue its trajectory here, and
+``batch_indices`` takes the rows a ``decomp_tpu`` minibatch solve drew, for
+the private ``_solve(batch_idx=)`` hooks of ``nmf`` and
+``dictionary_learning``.
 """
 
 import numpy as np
@@ -66,6 +69,8 @@ def from_numpy(tree, device, dtype=None):
 
 
 def _tensor_to_array(t):
+    if not isinstance(t, torch.Tensor):   # already a host array
+        return np.asarray(t)
     t = t.detach()
     if t.dtype == torch.bfloat16:
         # numpy has no bfloat16; the f32 widening is exact.
@@ -74,7 +79,8 @@ def _tensor_to_array(t):
 
 
 def to_numpy(tree):
-    """Tensor leaves -> numpy arrays on the host (bf16 widens to f32)."""
+    """Tensor leaves -> numpy arrays on the host (bf16 widens to f32);
+    array-like leaves become numpy arrays as they are."""
     return _map(_tensor_to_array, tree, (torch.Tensor,))
 
 
@@ -94,3 +100,19 @@ def lasso_resume(result, device, dtype=None):
     if torch.as_tensor(res.converged).dim() == 1:
         state["done"], state["niter"] = res.converged, res.niter
     return res.x, state or None
+
+
+def batch_indices(draws, device, n_samples=None):
+    """The minibatch rows of each iteration, ``draws`` (maxiter, minibatch)
+    array-like (e.g. ``np.stack`` of ``decomp_tpu``'s per-iteration
+    ``jax.random.randint`` draws), as an int64 tensor on ``device`` for
+    ``_solve(batch_idx=)``. With ``n_samples``, every row must lie in
+    [0, n_samples)."""
+    idx = np.asarray(draws)
+    if idx.ndim != 2 or not np.issubdtype(idx.dtype, np.integer):
+        raise ValueError("draws must be a (maxiter, minibatch) integer "
+                         f"array, got {idx.dtype} of shape {idx.shape}")
+    if n_samples is not None and idx.size and (
+            idx.min() < 0 or idx.max() >= n_samples):
+        raise ValueError(f"draws must lie in [0, {n_samples})")
+    return torch.from_numpy(idx.astype(np.int64)).to(device)

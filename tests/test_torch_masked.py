@@ -386,7 +386,7 @@ def test_masked_completion_mixed_and_auto():
 
 def test_masked_completion_mesh_is_not_ported():
     ytrue, mask = _completion_problem(m=40, n=20)
-    with pytest.raises(texc.DecompError, match="ROADMAP Queue 1 #8"):
+    with pytest.raises(texc.DecompError, match="ROADMAP Queue 1, parallel/"):
         tnmf.masked_completion(_t(ytrue), _t(mask), rank=2, mesh=object())
 
 

@@ -374,15 +374,6 @@ def test_bad_data_raises_like_jax(y, exc):
     assert type(ej.value).__name__ == type(et.value).__name__ == exc
 
 
-@pytest.mark.parametrize("kw", [dict(method="hals"), dict(minibatch=2)])
-def test_options_outside_the_slice_raise(kw):
-    y, _ = _bad_calls()
-    kw = {k: (_t(v) if isinstance(v, np.ndarray) else v)
-          for k, v in kw.items()}
-    with pytest.raises(texc.DecompError, match="ROADMAP Queue 1"):
-        decomp_tpu_torch.nmf.solve(_t(y), rank=2, **kw)
-
-
 @pytest.mark.parametrize("fn", ["solve_streaming"])
 def test_unported_entry_points_raise(fn):
     y, _ = _bad_calls()
