@@ -193,7 +193,34 @@ for sm_90a (one nvcc per source, all at once), and then:
     as an interrupted run resumed by a second call, and config 2's
     per-problem acc_ista on ``solve_rows`` in chunks of 100, each equal to
     its straight run bit for bit (row for row in x and niter), with the
-    routes and the ms a snapshot costs.
+    routes and the ms a snapshot costs;
+19. drives config 5' (bench.py:232-291) out of core:
+    ``nmf.solve_streaming`` in loader mode over 16 chunks of 65,536 rows of
+    a 1,048,576 x 10,112 bf16 matrix that a loader makes on the card from a
+    generator seeded by the chunk's offset (relu(x_t d_true)), rank 128,
+    f32 factors: the streamed run against the in-core ``nmf.solve`` from
+    the same x0 and d0 on the same y (materialised from the loader), 2
+    iterations; a seeded 5-epoch run with one ``mu_stats_dense`` launch per
+    chunk, all on the TMA route, finite nonnegative factors, ms per epoch
+    split into loader, kernels and the rest against in-core ms per
+    iteration, and the peak device memory;
+20. drives ``nmf.masked_completion_streaming`` at config 4's shape (f32
+    loaders as bf16 chunks of 16,384 rows, a ragged 1,696-row tail, f32
+    factors), uncached and with every chunk cached (the same trajectory):
+    every launch on the packed route, held-out error < 5e-2, the time to
+    stop against phase 6's, and the device's busy share and launches per
+    epoch from ``torch.profiler``; KL-MU in loader mode at 100,000 x 1,024
+    f32, rank 128, dense and 30% missing, 5 epochs (one ``kl_stats_dense``
+    or packed ``kl_stats_masked`` launch per chunk, a falling objective);
+    and a host-array (numpy) run with the host-to-device copy of a chunk;
+21. drives ``dictionary_learning.solve_streaming``: config 3 in chunks of
+    4,096 at lasso_tol 0 for 5 outer iterations, host-array path and
+    loader mode (one ``bcd_sweep`` launch per outer iteration on the
+    register route, d against the in-core solve, ms per outer iteration
+    against in-core); masked DL at 100,000 x 1,024, 128 atoms, 30%
+    missing, chunks of 16,384, 3 outer iterations in loader mode (every
+    ``masked_grad_rows`` and ``masked_grad_dict`` launch on the packed
+    route, a falling objective) and one ``stop='heldout'`` run.
 
 Each path runs with every launch count set to 0 just before it and read
 just after. It exits non-zero on any failure, without a CUDA device, and
@@ -308,6 +335,15 @@ MASKED_DL_LIMIT = {torch.float32: 2e-6, torch.bfloat16: 5e-2}
 # tests/test_torch_nmf_hals.py, where 30 iterations measured 2.6e-6.
 HALS_CPU_ITERS = 20
 HALS_CPU_LIMIT = 1e-4
+# Config 5' streamed against in-core from the same start, 2 iterations:
+# the chunks' f32 statistics sum in another order than the in-core
+# kernel's partials (relative Frobenius of d and x; measured on an H100
+# 80GB HBM3 at 700 W: 4.1e-7 d, 3.6e-7 x).
+STREAM_LIMIT = 1e-5
+# Config 3 streamed (host-array path and loader mode) against in-core, 5
+# outer iterations at lasso_tol 0: per-chunk products and statistic sums
+# in other orders (relative Frobenius of d; measured on the H100: 1.09e-6).
+DL_STREAM_LIMIT = 1e-5
 EPS = 1e-6
 SOURCES = ("mu_stats_dense", "mu_dense_tma", "mu_kl_stats", "mu_masked_packed",
            "kl_masked_packed", "kl_dense_packed", "lasso_fista",
@@ -2147,6 +2183,333 @@ def checkpoint_phase(nmf, lasso, cuda_mu, cuda_lasso, dev, card, y2, a2,
     return out
 
 
+def per_epoch_ms(run, lo=1, hi=6):
+    """(ms per epoch, ms of the ``hi``-epoch call): the difference of a
+    ``hi``-epoch and a ``lo``-epoch call of ``run(epochs)`` over the extra
+    epochs, each between CUDA events, which cancels the call's set-up."""
+    t_lo = event_ms(lambda: run(lo))[0]
+    t_hi = event_ms(lambda: run(hi))[0]
+    return (t_hi - t_lo) / (hi - lo), t_hi
+
+
+def config5_phase(nmf, nmf_mod, cuda_mu, dev, card, reset_counts,
+                  read_counts, m=1 << 20, n=10112, k=128, chunk=65_536,
+                  epochs=5):
+    """Phase 19: config 5' (bench.py:232-291) on the card: out-of-core MU
+    over chunks that a loader makes on the card from a generator seeded by
+    the chunk's offset, relu(x_t d_true) in bf16 (bf16 operands, f32 sums),
+    in loader mode with f32 factors. The streamed run against the in-core
+    nmf.solve from the same x0 and d0 on the same y, materialised from the
+    loader; a seeded run of ``epochs`` epochs checked for one
+    mu_stats_dense launch per chunk, all on the TMA route; ms per epoch
+    split into loader, kernels and the rest, against in-core ms per
+    iteration; peak device memory."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    d_true = torch.rand((k, n), generator=torch.Generator(
+        device=dev).manual_seed(7), device=dev, dtype=bf16)
+
+    def loader(lo, hi):
+        g = torch.Generator(device=dev).manual_seed(1_000_003 + lo)
+        xt = torch.rand((hi - lo, k), generator=g, device=dev, dtype=bf16)
+        return torch.relu(xt @ d_true)
+
+    n_chunks = -(-m // chunk)
+    skw = dict(chunk_rows=chunk, n_samples=m, n_channels=n, dtype=bf16,
+               factor_dtype=f32, precision="default", eps=EPS, tol=0.0,
+               x_device=True, jit_loader=True)
+    # The same y in-core, and both from the same start for 2 iterations.
+    y = torch.empty((m, n), dtype=bf16, device=dev)
+    for lo in range(0, m, chunk):
+        y[lo:lo + chunk] = loader(lo, min(lo + chunk, m))
+    d0, x0 = nmf_mod._init_factors(torch.Generator(device=dev).manual_seed(0),
+                                   y, None, None, k, f32)
+    ckw = dict(tol=0.0, eps=EPS, precision="default", factor_dtype=f32)
+    core = nmf.solve(y, d0, x=x0, maxiter=2, **ckw)
+    stream = nmf.solve_streaming(loader, d0, x=x0, maxiter=2, **skw)
+    err_d, err_x = rel_fro(stream.d, core.d), rel_fro(stream.x, core.x)
+    core_ms, _ = per_epoch_ms(lambda it: nmf.solve(y, d0, x=x0, maxiter=it,
+                                                   **ckw))
+    del core, stream, y
+    print(f"config 5' nmf.solve_streaming {m}x{n} bf16 chunks of {chunk} "
+          f"from a loader, rank {k}, f32 factors, against the in-core "
+          f"nmf.solve on the same y from the same x0, d0, 2 iterations "
+          f"({card}): rel_fro d {err_d:.3e} (limit {STREAM_LIMIT:g}), x "
+          f"{err_x:.3e}; in-core {core_ms:.3f} ms per iteration", flush=True)
+    check(err_d <= STREAM_LIMIT and err_x <= STREAM_LIMIT,
+          "config 5': the streamed run disagrees with the in-core one")
+    del d0, x0
+
+    def run(epochs_):
+        return nmf.solve_streaming(loader, rank=k, maxiter=epochs_,
+                                   random_seed=11, **skw)
+
+    run(1)   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    ms, res = event_ms(lambda: run(epochs))
+    launches = read_counts("mu_stats_dense", n_chunks * epochs)
+    tma = cuda_mu.mu_stats_dense.tma_launches
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    check(tma == n_chunks * epochs, f"config 5': {tma} of {launches} "
+          "mu_stats_dense launches took the TMA route")
+    check(res.niter == epochs, f"config 5': niter {res.niter}")
+    for name, t in (("x", res.x), ("d", res.d)):
+        check(t.dtype == f32 and bool(torch.isfinite(t).all())
+              and bool((t >= 0).all()), f"config 5': {name} is not finite "
+              "and nonnegative f32")
+    epoch_ms, _ = per_epoch_ms(run)
+    # The split: the loader's calls and the kernel's, each alone on one
+    # epoch's worth of chunks; the rest (copies of x, sums, the epilogue).
+    offsets = [min(i * chunk, m - chunk) for i in range(n_chunks)]
+
+    def load_all():
+        for lo in offsets:   # each chunk freed before the next, as in
+            loader(lo, lo + chunk)   # the epoch
+
+    load_ms = cuda_ms(load_all, 2)
+    yc = loader(0, chunk)
+    xc, db = res.x[:chunk].contiguous(), res.d.to(bf16)
+
+    def kernels():
+        for _ in offsets:
+            cuda_mu.mu_stats_dense(yc, xc, db, EPS)
+
+    kern_ms = cuda_ms(kernels, 2)
+    print(f"config 5' streamed, seeded, {epochs} epochs of {n_chunks} "
+          f"chunks ({card}): {ms:.3f} ms for the call; {epoch_ms:.3f} ms per "
+          f"epoch (differential, 6 - 1 epochs) against {core_ms:.3f} ms per "
+          f"in-core iteration ({epoch_ms / core_ms:.3f}x): loader "
+          f"{load_ms:.3f} ms, mu_stats_dense {kern_ms:.3f} ms, the rest "
+          f"{epoch_ms - load_ms - kern_ms:.3f} ms; mu_stats_dense launches "
+          f"{launches} (TMA route {tma}); peak device memory {peak_gb:.2f} "
+          "GB", flush=True)
+    return epoch_ms
+
+
+def streaming_masked_kl_phase(nmf, nmf_mod, cuda_mu, dev, card, reset_counts,
+                              read_counts, wall6, m4=100_000, n4=1000, k4=50,
+                              m7=100_000, n7=1024, k7=128, chunk=16_384,
+                              epochs=5):
+    """Phase 20: masked_completion_streaming at config 4's shape (f32
+    loaders cast to bf16 chunks, f32 factors, chunks of ``chunk`` rows, a
+    ragged tail), uncached and with every chunk cached; then KL-MU in
+    loader mode at ``m7 x n7``, rank ``k7``, f32, dense and 30% missing,
+    ``epochs`` epochs; then one host-array (numpy) run, with the
+    host-to-device copy of a chunk timed."""
+    f32 = torch.float32
+    g = torch.Generator(device=dev).manual_seed(3)
+    y4 = (torch.rand((m4, k4), generator=g, device=dev)
+          @ torch.rand((k4, n4), generator=g, device=dev))
+    mask4 = (torch.rand((m4, n4), generator=g, device=dev) >= 0.3).float()
+    ym4 = y4 * mask4
+    n_chunks = -(-m4 // chunk)
+    kw = dict(rank=k4, n_samples=m4, n_channels=n4, dtype=f32,
+              chunk_rows=chunk, tol=1e-4, maxiter=4000, random_seed=4)
+    results = {}
+    for cached in (0, n_chunks):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = nmf.masked_completion_streaming(
+            lambda lo, hi: ym4[lo:hi], lambda lo, hi: mask4[lo:hi],
+            hbm_cache_chunks=cached, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts("mu_stats_masked", n_chunks * res.niter)
+        routes = (cuda_mu.mu_stats_masked.packed_launches,
+                  cuda_mu.mu_stats_masked.dense_launches)
+        ho = float(res.aux["heldout_rel_err"])
+        miss = 1.0 - mask4
+        true_err = float(torch.linalg.vector_norm(miss * (res.x @ res.d - y4))
+                         / torch.linalg.vector_norm(miss * y4))
+        print(f"config 4 nmf.masked_completion_streaming {m4}x{n4} rank "
+              f"{k4}, 30% missing, f32 loaders as bf16 chunks of {chunk} "
+              f"(ragged tail {m4 - (n_chunks - 1) * chunk}), f32 factors, "
+              f"{cached} chunks cached ({card}): converged={res.converged} "
+              f"after {res.niter} epochs in {wall:.3f} s "
+              f"({wall * 1e3 / res.niter:.3f} ms per epoch; in-core "
+              f"masked_completion, "
+              f"phase 6: {wall6:.3f} s, {wall / wall6:.2f}x); held-out "
+              f"error {ho:.4e}, true error on the missing entries "
+              f"{true_err:.4e}; mu_stats_masked launches {launches} (packed "
+              f"route {routes[0]}, dense route {routes[1]})", flush=True)
+        check(routes == (launches, 0), f"masked streaming: (packed, dense) "
+              f"routes {routes}, expected ({launches}, 0)")
+        check(res.converged and ho < 5e-2, f"masked streaming: converged "
+              f"{res.converged}, held-out error {ho}")
+        check(res.x.dtype == f32 and res.d.dtype == f32
+              and bool(torch.isfinite(res.d).all()), "masked streaming: "
+              "factors")
+        results[cached] = res
+    check(results[0].niter == results[n_chunks].niter
+          and torch.equal(results[0].d, results[n_chunks].d),
+          "masked streaming: the cached run differs from the uncached one")
+    # Where an epoch's time goes: 20 epochs (no check falls in them).
+    for cached in (0, n_chunks):
+        busy, nl, wall = profiled(lambda: nmf.masked_completion_streaming(
+            lambda lo, hi: ym4[lo:hi], lambda lo, hi: mask4[lo:hi],
+            hbm_cache_chunks=cached, **{**kw, "maxiter": 20}))
+        print(f"  {cached} chunks cached, 20 epochs under torch.profiler: "
+              f"{wall / 20:.3f} ms per epoch, device busy {busy / 20:.3f} ms "
+              f"({busy / wall:.1%}), {nl / 20:.0f} launches per epoch",
+              flush=True)
+    del results, res, y4, ym4, mask4, miss
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    y7 = torch.rand((m7, n7), generator=g, device=dev)
+    mask7 = (torch.rand((m7, n7), generator=g, device=dev) >= 0.3).float()
+    n_chunks = -(-m7 // chunk)
+    eps7 = torch.tensor(EPS, dtype=f32)
+    for name, mk in (("kl_stats_dense", None), ("kl_stats_masked", mask7)):
+        my7 = y7 if mk is None else mk * y7
+        d0, x0 = nmf_mod._init_factors(
+            torch.Generator(device=dev).manual_seed(0), my7, None, None, k7)
+        obj0 = float(nmf_mod._kl_objective(my7, x0, d0, mk, eps7))
+        reset_counts()
+        ms, res = event_ms(lambda: nmf.solve_streaming(
+            lambda lo, hi: my7[lo:hi], d0, x=x0, method="kl-mu",
+            mask=None if mk is None else (lambda lo, hi: mk[lo:hi]),
+            tol=0.0, maxiter=epochs, chunk_rows=chunk, n_samples=m7,
+            n_channels=n7, dtype=f32, x_device=True, jit_loader=True,
+            eps=EPS))
+        launches = read_counts(name, n_chunks * epochs)
+        w = getattr(cuda_mu, name)
+        got = (w.packed_launches,
+               w.mu_kl_launches if mk is None else w.dense_launches)
+        obj1 = float(nmf_mod._kl_objective(my7, res.x, res.d, mk, eps7))
+        print(f"KL-MU nmf.solve_streaming {m7}x{n7} rank {k7} f32 "
+              f"{'dense' if mk is None else '30% missing'}, loader mode, "
+              f"chunks of {chunk}, {epochs} epochs ({card}): "
+              f"{ms / epochs:.3f} ms per epoch; KL objective {obj0:.6e} -> "
+              f"{obj1:.6e}; {name} launches {launches} (packed route "
+              f"{got[0]}, other {got[1]})", flush=True)
+        check(got == (launches, 0), f"KL streaming: {name} routes {got}")
+        check(np.isfinite(obj1) and obj1 < obj0, "KL streaming: the "
+              "objective did not fall")
+        del res, d0, x0
+    # The host-array path: y in host memory, each chunk copied per epoch.
+    y_host = y7.cpu().numpy()
+    d0, x0 = nmf_mod._init_factors(torch.Generator(device=dev).manual_seed(0),
+                                   y7, None, None, k7)
+    copy_ms = cuda_ms(lambda: torch.from_numpy(y_host[:chunk]).to(dev), 5)
+    reset_counts()
+    ms, res = event_ms(lambda: nmf.solve_streaming(
+        y_host, d0, x=x0.cpu().numpy(), method="kl-mu", tol=0.0,
+        maxiter=3, chunk_rows=chunk, eps=EPS))
+    read_counts({})
+    obj0 = float(nmf_mod._kl_objective(y7, x0, d0, None, eps7))
+    obj1 = float(nmf_mod._kl_objective(y7, torch.from_numpy(res.x).to(dev),
+                                       res.d, None, eps7))
+    print(f"KL-MU nmf.solve_streaming from a numpy array {m7}x{n7} rank "
+          f"{k7} f32, chunks of {chunk}, 3 epochs ({card}): {ms / 3:.3f} ms "
+          f"per epoch; host-to-device copy of one chunk "
+          f"({chunk * n7 * 4 / 1e6:.1f} MB) {copy_ms:.3f} ms "
+          f"({chunk * n7 * 4 / copy_ms / 1e6:.2f} GB/s); KL objective "
+          f"{obj0:.6e} -> {obj1:.6e}", flush=True)
+    check(isinstance(res.x, np.ndarray) and obj1 < obj0, "host-array "
+          "streaming: x is not a host array or the objective did not fall")
+
+
+def dl_streaming_phase(dl, dev, card, reset_counts, read_counts, bcd_routes,
+                       grad_routes, dict_routes, chunk3=4096, iters=5,
+                       m=100_000, n=1024, k=128, chunk=16_384, miters=3):
+    """Phase 21: dictionary_learning.solve_streaming. Config 3 (bench.py's
+    data) in chunks of ``chunk3`` at lasso_tol 0 for ``iters`` outer
+    iterations, on the host-array path and in loader mode: one bcd_sweep
+    launch per outer iteration on the register route, d against the
+    in-core solve's; then masked DL at m x n, k atoms, 30% missing, chunks
+    of ``chunk``, ``miters`` outer iterations in loader mode (every
+    gradient on the packed routes, a falling objective) and one held-out
+    run."""
+    f32 = torch.float32
+    y_np, d0_np = config3_data()
+    cfg = dict(tol=0.0, maxiter=iters, lasso_iter=15, lasso_tol=0.0,
+               precision="high")
+    y, d0 = (torch.from_numpy(v).to(dev) for v in (y_np, d0_np))
+    dl.solve(y, d0, 0.05, **cfg)   # warm-up
+    core_ms, core = event_ms(lambda: dl.solve(y, d0, 0.05, **cfg))
+    m3, n3 = y.shape
+    runs = {"host-array": lambda: dl.solve_streaming(
+                y_np, d0_np, 0.05, chunk_rows=chunk3, **cfg),
+            "loader mode": lambda: dl.solve_streaming(
+                lambda lo, hi: y[lo:hi], d0, 0.05, chunk_rows=chunk3,
+                jit_loader=True, n_samples=m3, n_channels=n3, dtype=f32,
+                **cfg)}
+    for name, run in runs.items():
+        run()   # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        ms, res = event_ms(run)
+        launches = read_counts("bcd_sweep", iters)
+        routes = bcd_routes()
+        err = rel_fro(res.d, core.d)
+        unit = float((torch.linalg.vector_norm(res.d, dim=1) - 1).abs().max())
+        print(f"config 3 dictionary_learning.solve_streaming, {name}, "
+              f"{m3}x{n3}, {d0.shape[0]} atoms, chunks of {chunk3}, {iters} "
+              f"outer x 15 inner, lasso_tol 0, 'high' ({card}): "
+              f"{ms / iters:.3f} ms per outer iteration against "
+              f"{core_ms / iters:.3f} in-core; bcd_sweep launches "
+              f"{launches} (register, shared route {routes}); rel_fro d vs "
+              f"in-core {err:.3e} (limit {DL_STREAM_LIMIT:g}); max | ||d_k|| "
+              f"- 1 | {unit:.2e}", flush=True)
+        check(routes == (iters, 0), f"DL streaming {name}: bcd_sweep routes "
+              f"{routes}")
+        check(err <= DL_STREAM_LIMIT and unit <= UNIT_LIMIT,
+              f"DL streaming {name}: d disagrees with the in-core solve")
+    del y, core, res
+
+    alpha, inner = 0.05, 15
+    g = torch.Generator(device=dev).manual_seed(15)
+    d_true = torch.randn((k, n), generator=g, device=dev)
+    d_true /= torch.linalg.vector_norm(d_true, dim=1, keepdim=True)
+    xt = torch.randn((m, k), generator=g, device=dev) * (
+        torch.rand((m, k), generator=g, device=dev) < 0.1)
+    mask = (torch.rand((m, n), generator=g, device=dev) >= 0.3).float()
+    my = (xt @ d_true + 0.01 * torch.randn((m, n), generator=g, device=dev)
+          ) * mask
+    d0 = torch.randn((k, n), generator=g, device=dev)
+    del xt, d_true
+    n_chunks = -(-m // chunk)
+    kw = dict(mask=lambda lo, hi: mask[lo:hi], lasso_iter=inner,
+              lasso_tol=0.0, chunk_rows=chunk, jit_loader=True, n_samples=m,
+              n_channels=n, dtype=f32)
+    reset_counts()
+    ms, res = event_ms(lambda: dl.solve_streaming(
+        lambda lo, hi: my[lo:hi], d0, alpha, tol=0.0, maxiter=miters,
+        record_objective=True, **kw))
+    launches = read_counts({"masked_grad_dict": miters * n_chunks,
+                            "masked_grad_rows": miters * n_chunks * inner})
+    routes, d_routes = grad_routes(), dict_routes()
+    obj = res.objective
+    print(f"masked dictionary_learning.solve_streaming {m}x{n} K={k}, 30% "
+          f"missing, loader mode, chunks of {chunk}, {miters} outer x "
+          f"{inner} inner ({card}): {ms / miters:.3f} ms per outer "
+          f"iteration; objective {float(obj[0]):.6e} -> "
+          f"{float(obj[-1]):.6e}; launches masked_grad_dict "
+          f"{launches['masked_grad_dict']} (packed, dense route {d_routes}), "
+          f"masked_grad_rows {launches['masked_grad_rows']} (packed, dense "
+          f"route {routes})", flush=True)
+    check(routes == (miters * n_chunks * inner, 0)
+          and d_routes == (miters * n_chunks, 0), "masked DL streaming: a "
+          "gradient left the packed route")
+    check(bool(torch.isfinite(obj).all()) and float(obj[-1]) < float(obj[0]),
+          "masked DL streaming: the objective did not fall")
+    reset_counts()
+    ms, res = event_ms(lambda: dl.solve_streaming(
+        lambda lo, hi: my[lo:hi], d0, alpha, tol=1e-3, maxiter=12,
+        stop="heldout", check_every=3, **kw))
+    ho = float(res.aux["heldout_rel_err"])
+    read_counts({"masked_grad_dict": res.niter * n_chunks,
+                 "masked_grad_rows": res.niter * n_chunks * inner})
+    print(f"masked dictionary_learning.solve_streaming, stop='heldout', "
+          f"check_every 3 ({card}): {res.niter} outer iterations in "
+          f"{ms:.3f} ms, converged={res.converged}, held-out error "
+          f"{ho:.4e}", flush=True)
+    check(np.isfinite(ho) and bool(torch.isfinite(res.d).all()),
+          "masked DL streaming: held-out run not finite")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -2779,7 +3142,22 @@ def main():
     # solve_rows routes.
     checkpoint_phase(nmf, lasso, cuda_mu, cuda_lasso, dev, card, y2, a2,
                      reset_counts, read_counts)
-    phase("18 checkpointed solves", t_phase)
+    t_phase = phase("18 checkpointed solves", t_phase)
+
+    # Phase 19: config 5', out-of-core MU from a loader on the card.
+    config5_phase(nmf, nmf_mod, cuda_mu, dev, card, reset_counts,
+                  read_counts)
+    t_phase = phase("19 config 5' streaming", t_phase)
+
+    # Phase 20: masked completion and KL-MU streaming, and the host path.
+    streaming_masked_kl_phase(nmf, nmf_mod, cuda_mu, dev, card, reset_counts,
+                              read_counts, wall4)
+    t_phase = phase("20 masked and KL streaming", t_phase)
+
+    # Phase 21: dictionary-learning streaming.
+    dl_streaming_phase(dictionary_learning, dev, card, reset_counts,
+                       read_counts, bcd_routes, grad_routes, dict_routes)
+    phase("21 dictionary-learning streaming", t_phase)
 
     bounds = {"mu_stats_dense": dense_b,
               "mu_stats_masked": stats_bound("mu_stats_masked", m4, n4, k4,

@@ -16,7 +16,11 @@ Hopper (``sm_90a``) on first use. Ported so far:
   minibatch, masked or not, held-out stopping, native complex), whose
   dictionary updates run in the hand-written kernels of ``ops.cuda_dl``;
 - chunked solves with atomic snapshots (``utils.checkpoint``), whose
-  snapshots pass between this package and ``decomp_tpu``.
+  snapshots pass between this package and ``decomp_tpu``;
+- out-of-core NMF, masked completion and dictionary learning
+  (``nmf.solve_streaming``, ``nmf.masked_completion_streaming``,
+  ``dictionary_learning.solve_streaming``), which stream row chunks of
+  host arrays or loaders through the card's kernels.
 An entry point runs on the card unless the caller asks for the CPU: a
 tensor stays on its device, and host arrays go to ``device=`` or, by
 default, the CUDA device (``utils.device``). ``decomp_tpu`` (JAX) stays the

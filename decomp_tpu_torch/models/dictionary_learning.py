@@ -21,10 +21,10 @@ inner iteration with a mask, the whole fixed-budget ``solve_rows`` without
 one. On a CPU tensor each wrapper runs its plain twin.
 
 Entry points run on the card unless the caller asks for the CPU
-(``utils.device``). Not ported, and refused with ``DecompError``:
-``solve_split`` (the split-complex machinery is not ported; complex data runs
-natively through ``solve``) and ``solve_streaming`` (ROADMAP Queue 1,
-``models/dl_streaming.py``).
+(``utils.device``). ``solve_streaming`` (``models.dl_streaming``) streams row
+chunks of host arrays or loaders through the device. Not ported, and refused
+with ``DecompError``: ``solve_split`` (the split-complex machinery is not
+ported; complex data runs natively through ``solve``).
 """
 
 from typing import Optional
@@ -450,9 +450,9 @@ def solve_split(*args, **kwargs):
                       "dictionary_learning.solve, which runs them natively")
 
 
-def solve_streaming(*args, **kwargs):
-    """Not ported yet: the out-of-core variant (``dl_streaming``)."""
-    raise DecompError("dictionary_learning.solve_streaming is not ported to "
-                      "decomp_tpu_torch yet (ROADMAP Queue 1, "
-                      "models/dl_streaming.py); use "
-                      "decomp_tpu")
+
+# The out-of-core variant reuses this module's dictionary updates, so it is
+# imported at its end.
+from decomp_tpu_torch.models.dl_streaming import (  # noqa: E402,F401
+    solve_streaming,
+)

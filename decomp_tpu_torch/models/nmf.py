@@ -28,8 +28,10 @@ Entry points run on the card unless the caller asks for the CPU: a tensor
 ``y`` stays on its device, host arrays go to ``device=`` or, by default,
 the CUDA device, and with no CUDA device and no ``device`` they raise
 (``utils.device``). The companions follow ``y``; a tensor on another device
-is refused, never moved. Not ported yet, and refused with ``DecompError``:
-``masked_completion(mesh=...)`` and ``solve_streaming``.
+is refused, never moved. Out of core, ``solve_streaming`` and
+``masked_completion_streaming`` (``models.nmf_streaming``) stream row chunks
+of host arrays or loaders through the device. Not ported yet, and refused
+with ``DecompError``: ``masked_completion(mesh=...)``.
 """
 
 from typing import Optional
@@ -616,11 +618,6 @@ def masked_completion(y, mask, rank=None, d=None, x=None, *, tol=1e-4,
     return res
 
 
-def solve_streaming(*args, **kwargs):
-    """Not ported yet: one H100 holds the config-5 matrix in-core."""
-    raise _not_ported("solve_streaming", "models/nmf_streaming.py")
-
-
 def _row_slices(m):
     return [slice(s, s + _CHUNK_ROWS) for s in range(0, m, _CHUNK_ROWS)]
 
@@ -794,3 +791,11 @@ def _init_factors(gen, y, d, x, rank, factor_dtype=None):
         x = scale * torch.rand((y.shape[0], rank), generator=gen, dtype=fdt,
                                device=y.device)
     return d, x
+
+
+# The out-of-core variants reuse this module's updates, so they are
+# imported at its end.
+from decomp_tpu_torch.models.nmf_streaming import (  # noqa: E402,F401
+    masked_completion_streaming,
+    solve_streaming,
+)

@@ -516,6 +516,13 @@ def pack_mask(mask):
         raise ShapeError(f"mask must be 2-D, got {tuple(mask.shape)}")
     if not bool(((mask == 0) | (mask == 1)).all()):
         return None
+    return pack_bits(mask)
+
+
+def pack_bits(mask):
+    """``pack_mask``'s bits without its 0/1 check and its host read, for a
+    2-D mask already known to hold only 0 and 1 (the streaming solves pack
+    a chunk's mask again each epoch)."""
     m, n = mask.shape
     w = packed_words(n)
     shifts = torch.arange(32, device=mask.device, dtype=torch.int64)

@@ -355,8 +355,6 @@ def test_port_refusals():
     y, _, d0 = _problem(19)
     with pytest.raises(texc.DecompError, match="Do not port"):
         tdl.solve_split((y, 0 * y), (d0, 0 * d0), ALPHA)
-    with pytest.raises(texc.DecompError, match="models/dl_streaming.py"):
-        tdl.solve_streaming(y, d0, ALPHA, chunk_rows=8)
     with pytest.raises(texc.DecompError, match="kernel_block_rows"):
         tdl.solve(_t(y), _t(d0), ALPHA, kernel_block_rows=16)
     y32, d32 = _t(y.astype(np.float32)), _t(d0.astype(np.float32))

@@ -374,13 +374,6 @@ def test_bad_data_raises_like_jax(y, exc):
     assert type(ej.value).__name__ == type(et.value).__name__ == exc
 
 
-@pytest.mark.parametrize("fn", ["solve_streaming"])
-def test_unported_entry_points_raise(fn):
-    y, _ = _bad_calls()
-    with pytest.raises(texc.DecompError, match="ROADMAP Queue 1"):
-        getattr(tnmf, fn)(_t(y), np.ones((6, 5)), rank=2)
-
-
 def test_factors_on_another_device_are_refused():
     y, d = _bad_calls()
     with pytest.raises(texc.DecompError, match="move it explicitly"):

@@ -185,6 +185,8 @@ def test_package_never_imports_jax():
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     code = ("import decomp_tpu_torch, decomp_tpu_torch.ops._build, sys; "
+            "import decomp_tpu_torch.models.nmf_streaming; "
+            "import decomp_tpu_torch.models.dl_streaming; "
             "assert 'jax' not in sys.modules, 'jax imported'")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
