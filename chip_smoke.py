@@ -220,7 +220,25 @@ for sm_90a (one nvcc per source, all at once), and then:
     against in-core); masked DL at 100,000 x 1,024, 128 atoms, 30%
     missing, chunks of 16,384, 3 outer iterations in loader mode (every
     ``masked_grad_rows`` and ``masked_grad_dict`` launch on the packed
-    route, a falling objective) and one ``stop='heldout'`` run.
+    route, a falling objective) and one ``stop='heldout'`` run;
+22. drives the sharded solves of ``decomp_tpu_torch.parallel``: (a) a
+    world of 1 over NCCL in this process (a ``FileStore`` in a temporary
+    directory, no network): ``parallel.nmf.solve`` at the main path's
+    1,048,576 x 10,112 from phase 4's start must give phase 4's x and d
+    bit for bit with 20 TMA launches, and ``masked_completion(mesh=)`` at
+    config 4 phase 6's stop and bits, each timed against its phase; (b)
+    a world of 2 over gloo on the one card (NCCL takes one rank per
+    device), spawned by ``parallel._spawn`` after the kernels are built
+    and phase 4's matrix is freed: each rank makes only its own rows from
+    a seed per row chunk, and dense MU at the main path's width, config
+    4, KL-MU dense and masked, config 2 on the whole-solve kernel, config
+    3 and masked DL are held against the in-core solve on the same data
+    (the limits ``SHARD_*``; config 2's rows bit for bit against a
+    one-process solve of them), with each rank's launches per route, d
+    the same bits on both ranks (``all_gather``), config 4's held-out
+    reserve against the global draw's, and the time per iteration or
+    solve a rank with the all-reduce's share (``torch.profiler``, and
+    each all-reduce timed alone). A ``{"sharded": [...]}`` line holds it.
 
 Each path runs with every launch count set to 0 just before it and read
 just after. It exits non-zero on any failure, without a CUDA device, and
@@ -2510,6 +2528,617 @@ def dl_streaming_phase(dl, dev, card, reset_counts, read_counts, bcd_routes,
           "masked DL streaming: held-out run not finite")
 
 
+
+# Phase 22: the sharded solves (decomp_tpu_torch.parallel). (b) runs two
+# ranks on the one card over gloo; each generates only its own rows, chunk
+# by chunk from a seed per chunk, so no rank holds the global matrix.
+# Against the in-core solve from the same start on the same data
+# (relative Frobenius): SHARD_LIMIT after 2 iterations of the fixed
+# budgets (MU, KL-MU, masked DL: each statistic sums the two ranks'
+# partials in another order, as PR 16's streamed chunks do; its limit),
+# SHARD_RUN_LIMIT after their 20 (measured on an H100 80GB HBM3 at 700 W:
+# x 7.4e-5 after 20 dense-MU iterations, where a one-ulp f32 difference
+# flips a bf16 rounding of x in the statistics and the flips add up; KL
+# and masked DL <= 7.6e-7); SHARD_DL_LIMIT for config 3's 60 outer
+# iterations, whose inner lasso stops on an all-reduced scalar that may
+# cross lasso_tol an iteration apart (measured 1.9e-6); config 4's
+# ~3,000 iterations stop where the held-out error's improvement per check
+# crosses tol, which sums in another order move by a few checks
+# (measured on the H100: 2,700 against 2,750 in core, d 1.4e-3 apart),
+# so its stop is held to 5% of the in-core iteration, its held-out error
+# to 5% of the in-core one and its factors to SHARD_C4_LIMIT.
+SHARD_LIMIT = 1e-5
+SHARD_RUN_LIMIT = 1e-3
+SHARD_DL_LIMIT = 1e-3
+SHARD_C4_LIMIT = 5e-2
+# name -> (rows, chunk rows) of the world-of-2 cases.
+SHARD_CASES = {"mu": (1 << 20, 65_536), "c4": (100_000, 10_000),
+               "kl": (100_000, 10_000), "lasso": (10_000, 1_000),
+               "dl3": (20_000, 2_000), "mdl": (100_000, 10_000)}
+
+
+def _chunked(make, seed, lo, hi, chunk, dev):
+    """Rows lo..hi of a matrix made chunk by chunk: chunk c is
+    ``make(generator, chunk)`` from a generator seeded with ``seed`` and
+    c, so that any rank makes its own rows alone (a chunk that its rows
+    only cut is made whole and cut)."""
+    out = None
+    for c in range(lo // chunk, -(-hi // chunk)):
+        g = torch.Generator(device=dev).manual_seed(seed * 100_003 + c)
+        part = make(g, chunk)
+        if out is None:
+            out = torch.empty((hi - lo,) + part.shape[1:], dtype=part.dtype,
+                              device=dev)
+        a, b = max(lo, c * chunk), min(hi, (c + 1) * chunk)
+        out[a - lo:b - lo] = part[a - c * chunk:b - c * chunk]
+    return out
+
+
+def _seeded(seed, dev):
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+def shard_data(case, lo, hi, dev):
+    """Rows lo..hi of the data of a world-of-2 case, and what every rank
+    shares (the dictionary, d0), as a dict of tensors on ``dev``."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    chunk = SHARD_CASES[case][1]
+
+    def rows(seed, make):
+        return _chunked(make, seed, lo, hi, chunk, dev)
+
+    if case == "mu":
+        n, k = 10_112, 128
+        return dict(
+            y=rows(21, lambda g, c: torch.rand((c, n), generator=g,
+                                               device=dev, dtype=bf16)),
+            x=rows(22, lambda g, c: 0.088 * torch.rand(
+                (c, k), generator=g, device=dev)),
+            d=0.088 * torch.rand((k, n), generator=_seeded(23, dev),
+                                 device=dev))
+    if case == "c4":
+        n, k = 1000, 50
+        dt = torch.rand((k, n), generator=_seeded(42, dev), device=dev)
+
+        def planted(g, c):
+            y = torch.rand((c, k), generator=g, device=dev) @ dt
+            return y * (torch.rand((c, n), generator=g, device=dev) >= 0.3)
+
+        def mask(g, c):
+            torch.rand((c, k), generator=g, device=dev)
+            return (torch.rand((c, n), generator=g, device=dev)
+                    >= 0.3).float()
+
+        return dict(y=rows(41, planted), mask=rows(41, mask),
+                    x=rows(44, lambda g, c: 0.7 * torch.rand(
+                        (c, k), generator=g, device=dev)),
+                    d=0.7 * torch.rand((k, n), generator=_seeded(45, dev),
+                                       device=dev))
+    if case == "kl":
+        n, k = 1024, 128
+        return dict(
+            y=rows(51, lambda g, c: torch.rand((c, n), generator=g,
+                                               device=dev)),
+            mask=rows(52, lambda g, c: (torch.rand(
+                (c, n), generator=g, device=dev) >= 0.3).float()),
+            x=rows(53, lambda g, c: 0.088 * torch.rand(
+                (c, k), generator=g, device=dev)),
+            d=0.088 * torch.rand((k, n), generator=_seeded(54, dev),
+                                 device=dev))
+    if case == "lasso":
+        f, n = 512, 256
+        a = torch.randn((f, n), generator=_seeded(61, dev), device=dev)
+
+        def planted(g, c):
+            xt = torch.randn((c, f), generator=g, device=dev) * (
+                torch.rand((c, f), generator=g, device=dev) < 0.05)
+            return xt @ a + 0.01 * torch.randn((c, n), generator=g,
+                                               device=dev)
+
+        return dict(y=rows(62, planted), a=a)
+    if case == "dl3":
+        k, n = 256, 64
+        dt = torch.randn((k, n), generator=_seeded(71, dev), device=dev)
+        dt /= torch.linalg.vector_norm(dt, dim=1, keepdim=True)
+
+        def planted(g, c):
+            xs = torch.randn((c, k), generator=g, device=dev) * (
+                torch.rand((c, k), generator=g, device=dev) < 0.1)
+            return xs @ dt + 0.01 * torch.randn((c, n), generator=g,
+                                                device=dev)
+
+        return dict(y=rows(72, planted),
+                    d=torch.randn((k, n), generator=_seeded(73, dev),
+                                  device=dev))
+    n, k = 1024, 128   # "mdl"
+    dt = torch.randn((k, n), generator=_seeded(81, dev), device=dev)
+    dt /= torch.linalg.vector_norm(dt, dim=1, keepdim=True)
+
+    def masked(g, c, want_mask=False):
+        xt = torch.randn((c, k), generator=g, device=dev) * (
+            torch.rand((c, k), generator=g, device=dev) < 0.1)
+        noise = 0.01 * torch.randn((c, n), generator=g, device=dev)
+        mask = (torch.rand((c, n), generator=g, device=dev) >= 0.3).float()
+        return mask if want_mask else (xt @ dt + noise) * mask
+
+    return dict(y=rows(82, masked),
+                mask=rows(82, lambda g, c: masked(g, c, True)),
+                d=torch.randn((k, n), generator=_seeded(83, dev), device=dev))
+
+
+def shard_solve(case, data, **kw):
+    """The case's solve on ``data``: in core, or sharded with ``mesh=``
+    (parallel.*). Returns the result, or for 'kl' the dense and masked
+    results."""
+    from decomp_tpu_torch import dictionary_learning, lasso, nmf, parallel
+    from decomp_tpu_torch.models import nmf as nmf_mod
+
+    mesh = kw.get("mesh")
+    f32 = torch.float32
+    if case == "mu":
+        fn = nmf.solve if mesh is None else parallel.nmf.solve
+        return fn(data["y"], data["d"], x=data["x"], eps=EPS,
+                  precision="default", factor_dtype=f32,
+                  **{"tol": 0.0, "maxiter": 20, **kw})
+    if case == "c4":
+        return nmf_mod.masked_completion(
+            data["y"], data["mask"], d=data["d"], x=data["x"], rank=50,
+            random_seed=4, **{"tol": 1e-4, "maxiter": 4000, **kw})
+    if case == "kl":
+        fn = nmf.solve if mesh is None else parallel.nmf.solve
+        return [fn(data["y"], data["d"], x=data["x"], mask=mk,
+                   method="kl-mu", eps=EPS,
+                   **{"tol": 0.0, "maxiter": 20, **kw})
+                for mk in (None, data["mask"])]
+    if case == "lasso":
+        fn = lasso.solve if mesh is None else parallel.lasso.solve
+        return fn(data["y"], data["a"], 0.1, method="acc_ista",
+                  per_problem=True, precision="high",
+                  **{"tol": 1e-4, "maxiter": 4000, **kw})
+    fn = (dictionary_learning.solve if mesh is None
+          else parallel.dictionary_learning.solve)
+    if case == "dl3":
+        return fn(data["y"], data["d"], 0.05, precision="high",
+                  **{"tol": 1e-5, "maxiter": 60, "lasso_iter": 15, **kw})
+    return fn(data["y"], data["d"], 0.05, mask=data["mask"], lasso_iter=15,
+              lasso_tol=0.0, **{"tol": 0.0, "maxiter": 20, **kw})
+
+
+def _shard_counts():
+    """The launch counters phase 22 reads, by name."""
+    from decomp_tpu_torch.ops import cuda_dl, cuda_lasso, cuda_mu
+
+    return {"mu_stats_dense.tma": (cuda_mu.mu_stats_dense, "tma_launches"),
+            "mu_stats_masked.packed": (cuda_mu.mu_stats_masked,
+                                       "packed_launches"),
+            "mu_stats_masked.dense": (cuda_mu.mu_stats_masked,
+                                      "dense_launches"),
+            "kl_stats_dense.packed": (cuda_mu.kl_stats_dense,
+                                      "packed_launches"),
+            "kl_stats_masked.packed": (cuda_mu.kl_stats_masked,
+                                       "packed_launches"),
+            "solve_rows.tma": (cuda_lasso.solve_rows, "tma_launches"),
+            "masked_grad_rows.packed": (cuda_lasso.masked_grad_rows,
+                                        "packed_launches"),
+            "bcd_sweep.register": (cuda_dl.bcd_sweep, "register_launches"),
+            "masked_grad_dict.packed": (cuda_dl.masked_grad_dict,
+                                        "packed_launches")}
+
+
+def shard_read(reset=False):
+    """The nonzero launch counts (after setting them all to 0 if
+    ``reset``)."""
+    out = {}
+    for name, (w, attr) in _shard_counts().items():
+        if reset:
+            setattr(w, attr, 0)
+            w.launches = 0
+        elif getattr(w, attr):
+            out[name] = getattr(w, attr)
+    return out
+
+
+def _digest(val, row0):
+    """A digest of a 0/1 held-out block: its count and the sum of its
+    entries' global linear indices."""
+    r, c = torch.nonzero(val, as_tuple=True)
+    return (int(r.numel()),
+            int(((r + row0).to(torch.int64) * val.shape[1] + c).sum()))
+
+
+def shard_expect(case, res):
+    """The launch counts a case's run must show."""
+    if case == "mu":
+        return {"mu_stats_dense.tma": 20}
+    if case == "c4":
+        return {"mu_stats_masked.packed": res.niter}
+    if case == "kl":
+        return {"kl_stats_dense.packed": 20, "kl_stats_masked.packed": 20}
+    if case == "lasso":
+        return {"solve_rows.tma": 1}
+    if case == "dl3":
+        return {"bcd_sweep.register": res.niter}
+    return {"masked_grad_dict.packed": res.niter,
+            "masked_grad_rows.packed": 15 * res.niter}
+
+
+def _profile_run(fn):
+    """(wall ms, device busy ms, all-reduce host ms) of one call of ``fn``
+    under ``torch.profiler`` with host and device activity; the
+    all-reduce's time is that of the ``*all_reduce*`` host ops (gloo's
+    copies the data through the host and waits for it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ka = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in ka
+               if str(e.device_type).endswith("CUDA")) / 1e3
+    reduce_ms = sum(e.cpu_time_total for e in ka
+                    if "all_reduce" in e.key.lower()
+                    and not str(e.device_type).endswith("CUDA")) / 1e3
+    dev_reduce = sum(e.self_device_time_total for e in ka
+                     if str(e.device_type).endswith("CUDA")
+                     and "allreduce" in e.key.lower()) / 1e3
+    return wall, busy, reduce_ms, dev_reduce
+
+
+def shard_rank(rank, n, case, tmp):
+    """One rank of a world-of-2 case: its rows of the data, the sharded
+    solve timed and profiled, its launches, and its factors against the
+    in-core reference that the parent saved in ``tmp``."""
+    from decomp_tpu_torch import parallel
+    from decomp_tpu_torch.models import nmf as nmf_mod
+    from decomp_tpu_torch.parallel import _spawn
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rows = SHARD_CASES[case][0]
+    lo, hi = rank * rows // n, (rank + 1) * rows // n
+    data = shard_data(case, lo, hi, dev)
+    mesh = parallel.make_mesh((n,), ("rows",))
+    ref = torch.load(os.path.join(tmp, f"{case}.pt"))
+    out = {"rank": rank, "rows": hi - lo}
+    if case == "c4":
+        val = nmf_mod._heldout_block(data["mask"].to(torch.bfloat16), 0.05,
+                                     4, (rows, data["y"].shape[1]), lo)
+        out["reserve"] = _digest(val, lo)
+        del val
+    short = {"mu": 20, "c4": 200, "kl": 20, "lasso": None, "dl3": 10,
+             "mdl": 5}[case]
+    # The warm-up; for the fixed budgets (MU, KL-MU, masked DL) also the
+    # 2-iteration run held to SHARD_LIMIT, as PR 16's streamed runs are.
+    first = shard_solve(case, data, mesh=mesh,
+                        **({} if case == "lasso" else {"maxiter": 2}))
+    torch.cuda.synchronize()
+    if "results2" in ref:
+        out["errs2"] = []
+        for r, rr in zip(first if isinstance(first, list) else [first],
+                         ref["results2"]):
+            out["errs2"] += [("d", rel_fro(r.d, rr["d"].to(dev))),
+                             ("x", rel_fro(r.x, rr["x"][lo:hi].to(dev)))]
+    del first
+    shard_read(reset=True)
+    t0 = time.perf_counter()
+    res = shard_solve(case, data, mesh=mesh)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    out["launches"] = shard_read()
+    res_all = res if isinstance(res, list) else [res]
+    out["niter"] = [r.niter if isinstance(r.niter, int)
+                    else int(r.niter.max()) for r in res_all]
+    out["expect"] = shard_expect(case, res if case != "kl" else None)
+    out["ms"] = wall / (1 if case == "lasso" else sum(out["niter"]))
+    errs = []
+    for r, rr in zip(res_all, ref["results"]):
+        if "d" in rr:
+            errs.append(("d", rel_fro(r.d, rr["d"].to(dev))))
+            out.setdefault("d_same", []).append(
+                _spawn.same_on_all_ranks(r.d))
+        errs.append(("x", rel_fro(r.x, rr["x"][lo:hi].to(dev))))
+        if case == "lasso":
+            alone = shard_solve(case, data)
+            out["x_bits_equal_own_rows"] = bool(torch.equal(r.x, alone.x))
+            out["x_bits_equal_full"] = bool(torch.equal(
+                r.x, rr["x"][lo:hi].to(dev)))
+            out["niter_equal"] = float(
+                (r.niter.cpu() == rr["niter"][lo:hi]).float().mean())
+        if r.aux:
+            out["heldout"] = float(r.aux["heldout_rel_err"])
+    out["errs"] = errs
+    out["converged"] = [bool(r.converged) if isinstance(r.converged, bool)
+                        else bool(r.converged.all()) for r in res_all]
+    prof_kw = {} if short is None else {"maxiter": short}
+    if case == "c4":
+        prof_kw["tol"] = 0.0
+    wall_p, busy, reduce_ms, _ = _profile_run(
+        lambda: shard_solve(case, data, mesh=mesh, **prof_kw))
+    out["profile"] = {"iters": short, "wall_ms": wall_p, "busy_ms": busy,
+                      "all_reduce_ms": reduce_ms}
+    out["reductions"] = _timed_reductions(
+        lambda: shard_solve(case, data, mesh=mesh, **prof_kw))
+    return out
+
+
+def _timed_reductions(fn):
+    """One call of ``fn`` with every all-reduce of the solvers timed alone
+    (the device synchronised before and after each): (wall ms, all-reduce
+    ms, all-reduces). The profiler's all-reduce host time also holds the
+    wait for the kernel that made the statistic."""
+    from decomp_tpu_torch.parallel import mesh as pmesh
+
+    plain, spent = pmesh.reducer, [0.0, 0]
+
+    def timed(mesh, axis):
+        red = plain(mesh, axis)
+
+        def reduce(t):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t = red(t)
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t0
+            spent[1] += 1
+            return t
+
+        return reduce
+
+    pmesh.reducer = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        pmesh.reducer = plain
+    return {"wall_ms": wall * 1e3, "all_reduce_ms": spent[0] * 1e3,
+            "all_reduces": spent[1], "share": spent[0] / wall}
+
+
+def _rank_ready(rank, n):
+    return torch.cuda.current_device()
+
+
+def sharded_phase(nmf_mod, cuda_mu, dev, card, reset_counts, read_counts,
+                  main4, phase6):
+    """Phase 22: the sharded solves. (a) a world of 1 over NCCL in this
+    process: ``parallel.nmf.solve`` at the main path's width from phase 4's
+    start must give phase 4's bits, with one TMA launch per iteration, and
+    ``masked_completion(mesh=)`` at config 4 phase 6's stop and bits; (b) a
+    world of 2 over gloo on the one card (NCCL takes one rank per device):
+    each case against the in-core solve on the same data, the launches and
+    routes per rank, d the same bits on both ranks, and the time per
+    iteration or solve with the all-reduce's share from ``torch.profiler``.
+    Returns the JSON summary's entries."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from decomp_tpu_torch import parallel
+    from decomp_tpu_torch.parallel import _spawn
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    report = []
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) a world of 1 over NCCL: the reduction is a copy.
+        dist.init_process_group("nccl", store=dist.FileStore(
+            os.path.join(tmp, "nccl"), 1), rank=0, world_size=1)
+        try:
+            mesh = parallel.make_mesh((1,), ("rows",))
+            m, n, k, iters = 1 << 20, 10112, 128, 20
+            g = torch.Generator(device=dev).manual_seed(0)
+            y = torch.rand((m, n), generator=g, device=dev, dtype=bf16)
+            d0, x0 = nmf_mod._init_factors(
+                torch.Generator(device=dev).manual_seed(0), y, None, None, k,
+                f32)
+            kw = dict(tol=0.0, eps=EPS, precision="default", factor_dtype=f32,
+                      mesh=mesh)
+            parallel.nmf.solve(y, d0, x=x0, maxiter=2, **kw)   # warm-up
+            torch.cuda.synchronize()
+            reset_counts()
+            ms, res = event_ms(lambda: parallel.nmf.solve(
+                y, d0, x=x0, maxiter=iters, **kw))
+            launches = read_counts("mu_stats_dense", iters)
+            tma = cuda_mu.mu_stats_dense.tma_launches
+            check(tma == iters, f"phase 22a: {tma} of {iters} launches on "
+                  "the TMA route")
+            same = (torch.equal(res.x, main4[0]), torch.equal(res.d, main4[1]))
+            check(all(same), f"phase 22a: a world of 1 did not give phase "
+                  f"4's bits (x, d equal: {same})")
+            wall, busy, _, nccl_ms = _profile_run(lambda: parallel.nmf.solve(
+                y, d0, x=x0, maxiter=iters, **kw))
+            print(f"phase 22a: parallel.nmf.solve, a world of 1 over NCCL, "
+                  f"{m}x{n} bf16 rank {k} f32 factors, {iters} iterations "
+                  f"from phase 4's start: x and d equal phase 4's bit for "
+                  f"bit; {ms / iters:.3f} ms per iteration against phase "
+                  f"4's {main4[2]:.3f} ({card}); mu_stats_dense launches "
+                  f"{launches} (TMA route {tma}); profiled: wall "
+                  f"{wall:.1f} ms, device busy {busy:.1f} ms, of which NCCL "
+                  f"all-reduce kernels {nccl_ms:.3f} ms", flush=True)
+            report.append({"case": "main path, world of 1 (NCCL)",
+                           "ms_per_iter": ms / iters,
+                           "phase4_ms_per_iter": main4[2],
+                           "bits_equal_phase4": True,
+                           "launches": {"mu_stats_dense.tma": tma},
+                           "nccl_all_reduce_ms": nccl_ms,
+                           "busy_ms": busy, "wall_ms": wall})
+            del y, d0, x0, res
+            # Config 4 from phase 6's start: its held-out reserve, its
+            # training mask, its init.
+            m4, n4, k4 = 100_000, 1000, 50
+            g = torch.Generator(device=dev).manual_seed(3)
+            y4 = (torch.rand((m4, k4), generator=g, device=dev)
+                  @ torch.rand((k4, n4), generator=g, device=dev))
+            mask4 = (torch.rand((m4, n4), generator=g, device=dev)
+                     >= 0.3).float()
+            ym4 = y4 * mask4
+            del y4
+            yb, mb = ym4.to(bf16), mask4.to(bf16)
+            val = nmf_mod._heldout_reserve(mb, 0.05, 4)
+            d0, x0 = nmf_mod._init_factors(
+                torch.Generator(device=dev).manual_seed(4), (mb - val) * yb,
+                None, None, k4, f32)
+            del yb, mb, val
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            res = nmf_mod.masked_completion(
+                ym4, mask4, d=d0, x=x0, rank=k4, tol=1e-4, maxiter=4000,
+                random_seed=4, mesh=mesh)
+            torch.cuda.synchronize()
+            wall4 = time.perf_counter() - t0
+            launches4 = read_counts("mu_stats_masked", res.niter)
+            packed = cuda_mu.mu_stats_masked.packed_launches
+            check(packed == res.niter, f"phase 22a config 4: {packed} of "
+                  f"{res.niter} launches packed")
+            same = (res.niter == phase6[0], torch.equal(res.x, phase6[1]),
+                    torch.equal(res.d, phase6[2]))
+            check(all(same), f"phase 22a config 4: not phase 6's stop and "
+                  f"bits (niter, x, d equal: {same}; niter {res.niter} "
+                  f"against {phase6[0]})")
+            print(f"phase 22a: masked_completion(mesh=) at config 4, a "
+                  f"world of 1: stopped on phase 6's iteration "
+                  f"{res.niter} with phase 6's bits, in {wall4:.3f} s "
+                  f"against phase 6's {phase6[3]:.3f} s ({card}); "
+                  f"mu_stats_masked launches {launches4}, all packed",
+                  flush=True)
+            report.append({"case": "config 4 masked_completion(mesh=), "
+                           "world of 1 (NCCL)", "niter": res.niter,
+                           "s": wall4, "phase6_s": phase6[3],
+                           "bits_equal_phase6": True,
+                           "launches": {"mu_stats_masked.packed": packed}})
+            del res, ym4, mask4, d0, x0
+        finally:
+            dist.destroy_process_group()
+
+        # (b) a world of 2 on the one card over gloo. The references first,
+        # in core on the global data; then the data is freed, so that the
+        # two ranks' halves and partials fit.
+        for case in SHARD_CASES:
+            shard_reference(case, 2, dev, tmp)
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        t0 = time.perf_counter()
+        with _spawn.World(2, tmp, backend="gloo", device=dev.index,
+                          timeout=120) as world:
+            check(world.run(_rank_ready) == [dev.index] * 2, "phase 22b: "
+                  "the ranks are not on the card")
+            spawn_s = time.perf_counter() - t0
+            failures = []
+            for case in SHARD_CASES:
+                outs = world.run(shard_rank, case, tmp)
+                ref = torch.load(os.path.join(tmp, f"{case}.pt"))
+                limit = shard_limit(case)
+                failures += shard_failures(case, outs, ref, limit)
+                entry = {"case": case, "world": 2, "backend": "gloo",
+                         "rows_per_rank": outs[0]["rows"], "limit": limit,
+                         "limit_2_iterations": SHARD_LIMIT,
+                         "in_core_niter": ref["niter"],
+                         "ranks": [{k_: o[k_] for k_ in o if k_ != "expect"}
+                                   for o in outs]}
+                report.append(entry)
+                print(f"phase 22b {case}: " + json.dumps(entry), flush=True)
+        print(f"phase 22b: two gloo ranks spawned and joined in "
+              f"{spawn_s:.1f} s "
+              f"({card})", flush=True)
+        check(not failures, "phase 22b: " + "; ".join(failures))
+    return report
+
+
+def shard_reference(case, n, dev, tmp):
+    """The in-core solve of a world-of-n case on the whole data, saved in
+    ``tmp`` for the ranks: the factors (and after 2 iterations for the
+    fixed budgets), niter, and for config 4 the held-out error and the
+    digests of the n ranks' blocks of the reserve. Returns the solve's
+    wall seconds (synchronised). The data is freed after it."""
+    from decomp_tpu_torch.models import nmf as nmf_mod
+
+    rows = SHARD_CASES[case][0]
+    data = shard_data(case, 0, rows, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = shard_solve(case, data)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res = res if isinstance(res, list) else [res]
+    results = []
+    for r in res:
+        keep = {"x": r.x.cpu()}
+        if hasattr(r, "d"):
+            keep["d"] = r.d.cpu()
+        if case == "lasso":
+            keep["niter"] = r.niter.cpu()
+        results.append(keep)
+    saved = {"results": results,
+             "niter": [r.niter if isinstance(r.niter, int)
+                       else int(r.niter.max()) for r in res]}
+    if case in ("mu", "kl", "mdl"):
+        res2 = shard_solve(case, data, maxiter=2)
+        saved["results2"] = [{"x": r.x.cpu(), "d": r.d.cpu()}
+                             for r in (res2 if isinstance(res2, list)
+                                       else [res2])]
+        del res2
+    if case == "c4":
+        saved["heldout"] = float(res[0].aux["heldout_rel_err"])
+        val = nmf_mod._heldout_reserve(data["mask"].to(torch.bfloat16), 0.05,
+                                       4)
+        saved["reserve"] = [_digest(val[r * rows // n:(r + 1) * rows // n],
+                                    r * rows // n) for r in range(n)]
+        del val
+    torch.save(saved, os.path.join(tmp, f"{case}.pt"))
+    del data, res
+    torch.cuda.empty_cache()
+    return wall
+
+
+def shard_limit(case):
+    """The limit a case's factors are held to against the in-core solve
+    (see SHARD_LIMIT)."""
+    return {"dl3": SHARD_DL_LIMIT, "c4": SHARD_C4_LIMIT,
+            "lasso": C2_X_LIMIT}.get(case, SHARD_RUN_LIMIT)
+
+
+def shard_failures(case, outs, ref, limit):
+    """What phase 22b's case ``case`` got wrong, as messages; each rank's
+    profile gains its all-reduce share."""
+    bad = []
+    for o in outs:
+        who = f"{case} rank {o['rank']}"
+        o["profile"]["all_reduce_share"] = (o["profile"]["all_reduce_ms"]
+                                            / o["profile"]["wall_ms"])
+        if o["launches"] != o["expect"]:
+            bad.append(f"{who}: launches {o['launches']}, expected "
+                       f"{o['expect']}")
+        if not all(o.get("d_same", [True])):
+            bad.append(f"{who}: d differs between the ranks")
+        over = [(w, e) for w, e in o["errs"] if not e <= limit]
+        over += [(w + " (2 iterations)", e) for w, e in o.get("errs2", [])
+                 if not e <= SHARD_LIMIT]
+        if over:
+            bad.append(f"{who}: {over} beyond the limit")
+        if case == "c4":
+            if o["reserve"] != ref["reserve"][o["rank"]]:
+                bad.append(f"{who}: the held-out reserve is not the global "
+                           "draw's")
+            if abs(o["niter"][0] - ref["niter"][0]) > 0.05 * ref["niter"][0]:
+                bad.append(f"{who}: stopped at {o['niter'][0]}, in core at "
+                           f"{ref['niter'][0]}")
+            if not (o["heldout"] < 5e-2 and abs(o["heldout"] - ref["heldout"])
+                    <= 0.05 * ref["heldout"]):
+                bad.append(f"{who}: held-out error {o['heldout']} (in core "
+                           f"{ref['heldout']})")
+        if case == "lasso" and not o["x_bits_equal_own_rows"]:
+            bad.append(f"{who}: x is not the bits of a one-process solve of "
+                       "its rows")
+        if case in ("mu", "kl", "mdl") and o["niter"] != ref["niter"]:
+            bad.append(f"{who}: niter {o['niter']}")
+    return bad
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -2801,6 +3430,8 @@ def main():
           f"reconstruction error "
           f"{err0:.4f} -> {err1:.4f}; peak device memory {peak_gb:.1f} GB",
           flush=True)
+    # Phase 22 holds a world of 1 to these bits.
+    main4 = (res.x, res.d, solve_s * 1e3 / iters)
     del res, y, ys
     t_phase = phase("4 dense main path", t_phase)
 
@@ -2873,6 +3504,7 @@ def main():
     for name, t in (("x", res.x), ("d", res.d)):
         check(bool(torch.isfinite(t).all()), f"{name} has non-finite values")
         check(bool((t >= 0).all()), f"{name} has negative values")
+    phase6 = (res.niter, res.x, res.d, wall4)   # phase 22's reference
     del res, y4, ym4, miss
     t_phase = phase("6 masked completion", t_phase)
 
@@ -3157,7 +3789,14 @@ def main():
     # Phase 21: dictionary-learning streaming.
     dl_streaming_phase(dictionary_learning, dev, card, reset_counts,
                        read_counts, bcd_routes, grad_routes, dict_routes)
-    phase("21 dictionary-learning streaming", t_phase)
+    t_phase = phase("21 dictionary-learning streaming", t_phase)
+
+    # Phase 22: the sharded solves, a world of 1 over NCCL and a world of 2
+    # over gloo on the card.
+    sharded = sharded_phase(nmf_mod, cuda_mu, dev, card, reset_counts,
+                            read_counts, main4, phase6)
+    del main4, phase6
+    phase("22 sharded solves", t_phase)
 
     bounds = {"mu_stats_dense": dense_b,
               "mu_stats_masked": stats_bound("mu_stats_masked", m4, n4, k4,
@@ -3211,6 +3850,7 @@ def main():
             # No one PyTorch call computes any of these functions.
             "library_ms": None,
         })
+    print(json.dumps({"sharded": sharded}))
     print(card, flush=True)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

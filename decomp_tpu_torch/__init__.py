@@ -20,18 +20,25 @@ Hopper (``sm_90a``) on first use. Ported so far:
 - out-of-core NMF, masked completion and dictionary learning
   (``nmf.solve_streaming``, ``nmf.masked_completion_streaming``,
   ``dictionary_learning.solve_streaming``), which stream row chunks of
-  host arrays or loaders through the card's kernels.
+  host arrays or loaders through the card's kernels;
+- the in-core sharded solvers (``parallel``: ``nmf.solve``, ``lasso.solve``
+  and ``dictionary_learning.solve`` over a ``torch.distributed`` device
+  mesh, one process per rank, and ``nmf.masked_completion(mesh=...)``),
+  which run those kernels on each rank's block and all-reduce the
+  statistics.
 An entry point runs on the card unless the caller asks for the CPU: a
 tensor stays on its device, and host arrays go to ``device=`` or, by
 default, the CUDA device (``utils.device``). ``decomp_tpu`` (JAX) stays the
 reference the port is tested against; this package never imports JAX.
 """
 
+from decomp_tpu_torch import parallel
 from decomp_tpu_torch.models import dictionary_learning, lasso, nmf
 from decomp_tpu_torch.utils.result import (DictionaryLearningResult,
                                            LassoResult, NMFResult)
 
 __version__ = "0.1.0"
 
-__all__ = ["dictionary_learning", "lasso", "nmf", "DictionaryLearningResult",
+__all__ = ["dictionary_learning", "lasso", "nmf", "parallel",
+           "DictionaryLearningResult",
            "LassoResult", "NMFResult"]

@@ -289,7 +289,7 @@ def _bcd_mode(override, use_kernel, y, n_atoms, n_channels, masked=False):
 def _solve(y, d, x, mask, val, alpha, *, tol, lasso_tol, forget, maxiter,
            lasso_method, lasso_iter, minibatch, record_objective,
            kernel=None, auto=False, hi_lo=False, block_rows=None,
-           bcd_kernel=False, random_seed=0, batch_idx=None):
+           bcd_kernel=False, random_seed=0, batch_idx=None, reduce_sum=None):
     """The alternation, after ``solve``'s checks. ``val``: the held-out
     validation set (0/1, inside ``mask``) under stop='heldout', else None;
     ``solve`` draws it with ``nmf._heldout_reserve``, and a parity test may
@@ -298,7 +298,15 @@ def _solve(y, d, x, mask, val, alpha, *, tol, lasso_tol, forget, maxiter,
     ``lasso._auto_takes_masked`` once the mask is known to pack.
     ``batch_idx``: the minibatch rows of each outer iteration, (maxiter,
     minibatch), instead of the seeded draws (a parity test passes
-    ``decomp_tpu``'s)."""
+    ``decomp_tpu``'s).
+
+    ``reduce_sum``: a row-sharded solve (``parallel.dictionary_learning``,
+    full batch) runs this on its rows with the sum over its ranks, which
+    codes each rank's rows through ``lasso.build_solver(reduce_sum=)``,
+    sums the dictionary's statistics (A and B, or the masked gradient and
+    x^H x) and every cross-row scalar; d, made from the summed statistics,
+    is then the same on every rank. None: the identity."""
+    red = _nmf._identity if reduce_sum is None else reduce_sum
     rdt = real_dtype(y.dtype)
     tiny = torch.finfo(rdt).tiny
     d = l2_normalize(d, axis=1)
@@ -307,14 +315,14 @@ def _solve(y, d, x, mask, val, alpha, *, tol, lasso_tol, forget, maxiter,
                         device=y.device)
     hd = None
     if val is not None:
-        mask, hd = _nmf._heldout_split(y, mask, val)
+        mask, hd = _nmf._heldout_split(y, mask, val, red)
     my = y if mask is None else mask * y
     kernel_mask = None
     if kernel == "masked":
         # The masked kernels' mask, packed once per solve (the training
         # mask under stop='heldout'): the inner gradient's and the
         # dictionary gradient's.
-        kernel_mask = _lasso._kernel_mask(mask, y, auto)
+        kernel_mask = _lasso._kernel_mask(mask, y, auto, reduce_sum)
         if kernel_mask is None:
             kernel = None
 
@@ -335,13 +343,13 @@ def _solve(y, d, x, mask, val, alpha, *, tol, lasso_tol, forget, maxiter,
                 y_, d_, alpha, x_, mask_, None, lasso_tol,
                 method=lasso_method, maxiter=lasso_iter,
                 record_objective=False, use_kernel=kernel == "masked",
-                kernel_mask=kernel_mask).x
+                kernel_mask=kernel_mask, reduce_sum=reduce_sum).x
 
     def objective(state):
         recon = state[0] @ state[1]
         resid = (my - recon) if mask is None else (my - mask * recon)
-        return (0.5 * torch.sum(_lasso._abs2(resid))
-                + torch.sum(alpha * torch.abs(state[0])))
+        return (0.5 * red(torch.sum(_lasso._abs2(resid)))
+                + red(torch.sum(alpha * torch.abs(state[0]))))
 
     def diff_fn(old, new):
         return l2_norm(new[1] - old[1]) / torch.clamp(l2_norm(old[1]),
@@ -351,19 +359,22 @@ def _solve(y, d, x, mask, val, alpha, *, tol, lasso_tol, forget, maxiter,
     if hd is not None:
         # diff is the validation error's relative improvement; it goes
         # negative when the error rises, and the loop stops then.
-        val_sqerr, diff_fn = _nmf._heldout_machinery(hd, y.dtype)
+        val_sqerr, diff_fn = _nmf._heldout_machinery(hd, y.dtype, red)
 
     if minibatch is None:
         if mask is None:
             def update_d(x_, d_):
                 xh = x_.conj().T
-                return _bcd_dict_update(xh @ x_, xh @ my, d_, bcd_kernel)
+                return _bcd_dict_update(red(xh @ x_), red(xh @ my), d_,
+                                        bcd_kernel)
         else:
             def update_d(x_, d_):
                 if kernel == "masked":
                     return _masked_grad_dict_update(my, x_, d_, kernel_mask,
-                                                    use_kernel=True)
-                return _masked_grad_dict_update(my, x_, d_, mask)
+                                                    use_kernel=True,
+                                                    reduce_sum=red)
+                return _masked_grad_dict_update(my, x_, d_, mask,
+                                                reduce_sum=red)
 
         def step(state, it):
             x_ = sparse_code(y, state[1], state[0], mask)
@@ -425,20 +436,24 @@ def _bcd_dict_update(stats_a, stats_b, d, use_kernel=False):
     return cuda_dl.bcd_sweep_plain(stats_a, stats_b, d)
 
 
-def _masked_grad_dict_update(my, x, d, mask, use_kernel=False):
+def _masked_grad_dict_update(my, x, d, mask, use_kernel=False,
+                             reduce_sum=_nmf._identity):
     """Projected-gradient dictionary step for the masked loss, then unit-norm
     renormalisation. Step 1/lambda_max(x^H x), a Lipschitz bound that stays
     valid under masking (masking only shrinks the curvature). With
     ``use_kernel`` the gradient x^H (mask * (x d) - my) is one
     ``cuda_dl.masked_grad_dict`` call, and ``mask`` may be the bits of a
-    0/1 mask (``lasso._kernel_mask``'s answer), which it routes on."""
+    0/1 mask (``lasso._kernel_mask``'s answer), which it routes on.
+    ``reduce_sum``: a row-sharded solve sums x^H x and the gradient over
+    its ranks."""
     rdt = real_dtype(d.dtype)
-    gram = x.conj().T @ x
+    gram = reduce_sum(x.conj().T @ x)
     lip = torch.clamp(spectral_norm_psd(gram), min=torch.finfo(rdt).tiny)
     if use_kernel:
-        grad = cuda_dl.masked_grad_dict(my, mask, x, d).to(d.dtype)
+        grad = reduce_sum(cuda_dl.masked_grad_dict(my, mask, x, d)).to(
+            d.dtype)
     else:
-        grad = x.conj().T @ (mask * (x @ d) - my)
+        grad = reduce_sum(x.conj().T @ (mask * (x @ d) - my))
     return l2_normalize(d - grad / lip.to(d.dtype), axis=1)
 
 

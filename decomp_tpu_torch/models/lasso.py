@@ -382,15 +382,16 @@ def _auto_takes_masked(dtype, binary):
     return dtype == torch.bfloat16 or (dtype == torch.float32 and binary)
 
 
-def _kernel_mask(mask, y, auto):
+def _kernel_mask(mask, y, auto, reduce=None):
     """The mask the masked-gradient kernel route reads: the bits of a 0/1
     mask (``cuda_mu.pack_mask``: one host read, once per solve) where the
     route takes bits (``cuda_lasso.grad_takes_packed``: f32 data on the
     card, any data on the CPU), else the dense mask. Under 'auto'
     (``auto``) None where ``_auto_takes_masked`` sends the solve to the
-    composition instead."""
-    packed = (cuda_mu.pack_mask(mask) if cuda_lasso.grad_takes_packed(y)
-              else None)
+    composition instead. ``reduce``: a sharded solve's sum over its ranks,
+    which packs only where every rank's block is 0/1."""
+    packed = (cuda_mu.pack_mask_agreed(mask, reduce)
+              if cuda_lasso.grad_takes_packed(y) else None)
     if auto and not _auto_takes_masked(y.dtype, packed is not None):
         return None
     return mask if packed is None else packed
@@ -398,9 +399,15 @@ def _kernel_mask(mask, y, auto):
 
 def build_solver(y, a, alpha, x, mask, lipschitz, *, method,
                  per_problem=False, tol=None, use_kernel=False,
-                 kernel_mask=None, momentum_init=None, per_problem_init=None):
+                 kernel_mask=None, momentum_init=None, per_problem_init=None,
+                 reduce_sum=None):
     """The iteration machinery of one lasso method: ``(step, init, diff_fn,
     obj_fn)`` for ``run_iterations``.
+
+    Every cross-row scalar (the norms of the stopping rule, the objective,
+    the count of rows still iterating) goes through ``reduce_sum``: None
+    (the identity) for one process, a sum over the ranks for a row-sharded
+    solve (``parallel.lasso``), which then stops in lockstep on every rank.
 
     use_kernel=True with a mask: the gradient is one
     ``cuda_lasso.masked_grad_rows`` call per iteration, reading
@@ -444,12 +451,14 @@ def build_solver(y, a, alpha, x, mask, lipschitz, *, method,
         def grad(x_):
             return (mask * (x_ @ a) - my) @ ah
 
+    red = (lambda t: t) if reduce_sum is None else reduce_sum
+
     def sumsq(v):
-        return torch.sum(_abs2(v))
+        return red(torch.sum(_abs2(v)))
 
     def objective(x_):
         resid = (my - x_ @ a) if mask is None else (my - mask * (x_ @ a))
-        return 0.5 * sumsq(resid) + torch.sum(alpha * torch.abs(x_))
+        return 0.5 * sumsq(resid) + red(torch.sum(alpha * torch.abs(x_)))
 
     tiny = torch.tensor(torch.finfo(rdt).tiny, dtype=rdt, device=y.device)
 
@@ -557,7 +566,7 @@ def build_solver(y, a, alpha, x, mask, lipschitz, *, method,
         def diff_fn(old, new):
             # The count of rows still iterating; the caller compares it
             # with a fixed 0.5, never the user tol.
-            return torch.sum((~new[-2]).to(rdt))
+            return red(torch.sum((~new[-2]).to(rdt)))
 
     def obj_fn(state):
         return objective(state[0])
@@ -615,14 +624,15 @@ def _cd_machinery(gram, yah, x, alpha, dtype, rel_change, objective):
 def _solve(y, a, alpha, x, mask, lipschitz, tol, *, method, maxiter,
            record_objective, check_every=1, per_problem=False,
            use_kernel=False, kernel_mask=None, return_state=False,
-           momentum_state=None, per_problem_state=None):
+           momentum_state=None, per_problem_state=None, reduce_sum=None):
     """The composition path (and the masked kernel path, reading
-    ``kernel_mask`` as ``build_solver`` says) on ``run_iterations``."""
+    ``kernel_mask`` as ``build_solver`` says) on ``run_iterations``;
+    ``reduce_sum`` as in ``build_solver``."""
     step, init, diff_fn, obj_fn = build_solver(
         y, a, alpha, x, mask, lipschitz, method=method,
         per_problem=per_problem, tol=tol, use_kernel=use_kernel,
         kernel_mask=kernel_mask, momentum_init=momentum_state,
-        per_problem_init=per_problem_state)
+        per_problem_init=per_problem_state, reduce_sum=reduce_sum)
     # per_problem's diff_fn is the COUNT of unconverged rows, so the loop
     # threshold is a fixed 0.5 (count == 0), never the user tol: a tol > 1
     # must not stop the loop early.

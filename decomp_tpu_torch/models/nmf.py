@@ -30,10 +30,12 @@ the CUDA device, and with no CUDA device and no ``device`` they raise
 (``utils.device``). The companions follow ``y``; a tensor on another device
 is refused, never moved. Out of core, ``solve_streaming`` and
 ``masked_completion_streaming`` (``models.nmf_streaming``) stream row chunks
-of host arrays or loaders through the device. Not ported yet, and refused
-with ``DecompError``: ``masked_completion(mesh=...)``.
+of host arrays or loaders through the device. ``masked_completion(mesh=...)``
+runs the sharded solve of ``parallel.nmf``, which runs ``_solve`` on each
+rank's block with the reduction hooks of the updates below.
 """
 
+import functools
 from typing import Optional
 
 import torch
@@ -58,6 +60,11 @@ _PRECISIONS = ("default", "high", "highest", "bfloat16", "tensorfloat32",
 # Rows per chunk where a product upcasts compute-dtype data or a sum runs
 # over all of y: bounds the temporaries to a chunk instead of all of y.
 _CHUNK_ROWS = 8192
+
+
+def _identity(t):
+    """The sum over one rank: a one-process solve's reduction hook."""
+    return t
 
 
 def _not_ported(what, item):
@@ -189,25 +196,9 @@ def solve(
     assertion.assert_real("y", y)
     n_samples, n_channels = y.shape
 
-    if factor_dtype is not None:
-        if not isinstance(factor_dtype, torch.dtype):
-            raise DecompError("factor_dtype must be a torch.dtype, got "
-                              f"{factor_dtype!r}")
-        if factor_dtype == y.dtype:
-            factor_dtype = None  # no-op request
-    if factor_dtype is not None:
-        if not factor_dtype.is_floating_point:
-            raise DecompError("factor_dtype must be a float dtype")
-        if torch.finfo(factor_dtype).bits < torch.finfo(y.dtype).bits:
-            raise DecompError(
-                "factor_dtype must be at least as wide as y's dtype "
-                f"(got {factor_dtype} factors for {y.dtype} data)")
-        if method not in ("mu", "kl-mu"):
-            raise DecompError("factor_dtype supports methods 'mu' and "
-                              "'kl-mu' only")
-        if minibatch is not None:
-            raise DecompError("factor_dtype is incompatible with "
-                              "minibatch")
+    factor_dtype = _checked_factor_dtype(factor_dtype, y, method)
+    if factor_dtype is not None and minibatch is not None:
+        raise DecompError("factor_dtype is incompatible with minibatch")
     fdt = y.dtype if factor_dtype is None else factor_dtype
 
     if d is None and rank is None:
@@ -272,23 +263,11 @@ def solve(
                           f"got {stop!r}")
     val = None
     if stop == "heldout":
-        if mask is None:
-            raise DecompError("stop='heldout' requires a mask (it "
-                              "validates on reserved OBSERVED entries)")
-        if method not in ("mu", "kl-mu"):
-            raise DecompError("stop='heldout' supports methods "
-                              "'mu'/'kl-mu'")
+        check_every = _heldout_check_every(mask, method, record_objective,
+                                           heldout_frac, check_every)
         if minibatch is not None:
             raise DecompError("stop='heldout' is incompatible with "
                               "minibatch")
-        if record_objective:
-            raise DecompError("stop='heldout' is incompatible with "
-                              "record_objective (checks are amortised "
-                              "over check_every iterations)")
-        if not 0.0 < float(heldout_frac) < 1.0:
-            raise DecompError("heldout_frac must be in (0, 1)")
-        if check_every == 1:
-            check_every = 25  # each check costs two reconstructions
         val = _heldout_reserve(mask, float(heldout_frac), int(random_seed))
     return _solve(
         y, d, x, mask, val, rank=int(rank), method=method, tol=float(tol),
@@ -300,30 +279,89 @@ def solve(
         forget=float(forget))
 
 
+def _checked_factor_dtype(factor_dtype, y, method):
+    """``factor_dtype`` after ``solve``'s checks (a float dtype at least as
+    wide as y's, for 'mu' and 'kl-mu'); None for y's own dtype."""
+    if factor_dtype is None:
+        return None
+    if not isinstance(factor_dtype, torch.dtype):
+        raise DecompError("factor_dtype must be a torch.dtype, got "
+                          f"{factor_dtype!r}")
+    if factor_dtype == y.dtype:
+        return None  # no-op request
+    if not factor_dtype.is_floating_point:
+        raise DecompError("factor_dtype must be a float dtype")
+    if torch.finfo(factor_dtype).bits < torch.finfo(y.dtype).bits:
+        raise DecompError(
+            "factor_dtype must be at least as wide as y's dtype "
+            f"(got {factor_dtype} factors for {y.dtype} data)")
+    if method not in ("mu", "kl-mu"):
+        raise DecompError("factor_dtype supports methods 'mu' and 'kl-mu' "
+                          "only")
+    return factor_dtype
+
+
+def _heldout_check_every(mask, method, record_objective, heldout_frac,
+                         check_every):
+    """stop='heldout''s checks; returns ``check_every``, 25 unless set
+    (each check costs two reconstructions)."""
+    if mask is None:
+        raise DecompError("stop='heldout' requires a mask (it validates on "
+                          "reserved OBSERVED entries)")
+    if method not in ("mu", "kl-mu"):
+        raise DecompError("stop='heldout' supports methods 'mu'/'kl-mu'")
+    if record_objective:
+        raise DecompError("stop='heldout' is incompatible with "
+                          "record_objective (checks are amortised over "
+                          "check_every iterations)")
+    if not 0.0 < float(heldout_frac) < 1.0:
+        raise DecompError("heldout_frac must be in (0, 1)")
+    return 25 if check_every == 1 else check_every
+
+
 def _heldout_reserve(mask, frac, random_seed):
     """The validation set of stop='heldout': each observed entry with
     probability ``frac``, drawn on the mask's device, in row chunks, from
     a generator seeded with ``random_seed`` salted by ``_HELDOUT_SALT``.
     The salt goes into the low 32 bits, the only ones the CPU generator
     keeps, and the high ones. Returns a 0/1 tensor in the mask's dtype."""
+    return _heldout_block(mask, frac, random_seed, mask.shape)
+
+
+def _heldout_block(mask, frac, random_seed, shape, row0=0, col0=0):
+    """The block of ``_heldout_reserve``'s draw on a global matrix of
+    ``shape`` whose rows and columns start at ``row0`` and ``col0``, for
+    ``mask``, the block of the global mask (a sharded solve's rank): the
+    generator replays the global draw chunk by chunk up to the block's
+    last row, so the block equals those entries of the global reserve at
+    any number of ranks, and never holds more than one full-width row
+    chunk beside it."""
     seed = (random_seed ^ (_HELDOUT_SALT * (2 ** 32 + 1))) % 2 ** 64
     gen = torch.Generator(device=mask.device).manual_seed(seed)
+    m, n = mask.shape
     val = torch.empty_like(mask)
-    for sl in _row_slices(mask.shape[0]):
-        u = torch.rand(val[sl].shape, generator=gen, device=mask.device)
-        val[sl] = (u < frac).to(mask.dtype) * mask[sl]
+    for sl in _row_slices(min(row0 + m, shape[0])):
+        stop = min(sl.stop, shape[0])
+        u = torch.rand((stop - sl.start, shape[1]), generator=gen,
+                       device=mask.device)
+        lo, hi = max(sl.start, row0), min(stop, row0 + m)
+        if lo < hi:
+            mine = slice(lo - row0, hi - row0)
+            val[mine] = (u[lo - sl.start:hi - sl.start, col0:col0 + n]
+                         < frac).to(mask.dtype) * mask[mine]
     return val
 
 
-def _heldout_split(y, mask, val):
+def _heldout_split(y, mask, val, reduce=_identity):
     """``(train_mask, hd)`` of stop='heldout': train on the observed
     entries outside the validation set ``val``; ``hd = (yv, val, vnorm)``
     holds the validation data and set in y's dtype (val is 0/1, so val * y
-    is exact) and the squared norm of yv in the >= f32 accumulator."""
+    is exact) and the squared norm of yv in the >= f32 accumulator, summed
+    over a sharded solve's ranks by ``reduce``."""
     acc = acc_dtype(real_dtype(y.dtype))
     yv = val * y
-    vnorm = torch.clamp(_row_sum(yv.shape[0], lambda sl: torch.sum(
-        yv[sl].to(acc) * yv[sl].to(acc))), min=torch.finfo(acc).tiny)
+    vnorm = torch.clamp(reduce(_row_sum(yv.shape[0], lambda sl: torch.sum(
+        yv[sl].to(acc) * yv[sl].to(acc)))), min=torch.finfo(acc).tiny)
     return mask - val, (yv, val, vnorm)
 
 
@@ -331,14 +369,22 @@ def _solve(y, d, x, mask, val, *, rank, method="mu", tol=1e-4, eps=1e-15,
            maxiter=1000, inner_iter=1, record_objective=False,
            factor_dtype=None, use_kernel=False, kernel_block_rows=None,
            check_every=1, verbose=False, random_seed=0, minibatch=None,
-           forget=0.9, batch_idx=None):
+           forget=0.9, batch_idx=None, reduce_rows=None, reduce_cols=None,
+           init=None):
     """The solve, after ``solve``'s checks. ``val``: the held-out
     validation set (0/1 in y's dtype, inside ``mask``) under
     stop='heldout', else None; ``solve`` draws it with
     ``_heldout_reserve``, and a parity test may pass ``decomp_tpu``'s.
     ``batch_idx``: the minibatch rows of each iteration, (maxiter,
     minibatch), instead of the seeded draws (a parity test passes
-    ``decomp_tpu``'s)."""
+    ``decomp_tpu``'s).
+
+    A sharded solve (``parallel.nmf``, full batch) runs this on its block
+    with ``reduce_rows`` / ``reduce_cols``, the sums of a partial
+    statistic over the ranks that share its columns / rows, where
+    ``decomp_tpu`` applies ``psum_rows`` / ``psum_cols``, and ``init``,
+    ``(my, d, x) -> (d, x)``, for the factors it leaves None. Unset, the
+    sums are the identity and the result is the one-process solve's."""
     rdt = real_dtype(y.dtype)
     acc = acc_dtype(rdt)
     tiny = torch.finfo(acc).tiny
@@ -346,28 +392,39 @@ def _solve(y, d, x, mask, val, *, rank, method="mu", tol=1e-4, eps=1e-15,
     # to that dtype as the JAX package rounds it.
     eps_t = torch.tensor(eps, dtype=real_dtype(factor_dtype)
                          if factor_dtype is not None else rdt)
+    red_r = reduce_rows or _identity
+    red_c = reduce_cols or _identity
+
+    def red_all(t):
+        return red_c(red_r(t))
+
     hd = None
     if val is not None:
-        mask, hd = _heldout_split(y, mask, val)
+        mask, hd = _heldout_split(y, mask, val, red_all)
     my = y if mask is None else mask * y
     # One generator: the initial factors' draws, then the minibatch rows.
     gen = torch.Generator(device=y.device).manual_seed(random_seed)
     if d is None or x is None:
         # The init scale comes from the observed data: junk values at
         # missing entries cannot blow up the starting point.
-        d, x = _init_factors(gen, my, d, x, rank, factor_dtype)
+        d, x = (_init_factors(gen, my, d, x, rank, factor_dtype)
+                if init is None else init(my, d, x))
+
+    def norm(v):
+        # d's norm: l2_norm's arithmetic, summed over d's column blocks
+        return torch.sqrt(red_c(torch.sum(v * v)))
 
     def diff_fn(old, new):
         d_old = old[1].to(acc)
         d_new = new[1].to(acc)
-        return l2_norm(d_new - d_old) / torch.clamp(l2_norm(d_old), min=tiny)
+        return norm(d_new - d_old) / torch.clamp(norm(d_old), min=tiny)
 
     if method == "kl-mu":
         def objective(state):
-            return _kl_objective(my, state[0], state[1], mask, eps_t)
+            return red_all(_kl_objective(my, state[0], state[1], mask, eps_t))
     else:
         def objective(state):
-            return 0.5 * _sq_resid(my, state[0], state[1], acc, mask)
+            return 0.5 * red_all(_sq_resid(my, state[0], state[1], acc, mask))
 
     init = (x, d)
     if minibatch is not None:
@@ -381,24 +438,26 @@ def _solve(y, d, x, mask, val, *, rank, method="mu", tol=1e-4, eps=1e-15,
                 and mask is None else torch.zeros_like(d))
         init = (x.clone(), d, torch.zeros_like(d), den0)
     elif method == "hals":
-        step = _hals_step(my, inner_iter)
+        step = _hals_step(my, inner_iter, red_r, red_c)
     elif use_kernel:
+        # The kernels run with a row axis only (parallel.nmf), so the rows'
+        # sum is every rank's.
         step = _kernel_step(my, mask, method, float(eps_t), kernel_block_rows,
-                            inner_iter)
+                            inner_iter, reduce_rows)
     else:
         upd_x, upd_d = _UPDATES[method, factor_dtype is not None]
 
         def step(state, it):
             x_, d_ = state
             for _ in range(inner_iter):
-                x_ = upd_x(my, x_, d_, mask, eps_t)
-            return (x_, upd_d(my, x_, d_, mask, eps_t))
+                x_ = upd_x(my, x_, d_, mask, eps_t, red_c)
+            return (x_, upd_d(my, x_, d_, mask, eps_t, red_r))
 
     val_sqerr, min_iter = None, 0
     if hd is not None:
         # diff is the validation error's relative improvement per check;
         # it goes negative when the error rises, and the loop stops then.
-        val_sqerr, diff_fn = _heldout_machinery(hd, y.dtype)
+        val_sqerr, diff_fn = _heldout_machinery(hd, y.dtype, red_all)
         # warm-up floor, clamped to the budget so a short run can still
         # report convergence
         min_iter = min(2 * check_every, max(maxiter - check_every, 0))
@@ -415,23 +474,26 @@ def _solve(y, d, x, mask, val, *, rank, method="mu", tol=1e-4, eps=1e-15,
                      objective=res.objective, aux=aux)
 
 
-def _hals_step(my, inner_iter):
+def _hals_step(my, inner_iter, reduce_rows=_identity,
+               reduce_cols=_identity):
     """One HALS iteration (``decomp_tpu``'s ``_update_x_hals`` and
     ``_update_d_hals``): A = d d^T and B = my d^T, ``inner_iter`` sweeps
     over x's components, then C = x^T x and E = x^T my and one sweep over
     d's. During the x sweeps x is held column-major, so each component
     x_k is a contiguous row of x^T; A and B depend on d alone and serve
-    every x sweep. The state's x is the transposed view of that buffer."""
+    every x sweep. The state's x is the transposed view of that buffer.
+    A sharded solve sums A and B over the column blocks and C and E over
+    the row blocks (``reduce_cols``, ``reduce_rows``)."""
     def step(state, it):
         x_, d_ = state
-        a = d_ @ d_.T                       # (K, K)
-        bt = d_ @ my.T                      # (K, M) = (my d^T)^T
+        a = reduce_cols(d_ @ d_.T)          # (K, K)
+        bt = reduce_cols(d_ @ my.T)         # (K, M) = (my d^T)^T
         xt = x_.T.clone(memory_format=torch.contiguous_format)
         for _ in range(inner_iter):
             # x_k's update reads column k of A: row k of A^T.
             _hals_sweep(xt, a.T, bt)
-        c = xt @ xt.T
-        e = xt @ my
+        c = reduce_rows(xt @ xt.T)
+        e = reduce_rows(xt @ my)
         d_new = d_.clone()
         _hals_sweep(d_new, c, e)
         return (xt.T, d_new)
@@ -508,53 +570,60 @@ def _minibatch_step(my, mask, method, eps, inner_iter, forget, minibatch,
     return step
 
 
-def _kernel_step(my, mask, method, eps, block_rows, inner_iter):
+def _kernel_step(my, mask, method, eps, block_rows, inner_iter, reduce=None):
     """One iteration through the ``ops.cuda_mu`` kernel of the method and
     mask (``decomp_tpu``'s ``_solve_pallas`` dispatch). The MU kernels
     stream the compute-dtype copy of d and update the (possibly wider)
-    master in the epilogue; the KL kernels take d in my's dtype."""
+    master in the epilogue; the KL kernels take d in my's dtype.
+    ``reduce``: a row-sharded solve's sum over its ranks, of the
+    statistics and of the mask's 0/1 verdict."""
     cdt = my.dtype
     if method == "kl-mu" and mask is None:
         def step(state, it):
             return cuda_mu.kl_update_dense(my, state[0], state[1], eps,
-                                           block_rows=block_rows)
+                                           block_rows=block_rows,
+                                           reduce=reduce)
     elif method == "kl-mu":
         # A 0/1 mask (the training mask under stop='heldout') goes to the
         # kernel as bits, packed once per solve; a weighted mask, or bf16
         # data on the card, stays dense.
-        packed = (cuda_mu.pack_mask(mask) if cuda_mu.kl_takes_packed(my)
-                  else None)
+        packed = (cuda_mu.pack_mask_agreed(mask, reduce)
+                  if cuda_mu.kl_takes_packed(my) else None)
         mask_k = mask if packed is None else packed
 
         def step(state, it):
             return cuda_mu.kl_update_masked(my, mask_k, state[0], state[1],
-                                            eps, block_rows=block_rows)
+                                            eps, block_rows=block_rows,
+                                            reduce=reduce)
     elif mask is None:
         def step(state, it):
             x_, d_ = state
             return cuda_mu.mu_update_dense(
                 my, x_, d_.to(cdt), eps, block_rows=block_rows, d_master=d_,
-                inner_iter=inner_iter)
+                inner_iter=inner_iter, reduce=reduce)
     else:
         # A 0/1 mask goes to the kernel as bits, packed once per solve
         # (under stop='heldout' this is the training mask); a weighted
         # mask, or f32 data on the card, stays dense.
-        packed = cuda_mu.pack_mask(mask) if cuda_mu.takes_packed(my) else None
+        packed = (cuda_mu.pack_mask_agreed(mask, reduce)
+                  if cuda_mu.takes_packed(my) else None)
         mask_k = mask if packed is None else packed
 
         def step(state, it):
             x_, d_ = state
             return cuda_mu.mu_update_masked(
                 my, mask_k, x_, d_.to(cdt), eps, block_rows=block_rows,
-                d_master=d_)
+                d_master=d_, reduce=reduce)
     return step
 
 
-def _heldout_machinery(hd, compute_dtype):
+def _heldout_machinery(hd, compute_dtype, reduce=_identity):
     """(val_sqerr, diff_fn) for stop='heldout'. ``hd`` = (yv, val, vnorm):
     the validation data and set in y's dtype and the squared norm of yv.
     The validation reconstruction takes compute-dtype operands and sums in
-    the >= f32 dtype of vnorm, a row chunk at a time."""
+    the >= f32 dtype of vnorm, a row chunk at a time; ``reduce`` sums the
+    error over a sharded solve's ranks, so that every rank stops on the
+    same check."""
     yv, val, vnorm = hd
     acc = vnorm.dtype
     tiny = torch.finfo(acc).tiny
@@ -568,7 +637,7 @@ def _heldout_machinery(hd, compute_dtype):
             r = yv[sl].to(acc) - val[sl].to(acc) * recon
             return torch.sum(r * r)
 
-        return _row_sum(yv.shape[0], part) / vnorm
+        return reduce(_row_sum(yv.shape[0], part)) / vnorm
 
     def diff_fn(old, new):
         e_old = val_sqerr(old)
@@ -580,7 +649,8 @@ def _heldout_machinery(hd, compute_dtype):
 
 def masked_completion(y, mask, rank=None, d=None, x=None, *, tol=1e-4,
                       maxiter=4000, heldout_frac=0.05, random_seed=0,
-                      mixed="auto", refit=0, mesh=None, **kwargs):
+                      mixed="auto", refit=0, mesh=None, row_axis="rows",
+                      col_axis=None, **kwargs):
     """Matrix-completion preset: masked MU-NMF stopped on held-out
     validation error (``solve(stop='heldout')``).
 
@@ -591,26 +661,46 @@ def masked_completion(y, mask, rank=None, d=None, x=None, *, tol=1e-4,
     ``refit=N`` follows the held-out-stopped solve with N warm-started
     iterations on ALL observed entries at ``tol=0``; the result keeps the
     held-out solve's ``aux`` and ``converged`` and counts both runs'
-    iterations in ``niter``. ``mesh`` (sharded solves) is not ported.
-    Host-array inputs go to ``kwargs['device']``, by default the CUDA
-    device, as in ``solve``.
+    iterations in ``niter``. Host-array inputs go to ``kwargs['device']``,
+    by default the CUDA device, as in ``solve``.
+
+    ``mesh``: a sharded solve (``parallel.nmf.solve``; every rank calls
+    this with its own block of ``y``, ``mask`` and ``x``, sharded over
+    ``row_axis`` and, optionally, ``col_axis``, and ``d``'s column block).
+    Host arrays then go to the rank's device.
     """
     if mesh is not None:
-        raise _not_ported("masked_completion(mesh=...)", "parallel/")
-    y = _device.on_device("y", y, _device.resolve(y, kwargs.get("device")))
+        from decomp_tpu_torch.parallel import mesh as _pmesh
+        from decomp_tpu_torch.parallel import nmf as _pnmf
+
+        _pmesh.require_process_group()
+        solve_fn = functools.partial(_pnmf.solve, mesh=mesh,
+                                     row_axis=row_axis, col_axis=col_axis)
+
+        def place():
+            if "device" in kwargs:
+                raise DecompError("device= does not apply with mesh=: each "
+                                  "rank's blocks go to its own device")
+            return _device.on_device("y", y, _pmesh.placement(mesh, y))
+
+        y = _pmesh.checked(place)
+    else:
+        solve_fn = solve
+        y = _device.on_device("y", y, _device.resolve(y,
+                                                      kwargs.get("device")))
     if mixed == "auto":
         mixed = y.is_cuda and y.dtype == torch.float32
     if mixed:
         y = y.to(torch.bfloat16)
         kwargs.setdefault("factor_dtype", torch.float32)
         kwargs.setdefault("precision", "default")
-    res = solve(y, d, rank=rank, x=x, mask=mask, tol=tol, maxiter=maxiter,
-                method="mu", stop="heldout", heldout_frac=heldout_frac,
-                random_seed=random_seed, **kwargs)
+    res = solve_fn(y, d, rank=rank, x=x, mask=mask, tol=tol, maxiter=maxiter,
+                   method="mu", stop="heldout", heldout_frac=heldout_frac,
+                   random_seed=random_seed, **kwargs)
     if refit:
-        refit_res = solve(y, res.d, x=res.x, mask=mask, tol=0.0,
-                          maxiter=int(refit), method="mu",
-                          random_seed=random_seed, **kwargs)
+        refit_res = solve_fn(y, res.d, x=res.x, mask=mask, tol=0.0,
+                             maxiter=int(refit), method="mu",
+                             random_seed=random_seed, **kwargs)
         # The polish runs at tol=0, so its own converged flag is vacuously
         # False: the caller gates on the held-out solve's verdict.
         res = refit_res._replace(aux=res.aux, converged=res.converged,
@@ -658,17 +748,26 @@ def _kl_objective(my, x, d, mask, eps):
     return _row_sum(my.shape[0], part)
 
 
-def _update_x(my, x, d, mask, eps):
-    """One multiplicative x update, all in the factors' dtype."""
-    num = my @ d.T
-    den = x @ (d @ d.T) if mask is None else (mask * (x @ d)) @ d.T
+def _update_x(my, x, d, mask, eps, reduce_cols=_identity):
+    """One multiplicative x update, all in the factors' dtype.
+    ``reduce_cols``: under column sharding the (M, K) numerator and the K x
+    K Gram term are partial sums over the rank's columns, summed over the
+    column blocks (``decomp_tpu``'s ``psum_cols``); each x update takes
+    it."""
+    num = reduce_cols(my @ d.T)
+    den = (x @ reduce_cols(d @ d.T) if mask is None
+           else reduce_cols((mask * (x @ d)) @ d.T))
     return x * num / (den + eps)
 
 
-def _update_d(my, x, d, mask, eps):
-    """One multiplicative d update, all in the factors' dtype."""
-    num = x.T @ my
-    den = (x.T @ x) @ d if mask is None else x.T @ (mask * (x @ d))
+def _update_d(my, x, d, mask, eps, reduce_rows=_identity):
+    """One multiplicative d update, all in the factors' dtype.
+    ``reduce_rows``: under row sharding the K x N numerator and the K x K
+    Gram statistic are partial sums over the rank's rows, summed over the
+    row blocks (``psum_rows``); each d update takes it."""
+    num = reduce_rows(x.T @ my)
+    den = (reduce_rows(x.T @ x) @ d if mask is None
+           else reduce_rows(x.T @ (mask * (x @ d))))
     return d * num / (den + eps)
 
 
@@ -703,67 +802,69 @@ def _ratio(my, xb, db, eps):
                       for sl in _row_slices(my.shape[0])])
 
 
-def _update_x_mixed(my, x, d, mask, eps):
+def _update_x_mixed(my, x, d, mask, eps, reduce_cols=_identity):
     """Mixed-precision x update (factor_dtype mode): x and d are stored
     wide, every product takes compute-dtype (= my.dtype) operands and sums
     in f32, d d^T is cast to the compute dtype at use."""
     cdt = my.dtype
     db = d.to(cdt)
-    num = _rows_dot(my, db.T)
+    num = reduce_cols(_rows_dot(my, db.T))
     if mask is None:
-        den = _rows_dot(x.to(cdt), cuda_mu.gram_rows(db).to(cdt))
+        den = _rows_dot(x.to(cdt),
+                        reduce_cols(cuda_mu.gram_rows(db)).to(cdt))
     else:
-        den = _rows_dot(_recon_m(mask, x.to(cdt), db), db.T)
+        den = reduce_cols(_rows_dot(_recon_m(mask, x.to(cdt), db), db.T))
     return x * num / (den + eps)
 
 
-def _update_d_mixed(my, x, d, mask, eps):
+def _update_d_mixed(my, x, d, mask, eps, reduce_rows=_identity):
     """Mixed-precision d update; the dense K x K @ K x N epilogue is full
     f32."""
     cdt = my.dtype
     xb = x.to(cdt)
-    num = _tdot(xb, my)
+    num = reduce_rows(_tdot(xb, my))
     if mask is None:
-        den = _tdot(xb, xb) @ d.to(torch.float32)
+        den = reduce_rows(_tdot(xb, xb)) @ d.to(torch.float32)
     else:
-        den = _tdot(xb, _recon_m(mask, xb, d.to(cdt)))
+        den = reduce_rows(_tdot(xb, _recon_m(mask, xb, d.to(cdt))))
     return d * num / (den + eps)
 
 
-def _update_x_kl(my, x, d, mask, eps):
+def _update_x_kl(my, x, d, mask, eps, reduce_cols=_identity):
     """One Lee-Seung KL x update:
     x <- x * ((my / (x@d + eps)) @ d.T) / ((mask or 1) @ d.T + eps)."""
-    num = (my / (x @ d + eps)) @ d.T
-    den = torch.sum(d, 1) if mask is None else mask @ d.T
+    num = reduce_cols((my / (x @ d + eps)) @ d.T)
+    den = reduce_cols(torch.sum(d, 1) if mask is None else mask @ d.T)
     return x * num / (den + eps)
 
 
-def _update_d_kl(my, x, d, mask, eps):
+def _update_d_kl(my, x, d, mask, eps, reduce_rows=_identity):
     """One Lee-Seung KL d update:
     d <- d * (x.T @ (my / (x@d + eps))) / (x.T @ (mask or 1) + eps)."""
-    num = x.T @ (my / (x @ d + eps))
-    den = torch.sum(x, 0)[:, None] if mask is None else x.T @ mask
+    num = reduce_rows(x.T @ (my / (x @ d + eps)))
+    den = (reduce_rows(torch.sum(x, 0))[:, None] if mask is None
+           else reduce_rows(x.T @ mask))
     return d * num / (den + eps)
 
 
-def _update_x_kl_mixed(my, x, d, mask, eps):
+def _update_x_kl_mixed(my, x, d, mask, eps, reduce_cols=_identity):
     """Mixed-precision KL x update: the ratio is formed in f32 and cast to
     the compute dtype as the next product's operand."""
     cdt = my.dtype
     db = d.to(cdt)
-    num = _rows_dot(_ratio(my, x.to(cdt), db, eps), db.T)
-    den = (torch.sum(d.to(torch.float32), 1) if mask is None
-           else _rows_dot(mask, db.T))
+    num = reduce_cols(_rows_dot(_ratio(my, x.to(cdt), db, eps), db.T))
+    den = reduce_cols(torch.sum(d.to(torch.float32), 1) if mask is None
+                      else _rows_dot(mask, db.T))
     return x * num / (den + eps)
 
 
-def _update_d_kl_mixed(my, x, d, mask, eps):
+def _update_d_kl_mixed(my, x, d, mask, eps, reduce_rows=_identity):
     """Mixed-precision KL d update; see _update_x_kl_mixed."""
     cdt = my.dtype
     xb = x.to(cdt)
-    num = _tdot(xb, _ratio(my, xb, d.to(cdt), eps))
-    den = (torch.sum(x.to(torch.float32), 0)[:, None] if mask is None
-           else _tdot(xb, mask))
+    num = reduce_rows(_tdot(xb, _ratio(my, xb, d.to(cdt), eps)))
+    den = (reduce_rows(torch.sum(x.to(torch.float32), 0))[:, None]
+           if mask is None else reduce_rows(_tdot(xb, mask)))
     return d * num / (den + eps)
 
 

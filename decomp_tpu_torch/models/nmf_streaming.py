@@ -792,7 +792,7 @@ def masked_completion_streaming(y, mask, rank=None, d=None, x=None, *,
     """
     if mesh is not None:
         raise _nmf._not_ported("masked_completion_streaming(mesh=...)",
-                               "parallel/")
+                               "sharded streaming")
     dev = _device.resolve(None, kwargs.get("device"))
     if mixed == "auto":
         mixed = dev.type == "cuda" and dtype == torch.float32

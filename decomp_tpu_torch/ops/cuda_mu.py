@@ -519,6 +519,21 @@ def pack_mask(mask):
     return pack_bits(mask)
 
 
+def pack_mask_agreed(mask, reduce=None):
+    """``pack_mask`` for a rank of a sharded solve: ``reduce`` sums the
+    ranks' verdicts (``parallel.mesh.reducer``), and the mask packs only
+    where every rank's block is 0/1, so that every rank takes the same
+    route. ``reduce=None``: ``pack_mask`` itself."""
+    if reduce is None:
+        return pack_mask(mask)
+    if mask.dim() != 2:
+        raise ShapeError(f"mask must be 2-D, got {tuple(mask.shape)}")
+    other = ~((mask == 0) | (mask == 1)).all()
+    if bool(reduce(other.to(torch.int32).reshape(1)) > 0):
+        return None
+    return pack_bits(mask)
+
+
 def pack_bits(mask):
     """``pack_mask``'s bits without its 0/1 check and its host read, for a
     2-D mask already known to hold only 0 and 1 (the streaming solves pack
@@ -875,7 +890,7 @@ def _masked_launch(wrapper, my, mask, x, d, eps, block_rows):
 
 
 def mu_update_dense(y, x, d, eps, *, block_rows=None, d_master=None,
-                    inner_iter=1):
+                    inner_iter=1, reduce=None):
     """One dense MU iteration. Returns (x_new, d_new).
 
     The statistics come from ``mu_stats_dense``; the d update is the JAX
@@ -883,37 +898,51 @@ def mu_update_dense(y, x, d, eps, *, block_rows=None, d_master=None,
     product left to ``torch.matmul`` in full f32:
     ``d_new = d * numd / (gram d + eps)``. ``d_master``: mixed-precision
     mode, where ``d`` is the compute-dtype copy and ``d_master`` the wider
-    iterate that the epilogue updates.
+    iterate that the epilogue updates. ``reduce``: a row-sharded solve's
+    sum over its ranks, applied to the statistics between the kernel and
+    the epilogue (``pallas_mu.py:426-427``); each update function below
+    takes it the same way.
     """
     x_new, numd, gram = mu_stats_dense(y, x, d, eps, block_rows=block_rows,
                                        inner_iter=inner_iter)
+    if reduce is not None:
+        numd, gram = reduce(numd), reduce(gram)
     d_epi = d if d_master is None else d_master
     return x_new, _epilogue(d_epi, numd, gram @ d_epi.to(torch.float32),
                             eps)
 
 
-def mu_update_masked(my, mask, x, d, eps, *, block_rows=None, d_master=None):
+def mu_update_masked(my, mask, x, d, eps, *, block_rows=None, d_master=None,
+                     reduce=None):
     """One masked MU iteration (``pallas_mu.py:502``). Returns (x_new,
     d_new) with ``d_new = d * numd / (dend + eps)`` in f32; ``d_master``
-    as in ``mu_update_dense``."""
+    and ``reduce`` as in ``mu_update_dense``."""
     x_new, numd, dend = mu_stats_masked(my, mask, x, d, eps,
                                         block_rows=block_rows)
+    if reduce is not None:
+        numd, dend = reduce(numd), reduce(dend)
     return x_new, _epilogue(d if d_master is None else d_master, numd, dend,
                             eps)
 
 
-def kl_update_dense(my, x, d, eps, *, block_rows=None):
+def kl_update_dense(my, x, d, eps, *, block_rows=None, reduce=None):
     """One dense KL-MU iteration (``pallas_mu.py:581``). Returns (x_new,
-    d_new) with ``d_new = d * numd / (xsum^T + eps)`` in f32."""
+    d_new) with ``d_new = d * numd / (xsum^T + eps)`` in f32; ``reduce``
+    as in ``mu_update_dense``."""
     x_new, numd, xsum = kl_stats_dense(my, x, d, eps, block_rows=block_rows)
+    if reduce is not None:
+        numd, xsum = reduce(numd), reduce(xsum)
     return x_new, _epilogue(d, numd, xsum[0][:, None], eps)
 
 
-def kl_update_masked(my, mask, x, d, eps, *, block_rows=None):
+def kl_update_masked(my, mask, x, d, eps, *, block_rows=None, reduce=None):
     """One masked KL-MU iteration (``pallas_mu.py:664``). Returns (x_new,
-    d_new) with ``d_new = d * numd / (dend + eps)`` in f32."""
+    d_new) with ``d_new = d * numd / (dend + eps)`` in f32; ``reduce`` as
+    in ``mu_update_dense``."""
     x_new, numd, dend = kl_stats_masked(my, mask, x, d, eps,
                                         block_rows=block_rows)
+    if reduce is not None:
+        numd, dend = reduce(numd), reduce(dend)
     return x_new, _epilogue(d, numd, dend, eps)
 
 

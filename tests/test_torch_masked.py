@@ -384,12 +384,6 @@ def test_masked_completion_mixed_and_auto():
     assert not torch.equal(a.d, mixed.d)
 
 
-def test_masked_completion_mesh_is_not_ported():
-    ytrue, mask = _completion_problem(m=40, n=20)
-    with pytest.raises(texc.DecompError, match="ROADMAP Queue 1, parallel/"):
-        tnmf.masked_completion(_t(ytrue), _t(mask), rank=2, mesh=object())
-
-
 def _bad():
     rng = np.random.default_rng(0)
     y = rng.uniform(0.1, 1, (16, 8)).astype(np.float32)

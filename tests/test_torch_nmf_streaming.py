@@ -506,7 +506,8 @@ def test_masked_completion_streaming_matches_jax():
         _chunk_reserve=_jax_reserve(3, 0.05), **kw)
     assert rt.converged
     _same(rt, rj, 1e-10)
-    with pytest.raises(texc.DecompError, match="ROADMAP Queue 1, parallel/"):
+    with pytest.raises(texc.DecompError,
+                       match="ROADMAP Queue 1, sharded streaming"):
         tnmf.masked_completion_streaming(yt, mt, dtype=torch.float64,
                                          device="cpu", mesh=object(), **kw)
     y32, m32 = (ytrue * mask).astype(np.float32), mask.astype(np.float32)

@@ -1,0 +1,225 @@
+"""What the ranks of the sharded-solver tests run, and the worlds that run
+it (``tests/test_torch_parallel_*.py``).
+
+The ranks of a world import this module to unpickle the functions they are
+sent, so it imports no JAX and nothing of ``decomp_tpu``: the tests hold the
+ranks' results against ``decomp_tpu.parallel`` in the parent process. Each
+function takes global numpy arrays, cuts the rank's blocks with
+``parallel.shard_rows``, solves, and returns numpy blocks with the rank's
+coordinates, so that the parent can reassemble the global result.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from decomp_tpu_torch import parallel
+from decomp_tpu_torch.parallel import _spawn
+from decomp_tpu_torch.parallel import mesh as pmesh
+from decomp_tpu_torch.utils.exceptions import DecompError
+
+
+@pytest.fixture(scope="module")
+def worlds(tmp_path_factory):
+    """``worlds(n)``: this module's gloo world of ``n`` CPU ranks, spawned
+    on first use and again after a failure; closed with the module."""
+    cache = {}
+
+    def get(n):
+        if n not in cache or not cache[n].alive:
+            cache[n] = _spawn.World(n, tmp_path_factory.mktemp(f"world{n}"))
+        return cache[n]
+
+    yield get
+    for world in cache.values():
+        world.close()
+
+
+def _np(t):
+    return None if t is None else t.detach().cpu().numpy()
+
+
+def _blocks(mesh, row_axis, col_axis, arrays):
+    """The rank's blocks of the global arrays: 'y', 'mask', '_val' by
+    (row, col), 'x' and a 2-D 'alpha' by rows, 'd' by columns; other
+    entries as they are."""
+    out = {}
+    for key, a in arrays.items():
+        if a is not None and key in ("y", "mask", "_val"):
+            a = parallel.shard_rows(a, mesh, row_axis, col_axis)
+        elif a is not None and (key == "x"
+                                or key == "alpha" and np.ndim(a) == 2):
+            a = parallel.shard_rows(a, mesh, row_axis)
+        elif a is not None and key == "d" and col_axis is not None:
+            a = parallel.shard_rows(a, mesh, None, col_axis)
+        out[key] = a
+    return out
+
+
+def _result(res, mesh, row_axis, col_axis=None):
+    aux = getattr(res, "aux", None)
+    out = dict(row=pmesh.axis_index(mesh, row_axis),
+               col=0 if col_axis is None else pmesh.axis_index(mesh,
+                                                                col_axis),
+               x=_np(res.x), niter=_np(res.niter) if isinstance(
+                   res.niter, torch.Tensor) else res.niter,
+               converged=_np(res.converged) if isinstance(
+                   res.converged, torch.Tensor) else res.converged,
+               objective=_np(res.objective),
+               heldout=None if not aux else float(aux["heldout_rel_err"]))
+    if hasattr(res, "d"):
+        out["d"] = _np(res.d)
+        out["d_same"] = _spawn.same_on_all_ranks(res.d)
+    return out
+
+
+def _chunk(chunk_rows):
+    """Shrink the held-out draw's row chunk in this rank (None: keep)."""
+    if chunk_rows is not None:
+        from decomp_tpu_torch.models import nmf as tnmf
+        tnmf._CHUNK_ROWS = chunk_rows
+
+
+def nmf(rank, n, spec, row_axis, col_axis, arrays, kw, chunk_rows=None):
+    """``parallel.nmf.solve`` on the rank's blocks of ``arrays``;
+    ``chunk_rows`` shrinks the held-out draw's row chunk."""
+    _chunk(chunk_rows)
+    mesh = parallel.make_mesh(*spec)
+    b = _blocks(mesh, row_axis, col_axis, arrays)
+    y, d = b.pop("y"), b.pop("d", None)
+    res = parallel.nmf.solve(y, d, mesh=mesh, row_axis=row_axis,
+                             col_axis=col_axis, **b, **kw)
+    return _result(res, mesh, row_axis, col_axis)
+
+
+def completion(rank, n, spec, arrays, kw, chunk_rows=None):
+    """``nmf.masked_completion(mesh=...)`` on the rank's rows."""
+    from decomp_tpu_torch.models import nmf as tnmf
+
+    _chunk(chunk_rows)
+    mesh = parallel.make_mesh(*spec)
+    b = _blocks(mesh, "rows", None, arrays)
+    res = tnmf.masked_completion(b.pop("y"), b.pop("mask"), mesh=mesh,
+                                 **b, **kw)
+    return _result(res, mesh, "rows")
+
+
+def lasso(rank, n, spec, axis, arrays, kw):
+    """``parallel.lasso.solve`` on the rank's rows."""
+    mesh = parallel.make_mesh(*spec)
+    b = _blocks(mesh, axis, None, arrays)
+    res = parallel.lasso.solve(b.pop("y"), b.pop("a"), b.pop("alpha"),
+                               mesh=mesh, axis=axis, **b, **kw)
+    return _result(res, mesh, axis)
+
+
+def dl(rank, n, spec, axis, arrays, kw, chunk_rows=None):
+    """``parallel.dictionary_learning.solve`` on the rank's rows."""
+    _chunk(chunk_rows)
+    mesh = parallel.make_mesh(*spec)
+    b = _blocks(mesh, axis, None, arrays)
+    res = parallel.dictionary_learning.solve(
+        b.pop("y"), b.pop("d"), b.pop("alpha"), mesh=mesh, axis=axis, **b,
+        **kw)
+    return _result(res, mesh, axis)
+
+
+def checkpointed(rank, n, arrays, directory, chunk, maxiter):
+    """``checkpointed_solve`` over ``parallel.nmf.solve``, one snapshot
+    file per rank, and the straight sharded run."""
+    from decomp_tpu_torch.utils.checkpoint import (CheckpointManager,
+                                                   checkpointed_solve)
+
+    mesh = parallel.make_mesh()
+    b = _blocks(mesh, "rows", None, arrays)
+    mgr = CheckpointManager(f"{directory}/rank{rank}")
+    res, total = checkpointed_solve(
+        parallel.nmf.solve, b["y"], manager=mgr, chunk_iters=chunk,
+        maxiter=maxiter, tol=0.0, d=b["d"], x=b["x"], mesh=mesh)
+    straight = parallel.nmf.solve(b["y"], b["d"], x=b["x"], tol=0.0,
+                                  maxiter=maxiter, mesh=mesh)
+    return (total, torch.equal(res.d, straight.d),
+            torch.equal(res.x, straight.x))
+
+
+def refusal(rank, n, spec, solver, kw, per_rank=None, meta_y=False):
+    """The error a sharded call raises on this rank: (type name, message),
+    or None. ``spec`` None passes a mesh that is no ``DeviceMesh``;
+    ``per_rank``: {rank: keywords} that only that rank passes;
+    ``meta_y``: y is a tensor on the 'meta' device."""
+    mesh = parallel.make_mesh(*spec) if spec is not None else object()
+    kw = {**kw, **(per_rank or {}).get(rank, {})}
+    if meta_y:
+        kw["y"] = torch.empty(kw["y"].shape, device="meta")
+    from decomp_tpu_torch.models import nmf as tnmf
+
+    fn = {"nmf": parallel.nmf.solve, "lasso": parallel.lasso.solve,
+          "dl": parallel.dictionary_learning.solve,
+          "completion": tnmf.masked_completion}[solver]
+    try:
+        fn(mesh=mesh, **kw)
+    except DecompError as e:
+        return type(e).__name__, str(e)
+    return None
+
+
+def meshes(rank, n, rows):
+    """Block placement and the meshes: ``shard_rows`` of a global array on
+    a flat and a ('slice', 'rows') mesh, and the multi-slice layouts."""
+    flat = parallel.make_mesh()
+    sliced = parallel.make_multislice_mesh(n_slices=2)
+    by_host = parallel.make_multislice_mesh()
+    g = np.arange(rows * 6, dtype=np.float32).reshape(rows, 6)
+    grid = parallel.make_mesh((2, n // 2), ("rows", "cols"))
+    return dict(
+        flat=_np(parallel.shard_rows(g, flat)),
+        sliced=_np(parallel.shard_rows(g, sliced, ("slice", "rows"))),
+        sliced_index=pmesh.axis_index(sliced, ("slice", "rows")),
+        sliced_shape=tuple(sliced.mesh.shape),
+        sliced_layout=sliced.mesh.tolist(),
+        host_shape=tuple(by_host.mesh.shape),
+        block=_np(parallel.shard_rows(torch.as_tensor(g), grid, "rows",
+                                      "cols")),
+        grid=(pmesh.axis_index(grid, "rows"), pmesh.axis_index(grid, "cols")),
+        device=str(pmesh.local_device(flat)))
+
+
+def multislice_refusals(rank, n):
+    """The refusals of the mesh builders."""
+    out = []
+    for call in (lambda: parallel.make_multislice_mesh(n_slices=3),
+                 lambda: parallel.make_multislice_mesh(
+                     axis_names=("a", "b", "c")),
+                 lambda: parallel.make_mesh((3,), ("rows",))):
+        try:
+            call()
+            out.append(None)
+        except ValueError as e:
+            out.append(type(e).__name__)
+    return out
+
+
+def fails_on_rank_one(rank, n):
+    if rank == 1:
+        raise RuntimeError("rank one fails on purpose")
+    return rank
+
+
+def sleeps(rank, n, seconds):
+    import time
+
+    time.sleep(seconds)
+    return rank
+
+
+def assemble(outs, key="x", axis=0, by="row"):
+    """The global array of the ranks' blocks of ``key``, laid out by their
+    ``by`` coordinate along ``axis``; the ranks that share a coordinate
+    must hold the same bits."""
+    blocks = {}
+    for o in outs:
+        if o[by] in blocks:
+            assert np.array_equal(blocks[o[by]], o[key]), (key, by)
+        else:
+            blocks[o[by]] = o[key]
+    return np.concatenate([blocks[i] for i in sorted(blocks)], axis=axis)
