@@ -256,6 +256,7 @@ is ``{"ok": true, "device": {...}}``.
 """
 
 import concurrent.futures
+import hashlib
 import itertools
 import json
 import os
@@ -2210,6 +2211,30 @@ def per_epoch_ms(run, lo=1, hi=6):
     return (t_hi - t_lo) / (hi - lo), t_hi
 
 
+def config5_loader(dev, n=10112, k=128):
+    """Config 5′'s loader on ``dev``: rows [lo, hi) of relu(x_t d_true)
+    in bf16 (bf16 operands, f32 sums), x_t from a generator seeded by the
+    offset ``lo`` and d_true from seed 7, so that any process makes any
+    chunk alone."""
+    bf16 = torch.bfloat16
+    d_true = torch.rand((k, n), generator=torch.Generator(
+        device=dev).manual_seed(7), device=dev, dtype=bf16)
+
+    def loader(lo, hi):
+        g = torch.Generator(device=dev).manual_seed(1_000_003 + lo)
+        xt = torch.rand((hi - lo, k), generator=g, device=dev, dtype=bf16)
+        return torch.relu(xt @ d_true)
+
+    return loader
+
+
+def x_digest(t):
+    """The SHA-256 of a tensor's bytes: whether two runs' x hold the same
+    bits, without keeping either."""
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()
+                          ).hexdigest()
+
+
 def config5_phase(nmf, nmf_mod, cuda_mu, dev, card, reset_counts,
                   read_counts, m=1 << 20, n=10112, k=128, chunk=65_536,
                   epochs=5):
@@ -2221,16 +2246,10 @@ def config5_phase(nmf, nmf_mod, cuda_mu, dev, card, reset_counts,
     loader; a seeded run of ``epochs`` epochs checked for one
     mu_stats_dense launch per chunk, all on the TMA route; ms per epoch
     split into loader, kernels and the rest, against in-core ms per
-    iteration; peak device memory."""
+    iteration; peak device memory. Returns the seeded run's d and the
+    digest of its x, which phase 23 holds a world of 1 to."""
     bf16, f32 = torch.bfloat16, torch.float32
-    d_true = torch.rand((k, n), generator=torch.Generator(
-        device=dev).manual_seed(7), device=dev, dtype=bf16)
-
-    def loader(lo, hi):
-        g = torch.Generator(device=dev).manual_seed(1_000_003 + lo)
-        xt = torch.rand((hi - lo, k), generator=g, device=dev, dtype=bf16)
-        return torch.relu(xt @ d_true)
-
+    loader = config5_loader(dev, n, k)
     n_chunks = -(-m // chunk)
     skw = dict(chunk_rows=chunk, n_samples=m, n_channels=n, dtype=bf16,
                factor_dtype=f32, precision="default", eps=EPS, tol=0.0,
@@ -2302,7 +2321,41 @@ def config5_phase(nmf, nmf_mod, cuda_mu, dev, card, reset_counts,
           f"{epoch_ms - load_ms - kern_ms:.3f} ms; mu_stats_dense launches "
           f"{launches} (TMA route {tma}); peak device memory {peak_gb:.2f} "
           "GB", flush=True)
-    return epoch_ms
+    return {"d": res.d, "x": x_digest(res.x)}
+
+
+def config4_stream_data(dev, m4=100_000, n4=1000, k4=50):
+    """Phase 20's config-4 data on ``dev``: the planted y and the 0/1 mask
+    (30% missing) from seed 3."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    y4 = (torch.rand((m4, k4), generator=g, device=dev)
+          @ torch.rand((k4, n4), generator=g, device=dev))
+    mask4 = (torch.rand((m4, n4), generator=g, device=dev) >= 0.3).float()
+    return y4, mask4
+
+
+def kl_stream_data(dev, m7=100_000, n7=1024):
+    """Phase 20's KL-MU data on ``dev``: y and a 0/1 mask (30% missing)
+    from seed 7."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    y7 = torch.rand((m7, n7), generator=g, device=dev)
+    mask7 = (torch.rand((m7, n7), generator=g, device=dev) >= 0.3).float()
+    return y7, mask7
+
+
+def masked_dl_stream_data(dev, m=100_000, n=1024, k=128):
+    """Phase 21's masked-DL data on ``dev`` from seed 15: the masked y
+    (unit atoms, 10%-sparse codes, 0.01 noise), the 0/1 mask (30% missing)
+    and the start d0."""
+    g = torch.Generator(device=dev).manual_seed(15)
+    d_true = torch.randn((k, n), generator=g, device=dev)
+    d_true /= torch.linalg.vector_norm(d_true, dim=1, keepdim=True)
+    xt = torch.randn((m, k), generator=g, device=dev) * (
+        torch.rand((m, k), generator=g, device=dev) < 0.1)
+    mask = (torch.rand((m, n), generator=g, device=dev) >= 0.3).float()
+    my = (xt @ d_true + 0.01 * torch.randn((m, n), generator=g, device=dev)
+          ) * mask
+    return my, mask, torch.randn((k, n), generator=g, device=dev)
 
 
 def streaming_masked_kl_phase(nmf, nmf_mod, cuda_mu, dev, card, reset_counts,
@@ -2314,12 +2367,11 @@ def streaming_masked_kl_phase(nmf, nmf_mod, cuda_mu, dev, card, reset_counts,
     ragged tail), uncached and with every chunk cached; then KL-MU in
     loader mode at ``m7 x n7``, rank ``k7``, f32, dense and 30% missing,
     ``epochs`` epochs; then one host-array (numpy) run, with the
-    host-to-device copy of a chunk timed."""
+    host-to-device copy of a chunk timed. Returns the uncached config-4
+    run's stop, d and the digest of its x, which phase 23 holds a world of
+    1 to."""
     f32 = torch.float32
-    g = torch.Generator(device=dev).manual_seed(3)
-    y4 = (torch.rand((m4, k4), generator=g, device=dev)
-          @ torch.rand((k4, n4), generator=g, device=dev))
-    mask4 = (torch.rand((m4, n4), generator=g, device=dev) >= 0.3).float()
+    y4, mask4 = config4_stream_data(dev, m4, n4, k4)
     ym4 = y4 * mask4
     n_chunks = -(-m4 // chunk)
     kw = dict(rank=k4, n_samples=m4, n_channels=n4, dtype=f32,
@@ -2363,6 +2415,9 @@ def streaming_masked_kl_phase(nmf, nmf_mod, cuda_mu, dev, card, reset_counts,
     check(results[0].niter == results[n_chunks].niter
           and torch.equal(results[0].d, results[n_chunks].d),
           "masked streaming: the cached run differs from the uncached one")
+    phase20 = {"niter": results[0].niter, "d": results[0].d,
+               "x": x_digest(results[0].x),
+               "heldout": float(results[0].aux["heldout_rel_err"])}
     # Where an epoch's time goes: 20 epochs (no check falls in them).
     for cached in (0, n_chunks):
         busy, nl, wall = profiled(lambda: nmf.masked_completion_streaming(
@@ -2374,9 +2429,7 @@ def streaming_masked_kl_phase(nmf, nmf_mod, cuda_mu, dev, card, reset_counts,
               flush=True)
     del results, res, y4, ym4, mask4, miss
 
-    g = torch.Generator(device=dev).manual_seed(7)
-    y7 = torch.rand((m7, n7), generator=g, device=dev)
-    mask7 = (torch.rand((m7, n7), generator=g, device=dev) >= 0.3).float()
+    y7, mask7 = kl_stream_data(dev, m7, n7)
     n_chunks = -(-m7 // chunk)
     eps7 = torch.tensor(EPS, dtype=f32)
     for name, mk in (("kl_stats_dense", None), ("kl_stats_masked", mask7)):
@@ -2427,6 +2480,7 @@ def streaming_masked_kl_phase(nmf, nmf_mod, cuda_mu, dev, card, reset_counts,
           f"{obj0:.6e} -> {obj1:.6e}", flush=True)
     check(isinstance(res.x, np.ndarray) and obj1 < obj0, "host-array "
           "streaming: x is not a host array or the objective did not fall")
+    return phase20
 
 
 def dl_streaming_phase(dl, dev, card, reset_counts, read_counts, bcd_routes,
@@ -2439,7 +2493,8 @@ def dl_streaming_phase(dl, dev, card, reset_counts, read_counts, bcd_routes,
     in-core solve's; then masked DL at m x n, k atoms, 30% missing, chunks
     of ``chunk``, ``miters`` outer iterations in loader mode (every
     gradient on the packed routes, a falling objective) and one held-out
-    run."""
+    run. Returns config 3's loader-mode d, which phase 23 holds a world of
+    2 to."""
     f32 = torch.float32
     y_np, d0_np = config3_data()
     cfg = dict(tol=0.0, maxiter=iters, lasso_iter=15, lasso_tol=0.0,
@@ -2475,19 +2530,11 @@ def dl_streaming_phase(dl, dev, card, reset_counts, read_counts, bcd_routes,
               f"{routes}")
         check(err <= DL_STREAM_LIMIT and unit <= UNIT_LIMIT,
               f"DL streaming {name}: d disagrees with the in-core solve")
+    phase21 = res.d
     del y, core, res
 
     alpha, inner = 0.05, 15
-    g = torch.Generator(device=dev).manual_seed(15)
-    d_true = torch.randn((k, n), generator=g, device=dev)
-    d_true /= torch.linalg.vector_norm(d_true, dim=1, keepdim=True)
-    xt = torch.randn((m, k), generator=g, device=dev) * (
-        torch.rand((m, k), generator=g, device=dev) < 0.1)
-    mask = (torch.rand((m, n), generator=g, device=dev) >= 0.3).float()
-    my = (xt @ d_true + 0.01 * torch.randn((m, n), generator=g, device=dev)
-          ) * mask
-    d0 = torch.randn((k, n), generator=g, device=dev)
-    del xt, d_true
+    my, mask, d0 = masked_dl_stream_data(dev, m, n, k)
     n_chunks = -(-m // chunk)
     kw = dict(mask=lambda lo, hi: mask[lo:hi], lasso_iter=inner,
               lasso_tol=0.0, chunk_rows=chunk, jit_loader=True, n_samples=m,
@@ -2526,6 +2573,7 @@ def dl_streaming_phase(dl, dev, card, reset_counts, read_counts, bcd_routes,
           f"{ho:.4e}", flush=True)
     check(np.isfinite(ho) and bool(torch.isfinite(res.d).all()),
           "masked DL streaming: held-out run not finite")
+    return phase21
 
 
 
@@ -2905,7 +2953,7 @@ def _rank_ready(rank, n):
 
 
 def sharded_phase(nmf_mod, cuda_mu, dev, card, reset_counts, read_counts,
-                  main4, phase6):
+                  main4, phase6, then):
     """Phase 22: the sharded solves. (a) a world of 1 over NCCL in this
     process: ``parallel.nmf.solve`` at the main path's width from phase 4's
     start must give phase 4's bits, with one TMA launch per iteration, and
@@ -2914,7 +2962,9 @@ def sharded_phase(nmf_mod, cuda_mu, dev, card, reset_counts, read_counts,
     each case against the in-core solve on the same data, the launches and
     routes per rank, d the same bits on both ranks, and the time per
     iteration or solve with the all-reduce's share from ``torch.profiler``.
-    Returns the JSON summary's entries."""
+    Then ``then(world, tmp)`` runs with the world of 2 still up and the
+    directory of its store (phase 23). Returns the JSON summary's entries
+    and what ``then`` returned."""
     import tempfile
 
     import torch.distributed as dist
@@ -3042,11 +3092,12 @@ def sharded_phase(nmf_mod, cuda_mu, dev, card, reset_counts, read_counts,
                                    for o in outs]}
                 report.append(entry)
                 print(f"phase 22b {case}: " + json.dumps(entry), flush=True)
-        print(f"phase 22b: two gloo ranks spawned and joined in "
-              f"{spawn_s:.1f} s "
-              f"({card})", flush=True)
-        check(not failures, "phase 22b: " + "; ".join(failures))
-    return report
+            print(f"phase 22b: two gloo ranks spawned and joined in "
+                  f"{spawn_s:.1f} s "
+                  f"({card})", flush=True)
+            check(not failures, "phase 22b: " + "; ".join(failures))
+            after = then(world, tmp)
+    return report, after
 
 
 def shard_reference(case, n, dev, tmp):
@@ -3137,6 +3188,442 @@ def shard_failures(case, outs, ref, limit):
         if case in ("mu", "kl", "mdl") and o["niter"] != ref["niter"]:
             bad.append(f"{who}: niter {o['niter']}")
     return bad
+
+
+# Phase 23: the sharded out-of-core solvers (parallel.nmf.solve_streaming,
+# masked_completion_streaming(mesh=), parallel.dictionary_learning
+# .solve_streaming, parallel.lasso.solve_streaming). (a) A world of 1 over
+# NCCL in this process must give phase 19's and phase 20's bits from their
+# starts, and each is timed in turns with the one-process streamer. (b)
+# Phase 22's world of 2 over gloo on the one card: config 5′, each rank
+# streaming its 524,288 rows in 8 chunks, d within SHARD_LIMIT of the
+# one-process streamer's after 2 epochs from phase 19's start; config 4's
+# preset, d within SHARD_LIMIT of the one-process streamer's after 2 epochs
+# from phase 20's start, and its stop and held-out error within 5% of phase
+# 20's, as phase 22 holds config 4's (the plateau test on f32 sums in
+# another order moves the stop by a few checks: measured on the H100 80GB
+# HBM3 at 700 W, 3,625 epochs against 3,775, six checks of 25); config 3
+# in chunks of 4,096, d within SHARD_LIMIT of phase 21's after its 5 outer
+# iterations; KL-MU at phase 20's 100,000 x 1,024, rank 128, dense ('kl')
+# and 30% missing ('klm'), and masked DL at phase 21's 100,000 x 1,024, 128
+# atoms ('mdl'), each in chunks of 16,384 (4 a rank), d within SHARD_LIMIT
+# of the one-process streamer's from the same start after 5 epochs (KL) or
+# 3 outer iterations (masked DL); config 2 per problem in chunks of 4,096:
+# x the in-core run's bits, or else within C2_X_LIMIT of them with the KKT
+# criterion of phase 10. A rank's ms per epoch, launches per route and the
+# all-reduce's share (profiler, and each all-reduce timed alone) are
+# printed.
+STREAM_CASES = ("c5", "c4", "kl", "klm", "dl3", "mdl", "lasso")
+C4_STREAM_CHUNK = 16_384
+
+
+def stream_kw(case):
+    """The keywords of a phase-23 case's solve (phases 19, 20, 21, 10)."""
+    f32 = torch.float32
+    if case == "c5":
+        return dict(chunk_rows=65_536, n_samples=1 << 20, n_channels=10112,
+                    dtype=torch.bfloat16, factor_dtype=f32,
+                    precision="default", eps=EPS, tol=0.0)
+    if case == "c4":
+        return dict(rank=50, n_samples=100_000, n_channels=1000, dtype=f32,
+                    chunk_rows=C4_STREAM_CHUNK, tol=1e-4, maxiter=4000,
+                    random_seed=4)
+    if case == "dl3":
+        return dict(tol=0.0, maxiter=5, lasso_iter=15, lasso_tol=0.0,
+                    precision="high", chunk_rows=4096, n_samples=20_000,
+                    n_channels=64, dtype=f32)
+    if case in ("kl", "klm"):
+        return dict(method="kl-mu", tol=0.0, maxiter=5, eps=EPS,
+                    chunk_rows=C4_STREAM_CHUNK, n_samples=100_000,
+                    n_channels=1024, dtype=f32)
+    if case == "mdl":
+        return dict(tol=0.0, maxiter=3, lasso_iter=15, lasso_tol=0.0,
+                    chunk_rows=C4_STREAM_CHUNK, n_samples=100_000,
+                    n_channels=1024, dtype=f32)
+    return dict(tol=1e-4, maxiter=4000, method="acc_ista", per_problem=True,
+                precision="high")
+
+
+def _stream_path(tmp, case):
+    return os.path.join(tmp, f"stream_{case}.pt")
+
+
+def stream_rank(rank, n, case, tmp):
+    """One rank of a phase-23b case: the sharded streamed solve from the
+    reference the parent saved in ``tmp``, timed, profiled and held to the
+    reference; its launches per route."""
+    from decomp_tpu_torch import parallel
+    from decomp_tpu_torch.models import nmf_streaming as ns
+    from decomp_tpu_torch.parallel import _spawn
+
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = parallel.make_mesh((n,), ("rows",))
+    ref = torch.load(_stream_path(tmp, case))
+    kw = stream_kw(case)
+    if case == "c5":
+        loader, d0 = config5_loader(dev), ref["d0"].to(dev)
+
+        def run(**over):
+            return parallel.nmf.solve_streaming(
+                loader, d0, x=ref["x0"], mesh=mesh, **{**kw, **over})
+
+        main, short, warm = dict(maxiter=2), dict(maxiter=2), dict(maxiter=1)
+        per_epoch = (1, 3)
+    elif case == "c4":
+        y4, mask4 = config4_stream_data(dev)
+        ym4 = y4 * mask4
+        del y4
+        d0 = ref["d0"].to(dev)
+        n_local = -(-kw["n_samples"] // (n * C4_STREAM_CHUNK))
+
+        def run(**over):
+            return ns.masked_completion_streaming(
+                lambda lo, hi: ym4[lo:hi], lambda lo, hi: mask4[lo:hi],
+                d=d0, x=ref["x0"], mesh=mesh, hbm_cache_chunks=n_local,
+                **{**kw, **over})
+
+        main, short = {}, dict(maxiter=50, tol=0.0)
+        warm, per_epoch = dict(maxiter=2, tol=0.0), None
+    elif case in ("kl", "klm"):
+        y7, mask7 = kl_stream_data(dev)
+        mk = mask7 if case == "klm" else None
+        my7 = y7 if mk is None else mk * y7
+        del y7
+        d0 = ref["d0"].to(dev)
+
+        def run(**over):
+            return parallel.nmf.solve_streaming(
+                lambda lo, hi: my7[lo:hi], d0, x=ref["x0"], mesh=mesh,
+                mask=None if mk is None else (lambda lo, hi: mk[lo:hi]),
+                **{**kw, **over})
+
+        main, short, warm = {}, dict(maxiter=2), dict(maxiter=1)
+        per_epoch = (1, 3)
+    elif case == "mdl":
+        my, mask, d0 = masked_dl_stream_data(dev)
+
+        def run(**over):
+            return parallel.dictionary_learning.solve_streaming(
+                lambda lo, hi: my[lo:hi], d0, 0.05,
+                mask=lambda lo, hi: mask[lo:hi], mesh=mesh,
+                **{**kw, **over})
+
+        main, short, warm = {}, dict(maxiter=2), dict(maxiter=1)
+        per_epoch = (1, 3)
+    elif case == "dl3":
+        y_np, d0_np = config3_data()
+        y = torch.from_numpy(y_np).to(dev)
+
+        def run(**over):
+            return parallel.dictionary_learning.solve_streaming(
+                lambda lo, hi: y[lo:hi], d0_np, 0.05, mesh=mesh,
+                **{**kw, **over})
+
+        main, short, warm = {}, dict(maxiter=2), dict(maxiter=1)
+        per_epoch = (1, 3)
+    else:
+        y_np, a_np, _ = config2_data()
+
+        def run(**over):
+            return parallel.lasso.solve_streaming(
+                y_np, a_np, 0.1, mesh=mesh, chunk_rows=4096,
+                **{**kw, **over})
+
+        main, short, warm, per_epoch = {}, {}, {}, None
+    first = run(**warm)
+    torch.cuda.synchronize()
+    shard_read(reset=True)
+    t0 = time.perf_counter()
+    res = run(**main)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    out = {"rank": rank, "launches": shard_read(), "wall_ms": wall}
+    if case == "c4":
+        # The 2-epoch warm-up against one process from the same start.
+        out["d2_rel_fro"] = rel_fro(first.d, ref["d2"].to(dev))
+    del first
+    if case == "lasso":
+        niter = np.asarray(res.niter)
+        out.update(niter_max=int(niter.max()),
+                   converged=bool(np.asarray(res.converged).all()),
+                   ms_per_solve=wall)
+        x = torch.from_numpy(res.x)
+        out["x_bits_equal_in_core"] = bool(torch.equal(x, ref["x"]))
+        out["x_rel_fro"] = rel_fro(x, ref["x"])
+        out["niter_equal"] = float((torch.from_numpy(niter)
+                                    == ref["niter"]).float().mean())
+        if not out["x_bits_equal_in_core"]:
+            from decomp_tpu_torch.ops.spectral import spectral_norm_psd
+
+            a = torch.from_numpy(a_np).to(dev)
+            lip = float(spectral_norm_psd(a @ a.T))
+            out["kkt_max"] = float(kkt_residual(
+                x.to(dev), torch.from_numpy(y_np).to(dev), a, 0.1, lip,
+                kw["tol"]).max())
+    else:
+        out.update(niter=res.niter, converged=bool(res.converged),
+                   ms_per_epoch=(wall / res.niter if per_epoch is None
+                                 else per_epoch_ms(
+                                     lambda e: run(maxiter=e),
+                                     *per_epoch)[0]),
+                   rows=int(res.x.shape[0]),
+                   d_same=_spawn.same_on_all_ranks(res.d),
+                   finite=bool(torch.isfinite(res.d).all()
+                               and torch.isfinite(res.x).all()))
+        if case == "c4":
+            out["heldout"] = float(res.aux["heldout_rel_err"])
+        else:
+            out["d_rel_fro"] = rel_fro(res.d, ref["d"].to(dev))
+    wall_p, busy, reduce_ms, _ = _profile_run(lambda: run(**short))
+    out["profile"] = {"run": short or main, "wall_ms": wall_p,
+                      "busy_ms": busy, "all_reduce_ms": reduce_ms,
+                      "all_reduce_share": reduce_ms / wall_p}
+    out["reductions"] = _timed_reductions(lambda: run(**short))
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def stream_expect(case, o):
+    """The launches a rank of a phase-23b case must show: one kernel per
+    chunk (8 a rank for config 5′, 4 at 100,000 rows) per epoch, and per
+    inner step for the masked lasso gradient, one sweep per outer
+    iteration, one whole solve per chunk (3)."""
+    niter = o.get("niter", 0)
+    return {"c5": {"mu_stats_dense.tma": 8 * niter},
+            "c4": {"mu_stats_masked.packed": 4 * niter},
+            "kl": {"kl_stats_dense.packed": 4 * niter},
+            "klm": {"kl_stats_masked.packed": 4 * niter},
+            "dl3": {"bcd_sweep.register": niter},
+            "mdl": {"masked_grad_dict.packed": 4 * niter,
+                    "masked_grad_rows.packed": 4 * 15 * niter},
+            "lasso": {"solve_rows.tma": 3}}[case]
+
+
+def stream_failures(case, outs, phase20):
+    """What phase 23b's case got wrong, as messages."""
+    bad = []
+    for o in outs:
+        who = f"{case} rank {o['rank']}"
+        if o["launches"] != stream_expect(case, o):
+            bad.append(f"{who}: launches {o['launches']}, expected "
+                       f"{stream_expect(case, o)}")
+        if case == "lasso":
+            if not o["converged"]:
+                bad.append(f"{who}: not every row converged")
+            if not o["x_bits_equal_in_core"] and not (
+                    o["x_rel_fro"] <= C2_X_LIMIT
+                    and o["kkt_max"] <= C2_KKT_LIMIT):
+                bad.append(f"{who}: x {o['x_rel_fro']} from the in-core "
+                           f"run's, KKT {o.get('kkt_max')}")
+            continue
+        if not (o["d_same"] and o["finite"]):
+            bad.append(f"{who}: d differs between the ranks or is not "
+                       "finite")
+        if case == "c4":
+            if abs(o["niter"] - phase20["niter"]) > 0.05 * phase20["niter"]:
+                bad.append(f"{who}: stopped at {o['niter']}, phase 20 at "
+                           f"{phase20['niter']}")
+            if not (o["converged"] and o["heldout"] < 5e-2
+                    and abs(o["heldout"] - phase20["heldout"])
+                    <= 0.05 * phase20["heldout"]):
+                bad.append(f"{who}: held-out error {o['heldout']} (phase "
+                           f"20: {phase20['heldout']})")
+            if not o["d2_rel_fro"] <= SHARD_LIMIT:
+                bad.append(f"{who}: d {o['d2_rel_fro']} from one process "
+                           "after 2 epochs")
+        elif not o["d_rel_fro"] <= SHARD_LIMIT:
+            bad.append(f"{who}: d {o['d_rel_fro']} from the reference")
+    if case != "lasso" and len({o["niter"] for o in outs}) != 1:
+        bad.append(f"{case}: the ranks stopped apart")
+    return bad
+
+
+def sharded_streaming_phase(nmf, nmf_mod, lasso, dl, cuda_mu, dev, card,
+                            reset_counts, read_counts, world, tmp, phase19,
+                            phase20, phase21):
+    """Phase 23 (see STREAM_CASES): (a) a world of 1 over NCCL in this
+    process, config 5′ for 5 epochs and config 4's preset to its stop, each
+    from the start of phase 19's or 20's seeded run (the one-process
+    streamer at maxiter 0) and held to its bits; (b) the cases on phase
+    22's world of 2 over gloo, after the references are saved in ``tmp``.
+    Returns the JSON summary's entries."""
+    import torch.distributed as dist
+
+    from decomp_tpu_torch import parallel
+    from decomp_tpu_torch.models import nmf_streaming as ns
+
+    report = []
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(tmp, "nccl23"), 1), rank=0, world_size=1)
+    try:
+        mesh = parallel.make_mesh((1,), ("rows",))
+        loader, kw = config5_loader(dev), stream_kw("c5")
+        start = nmf.solve_streaming(loader, rank=128, maxiter=0,
+                                    random_seed=11, x_device=True,
+                                    jit_loader=True, **kw)
+
+        def run5(epochs):
+            return parallel.nmf.solve_streaming(loader, start.d, x=start.x,
+                                                maxiter=epochs, mesh=mesh,
+                                                **kw)
+
+        def one5(epochs):
+            return nmf.solve_streaming(loader, start.d, x=start.x,
+                                       maxiter=epochs, x_device=True,
+                                       jit_loader=True, **kw)
+
+        run5(1)   # warm-up: the first NCCL call makes its communicator
+        reset_counts()
+        ms, res = event_ms(lambda: run5(5))
+        launches = read_counts("mu_stats_dense", 80)
+        tma = cuda_mu.mu_stats_dense.tma_launches
+        check(tma == 80, f"phase 23a: {tma} of 80 launches on the TMA route")
+        same = (torch.equal(res.d, phase19["d"]),
+                x_digest(res.x) == phase19["x"])
+        check(all(same), f"phase 23a: a world of 1 did not give phase 19's "
+              f"bits (d, x equal: {same})")
+        turns = [per_epoch_ms(f)[0] for f in (one5, run5, run5, one5)]
+        wall, busy, _, nccl_ms = _profile_run(lambda: run5(2))
+        print(f"phase 23a: parallel.nmf.solve_streaming, a world of 1 over "
+              f"NCCL, config 5' (16 chunks of 65536 from the loader), 5 "
+              f"epochs from phase 19's start: d and x equal phase 19's bit "
+              f"for bit; the call {ms:.3f} ms; ms per epoch (differential, "
+              f"6 - 1 epochs) in turns, one process / world of 1 / world "
+              f"of 1 / one process: {turns[0]:.3f} / {turns[1]:.3f} / "
+              f"{turns[2]:.3f} / {turns[3]:.3f} ({card}); mu_stats_dense "
+              f"launches {launches} (TMA route {tma}); 2 epochs profiled: "
+              f"wall {wall:.1f} ms, device busy {busy:.1f} ms, of which "
+              f"NCCL all-reduce kernels {nccl_ms:.3f} ms", flush=True)
+        report.append({"case": "config 5', world of 1 (NCCL)",
+                       "call_ms": ms, "ms_per_epoch_turns": turns,
+                       "bits_equal_phase19": True,
+                       "launches": {"mu_stats_dense.tma": tma},
+                       "nccl_all_reduce_ms": nccl_ms, "busy_ms": busy,
+                       "wall_ms": wall})
+        two = nmf.solve_streaming(loader, start.d, x=start.x, maxiter=2,
+                                  x_device=True, jit_loader=True, **kw)
+        torch.save({"d0": start.d.cpu(), "x0": start.x.cpu(),
+                    "d": two.d.cpu()}, _stream_path(tmp, "c5"))
+        del start, res, two
+        y4, mask4 = config4_stream_data(dev)
+        ym4 = y4 * mask4
+        del y4
+        kw = stream_kw("c4")
+        n_chunks = -(-kw["n_samples"] // C4_STREAM_CHUNK)
+        loaders = (lambda lo, hi: ym4[lo:hi], lambda lo, hi: mask4[lo:hi])
+        start = nmf.masked_completion_streaming(*loaders,
+                                                **{**kw, "maxiter": 0})
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = nmf.masked_completion_streaming(
+            *loaders, d=start.d, x=start.x, mesh=mesh,
+            hbm_cache_chunks=n_chunks, **kw)
+        torch.cuda.synchronize()
+        wall4 = time.perf_counter() - t0
+        launches4 = read_counts("mu_stats_masked", n_chunks * res.niter)
+        packed = cuda_mu.mu_stats_masked.packed_launches
+        check(packed == launches4, f"phase 23a config 4: {packed} of "
+              f"{launches4} launches packed")
+        same = (res.niter == phase20["niter"],
+                torch.equal(res.d, phase20["d"]),
+                x_digest(res.x) == phase20["x"])
+        check(all(same), f"phase 23a config 4: not phase 20's stop and bits "
+              f"(niter, d, x equal: {same}; niter {res.niter} against "
+              f"{phase20['niter']})")
+        print(f"phase 23a: masked_completion_streaming(mesh=) at config 4, "
+              f"a world of 1, every chunk cached: stopped on phase 20's "
+              f"epoch {res.niter} with phase 20's bits, in {wall4:.3f} s "
+              f"({wall4 * 1e3 / res.niter:.3f} ms per epoch, {card}); "
+              f"mu_stats_masked launches {launches4}, all packed",
+              flush=True)
+        del res
+
+        def run4(sharded, epochs):
+            return nmf.masked_completion_streaming(
+                *loaders, d=start.d, x=start.x, hbm_cache_chunks=n_chunks,
+                **{**kw, "maxiter": epochs, "tol": 0.0},
+                **({"mesh": mesh} if sharded else {}))
+
+        turns = [per_epoch_ms(lambda e, sh=sh: run4(sh, e), 20, 220)[0]
+                 for sh in (False, True, True, False)]
+        prof = [_profile_run(lambda sh=sh: run4(sh, 200))[:2]
+                for sh in (False, True)]
+        # The one step a sharded epoch adds, alone: the statistics laid
+        # into one buffer and all-reduced, and the same without the call.
+        stats = [torch.rand((50, 1000), device=dev) for _ in range(2)]
+        red = parallel.mesh.reducer(mesh, "rows")
+        step_ms = [cuda_ms(lambda r=r: ns.reduce_together(r, *stats, None,
+                                                          None, None), 500)
+                   for r in (red, lambda t: t)]
+        print(f"  config 4 cached, ms per epoch (differential, 220 - 20 "
+              f"epochs) in turns, one process / world of 1 / world of 1 / "
+              f"one process: {turns[0]:.4f} / {turns[1]:.4f} / "
+              f"{turns[2]:.4f} / {turns[3]:.4f}; 200 epochs profiled, one "
+              f"process wall {prof[0][0]:.1f} ms, busy {prof[0][1]:.1f} "
+              f"ms; world of 1 wall {prof[1][0]:.1f} ms, busy "
+              f"{prof[1][1]:.1f} ms; reduce_together of numd and dend "
+              f"alone {step_ms[0]:.4f} ms a call, without the NCCL call "
+              f"{step_ms[1]:.4f} ms ({card})", flush=True)
+        report.append({"case": "config 4 masked_completion_streaming(mesh="
+                       "), world of 1 (NCCL)", "niter": phase20["niter"],
+                       "s": wall4, "bits_equal_phase20": True,
+                       "ms_per_epoch_turns": turns,
+                       "profile_200": {"one_process": prof[0],
+                                       "world_of_1": prof[1]},
+                       "reduce_together_ms": step_ms,
+                       "launches": {"mu_stats_masked.packed": packed}})
+        torch.save({"d0": start.d.cpu(), "x0": start.x.cpu(),
+                    "d2": run4(False, 2).d.cpu()}, _stream_path(tmp, "c4"))
+        del start, ym4, mask4
+    finally:
+        dist.destroy_process_group()
+
+    torch.save({"d": phase21.cpu()}, _stream_path(tmp, "dl3"))
+    y7, mask7 = kl_stream_data(dev)
+    for case, mk in (("kl", None), ("klm", mask7)):
+        my7 = y7 if mk is None else mk * y7
+        d0, x0 = nmf_mod._init_factors(
+            torch.Generator(device=dev).manual_seed(0), my7, None, None, 128)
+        one = nmf.solve_streaming(
+            lambda lo, hi: my7[lo:hi], d0, x=x0, x_device=True,
+            jit_loader=True,
+            mask=None if mk is None else (lambda lo, hi: mk[lo:hi]),
+            **stream_kw(case))
+        torch.save({"d0": d0.cpu(), "x0": x0.cpu(), "d": one.d.cpu()},
+                   _stream_path(tmp, case))
+        del my7, d0, x0, one
+    del y7, mask7
+    my, mask, d0 = masked_dl_stream_data(dev)
+    one = dl.solve_streaming(lambda lo, hi: my[lo:hi], d0, 0.05,
+                             mask=lambda lo, hi: mask[lo:hi],
+                             jit_loader=True, **stream_kw("mdl"))
+    torch.save({"d": one.d.cpu()}, _stream_path(tmp, "mdl"))
+    del my, mask, d0, one
+    y2, a2, _ = config2_data()
+    core = lasso.solve(torch.from_numpy(y2).to(dev),
+                       torch.from_numpy(a2).to(dev), 0.1,
+                       **stream_kw("lasso"))
+    torch.save({"x": core.x.cpu(), "niter": core.niter.cpu()},
+               _stream_path(tmp, "lasso"))
+    del core
+    torch.cuda.empty_cache()
+    failures = []
+    for case in STREAM_CASES:
+        outs = world.run(stream_rank, case, tmp)
+        failures += stream_failures(case, outs, phase20)
+        entry = {"case": case, "world": 2, "backend": "gloo",
+                 "limit": C2_X_LIMIT if case == "lasso" else SHARD_LIMIT,
+                 "ranks": outs}
+        if case == "c4":
+            entry.update(phase20_niter=phase20["niter"],
+                         phase20_heldout=phase20["heldout"])
+        report.append(entry)
+        print(f"phase 23b {case}: " + json.dumps(entry), flush=True)
+    check(not failures, "phase 23b: " + "; ".join(failures))
+    return report
 
 
 def main():
@@ -3777,26 +4264,36 @@ def main():
     t_phase = phase("18 checkpointed solves", t_phase)
 
     # Phase 19: config 5', out-of-core MU from a loader on the card.
-    config5_phase(nmf, nmf_mod, cuda_mu, dev, card, reset_counts,
-                  read_counts)
+    phase19 = config5_phase(nmf, nmf_mod, cuda_mu, dev, card, reset_counts,
+                            read_counts)
     t_phase = phase("19 config 5' streaming", t_phase)
 
     # Phase 20: masked completion and KL-MU streaming, and the host path.
-    streaming_masked_kl_phase(nmf, nmf_mod, cuda_mu, dev, card, reset_counts,
-                              read_counts, wall4)
+    phase20 = streaming_masked_kl_phase(nmf, nmf_mod, cuda_mu, dev, card,
+                                        reset_counts, read_counts, wall4)
     t_phase = phase("20 masked and KL streaming", t_phase)
 
     # Phase 21: dictionary-learning streaming.
-    dl_streaming_phase(dictionary_learning, dev, card, reset_counts,
-                       read_counts, bcd_routes, grad_routes, dict_routes)
+    phase21 = dl_streaming_phase(dictionary_learning, dev, card,
+                                 reset_counts, read_counts, bcd_routes,
+                                 grad_routes, dict_routes)
     t_phase = phase("21 dictionary-learning streaming", t_phase)
 
     # Phase 22: the sharded solves, a world of 1 over NCCL and a world of 2
-    # over gloo on the card.
-    sharded = sharded_phase(nmf_mod, cuda_mu, dev, card, reset_counts,
-                            read_counts, main4, phase6)
-    del main4, phase6
-    phase("22 sharded solves", t_phase)
+    # over gloo on the card; then, on that world, phase 23: the sharded
+    # out-of-core solvers.
+    def phase23(world, tmp):
+        t_23 = phase("22 sharded solves", t_phase)
+        out = sharded_streaming_phase(
+            nmf, nmf_mod, lasso, dictionary_learning, cuda_mu, dev, card,
+            reset_counts, read_counts, world, tmp, phase19, phase20, phase21)
+        phase("23 sharded streaming", t_23)
+        return out
+
+    sharded, streamed = sharded_phase(nmf_mod, cuda_mu, dev, card,
+                                      reset_counts, read_counts, main4,
+                                      phase6, phase23)
+    del main4, phase6, phase19, phase20, phase21
 
     bounds = {"mu_stats_dense": dense_b,
               "mu_stats_masked": stats_bound("mu_stats_masked", m4, n4, k4,
@@ -3851,6 +4348,7 @@ def main():
             "library_ms": None,
         })
     print(json.dumps({"sharded": sharded}))
+    print(json.dumps({"sharded_streaming": streamed}))
     print(card, flush=True)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

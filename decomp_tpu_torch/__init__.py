@@ -21,11 +21,13 @@ Hopper (``sm_90a``) on first use. Ported so far:
   (``nmf.solve_streaming``, ``nmf.masked_completion_streaming``,
   ``dictionary_learning.solve_streaming``), which stream row chunks of
   host arrays or loaders through the card's kernels;
-- the in-core sharded solvers (``parallel``: ``nmf.solve``, ``lasso.solve``
-  and ``dictionary_learning.solve`` over a ``torch.distributed`` device
-  mesh, one process per rank, and ``nmf.masked_completion(mesh=...)``),
-  which run those kernels on each rank's block and all-reduce the
-  statistics.
+- the sharded solvers (``parallel``: ``nmf.solve``, ``lasso.solve`` and
+  ``dictionary_learning.solve`` over a ``torch.distributed`` device mesh,
+  one process per rank, and ``nmf.masked_completion(mesh=...)``; out of
+  core, ``nmf.solve_streaming``, ``lasso.solve_streaming``,
+  ``dictionary_learning.solve_streaming`` and
+  ``nmf.masked_completion_streaming(mesh=...)``), which run those kernels
+  on each rank's block or chunks and all-reduce the statistics.
 An entry point runs on the card unless the caller asks for the CPU: a
 tensor stays on its device, and host arrays go to ``device=`` or, by
 default, the CUDA device (``utils.device``). ``decomp_tpu`` (JAX) stays the

@@ -106,16 +106,16 @@ def solve_streaming(
         if not jit_loader:
             raise DecompError("a callable y requires jit_loader=True "
                               "(host-array DL streaming slices arrays)")
-        return _solve_streaming_fused(
-            y, d, alpha, x, tol=tol, maxiter=maxiter,
-            lasso_method=lasso_method, lasso_iter=lasso_iter,
+        return _fused_run(_fused_prepare(
+            y, d, alpha, x, lasso_method=lasso_method, lasso_iter=lasso_iter,
             lasso_tol=lasso_tol, mask_loader=mask, chunk_rows=chunk_rows,
-            precision=precision, callback=callback, stop=stop,
-            heldout_frac=heldout_frac, check_every=check_every,
-            random_seed=random_seed, n_samples=n_samples,
-            n_channels=n_channels, dtype=dtype,
+            precision=precision, stop=stop, heldout_frac=heldout_frac,
+            n_samples=n_samples, n_channels=n_channels, dtype=dtype,
             record_objective=record_objective, use_kernel=use_kernel,
-            bcd_kernel=_bcd_kernel, device=device, reserve=_chunk_reserve)
+            bcd_kernel=_bcd_kernel, device=device), tol=tol, maxiter=maxiter,
+            callback=callback, check_every=check_every,
+            random_seed=random_seed, heldout_frac=heldout_frac,
+            reserve=_chunk_reserve)
     if jit_loader:
         raise DecompError("jit_loader=True requires a callable y loader")
     dev = _device.resolve(None, device)
@@ -210,16 +210,17 @@ def solve_streaming(
                    record_objective, acc, last_e, dev)
 
 
-def _solve_streaming_fused(y_loader, d, alpha, x, *, tol, maxiter,
-                           lasso_method, lasso_iter, lasso_tol, mask_loader,
-                           chunk_rows, precision, callback, stop,
-                           heldout_frac, check_every, random_seed, n_samples,
-                           n_channels, dtype, record_objective, use_kernel,
-                           bcd_kernel, device, reserve):
-    """Loader mode (``decomp_tpu``'s ``_solve_streaming_fused`` and the body
-    of ``_build_dl_fused_epoch``): x padded to the chunk grid on the
-    device, each epoch one pass over the chunks and one dictionary update,
-    driven by ``nmf_streaming._drive``."""
+def _fused_prepare(y_loader, d, alpha, x, *, lasso_method, lasso_iter,
+                   lasso_tol, mask_loader, chunk_rows, precision, stop,
+                   heldout_frac, n_samples, n_channels, dtype,
+                   record_objective, use_kernel, bcd_kernel, device,
+                   shards=None):
+    """Loader mode's checks and set-up (``decomp_tpu``'s
+    ``_solve_streaming_fused``), before any loader call: the chunk source,
+    d normalised and x padded to the grid on the device, and the chunk
+    coder. ``shards``: (ranks, this rank's index) of a sharded run,
+    whose grid is ``nmf_streaming.rank_grid``'s and whose ``x``, the global
+    warm start, gives the rank its rows; None for one process."""
     _dl._validate_lasso_method(lasso_method)
     if n_samples is None or n_channels is None or dtype is None:
         raise DecompError("a callable y requires explicit n_samples, "
@@ -252,20 +253,43 @@ def _solve_streaming_fused(y_loader, d, alpha, x, *, tol, maxiter,
     d = l2_normalize(d, axis=1)
     n_atoms = d.shape[0]
     alpha = _device.on_device("alpha", float(alpha), dev, dtype)
+    row0, n_chunks = (0, None) if shards is None else _ns.rank_grid(
+        n_samples, chunk_rows, *shards)
     src = _ns._LoaderChunks(y_loader, mask_loader, n_samples, chunk_rows, dev,
-                            dtype)
-    c, n_pad = chunk_rows, src.n_chunks * chunk_rows
+                            dtype, row0=row0, n_chunks=n_chunks)
+    n_pad = src.n_chunks * chunk_rows
     if x is None:
         x = torch.zeros((n_pad, n_atoms), dtype=dtype, device=dev)
     else:
-        x = _device.on_device("x", x, dev, dtype)
+        if shards is None:
+            x = _device.on_device("x", x, dev, dtype)
         assertion.assert_axis_size("x", x, 0, n_samples, "n_samples")
         assertion.assert_axis_size("x", x, 1, n_atoms, "n_atoms")
-        x = torch.cat([x, x.new_zeros((n_pad - n_samples, n_atoms))])
+        if shards is not None:
+            x = _ns.rank_rows("x", x, row0, row0 + n_pad, dev, dtype)
+        x = torch.cat([x, x.new_zeros((n_pad - x.shape[0], n_atoms))])
     code = _Coder(use_kernel, dev, dtype, n_atoms, n_channels, masked,
                   precision, alpha, lasso_tol, lasso_method, lasso_iter,
                   bcd_kernel, bits=_ns._MaskBits(src.n_chunks))
-    heldout = stop == "heldout"
+    return dict(src=src, d=d, x=x, alpha=alpha, code=code,
+                record_objective=record_objective, heldout=stop == "heldout",
+                dev=dev)
+
+
+def _fused_run(prep, *, tol, maxiter, callback, check_every, random_seed,
+               heldout_frac, reserve, reduce_sum=None):
+    """Loader mode's epochs on ``_fused_prepare``'s set-up (the body of
+    ``decomp_tpu``'s ``_build_dl_fused_epoch``): each epoch one pass over
+    the chunks and one dictionary update, driven by
+    ``nmf_streaming._drive``. ``reduce_sum`` (sharded): the sum over the
+    ranks of (A, B, the objective, the validation sums), once an epoch, in
+    one buffer, before the update, which then runs on the same sums on
+    every rank. Each chunk's inner lasso stops on its own, as in one
+    process."""
+    src, code, alpha = prep["src"], prep["code"], prep["alpha"]
+    record_objective, heldout, dev = (prep["record_objective"],
+                                      prep["heldout"], prep["dev"])
+    c, dtype = src.chunk_rows, src.dtype
     if heldout:
         reserve = _ns._reserve_fn(reserve, random_seed, float(heldout_frac),
                                   dev)
@@ -278,7 +302,7 @@ def _solve_streaming_fused(y_loader, d, alpha, x, *, tol, maxiter,
             yc, mc, valid = src.load(i)
             mc_full = mc
             if heldout:
-                val = reserve(i * c, tuple(yc.shape)).to(dtype) * mc
+                val = reserve(src.offset(i), tuple(yc.shape)).to(dtype) * mc
                 mc = mc - val
             sl = slice(i * c, (i + 1) * c)
             xc_prev = x_[sl]
@@ -299,14 +323,17 @@ def _solve_streaming_fused(y_loader, d, alpha, x, *, tol, maxiter,
                 ve, vn = _val_err_chunk(yc, val, xc, d_, acc)
                 verr = ve if verr is None else verr + ve
                 vnorm = vn if vnorm is None else vnorm + vn
+        if reduce_sum is not None:
+            sa, sb, obj, verr, vnorm = _ns.reduce_together(
+                reduce_sum, sa, sb, obj, verr, vnorm)
         d_new = code.update_d(sa, sb, d_)
         return (x_, d_new), _ns._rel_diff(d_, d_new), obj, verr, vnorm
 
     (x, d), niter, converged, objs, last_e = _ns._drive(
-        epoch, (x, d), maxiter=int(maxiter), tol=float(tol),
+        epoch, (prep["x"], prep["d"]), maxiter=int(maxiter), tol=float(tol),
         check_every=check_every, heldout=heldout, callback=callback,
         record_objective=record_objective)
-    return _result(x[:n_samples], d, niter, converged, objs, maxiter,
+    return _result(x[:src.rows], d, niter, converged, objs, maxiter,
                    record_objective, acc, last_e, dev)
 
 

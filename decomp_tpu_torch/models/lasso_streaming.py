@@ -19,6 +19,38 @@ from decomp_tpu_torch.utils.exceptions import DecompError
 from decomp_tpu_torch.utils.result import LassoResult
 
 
+def checked_arrays(y, a, alpha, x, mask, chunk_rows):
+    """The streamers' checks of their host arrays (one process and
+    sharded): ``(y, a, alpha_rows, x, mask, chunk_rows)`` as numpy (a
+    memmap stays one), ``alpha_rows`` a 2-D per-sample alpha, else None."""
+    y = np.asarray(y)
+    a_np = np.asarray(a)
+    assertion.assert_ndim("y", y, 2)
+    assertion.assert_ndim("a", a_np, 2)
+    assertion.assert_axis_size("a", a_np, 1, y.shape[1], "n_channels")
+    if mask is not None:
+        mask = np.asarray(mask)
+        assertion.assert_same_shape("mask", mask, "y", y)
+    if x is not None:
+        x = np.asarray(x)
+        assertion.assert_axis_size("x", x, 0, y.shape[0], "n_samples")
+        assertion.assert_axis_size("x", x, 1, a_np.shape[0], "n_features")
+    chunk_rows = int(chunk_rows)
+    if chunk_rows < 1:
+        raise DecompError("chunk_rows must be >= 1")
+    # Per-sample (2-D) alpha weights are row-shaped like y and are sliced
+    # per chunk; scalar and per-feature alpha are shared.
+    alpha_np = np.asarray(alpha)
+    alpha_rows = None
+    if alpha_np.ndim == 2:
+        if alpha_np.shape[0] != y.shape[0]:
+            raise DecompError(
+                f"2-D alpha must have n_samples={y.shape[0]} rows, got "
+                f"{alpha_np.shape}")
+        alpha_rows = alpha_np
+    return y, a_np, alpha_rows, x, mask, chunk_rows
+
+
 def solve_streaming(
     y,
     a,
@@ -46,32 +78,8 @@ def solve_streaming(
     ``lasso.solve``'s ``use_kernel='auto'`` route, which packs a 0/1 mask
     into bits once per chunk where the masked kernel reads bits.
     """
-    y = np.asarray(y)
-    a_np = np.asarray(a)
-    assertion.assert_ndim("y", y, 2)
-    assertion.assert_ndim("a", a_np, 2)
-    assertion.assert_axis_size("a", a_np, 1, y.shape[1], "n_channels")
-    if mask is not None:
-        mask = np.asarray(mask)
-        assertion.assert_same_shape("mask", mask, "y", y)
-    if x is not None:
-        x = np.asarray(x)
-        assertion.assert_axis_size("x", x, 0, y.shape[0], "n_samples")
-        assertion.assert_axis_size("x", x, 1, a_np.shape[0], "n_features")
-    chunk_rows = int(chunk_rows)
-    if chunk_rows < 1:
-        raise DecompError("chunk_rows must be >= 1")
-    # Per-sample (2-D) alpha weights are row-shaped like y and are sliced
-    # per chunk; scalar and per-feature alpha are shared.
-    alpha_np = np.asarray(alpha)
-    alpha_rows = None
-    if alpha_np.ndim == 2:
-        if alpha_np.shape[0] != y.shape[0]:
-            raise DecompError(
-                f"2-D alpha must have n_samples={y.shape[0]} rows, got "
-                f"{alpha_np.shape}")
-        alpha_rows = alpha_np
-
+    y, a_np, alpha_rows, x, mask, chunk_rows = checked_arrays(
+        y, a, alpha, x, mask, chunk_rows)
     dev = _device.resolve(None, device)
     dtype = np.result_type(y.dtype, a_np.dtype)
     a_dev = torch.as_tensor(a_np.astype(dtype), device=dev)

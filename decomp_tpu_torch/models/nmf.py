@@ -67,11 +67,6 @@ def _identity(t):
     return t
 
 
-def _not_ported(what, item):
-    return DecompError(f"{what} is not ported to decomp_tpu_torch yet "
-                       f"(ROADMAP Queue 1, {item}); use decomp_tpu")
-
-
 def _validate_inner_iter(inner_iter):
     """inner_iter must be a positive integer (0 would skip every x
     update)."""

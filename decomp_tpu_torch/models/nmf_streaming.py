@@ -22,9 +22,11 @@ Two paths:
   host reads a scalar on check epochs only.
 
 ``masked_completion_streaming`` is the ``nmf.masked_completion`` preset over
-chunk loaders. ``decomp_tpu``'s compiled-epoch caches (``epoch_cache_info``,
-the weak loader caches, the compile fallback) have no counterpart: there is
-nothing to compile.
+chunk loaders. Loader mode's epoch also serves the sharded streamer
+(``parallel.nmf_streaming``): a rank's chunks start at a global row offset
+and the statistics take a reduction hook. ``decomp_tpu``'s compiled-epoch
+caches (``epoch_cache_info``, the weak loader caches, the compile fallback)
+have no counterpart: there is nothing to compile.
 """
 
 from typing import Callable, NamedTuple, Optional
@@ -138,19 +140,8 @@ def solve_streaming(
 
     Returns NMFResult with ``d`` on the device.
     """
-    if method not in ("mu", "kl-mu"):
-        raise DecompError(f"method must be 'mu' or 'kl-mu', got {method!r}")
-    if stop not in ("rel_change", "heldout"):
-        raise DecompError(f"stop must be 'rel_change' or 'heldout', "
-                          f"got {stop!r}")
-    if use_kernel not in (True, False, "auto"):
-        raise DecompError(f"use_kernel must be True, False or 'auto', "
-                          f"got {use_kernel!r}")
-    if precision not in _nmf._PRECISIONS:
-        raise DecompError(f"precision must be one of {_nmf._PRECISIONS}, "
-                          f"got {precision!r}")
-    inner_iter = _nmf._validate_inner_iter(inner_iter)
-    cuda_mu.validate_block_rows(kernel_block_rows)
+    inner_iter = _check_options(method, stop, use_kernel, precision,
+                                inner_iter, kernel_block_rows)
     if not jit_loader:
         if use_kernel is True:
             raise DecompError("use_kernel=True requires jit_loader=True (the "
@@ -163,14 +154,7 @@ def solve_streaming(
             raise DecompError("hbm_cache_chunks requires jit_loader=True")
     dev = _device.resolve(None, device)
     if callable(y):
-        if n_samples is None or n_channels is None or dtype is None:
-            raise DecompError("a callable y requires explicit n_samples, "
-                              "n_channels and dtype")
-        if not isinstance(dtype, torch.dtype):
-            raise DecompError(f"dtype must be a torch.dtype, got {dtype!r}")
-        if mask is not None and not callable(mask):
-            raise DecompError("with a callable y, mask must also be a "
-                              "callable (lo, hi) -> chunk")
+        _check_loaders(mask, n_samples, n_channels, dtype)
         y_loader, mask_loader, y, mask = y, mask, None, None
         n_samples, n_channels, y_dtype = int(n_samples), int(n_channels), dtype
     else:
@@ -184,19 +168,7 @@ def solve_streaming(
         if mask is not None:
             mask = _host_rows(mask)
             assertion.assert_same_shape("mask", mask, "y", y)
-    if not y_dtype.is_floating_point:
-        raise DtypeError(f"y must be floating, got dtype {y_dtype}")
-    if factor_dtype is not None:
-        if not isinstance(factor_dtype, torch.dtype):
-            raise DecompError("factor_dtype must be a torch.dtype, got "
-                              f"{factor_dtype!r}")
-        if factor_dtype == y_dtype:
-            factor_dtype = None
-    if factor_dtype is not None and (
-            torch.finfo(factor_dtype).bits < torch.finfo(y_dtype).bits):
-        raise DecompError("factor_dtype must be at least as wide as y's "
-                          "dtype")
-    fdt = y_dtype if factor_dtype is None else factor_dtype
+    factor_dtype, fdt = _factor_dtypes(factor_dtype, y_dtype)
     if d is None and rank is None:
         raise DecompError("provide an initial dictionary `d` or a `rank`")
     masked = mask is not None or mask_loader is not None
@@ -212,30 +184,16 @@ def solve_streaming(
         return None if mask is None else _rows(mask, lo, hi, dev, cdt)
 
     def init_scale(k):
-        # The mean over the observed entries of the leading rows: missing
-        # entries may hold any finite value.
         head = load_y(0, min(n_samples, 4096))
-        mh = load_mask(0, min(n_samples, 4096), head.dtype)
-        acc = acc_dtype(head.dtype)
-        if mh is not None:
-            total = float(torch.sum((head * mh).to(acc)))
-            count = max(float(torch.sum(mh.to(acc))), 1.0)
-            mean_y = max(total / count, 1e-30)
-        else:
-            mean_y = max(float(torch.mean(head.to(acc))), 1e-30)
-        return float(np.sqrt(2.0 * mean_y / k))
+        return _init_scale(head, load_mask(0, min(n_samples, 4096),
+                                           head.dtype), k)
 
     rng = np.random.default_rng(random_seed)
     if d is None:
         d = torch.from_numpy(init_scale(rank)
                              * rng.uniform(size=(rank, n_channels)))
     else:
-        d = _device.on_device("d", d, dev)
-        assertion.assert_ndim("d", d, 2)
-        assertion.assert_axis_size("d", d, 1, n_channels, "n_channels")
-        if rank is not None and d.shape[0] != rank:
-            raise DecompError(
-                f"rank={rank} inconsistent with d.shape[0]={d.shape[0]}")
+        d = _given_d(d, rank, n_channels, dev)
     d = d.to(device=dev, dtype=fdt)
     rank = d.shape[0]
     if x is None:
@@ -269,20 +227,9 @@ def solve_streaming(
             raise DecompError("jit_loader=True requires a callable y")
         if not x_device:
             raise DecompError("jit_loader=True requires x_device=True")
-        if chunk_rows > n_samples:
-            raise DecompError(
-                f"chunk_rows={chunk_rows} exceeds n_samples={n_samples}; "
-                "reduce chunk_rows (loader mode reads fixed-size windows "
-                "inside the data)")
         heldout = stop == "heldout"
-        if heldout:
-            if not masked:
-                raise DecompError("stop='heldout' requires a mask loader")
-            if record_objective:
-                raise DecompError("stop='heldout' is incompatible with "
-                                  "record_objective")
-            if not 0.0 < float(heldout_frac) < 1.0:
-                raise DecompError("heldout_frac must be in (0, 1)")
+        _check_loader_mode(chunk_rows, n_samples, heldout, masked,
+                           record_objective, heldout_frac)
         use_k = _chunk_kernel_gate(
             use_kernel, on_cuda=dev.type == "cuda", method=method,
             mixed=mixed, record_objective=record_objective, rank=rank,
@@ -311,6 +258,101 @@ def solve_streaming(
     return NMFResult(x=x, d=d, niter=niter, converged=converged,
                      objective=_curve(objs, maxiter, record_objective, acc),
                      aux=aux)
+
+
+def _check_options(method, stop, use_kernel, precision, inner_iter,
+                   block_rows):
+    """The option checks of the streamers (one process and sharded);
+    returns the validated ``inner_iter``."""
+    if method not in ("mu", "kl-mu"):
+        raise DecompError(f"method must be 'mu' or 'kl-mu', got {method!r}")
+    if stop not in ("rel_change", "heldout"):
+        raise DecompError(f"stop must be 'rel_change' or 'heldout', "
+                          f"got {stop!r}")
+    if use_kernel not in (True, False, "auto"):
+        raise DecompError(f"use_kernel must be True, False or 'auto', "
+                          f"got {use_kernel!r}")
+    if precision not in _nmf._PRECISIONS:
+        raise DecompError(f"precision must be one of {_nmf._PRECISIONS}, "
+                          f"got {precision!r}")
+    inner_iter = _nmf._validate_inner_iter(inner_iter)
+    cuda_mu.validate_block_rows(block_rows)
+    return inner_iter
+
+
+def _check_loaders(mask, n_samples, n_channels, dtype):
+    """A loader's contract: explicit n_samples, n_channels and a
+    ``torch.dtype``, and a mask that is a loader too."""
+    if n_samples is None or n_channels is None or dtype is None:
+        raise DecompError("a callable y requires explicit n_samples, "
+                          "n_channels and dtype")
+    if not isinstance(dtype, torch.dtype):
+        raise DecompError(f"dtype must be a torch.dtype, got {dtype!r}")
+    if mask is not None and not callable(mask):
+        raise DecompError("with a callable y, mask must also be a "
+                          "callable (lo, hi) -> chunk")
+
+
+def _factor_dtypes(factor_dtype, y_dtype):
+    """``(factor_dtype, fdt)``: the mixed mode's factor dtype (None where
+    it is y's) and the factors' dtype."""
+    if not y_dtype.is_floating_point:
+        raise DtypeError(f"y must be floating, got dtype {y_dtype}")
+    if factor_dtype is not None:
+        if not isinstance(factor_dtype, torch.dtype):
+            raise DecompError("factor_dtype must be a torch.dtype, got "
+                              f"{factor_dtype!r}")
+        if factor_dtype == y_dtype:
+            factor_dtype = None
+    if factor_dtype is not None and (
+            torch.finfo(factor_dtype).bits < torch.finfo(y_dtype).bits):
+        raise DecompError("factor_dtype must be at least as wide as y's "
+                          "dtype")
+    return factor_dtype, y_dtype if factor_dtype is None else factor_dtype
+
+
+def _given_d(d, rank, n_channels, device):
+    """A given dictionary on ``device``, its shape checked against
+    ``n_channels`` and ``rank``."""
+    d = _device.on_device("d", d, device)
+    assertion.assert_ndim("d", d, 2)
+    assertion.assert_axis_size("d", d, 1, n_channels, "n_channels")
+    if rank is not None and d.shape[0] != rank:
+        raise DecompError(
+            f"rank={rank} inconsistent with d.shape[0]={d.shape[0]}")
+    return d
+
+
+def _check_loader_mode(chunk_rows, n_samples, heldout, masked,
+                       record_objective, heldout_frac):
+    """Loader mode's checks of the chunk window and the held-out stop."""
+    if chunk_rows > n_samples:
+        raise DecompError(
+            f"chunk_rows={chunk_rows} exceeds n_samples={n_samples}; "
+            "reduce chunk_rows (loader mode reads fixed-size windows "
+            "inside the data)")
+    if heldout:
+        if not masked:
+            raise DecompError("stop='heldout' requires a mask loader")
+        if record_objective:
+            raise DecompError("stop='heldout' is incompatible with "
+                              "record_objective")
+        if not 0.0 < float(heldout_frac) < 1.0:
+            raise DecompError("heldout_frac must be in (0, 1)")
+
+
+def _init_scale(head, mask, k):
+    """The random init's scale, sqrt(2 mean / k), from the mean of the
+    observed entries of the leading rows ``head`` (missing entries may
+    hold any finite value)."""
+    acc = acc_dtype(head.dtype)
+    if mask is not None:
+        total = float(torch.sum((head * mask).to(acc)))
+        count = max(float(torch.sum(mask.to(acc))), 1.0)
+        mean_y = max(total / count, 1e-30)
+    else:
+        mean_y = max(float(torch.mean(head.to(acc))), 1e-30)
+    return float(np.sqrt(2.0 * mean_y / k))
 
 
 def _host_solve(load_y, load_mask, x, d, *, n_samples, chunk_rows, maxiter,
@@ -351,13 +393,19 @@ def _host_solve(load_y, load_mask, x, d, *, n_samples, chunk_rows, maxiter,
 
 def _loader_solve(src, x, d, reserve, *, use_k, block_rows, n_cache, maxiter,
                   tol, check_every, callback, record_objective, method,
-                  masked, mixed, eps, eps_t, inner_iter):
-    """Loader mode (``decomp_tpu``'s fused epoch, :728-986, and the loop
+                  masked, mixed, eps, eps_t, inner_iter, reduce_sum=None):
+    """Loader mode (``decomp_tpu``'s fused epoch, :728-1031, and the loop
     over epochs, :453-638): x padded to the chunk grid on the device, one
-    pass over the chunks per epoch, the epochs run by ``_drive``."""
+    pass over the chunks per epoch, the epochs run by ``_drive``.
+
+    ``x`` holds the grid's first rows (``src.rows`` or more); the padding
+    rows are zero. ``reduce_sum`` (sharded mode, ``src`` one rank's chunks):
+    the sum over the ranks, applied once an epoch, before the d update, to
+    one buffer of the statistics, the objective and the validation sums;
+    unset, the one-process bits."""
     c, n_pad = src.chunk_rows, src.n_chunks * src.chunk_rows
-    if n_pad != src.n_samples:
-        x = torch.cat([x, x.new_zeros((n_pad - src.n_samples, x.shape[1]))])
+    if x.shape[0] < n_pad:
+        x = torch.cat([x, x.new_zeros((n_pad - x.shape[0], x.shape[1]))])
     acc = acc_dtype(src.dtype)
     bits = _MaskBits(src.n_chunks)
     kl_dense_k = use_k and method == "kl-mu" and not masked
@@ -369,7 +417,7 @@ def _loader_solve(src, x, d, reserve, *, use_k, block_rows, n_cache, maxiter,
         yc, mc, valid = src.load(i)
         val = yv = None
         if reserve is not None:
-            val = reserve(i * c, tuple(yc.shape)).to(yc.dtype) * mc
+            val = reserve(src.offset(i), tuple(yc.shape)).to(yc.dtype) * mc
             mc = mc - val   # train on the remainder
             yv = val * yc
         my = yc if mc is None else mc * yc
@@ -423,6 +471,9 @@ def _loader_solve(src, x, d, reserve, *, use_k, block_rows, n_cache, maxiter,
                 ve, vn = torch.sum(rv * rv), torch.sum(yva * yva)
                 verr = ve if verr is None else verr + ve
                 vnorm = vn if vnorm is None else vnorm + vn
+        if reduce_sum is not None:
+            num, den, obj, verr, vnorm = reduce_together(
+                reduce_sum, num, den, obj, verr, vnorm)
         d_new = _d_from_stats(d_, num, den, eps, method=method, masked=masked)
         return (x_, d_new), _rel_diff(d_, d_new), obj, verr, vnorm
 
@@ -430,7 +481,34 @@ def _loader_solve(src, x, d, reserve, *, use_k, block_rows, n_cache, maxiter,
         epoch, (x, d), maxiter=maxiter, tol=tol, check_every=check_every,
         heldout=reserve is not None, callback=callback,
         record_objective=record_objective)
-    return x[:src.n_samples], d, niter, converged, objs, last_e
+    return x[:src.rows], d, niter, converged, objs, last_e
+
+
+def reduce_together(reduce_sum, *parts):
+    """``reduce_sum`` of each of ``parts`` (None stays None) in one call per
+    dtype: the parts of a dtype laid into one buffer, summed, and cut back
+    into their shapes, which is exact. A sharded epoch reduces its
+    statistics so: on gloo a rank's time follows the number of calls more
+    than their bytes. Each part starts at a multiple of 64 elements into
+    the buffer, so that a product on it finds the alignment of a tensor of
+    its own."""
+    out = list(parts)
+    groups = {}
+    for i, t in enumerate(parts):
+        if t is not None:
+            groups.setdefault(t.dtype, []).append(i)
+    for idx in groups.values():
+        offsets, total = [], 0
+        for i in idx:
+            offsets.append(total)
+            total += -(-parts[i].numel() // 64) * 64
+        flat = parts[idx[0]].new_zeros((total,))
+        for i, o in zip(idx, offsets):
+            flat[o:o + parts[i].numel()] = parts[i].reshape(-1)
+        flat = reduce_sum(flat)
+        for i, o in zip(idx, offsets):
+            out[i] = flat[o:o + parts[i].numel()].view(parts[i].shape)
+    return out
 
 
 class _Chunk(NamedTuple):
@@ -634,32 +712,44 @@ def _curve(objs, maxiter, record_objective, acc):
 
 
 class _LoaderChunks:
-    """Loader mode's chunks: chunk i covers rows [i c, (i + 1) c) of the
-    grid of ``n_chunks`` chunks of c = ``chunk_rows`` rows. The trailing
-    chunk of a ragged grid reads the clamped window [n_samples - c,
+    """Loader mode's chunks: chunk i covers the global rows [row0 + i c,
+    row0 + (i + 1) c) of the grid of ``n_chunks`` chunks of c =
+    ``chunk_rows`` rows (by default, one process: row0 = 0 and the chunks
+    that cover n_samples; sharded, one rank's, from ``rank_grid``). A
+    chunk reaching past n_samples reads the clamped window [n_samples - c,
     n_samples), rolled into alignment with its rows at or past n_samples
-    zeroed (``decomp_tpu``'s :807-855). ``load(i) -> (y, mask, valid)``:
-    the chunk's data and mask (None without a mask loader) on the device
-    in ``dtype``, and its rows inside the data as a (c, 1) bool tensor, or
-    None where all are."""
+    zeroed (``decomp_tpu``'s :807-855); a chunk wholly past them (a rank
+    holding padding) is all zeros. ``load(i) -> (y, mask, valid)``: the
+    chunk's data and mask (None without a mask loader) on the device in
+    ``dtype``, and its rows inside the data as a (c, 1) bool tensor, or
+    None where all are. ``rows``: how many of the grid's rows lie inside
+    the data."""
 
     def __init__(self, y_loader, mask_loader, n_samples, chunk_rows, device,
-                 dtype):
+                 dtype, row0=0, n_chunks=None):
         self.y_loader, self.mask_loader = y_loader, mask_loader
         self.n_samples, self.chunk_rows = n_samples, chunk_rows
-        self.n_chunks = -(-n_samples // chunk_rows)
+        self.row0 = row0
+        self.n_chunks = (-(-n_samples // chunk_rows) if n_chunks is None
+                         else n_chunks)
+        self.rows = max(0, min(self.n_chunks * chunk_rows, n_samples - row0))
         self.device, self.dtype = device, dtype
+
+    def offset(self, i):
+        """Chunk i's global row offset, which keys its held-out reserve."""
+        return self.row0 + i * self.chunk_rows
 
     def load(self, i):
         c = self.chunk_rows
-        lo = i * c
+        lo = self.offset(i)
         lo_eff = min(lo, self.n_samples - c)
         s = lo - lo_eff
 
         def get(loader):
             t = _load(loader, lo_eff, lo_eff + c, self.device, self.dtype)
             if s:
-                t = torch.cat([t[s:], t.new_zeros((s,) + tuple(t.shape[1:]))])
+                t = torch.cat([t[s:], t.new_zeros((min(s, c),)
+                                                  + tuple(t.shape[1:]))])
             return t
 
         yc = get(self.y_loader)
@@ -686,6 +776,27 @@ class _MaskBits:
             self.binary[i] = packed is not None
             return packed
         return cuda_mu.pack_bits(mask) if self.binary[i] else None
+
+
+def rank_grid(n_samples, chunk_rows, n_ranks, index):
+    """A rank's share of the sharded grid (``decomp_tpu``'s
+    ``parallel/nmf_streaming.py:154-158``): ``(row0, n_chunks)``, every rank
+    ``ceil(n_samples / (n_ranks chunk_rows))`` chunks from the global row
+    row0 = index n_chunks chunk_rows on."""
+    n_chunks = -(-n_samples // (n_ranks * chunk_rows))
+    return index * n_chunks * chunk_rows, n_chunks
+
+
+def rank_rows(name, x, lo, hi, device, dtype):
+    """Rows [lo, hi) of a global ``x`` (a host array, or a tensor on the host
+    or on ``device``) as a new tensor on ``device`` in ``dtype``: a rank's
+    rows of a warm start, cut before the copy."""
+    if isinstance(x, torch.Tensor):
+        if x.device.type != "cpu":
+            x = _device.on_device(name, x, device)
+        return x[lo:hi].to(device=device, dtype=dtype, copy=True)
+    return _as_tensor(np.asarray(x)[lo:hi]).to(device=device, dtype=dtype,
+                                               copy=True)
 
 
 def _reserve_fn(hook, random_seed, frac, device):
@@ -776,24 +887,31 @@ def masked_completion_streaming(y, mask, rank=None, d=None, x=None, *,
                                 chunk_rows=65536, tol=1e-4, maxiter=4000,
                                 heldout_frac=0.05, check_every=25,
                                 random_seed=0, mixed="auto", mesh=None,
-                                **kwargs):
+                                row_axis="rows", **kwargs):
     """Out-of-core matrix completion: the ``nmf.masked_completion`` recipe
     (masked MU stopped on held-out error) over chunk loaders, in loader
     mode (``solve_streaming(jit_loader=True, x_device=True,
-    stop='heldout')``).
+    stop='heldout')``), or sharded over ``mesh`` (``parallel.nmf
+    .solve_streaming`` over ``row_axis``; every rank calls this with the
+    same loaders, which take global offsets, and each streams its rows).
 
     ``y`` and ``mask`` are loaders ``(lo, hi) -> chunk`` (``y`` pre-masked:
     missing entries zero); ``n_samples``, ``n_channels`` and ``dtype`` are
     their contract. ``mixed``: 'auto' (CUDA chunks of dtype f32), True or
     False. Mixed casts each f32 chunk to bf16 as it is loaded and keeps f32
     factors (``factor_dtype``), the completion operating point; loaders
-    that already yield bf16 pass through. ``mesh`` (sharded streaming) is
-    not ported. Other keywords go to ``solve_streaming``.
+    that already yield bf16 pass through. Other keywords go to the solver
+    (``device`` does not apply with ``mesh``: each rank runs on its own).
     """
     if mesh is not None:
-        raise _nmf._not_ported("masked_completion_streaming(mesh=...)",
-                               "sharded streaming")
-    dev = _device.resolve(None, kwargs.get("device"))
+        from decomp_tpu_torch.parallel import mesh as _pmesh
+
+        dev = _pmesh.placement(mesh, None)
+        if "device" in kwargs:
+            raise DecompError("device= does not apply with mesh=: each "
+                              "rank streams to its own device")
+    else:
+        dev = _device.resolve(None, kwargs.get("device"))
     if mixed == "auto":
         mixed = dev.type == "cuda" and dtype == torch.float32
     y_loader, mask_loader = y, mask
@@ -803,13 +921,18 @@ def masked_completion_streaming(y, mask, rank=None, d=None, x=None, *,
     if mixed:
         kwargs.setdefault("factor_dtype", torch.float32)
         kwargs.setdefault("precision", "default")
-    return solve_streaming(
-        y_loader, d, rank=rank, x=x, mask=mask_loader, tol=tol,
-        maxiter=maxiter, method="mu", stop="heldout",
-        heldout_frac=heldout_frac, check_every=check_every,
-        random_seed=random_seed, chunk_rows=chunk_rows, n_samples=n_samples,
-        n_channels=n_channels, dtype=dtype, x_device=True, jit_loader=True,
-        **kwargs)
+    common = dict(rank=rank, x=x, mask=mask_loader, tol=tol, maxiter=maxiter,
+                  method="mu", stop="heldout", heldout_frac=heldout_frac,
+                  check_every=check_every, random_seed=random_seed,
+                  chunk_rows=chunk_rows, n_samples=n_samples,
+                  n_channels=n_channels, dtype=dtype, **kwargs)
+    if mesh is not None:
+        from decomp_tpu_torch.parallel import nmf_streaming as _pns
+
+        return _pns.solve_streaming(y_loader, d, mesh=mesh,
+                                    row_axis=row_axis, **common)
+    return solve_streaming(y_loader, d, x_device=True, jit_loader=True,
+                           **common)
 
 
 def _bf16_loader(loader):

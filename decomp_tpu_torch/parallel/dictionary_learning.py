@@ -10,11 +10,19 @@ without a mask, the summed masked gradient (``cuda_dl.masked_grad_dict``
 on each rank's rows) with one. d is then the same on every rank. Full
 batch only, as in ``decomp_tpu``: the online variant is a one-process
 feature.
+
+``solve_streaming`` is the out-of-core form: each rank streams its rows in
+chunks from a loader (``models.dl_streaming``'s loader mode on the rank's
+share of the grid), and the statistics are all-reduced once an epoch.
+Unlike the in-core solve, each chunk's inner lasso stops on its own chunk
+alone, as in ``decomp_tpu``'s sharded epoch (a summed inner stop would
+change what one process computes).
 """
 
 import torch
 
 from decomp_tpu_torch.models import dictionary_learning as _dl
+from decomp_tpu_torch.models import dl_streaming as _dls
 from decomp_tpu_torch.models import lasso as _lasso
 from decomp_tpu_torch.models import nmf as _nmf
 from decomp_tpu_torch.ops import cuda_lasso
@@ -92,6 +100,79 @@ def solve(
         auto=use_kernel == "auto", hi_lo=precision == "high",
         block_rows=kernel_block_rows, bcd_kernel=prep["bcd"],
         random_seed=int(random_seed), reduce_sum=_mesh.reducer(mesh, axis))
+
+
+def solve_streaming(
+    y,
+    d,
+    alpha,
+    x=None,
+    *,
+    mesh,
+    row_axis="rows",
+    tol=1e-4,
+    maxiter: int = 100,
+    lasso_method: str = "fista",
+    lasso_iter: int = 10,
+    lasso_tol=1e-6,
+    mask=None,
+    chunk_rows: int = 65536,
+    precision: str = "highest",
+    callback=None,
+    stop: str = "rel_change",
+    heldout_frac: float = 0.05,
+    check_every: int = 5,
+    random_seed: int = 0,
+    n_samples=None,
+    n_channels=None,
+    dtype=None,
+    record_objective: bool = False,
+    use_kernel="auto",
+    _bcd_kernel=None,
+    _chunk_reserve=None,
+):
+    """Sharded out-of-core dictionary learning over ``mesh[row_axis]`` (one
+    dim name or a tuple): every rank of the process group calls it with the
+    same arguments and streams its own rows in chunks through
+    ``dictionary_learning.solve_streaming``'s loader mode.
+
+    ``y`` is a loader ``(lo, hi) -> rows`` taking GLOBAL row offsets, with
+    ``n_samples``, ``n_channels`` and ``dtype`` (a real ``torch.dtype``);
+    ``mask`` likewise; ``alpha`` a scalar. The grid, ragged tails, padding
+    ranks and the held-out reserve keyed by the global offset are those of
+    ``parallel.nmf.solve_streaming``. ``x``: the global warm start
+    (``n_samples`` rows; a host array, or a tensor on the host or on the
+    rank's device). Other parameters as in the one-process loader mode,
+    including ``use_kernel`` and ``_bcd_kernel`` for the chunk routes and
+    the private ``_chunk_reserve``.
+
+    Returns the rank's rows of ``x`` inside the data and ``d``, the same
+    bits on every rank; ``niter``, ``converged``, ``objective`` and
+    ``aux['heldout_rel_err']`` are global. An invalid argument raises
+    ``DecompError`` on every rank.
+    """
+    dev = _mesh.placement(mesh, None)
+    _mesh.require_process_group()
+
+    def prepare():
+        if not callable(y):
+            raise DecompError("the sharded streaming DL solver requires a "
+                              "callable y loader taking global row offsets")
+        shards = (_mesh.validate_axis(mesh, row_axis, "row_axis"),
+                  _mesh.axis_index(mesh, row_axis))
+        return _dls._fused_prepare(
+            y, d, alpha, x, lasso_method=lasso_method, lasso_iter=lasso_iter,
+            lasso_tol=lasso_tol, mask_loader=mask, chunk_rows=chunk_rows,
+            precision=precision, stop=stop, heldout_frac=heldout_frac,
+            n_samples=n_samples, n_channels=n_channels, dtype=dtype,
+            record_objective=record_objective, use_kernel=use_kernel,
+            bcd_kernel=_bcd_kernel, device=dev, shards=shards)
+
+    return _dls._fused_run(
+        _mesh.checked(prepare), tol=tol, maxiter=maxiter, callback=callback,
+        check_every=check_every, random_seed=random_seed,
+        heldout_frac=heldout_frac, reserve=_chunk_reserve,
+        reduce_sum=_mesh.reducer(mesh, row_axis))
 
 
 def _prepare(y, d, alpha, x, mesh, axis, lasso_method, mask, precision,

@@ -9,16 +9,25 @@ objective), through ``models.lasso.build_solver(reduce_sum=)``. The
 whole-solve kernel path (unmasked, per-problem stopping) runs no
 collective at all: each rank makes one ``cuda_lasso.solve_rows`` launch on
 its rows.
+
+``solve_streaming`` solves a batch larger than the ranks' memory: chunk
+by chunk from a global host array, each chunk split over the ranks and
+solved by ``solve``, then put together on every rank by one all-reduce of
+a chunk-sized buffer that is zero outside the rank's rows.
 """
 
+import numpy as np
 import torch
 
 from decomp_tpu_torch.models import lasso as _lasso
+from decomp_tpu_torch.models import lasso_streaming as _lasso_streaming
+from decomp_tpu_torch.ops.spectral import lipschitz_gram
 from decomp_tpu_torch.parallel import mesh as _mesh
 from decomp_tpu_torch.utils import assertion
 from decomp_tpu_torch.utils import device as _device
 from decomp_tpu_torch.utils.dtypes import real_dtype
 from decomp_tpu_torch.utils.exceptions import DecompError
+from decomp_tpu_torch.utils.result import LassoResult
 
 
 def solve(
@@ -86,6 +95,116 @@ def solve(
         check_every=int(check_every), per_problem=bool(per_problem),
         use_kernel=mode == "masked", kernel_mask=kernel_mask,
         reduce_sum=red)
+
+
+def solve_streaming(
+    y,
+    a,
+    alpha,
+    x=None,
+    *,
+    mesh,
+    axis="rows",
+    tol=1e-5,
+    maxiter: int = 1000,
+    method: str = "fista",
+    mask=None,
+    chunk_rows: int = 65536,
+    precision: str = "highest",
+    per_problem: bool = False,
+    use_kernel="auto",
+):
+    """Out-of-core sharded batch lasso (``decomp_tpu.parallel.lasso
+    .solve_streaming``). Every rank of the process group calls it with the
+    same global host ``y`` (ndarray or memmap), ``a``, ``mask``, ``x`` and
+    ``alpha`` (scalar, per feature, or 2-D per sample). The rows stream in
+    ``chunk_rows`` blocks (a multiple of the extent of ``mesh[axis]``); a
+    ragged last block is zero-padded to one. Each rank solves its slice of
+    the block through ``solve`` with one Lipschitz constant for every block
+    (``ops.spectral.lipschitz_gram`` of ``a``): with ``per_problem`` and no
+    mask, one whole-solve kernel launch a block and no collective in the
+    solve. The block's x (and, with ``per_problem``, its per-row counts)
+    is then summed over the ranks from buffers that are zero outside each
+    rank's rows, which is exact.
+
+    Returns on every rank the whole ``x`` as a host numpy array; ``niter``
+    is the largest block's count and ``converged`` whether every block
+    converged, or with ``per_problem`` host arrays of shape (n_samples,).
+    An invalid argument raises ``DecompError`` on every rank.
+    """
+    dev = _mesh.placement(mesh, None)
+    _mesh.require_process_group()
+
+    def prepare():
+        y_, a_, alpha_rows, x_, mask_, chunk = (
+            _lasso_streaming.checked_arrays(y, a, alpha, x, mask,
+                                            chunk_rows))
+        n_dev = _mesh.validate_axis(mesh, axis, "axis")
+        if chunk % n_dev:
+            raise DecompError(
+                f"chunk_rows={chunk} must divide evenly over "
+                f"mesh[{axis!r}]={n_dev} (each chunk row-shards)")
+        return y_, a_, alpha_rows, x_, mask_, chunk, n_dev
+
+    y, a, alpha_rows, x, mask, chunk_rows, n_dev = _mesh.checked(prepare)
+    index = _mesh.axis_index(mesh, axis)
+    red = _mesh.reducer(mesh, axis)
+    dtype = np.result_type(y.dtype, a.dtype)
+    a_dev = torch.as_tensor(a.astype(dtype), device=dev)
+    # One Lipschitz estimate for every chunk, as the full batch computes it.
+    lip = lipschitz_gram(a_dev)
+    n, f = y.shape[0], a.shape[0]
+    out = np.empty((n, f), dtype=dtype)
+    niter_max, all_converged = 0, True
+    if per_problem:
+        niter_rows = np.zeros((n,), np.int32)
+        conv_rows = np.zeros((n,), bool)
+    for lo in range(0, n, chunk_rows):
+        hi = min(lo + chunk_rows, n)
+        per = -(-(hi - lo) // n_dev)    # the rank's rows of the padded block
+        r0 = lo + index * per
+
+        def rows(v):
+            """The rank's rows of ``v``, zero-padded past the block."""
+            part = np.asarray(v[min(r0, hi):min(r0 + per, hi)])
+            return np.concatenate([part, np.zeros(
+                (per - part.shape[0],) + part.shape[1:], part.dtype)])
+
+        res = solve(
+            rows(y), a_dev, alpha if alpha_rows is None else rows(alpha_rows),
+            None if x is None else rows(x), mesh=mesh, axis=axis, tol=tol,
+            maxiter=maxiter, method=method,
+            mask=None if mask is None else rows(mask), lipschitz=lip,
+            precision=precision, per_problem=per_problem,
+            use_kernel=use_kernel)
+        block = _gathered(red, res.x, index, per, n_dev)
+        out[lo:hi] = block[:hi - lo].cpu().numpy()
+        if per_problem:
+            counts = torch.stack([res.niter.to(torch.int32),
+                                  res.converged.to(torch.int32)], 1)
+            counts = _gathered(red, counts, index, per, n_dev).cpu().numpy()
+            niter_rows[lo:hi] = counts[:hi - lo, 0]
+            conv_rows[lo:hi] = counts[:hi - lo, 1] != 0
+        else:
+            niter_max = max(niter_max, int(res.niter))
+            all_converged = all_converged and bool(res.converged)
+    empty = torch.zeros((0,), dtype=torch.float32)
+    if per_problem:
+        return LassoResult(x=out, niter=niter_rows, converged=conv_rows,
+                           objective=empty)
+    return LassoResult(x=out, niter=niter_max, converged=all_converged,
+                       objective=empty)
+
+
+def _gathered(red, part, index, per, n_dev):
+    """The ranks' ``part`` blocks of ``per`` rows stacked in rank order, on
+    every rank: a zero buffer holding the rank's own rows, summed over the
+    ranks (complex parts as their real pairs)."""
+    buf = part.new_zeros((n_dev * per,) + tuple(part.shape[1:]))
+    buf[index * per:(index + 1) * per] = part
+    if buf.is_complex():
+        return torch.view_as_complex(red(torch.view_as_real(buf)))
+    return red(buf)
 
 
 def _prepare(y, a, alpha, x, mesh, axis, method, mask, lipschitz,

@@ -246,3 +246,9 @@ def _prepare(y, d, rank, x, mesh, row_axis, col_axis, method, mask,
                 n_rows=n_rows, n_cols=n_cols, stop=stop,
                 check_every=int(check_every), signature=signature)
 
+
+
+# The sharded out-of-core solver, as decomp_tpu re-exports it here
+# (decomp_tpu/parallel/nmf.py:501).
+from decomp_tpu_torch.parallel.nmf_streaming import (  # noqa: E402,F401
+    solve_streaming)

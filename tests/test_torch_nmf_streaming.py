@@ -489,8 +489,9 @@ def test_hbm_cache_matches_uncached(m, cache_chunks, masked):
 def test_masked_completion_streaming_matches_jax():
     """The preset over loaders: held-out stopped masked MU in loader mode,
     fed decomp_tpu's reserves, equal to decomp_tpu's run (f64, 1e-10);
-    mesh= is refused; mixed=True casts f32 chunks to bf16 and keeps f32
-    factors."""
+    a mesh that is not a DeviceMesh is refused (the sharded preset is
+    tested in test_torch_parallel_streaming.py); mixed=True casts f32
+    chunks to bf16 and keeps f32 factors."""
     rng = np.random.default_rng(113)
     m, n, k, chunk = 512, 32, 4, 128
     ytrue = (rng.uniform(0, 1, (m, k)) @ rng.uniform(0, 1, (k, n))
@@ -507,7 +508,7 @@ def test_masked_completion_streaming_matches_jax():
     assert rt.converged
     _same(rt, rj, 1e-10)
     with pytest.raises(texc.DecompError,
-                       match="ROADMAP Queue 1, sharded streaming"):
+                       match="mesh must be a torch DeviceMesh"):
         tnmf.masked_completion_streaming(yt, mt, dtype=torch.float64,
                                          device="cpu", mesh=object(), **kw)
     y32, m32 = (ytrue * mask).astype(np.float32), mask.astype(np.float32)

@@ -124,6 +124,76 @@ def dl(rank, n, spec, axis, arrays, kw, chunk_rows=None):
     return _result(res, mesh, axis)
 
 
+def _loader(a, calls=None):
+    """A loader of rows [lo, hi) of the global array ``a`` (None: none);
+    ``calls`` collects the offsets it is called with."""
+    if a is None:
+        return None
+
+    def load(lo, hi):
+        if calls is not None:
+            calls.append(lo)
+        return a[lo:hi]
+
+    return load
+
+
+def _reserve(draws):
+    """The ``_chunk_reserve`` hook over precomputed draws {offset: draw}
+    (the parent computes decomp_tpu's; the ranks import no JAX)."""
+    return None if draws is None else (lambda lo, shape: draws[lo])
+
+
+def nmf_streaming(rank, n, spec, row_axis, arrays, kw, draws=None):
+    """``parallel.nmf.solve_streaming`` over loaders of the global numpy
+    arrays 'y' and 'mask' (global offsets); 'd' and 'x' as given. Also
+    returns the offsets the y loader was called with."""
+    mesh = parallel.make_mesh(*spec)
+    calls = []
+    res = parallel.nmf.solve_streaming(
+        _loader(arrays["y"], calls), arrays.get("d"), x=arrays.get("x"),
+        mask=_loader(arrays.get("mask")), mesh=mesh, row_axis=row_axis,
+        n_samples=arrays["y"].shape[0], n_channels=arrays["y"].shape[1],
+        _chunk_reserve=_reserve(draws), **kw)
+    return dict(_result(res, mesh, row_axis), calls=calls)
+
+
+def completion_streaming(rank, n, spec, arrays, kw, draws=None):
+    """``nmf.masked_completion_streaming(mesh=...)`` over loaders."""
+    from decomp_tpu_torch.models import nmf_streaming as tns
+
+    mesh = parallel.make_mesh(*spec)
+    res = tns.masked_completion_streaming(
+        _loader(arrays["y"]), _loader(arrays["mask"]), d=arrays.get("d"),
+        x=arrays.get("x"), n_samples=arrays["y"].shape[0],
+        n_channels=arrays["y"].shape[1], mesh=mesh,
+        _chunk_reserve=_reserve(draws), **kw)
+    return _result(res, mesh, "rows")
+
+
+def dl_streaming(rank, n, spec, row_axis, arrays, kw, draws=None):
+    """``parallel.dictionary_learning.solve_streaming`` over loaders."""
+    mesh = parallel.make_mesh(*spec)
+    res = parallel.dictionary_learning.solve_streaming(
+        _loader(arrays["y"]), arrays["d"], arrays["alpha"],
+        x=arrays.get("x"), mask=_loader(arrays.get("mask")), mesh=mesh,
+        row_axis=row_axis, n_samples=arrays["y"].shape[0],
+        n_channels=arrays["y"].shape[1], _chunk_reserve=_reserve(draws),
+        **kw)
+    return _result(res, mesh, row_axis)
+
+
+def lasso_streaming(rank, n, spec, axis, arrays, kw):
+    """``parallel.lasso.solve_streaming`` on the global arrays, which every
+    rank passes whole: the whole x and counts as numpy."""
+    mesh = parallel.make_mesh(*spec)
+    res = parallel.lasso.solve_streaming(
+        arrays["y"], arrays["a"], arrays["alpha"], arrays.get("x"),
+        mask=arrays.get("mask"), mesh=mesh, axis=axis, **kw)
+    return dict(x=res.x, niter=np.asarray(res.niter),
+                converged=np.asarray(res.converged))
+
+
 def checkpointed(rank, n, arrays, directory, chunk, maxiter):
     """``checkpointed_solve`` over ``parallel.nmf.solve``, one snapshot
     file per rank, and the straight sharded run."""
@@ -142,20 +212,29 @@ def checkpointed(rank, n, arrays, directory, chunk, maxiter):
             torch.equal(res.x, straight.x))
 
 
-def refusal(rank, n, spec, solver, kw, per_rank=None, meta_y=False):
+def refusal(rank, n, spec, solver, kw, per_rank=None, meta_y=False,
+            loaders=()):
     """The error a sharded call raises on this rank: (type name, message),
     or None. ``spec`` None passes a mesh that is no ``DeviceMesh``;
     ``per_rank``: {rank: keywords} that only that rank passes;
-    ``meta_y``: y is a tensor on the 'meta' device."""
+    ``meta_y``: y is a tensor on the 'meta' device; ``loaders``: the
+    keywords whose arrays go in as loaders."""
+    from decomp_tpu_torch.models import nmf as tnmf
+    from decomp_tpu_torch.models import nmf_streaming as tns
+
     mesh = parallel.make_mesh(*spec) if spec is not None else object()
     kw = {**kw, **(per_rank or {}).get(rank, {})}
     if meta_y:
         kw["y"] = torch.empty(kw["y"].shape, device="meta")
-    from decomp_tpu_torch.models import nmf as tnmf
-
+    for key in loaders:
+        kw[key] = _loader(kw[key])
     fn = {"nmf": parallel.nmf.solve, "lasso": parallel.lasso.solve,
           "dl": parallel.dictionary_learning.solve,
-          "completion": tnmf.masked_completion}[solver]
+          "completion": tnmf.masked_completion,
+          "nmf_streaming": parallel.nmf.solve_streaming,
+          "dl_streaming": parallel.dictionary_learning.solve_streaming,
+          "lasso_streaming": parallel.lasso.solve_streaming,
+          "completion_streaming": tns.masked_completion_streaming}[solver]
     try:
         fn(mesh=mesh, **kw)
     except DecompError as e:
