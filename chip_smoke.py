@@ -11,10 +11,10 @@ for sm_90a (one nvcc per source, all at once), and then:
 1. prints the card's name and power limit (nvidia-smi), the build time
    and ptxas' register-spill report, and fails where an instance of the
    bf16x6 wgmma chain (``csrc/kl_dense_packed.cu``,
-   ``csrc/grad_dict_packed.cu``) spills;
+   ``csrc/grad_dict_packed.cu``, ``csrc/mu_dense_packed.cu``) spills;
 2. holds the kernel ``mu_stats_dense`` against its plain PyTorch twin on
    the card and checks that two runs give the same bits: f32 data on
-   ``csrc/mu_stats_dense.cu``, and bf16 data with f32 or bf16 x on the
+   ``csrc/mu_dense_packed.cu``, and bf16 data with f32 or bf16 x on the
    route to ``csrc/mu_dense_tma.cu`` (TMA ring, wgmma) at 1000 x 1000
    K = 100 (inner_iter 1 and 3) and K = 64, a ragged 333 x 257 K = 7,
    65,537 x 10,112 and 65,536 x 10,112 K = 128;
@@ -40,7 +40,15 @@ for sm_90a (one nvcc per source, all at once), and then:
    log-normal my, x and d over six decades at 65,536 x 1,024 K = 128,
    and at 1000 x 1000 K = 1 with x d above 2^126 (E's division scales
    such divisors), within the f32 limit of the full-f32 twin, each with a
-   bit-identical rerun;
+   bit-identical rerun; and (3e) ``mu_stats_dense`` on f32 data (the
+   kernel of ``csrc/mu_dense_packed.cu``, bf16x6 products on wgmma) at
+   1000 x 1000 K = 100 with inner_iter 1 and 3, 100,000 x 1,024 K = 128,
+   65,536 x 10,112 K = 128, 333 x 257 K = 7 with eps = EPS and eps = 0,
+   1000 x 1000 K = 1 and K = 64, and on log-normal y, x and d over six
+   decades at 65,536 x 1,024 K = 128 (kernel and twin also against f64),
+   within the f32 limit of the full-f32 twin, each with a bit-identical
+   rerun and d's limbs from the kernel's split launch held bit for bit to
+   ``cuda_mu.column_limbs``;
 4. drives the dense main path, ``decomp_tpu_torch.nmf.solve`` on a
    1,048,576 x 10,112 bf16 matrix at rank 128 with f32 factors, 20
    iterations, and checks that every iteration went through the TMA
@@ -48,9 +56,18 @@ for sm_90a (one nvcc per source, all at once), and then:
    reconstruction error fell; it times the solve, and one kernel call in
    turns with one call of ``csrc/mu_stats_dense.cu`` on the same inputs,
    against one twin call, and prints each pass of the TMA kernel from
-   ``torch.profiler`` with the bytes it moves;
-5. solves a planted rank-10 problem to convergence and restarts from it,
-   and times ``csrc/mu_stats_dense.cu`` (f32 data) per call on it;
+   ``torch.profiler`` with the bytes it moves; then (4b) the f32 dense
+   path, ``nmf.solve(y, rank=128, method='mu', tol=0)`` on a 262,144 x
+   10,112 f32 matrix, 20 iterations: one launch per iteration on
+   ``csrc/mu_dense_packed.cu``, none on the TMA route or on the first design,
+   ``csrc/mu_stats_dense.cu``, finite nonnegative factors and a falling
+   reconstruction error, with one kernel call against the twin, the kernel
+   timed in turns with ``csrc/mu_stats_dense.cu`` on the same inputs and
+   once against the twin, and its passes from ``torch.profiler``;
+5. solves a planted rank-10 problem (config 1) to convergence and
+   restarts from it, every launch on ``csrc/mu_dense_packed.cu``, and
+   times that kernel per call on it in turns with
+   ``csrc/mu_stats_dense.cu``, with each launch's device time;
 6. drives masked completion at BASELINE config 4,
    ``nmf.masked_completion`` on a planted 100,000 x 1,000 rank-50 matrix
    with 30% missing (bf16 data, f32 factors, held-out stopping), and
@@ -69,8 +86,10 @@ for sm_90a (one nvcc per source, all at once), and then:
    packed-mask kernel in turns with its dense-mask kernel at phase 7's
    shape, with each pass from ``torch.profiler``; dense KL's f32 kernel
    (``csrc/kl_dense_packed.cu``) in turns with ``csrc/mu_kl_stats.cu``'s
-   f32 path on the same inputs at phase 7's shape, with each pass, and
-   its bf16 route (``csrc/mu_kl_stats.cu``) at that shape;
+   f32 path on the same inputs at phase 7's shape, with each pass, dense
+   MU's f32 kernel (``csrc/mu_dense_packed.cu``) in turns with
+   ``csrc/mu_stats_dense.cu`` at that shape, with each pass, and dense
+   KL's bf16 route (``csrc/mu_kl_stats.cu``) at that shape;
 9. holds the lasso kernel ``solve_rows`` against its twin at a ragged
    1,000 x 200 and 300 x 1,000, at 10,000 x 512, at 7 x 200 (fewer rows
    than one block's slots) and at 4,229 x 200 (a queue ragged past one
@@ -176,7 +195,8 @@ for sm_90a (one nvcc per source, all at once), and then:
 16. drives ``nmf.solve(method='hals')``: at BASELINE config 1 (planted
     1000 x 500 rank 10 f32) HALS and MU from the same factors, each to its
     own stop at tol 1e-4 and at equal iteration counts, with their
-    objectives (BASELINE.md:110's claim), and HALS on the card against
+    objectives (BASELINE.md:110's claim; MU's launches all on
+    ``csrc/mu_dense_packed.cu``), and HALS on the card against
     HALS on the CPU from the same inputs; then 100,000 x 1,024 f32, rank
     128, 10 iterations at tol 0: ms per iteration by CUDA events, split
     into the products A, B, C, E and the two component sweeps, the device's
@@ -244,8 +264,9 @@ Each path runs with every launch count set to 0 just before it and read
 just after. It exits non-zero on any failure, without a CUDA device, and
 where the package is absent. The line before the last is a JSON summary
 of the kernels (the eight, and ``solve_rows``' complex mode, the packed
-routes of ``masked_grad_rows`` and ``masked_grad_dict`` and the
-shared-memory route of ``bcd_sweep`` as entries of their own), each with
+routes of ``masked_grad_rows`` and ``masked_grad_dict``, f32 dense MU's
+``csrc/mu_dense_packed.cu`` and the shared-memory route of ``bcd_sweep``
+as entries of their own), each with
 its bound: the larger of its bytes (each input
 read once, each output written once) over 3.35 TB/s and its operations
 over the H100's peak for their type: 989 TFLOP/s for bf16 on the tensor
@@ -367,7 +388,7 @@ EPS = 1e-6
 SOURCES = ("mu_stats_dense", "mu_dense_tma", "mu_kl_stats", "mu_masked_packed",
            "kl_masked_packed", "kl_dense_packed", "lasso_fista",
            "lasso_fista_tma", "lasso_grad", "lasso_grad_packed", "dl_bcd",
-           "dl_bcd_sm90", "grad_dict_packed")
+           "dl_bcd_sm90", "grad_dict_packed", "mu_dense_packed")
 # name -> (source, masked, the TPU kernel it replaces)
 NEW_KERNELS = {
     "mu_stats_masked": ("mu_masked_packed", True, "pallas_mu.py:522"),
@@ -429,6 +450,11 @@ def stats_bound(name, m, n, k, ydt, xdt, packed=False, fma=False):
     mask_ops = 0.0
     if name == "mu_stats_dense":   # y d^T, x_new^T y; x ddt, x_new^T x_new
         ops = 4.0 * m * n * k + 4.0 * m * k * k
+        if ydt == torch.float32 and not fma:
+            # bf16x6: y d^T, x_new^T y and x_new^T x_new, 24 MNK + 12 MK^2;
+            # x ddt stays f32 FMAs (csrc/mu_dense_packed.cu)
+            return bound(nbytes, 6.0 * (ops - 2.0 * m * k * k),
+                         torch.bfloat16)
     else:                          # 2MNK for each M x N x K product
         ops = {"mu_stats_masked": 12, "kl_stats_dense": 8,
                "kl_stats_masked": 12}[name] * float(m) * n * k
@@ -486,33 +512,147 @@ def phase(name, t0):
 
 def compare(cuda_mu, gen, dev, m, n, k, inner, ydt, xdt):
     """mu_stats_dense against its twin: bf16 data take the TMA route
-    (csrc/mu_dense_tma.cu), f32 data csrc/mu_stats_dense.cu."""
+    (csrc/mu_dense_tma.cu), f32 data csrc/mu_dense_packed.cu."""
     y = torch.rand((m, n), generator=gen, device=dev, dtype=ydt)
     x = 0.1 + torch.rand((m, k), generator=gen, device=dev, dtype=xdt)
     d = 0.1 + torch.rand((k, n), generator=gen, device=dev, dtype=ydt)
-    before = cuda_mu.mu_stats_dense.tma_launches
+    w = cuda_mu.mu_stats_dense
+    before = (w.tma_launches, w.packed_launches)
     out = cuda_mu.mu_stats_dense(y, x, d, EPS, inner_iter=inner)
     again = cuda_mu.mu_stats_dense(y, x, d, EPS, inner_iter=inner)
     ref = cuda_mu.mu_stats_dense_plain(y, x, d, EPS, inner_iter=inner)
     torch.cuda.synchronize()
-    tma = cuda_mu.mu_stats_dense.tma_launches - before
+    tma = w.tma_launches - before[0]
+    packed = w.packed_launches - before[1]
     errs = [rel_fro(a, b) for a, b in zip(out, ref)]
     limits = [X_BF16_LIMIT if xdt == torch.bfloat16 else LIMIT[ydt]]
     limits += [LIMIT[ydt]] * 2
     same = all(torch.equal(a, b) for a, b in zip(out, again))
     tag = (f"{m}x{n} K={k} inner={inner} y={str(ydt)[6:]} "
-           f"x={str(xdt)[6:]} ({'TMA' if tma else 'mu_stats_dense.cu'})")
+           f"x={str(xdt)[6:]} ({'TMA' if tma else 'mu_dense_packed.cu'})")
     print(f"kernel vs twin {tag}: rel_fro " + " ".join(
         f"{name}={e:.3e} (limit {lim:.0e})" for name, e, lim
         in zip(("x_new", "numd", "gram"), errs, limits))
         + f"; bit-identical rerun: {same}", flush=True)
-    check(tma == (2 if ydt == torch.bfloat16 else 0),
-          f"{tag}: {tma} launches on the TMA route")
+    check((tma, packed) == ((2, 0) if ydt == torch.bfloat16 else (0, 2)),
+          f"{tag}: (TMA, packed) route launches {(tma, packed)}")
     check(all(np.isfinite(errs)), f"{tag}: non-finite outputs")
     check(all(e <= lim for e, lim in zip(errs, limits)),
           f"{tag}: kernel disagrees with twin")
     check(same, f"{tag}: two kernel runs differ")
     return errs
+
+
+def dense_f64(y, x, d, eps, inner=1):
+    """Dense MU's statistics in f64: (x_new, numd, gram)."""
+    y, x, d = y.double(), x.double(), d.double()
+    num, ddt = y @ d.T, d @ d.T
+    for _ in range(inner):
+        x = x * num / (x @ ddt + eps)
+    return x, x.T @ y, x.T @ x
+
+
+def compare_dense_packed(cuda_mu, args, eps=EPS, inner=1, tag="",
+                         f64=False):
+    """mu_stats_dense on f32 data (csrc/mu_dense_packed.cu, bf16x6 on
+    wgmma) against its full-f32 twin on ``args`` = (y, x, d): both calls
+    counted on the packed route, LIMIT[f32], a bit-identical rerun, and
+    d's limbs from the kernel's split launch equal to
+    ``cuda_mu.column_limbs`` bit for bit. ``f64``: kernel and twin are
+    also printed against f64. Returns the outputs' max abs error."""
+    y, x, d = args
+    w = cuda_mu.mu_stats_dense
+    before = (w.packed_launches, w.tma_launches)
+    out = w(y, x, d, eps, inner_iter=inner)
+    again = w(y, x, d, eps, inner_iter=inner)
+    ref = cuda_mu.mu_stats_dense_plain(y, x, d, eps, inner_iter=inner)
+    torch.cuda.synchronize()
+    moved = (w.packed_launches - before[0], w.tma_launches - before[1])
+    (m, n), k = y.shape, d.shape[0]
+    kt = 64 if k <= 64 else 128
+    limbs = torch.equal(cuda_mu._dense_packed_limbs(d, kt),
+                        cuda_mu.column_limbs(d, kt))
+    errs = [rel_fro(a, b) for a, b in zip(out, ref)]
+    same = all(torch.equal(a, b) for a, b in zip(out, again))
+    tag = (f"mu_stats_dense f32 (mu_dense_packed.cu) {m}x{n} K={k} "
+           f"inner={inner}" + (f" eps={eps}" if eps != EPS else "")
+           + (f" {tag}" if tag else ""))
+    extra = ""
+    if f64:
+        wide_ref = dense_f64(y, x, d, eps, inner)
+        extra = "; against f64: kernel " + " ".join(
+            f"{rel_fro(a, b):.3e}" for a, b in zip(out, wide_ref)) + \
+            ", twin " + " ".join(f"{rel_fro(a, b):.3e}"
+                                 for a, b in zip(ref, wide_ref))
+        del wide_ref
+    print(f"kernel vs twin {tag}: rel_fro " + " ".join(
+        f"{name}={e:.3e}" for name, e in zip(("x_new", "numd", "gram"),
+                                              errs))
+        + f" (limit {LIMIT[torch.float32]:.0e}); bit-identical rerun: "
+        f"{same}; d's limbs == column_limbs: {limbs}{extra}", flush=True)
+    check(moved == (2, 0), f"{tag}: (packed, TMA) route launches {moved}")
+    check(all(np.isfinite(errs)), f"{tag}: non-finite outputs")
+    check(all(e <= LIMIT[torch.float32] for e in errs),
+          f"{tag}: kernel disagrees with twin")
+    check(same, f"{tag}: two kernel runs differ")
+    check(limbs, f"{tag}: the split launch's limbs of d differ")
+    return max_abs(out, ref)
+
+
+def dense_packed_passes(cuda_mu, y, x, d, card):
+    """The packed dense kernel's four launches: the split reads d and
+    writes its limbs (N x 3 KT bf16); the x update reads y, x and d's
+    limbs and writes x_new and its limbs xc (M x 3 KT bf16); the
+    statistics read y and xc and write the partials; the reduction reads
+    the partials and writes numd and gram. Each data pass issues 12 MN'KT
+    bf16 MMA operations (six limb products of 2 MN'KT; N' the issued
+    columns, the statistics' gram tile included)."""
+    (m, n), k = y.shape, d.shape[0]
+    kt = 64 if k <= 64 else 128
+    chunks = -(-m // cuda_mu.dense_packed_block_rows(m, n))
+    mn, xb, limbs, xc = m * n * 4, m * k * 4, n * 3 * kt * 2, m * 3 * kt * 2
+    size = (k * n + k * k) * 4
+    nbytes = {"split_cols": k * n * 4 + limbs,
+              "mu_x_update": mn + 2 * xb + limbs + xc,
+              "mu_stats": mn + xc + chunks * size,
+              "reduce_kernel": chunks * size + size}
+    ops = {"mu_x_update": 12.0 * m * (-(-n // 32) * 32) * kt,
+           "mu_stats": 12.0 * m * (-(-n // 128) + 1) * 128 * kt}
+    pass_times(lambda: cuda_mu.mu_stats_dense(y, x, d, EPS), nbytes,
+               f"{m}x{n} K={k} f32 ({chunks} chunks)", card, ops=ops)
+
+
+def time_dense_packed(cuda_mu, args, reps, card, err_abs, tag=""):
+    """f32 dense MU per call on ``args`` = (y, x, d): csrc/mu_dense_packed.cu
+    in turns with the first design, csrc/mu_stats_dense.cu (old, new, new,
+    old; each figure the mean of its two), the twin once, beside the
+    bf16x6 and f32-FMA bounds; then each launch's device time. Returns
+    (ms, the old design's ms, the twin's ms, bound)."""
+    (m, n), k = args[0].shape, args[2].shape[0]
+    f32 = torch.float32
+
+    def new():
+        return cuda_mu.mu_stats_dense(*args, EPS)
+
+    def old():
+        return cuda_mu._dense_mma_launch(*args, EPS)
+
+    t = [cuda_ms(f, reps) for f in (old, new, new, old)]
+    kernel_ms, old_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+    plain_ms = cuda_ms(lambda: cuda_mu.mu_stats_dense_plain(*args, EPS),
+                       min(reps, 10))
+    b = stats_bound("mu_stats_dense", m, n, k, f32, f32)
+    b_fma = stats_bound("mu_stats_dense", m, n, k, f32, f32, fma=True)
+    print(f"mu_stats_dense {m}x{n} K={k} data=float32 x=float32{tag}: "
+          f"mu_dense_packed.cu (bf16x6, wgmma) {kernel_ms:.4f} ms "
+          f"({t[1]:.4f}, {t[2]:.4f}), mu_stats_dense.cu (f32 FMA) "
+          f"{old_ms:.4f} ms ({t[0]:.4f}, {t[3]:.4f}), plain twin "
+          f"{plain_ms:.4f} ms per call; new / old {kernel_ms / old_ms:.3f}; "
+          f"bound bf16x6 {b[0]:.4f} ms ({b[1]}, {b[0] / kernel_ms:.1%} of "
+          f"it), f32-FMA {b_fma[0]:.4f} ms ({card}); max_abs_err "
+          f"{err_abs:.3e}", flush=True)
+    dense_packed_passes(cuda_mu, *args, card)
+    return kernel_ms, old_ms, plain_ms, b
 
 
 def stats_inputs(gen, dev, m, n, k, ydt, xdt, masked):
@@ -1910,6 +2050,86 @@ def profiled(fn):
             sum(e.count for e in kernels), wall)
 
 
+def f32_dense_phase(nmf, nmf_mod, cuda_mu, dev, card, reset_counts,
+                    read_counts):
+    """Phase 4b: dense MU on f32 data at the main path's width,
+    ``nmf.solve(y, rank=128, method='mu', tol=0)`` on a 262,144 x 10,112
+    f32 matrix (10.6 GB), 20 iterations: one launch per iteration on the
+    packed route (csrc/mu_dense_packed.cu), none on the TMA route or on
+    csrc/mu_stats_dense.cu (``cuda_mu._dense_mma_launch``, spied),
+    finite nonnegative factors and a falling reconstruction error. Before
+    the solve, one kernel call against the twin at this shape, the kernel
+    timed in turns with the first design on the same inputs and once against
+    the twin, and its passes from ``torch.profiler``. Returns the kernels
+    line's figures: (launches, max_abs_err, ms, plain_ms, bound)."""
+    f32 = torch.float32
+    m, n, k, iters = 262_144, 10112, 128, 20
+    g = torch.Generator(device=dev).manual_seed(41)
+    y = torch.rand((m, n), generator=g, device=dev)
+    d0, x0 = nmf_mod._init_factors(torch.Generator(device=dev).manual_seed(0),
+                                   y, None, None, k)
+    err_abs = compare_dense_packed(cuda_mu, (y, x0, d0),
+                                   tag="(the f32 path's inputs)")
+    kernel_ms, _, plain_ms, b = time_dense_packed(cuda_mu, (y, x0, d0), 5,
+                                                  card, err_abs)
+
+    rows = torch.arange(0, m, 1024, device=dev)
+    ys = y[rows]
+
+    def recon_err(x, d):
+        return float(torch.linalg.vector_norm(ys - x[rows] @ d)
+                     / torch.linalg.vector_norm(ys))
+
+    err0 = recon_err(x0, d0)
+    del x0, d0
+    kw = dict(rank=k, method="mu", tol=0.0, eps=EPS, random_seed=0)
+    nmf.solve(y, maxiter=2, **kw)  # warm-up
+    old_calls = []
+    pr1 = cuda_mu._dense_mma_launch
+
+    def spy(*a, **kwargs):
+        old_calls.append(1)
+        return pr1(*a, **kwargs)
+
+    torch.cuda.synchronize()
+    reset_counts()
+    cuda_mu._dense_mma_launch = spy
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    try:
+        e0.record()
+        res = nmf.solve(y, maxiter=iters, **kw)
+        e1.record()
+        torch.cuda.synchronize()
+    finally:
+        cuda_mu._dense_mma_launch = pr1
+    launches = read_counts("mu_stats_dense", iters)
+    routes = (cuda_mu.mu_stats_dense.packed_launches,
+              cuda_mu.mu_stats_dense.tma_launches, len(old_calls))
+    check(routes == (iters, 0, 0), f"f32 dense path: (packed, TMA, mma) "
+          f"route launches {routes}, expected ({iters}, 0, 0)")
+    solve_s = e0.elapsed_time(e1) / 1e3
+    check(res.niter == iters, f"niter {res.niter} != {iters}")
+    check(res.x.shape == (m, k) and res.d.shape == (k, n), "factor shapes")
+    check(res.x.dtype == f32 and res.d.dtype == f32, "factor dtypes")
+    for name, v in (("x", res.x), ("d", res.d)):
+        check(bool(torch.isfinite(v).all()), f"{name} has non-finite values")
+        check(bool((v >= 0).all()), f"{name} has negative values")
+    err1 = recon_err(res.x, res.d)
+    check(err1 < err0, f"f32 dense path: reconstruction error did not "
+          f"fall: {err0} -> {err1}")
+    tflops = flops_per_iter(m, n, k) * iters / solve_s / 1e12
+    print(f"f32 dense path nmf.solve(method='mu') {m}x{n} f32, rank {k}: "
+          f"{iters} iterations in {solve_s:.3f} s = {iters / solve_s:.3f} "
+          f"iters/s, {solve_s * 1e3 / iters:.3f} ms per iteration, "
+          f"{tflops:.2f} TFLOP/s ({card}); mu_stats_dense launches "
+          f"{launches} (mu_dense_packed.cu {routes[0]}, TMA {routes[1]}, "
+          f"mu_stats_dense.cu {routes[2]}); sampled relative reconstruction "
+          f"error {err0:.4f} -> {err1:.4f}", flush=True)
+    del res, y, ys
+    return launches, err_abs, kernel_ms, plain_ms, b
+
+
 def planted_config1(dev):
     """BASELINE config 1 as benchmarks/run_configs.py:112-118 (and phase 5)
     make it: 1000 x 500, planted rank 10, 0.01 noise, f32 on the card."""
@@ -1942,9 +2162,14 @@ def hals_phase(nmf, nmf_mod, dev, card, reset_counts, read_counts):
         torch.cuda.synchronize()
         return r, (time.perf_counter() - t0) * 1e3
 
+    from decomp_tpu_torch.ops import cuda_mu
+
+    w = cuda_mu.mu_stats_dense
+    before = (w.launches, w.packed_launches)
     own = {m: run(m, tol=1e-4, maxiter=5000) for m in ("mu", "hals")}
     eq = {m: run(m, tol=0.0, maxiter=own[o][0].niter)[0]
           for m, o in (("hals", "mu"), ("mu", "hals"))}
+    mu_launches = (w.launches - before[0], w.packed_launches - before[1])
     print(f"config 1 planted 1000x500 rank 10 f32, same x0 and d0 "
           f"(torch seed 1) ({card}): to tol 1e-4: MU {own['mu'][0].niter} "
           f"iterations, {own['mu'][1]:.3f} ms, objective "
@@ -1952,9 +2177,13 @@ def hals_phase(nmf, nmf_mod, dev, card, reset_counts, read_counts):
           f"{own['hals'][1]:.3f} ms, objective {obj(own['hals'][0]):.4f}; at "
           f"equal iterations: HALS after MU's {own['mu'][0].niter} "
           f"{obj(eq['hals']):.4f}, MU after HALS's {own['hals'][0].niter} "
-          f"{obj(eq['mu']):.4f}", flush=True)
+          f"{obj(eq['mu']):.4f}; MU's mu_stats_dense launches "
+          f"{mu_launches[0]}, on mu_dense_packed.cu {mu_launches[1]}",
+          flush=True)
     for m in ("mu", "hals"):
         check(own[m][0].converged, f"config 1: {m} did not converge")
+    check(mu_launches[0] == mu_launches[1] > 0, "config 1: MU's launches "
+          f"{mu_launches} did not all take the packed route")
     print(f"  the claim of BASELINE.md:110 (HALS's objective below MU's at "
           f"config 1) holds on the card: "
           f"{obj(own['hals'][0]) < obj(own['mu'][0])} at each one's stop, "
@@ -3652,6 +3881,7 @@ def main():
             w.packed_launches = 0
             w.dense_launches = 0
         cuda_mu.mu_stats_dense.tma_launches = 0
+        cuda_mu.mu_stats_dense.packed_launches = 0
         cuda_mu.kl_stats_dense.packed_launches = 0
         cuda_mu.kl_stats_dense.mu_kl_launches = 0
         cuda_lasso.solve_rows.complex_launches = 0
@@ -3710,7 +3940,7 @@ def main():
                   and " 0 bytes spill stores, 0 bytes spill loads" not in ln]
         print(f"built decomp_tpu_torch/csrc/{s}.cu with nvcc for sm_90a; "
               f"register spills: {spills or 'none'}", flush=True)
-        if s in ("kl_dense_packed", "grad_dict_packed"):
+        if s in ("kl_dense_packed", "grad_dict_packed", "mu_dense_packed"):
             check(not spills, f"{s}.cu: the wgmma chain's instances spill")
         if s == "dl_bcd_sm90":
             check(not spills, f"{s}.cu: d, held in registers, spills")
@@ -3720,7 +3950,7 @@ def main():
     t_phase = phase("1 build", t_phase)
 
     # Phase 2: the dense kernels against their twin on the card: f32 data
-    # on csrc/mu_stats_dense.cu, bf16 data on csrc/mu_dense_tma.cu.
+    # on csrc/mu_dense_packed.cu, bf16 data on csrc/mu_dense_tma.cu.
     gen = torch.Generator(device=dev).manual_seed(1234)
     bf16, f32 = torch.bfloat16, torch.float32
     for inner in (1, 3):
@@ -3834,6 +4064,28 @@ def main():
     del my, x, d
     t_phase = phase("3d dense KL kernel vs twin", t_phase)
 
+    # Phase 3e: dense MU on f32 data (csrc/mu_dense_packed.cu, bf16x6 on
+    # wgmma) against its full-f32 twin: inner_iter 1 and 3, dense KL's
+    # shape, the f32 path's width, ragged M, N and K with eps = EPS and 0,
+    # K = 1 and 64, and log-normal data over six decades.
+    for m, n, k, inner, eps in (
+            (1000, 1000, 100, 1, EPS), (1000, 1000, 100, 3, EPS),
+            (100_000, 1024, 128, 1, EPS), (65536, 10112, 128, 1, EPS),
+            (333, 257, 7, 1, EPS), (333, 257, 7, 1, 0.0),
+            (1000, 1000, 1, 1, EPS), (1000, 1000, 64, 1, EPS)):
+        args = stats_inputs(gen, dev, m, n, k, f32, f32, False)
+        compare_dense_packed(cuda_mu, args, eps, inner)
+        del args
+    y, _, x, d = lognormal_inputs(gen, dev, 65536, 1024, 128, missing=0.0)
+    lo, hi = (float(q) for q in torch.quantile(
+        torch.log10(y.flatten()[:1 << 20]),
+        torch.tensor([0.0015, 0.9985], device=dev)))
+    compare_dense_packed(cuda_mu, (y, x, d), f64=True,
+                         tag=f"log-normal, 99.7% of y over {hi - lo:.1f} "
+                         "decades")
+    del y, x, d
+    t_phase = phase("3e dense MU f32 kernel vs twin", t_phase)
+
     # Phase 4: the dense main path at the real size.
     m, n, k, iters = 1 << 20, 10112, 128, 20
     g = torch.Generator(device=dev).manual_seed(0)
@@ -3922,34 +4174,41 @@ def main():
     del res, y, ys
     t_phase = phase("4 dense main path", t_phase)
 
+    # Phase 4b: dense MU on f32 data at the main path's width.
+    f32_path = f32_dense_phase(nmf, nmf_mod, cuda_mu, dev, card,
+                               reset_counts, read_counts)
+    t_phase = phase("4b f32 dense path", t_phase)
+
     # Phase 5: a converging run (planted rank 10, 1% noise) and a restart.
     rng = np.random.default_rng(0)
     xt, dt = rng.uniform(0, 1, (1000, 10)), rng.uniform(0, 1, (10, 500))
     yp = np.maximum(xt @ dt + 0.01 * rng.normal(size=(1000, 500)), 0.0)
     yp = torch.from_numpy(yp.astype(np.float32)).to(dev)
-    before = cuda_mu.mu_stats_dense.launches
+    w = cuda_mu.mu_stats_dense
+    before = (w.launches, w.packed_launches)
     t0 = time.perf_counter()
     res = nmf.solve(yp, rank=10, tol=1e-4, maxiter=4000)
     wall = time.perf_counter() - t0
     err = float(torch.linalg.vector_norm(yp - res.x @ res.d)
                 / torch.linalg.vector_norm(yp))
     warm = nmf.solve(yp, res.d, x=res.x, tol=1e-4, maxiter=4000)
+    moved = (w.launches - before[0], w.packed_launches - before[1])
     print(f"planted 1000x500 rank 10 f32: converged={res.converged} in "
           f"{res.niter} iterations ({wall:.2f} s), relative error {err:.4f}; "
           f"warm restart {warm.niter} iterations; kernel launches "
-          f"{cuda_mu.mu_stats_dense.launches - before}", flush=True)
+          f"{moved[0]}, on mu_dense_packed.cu {moved[1]}", flush=True)
     check(res.converged, "planted run did not converge")
     check(err <= 2e-2, f"planted relative error {err} > 2e-2")
     check(warm.niter <= 3, f"warm restart took {warm.niter} iterations")
-    # f32 data take csrc/mu_stats_dense.cu: one call on the solution.
+    check(moved[0] == moved[1] >= res.niter, f"planted run: {moved[1]} of "
+          f"{moved[0]} launches on the packed route")
+    # f32 data take csrc/mu_dense_packed.cu: one call on the solution,
+    # timed in turns with csrc/mu_stats_dense.cu on the same inputs.
     args5 = (yp, res.x, res.d)
-    err5 = compare_new(cuda_mu, "mu_stats_dense", args5)
-    times5 = time_new(cuda_mu, "mu_stats_dense", args5, reps=50)
-    b5 = stats_bound("mu_stats_dense", 1000, 500, 10, f32, f32)
-    print(f"mu_stats_dense 1000x500 K=10 data=float32 x=float32 "
-          f"(csrc/mu_stats_dense.cu): kernel {times5[0]:.4f} ms, plain twin "
-          f"{times5[1]:.4f} ms per call, bound {b5[0]:.4f} ms ({b5[1]}) "
-          f"({card}); max_abs_err {err5:.3e}", flush=True)
+    err5 = compare_dense_packed(cuda_mu, args5, tag="(config 1's solution)")
+    # What sets config 1's pace: each launch's device time (the passes)
+    # against the time per call.
+    time_dense_packed(cuda_mu, args5, 50, card, err5, " (config 1)")
     t_phase = phase("5 planted dense", t_phase)
 
     # Phase 6: masked completion at BASELINE config 4 (bench.py:214-220):
@@ -4110,6 +4369,13 @@ def main():
           f"{b_fma[0]:.3f} ms ({card}); max_abs_err "
           f"{errs_abs['kl_stats_dense']:.3e}", flush=True)
     kl_dense_passes(cuda_mu, args, card)
+    del args
+    # Dense MU on f32 data at the same shape (so that rows 1 and 3 of the
+    # kernels' table compare): csrc/mu_dense_packed.cu in turns with
+    # csrc/mu_stats_dense.cu.
+    args = stats_inputs(gen, dev, m7, n7, k7, f32, f32, False)
+    time_dense_packed(cuda_mu, args, 10, card,
+                      compare_dense_packed(cuda_mu, args))
     del args
     # Its bf16 route (csrc/mu_kl_stats.cu) at the same shape.
     args = stats_inputs(gen, dev, m7, n7, k7, bf16, bf16, False)
@@ -4305,9 +4571,13 @@ def main():
     stats = {"mu_stats_dense": (err_abs, kernel_ms, plain_ms),
              **{name: (errs_abs[name],) + times[name] for name in NEW_KERNELS}}
     stats = {name: s + bounds[name] for name, s in stats.items()}
+    # f32 dense MU at phase 4b's shape, 262,144 x 10,112, K = 128.
+    stats["mu_stats_dense_packed"] = f32_path[1:4] + f32_path[4]
     stats.update(lasso_stats)
     stats.update(dl_stats)
-    main_launches = {"mu_stats_dense": launches, "mu_stats_masked": launches4,
+    main_launches = {"mu_stats_dense": launches,
+                     "mu_stats_dense_packed": f32_path[0],
+                     "mu_stats_masked": launches4,
                      **kl_launches, "solve_rows": launches2,
                      "solve_rows_complex": launches2c,
                      "masked_grad_rows": launches_grad_dense,
@@ -4317,6 +4587,8 @@ def main():
                      "masked_grad_dict": launches_gd_dense,
                      "masked_grad_dict_packed": launches_gd}
     kernels = {"mu_stats_dense": ("mu_dense_tma", "pallas_mu.py:438"),
+               "mu_stats_dense_packed": ("mu_dense_packed",
+                                         "pallas_mu.py:438"),
                **{name: (src, rep) for name, (src, _, rep)
                   in NEW_KERNELS.items()},
                "solve_rows": ("lasso_fista_tma", "pallas_fista.py:349"),

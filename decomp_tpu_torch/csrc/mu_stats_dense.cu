@@ -1,13 +1,14 @@
 // Dense multiplicative-update NMF statistics on Hopper (sm_90a), for f32
 // data.
 //
-// Replaces the Pallas TPU kernel decomp_tpu/ops/pallas_mu.py:438
-// mu_stats_dense (body _dense_kernel, pallas_mu.py:160) for f32 y. bf16 y,
-// the main path, goes to mu_dense_tma.cu (TMA ring, wgmma, a bf16 copy of
-// x_new, few statistics chunks): ops/cuda_mu.py routes by dtype. This
-// kernel still takes bf16 y, so that both designs can be timed on the same
-// inputs (cuda_mu._dense_mma_launch); the bf16 notes below describe that
-// path, and the byte count is its, at the main path's shape. Given data
+// The first port of the Pallas TPU kernel decomp_tpu/ops/pallas_mu.py:438
+// mu_stats_dense (body _dense_kernel, pallas_mu.py:160), on no route now:
+// bf16 y, the main path, goes to mu_dense_tma.cu (TMA ring, wgmma, a bf16
+// copy of x_new, few statistics chunks) and f32 y to mu_dense_packed.cu
+// (bf16x6 on wgmma); ops/cuda_mu.py routes by dtype. This kernel takes
+// both, so that the designs can be timed on the same inputs
+// (cuda_mu._dense_mma_launch); the bf16 notes below describe that path,
+// and the byte count is its, at the main path's shape. Given data
 // y (M, N), activations x (M, K), dictionary d (K, N) in y's dtype and
 // ddt = d d^T (K, K, f32) it returns
 //   x_new = x * (y d^T) / (x ddt + eps)   (inner_iter refinements that reuse

@@ -30,7 +30,10 @@ dtype, 1 <= K <= 128; ``x`` in the data's dtype, or f32 for the MU
 kernels). The routes, by dtype and by the mask's form:
 
 - ``mu_stats_dense``: bf16 data to ``csrc/mu_dense_tma.cu``
-  (``dense_route``), f32 data to ``csrc/mu_stats_dense.cu``;
+  (``dense_route``), f32 data to ``csrc/mu_dense_packed.cu``, whose f32
+  products run as bf16x6 limb products on ``wgmma`` (the chain of
+  ``csrc/wgmma_chain.cuh``); the first design, ``csrc/mu_stats_dense.cu``,
+  stays only behind the private ``_dense_mma_launch``, for timing;
 - ``mu_stats_masked``: the mask as bits (``pack_mask``) with bf16 data to
   ``csrc/mu_masked_packed.cu``; a dense mask to ``csrc/mu_kl_stats.cu``;
 - ``kl_stats_masked``: the mask as bits with f32 data to
@@ -48,8 +51,9 @@ or ``kl_takes_packed`` (KL) says the route takes bits. On a CPU tensor a
 wrapper runs its ``*_plain`` twin (unpacking a packed mask first). It
 never falls back from one to the other. Each wrapper counts its kernel
 launches in ``.launches``; the masked ones also per route, in
-``.packed_launches`` and ``.dense_launches``, and ``kl_stats_dense`` in
-``.packed_launches`` and ``.mu_kl_launches``.
+``.packed_launches`` and ``.dense_launches``, ``kl_stats_dense`` in
+``.packed_launches`` and ``.mu_kl_launches``, and ``mu_stats_dense`` in
+``.tma_launches`` and ``.packed_launches``.
 
 Not ported: ``calibrated_tpu``, ``fits_vmem`` and ``default_block_rows``,
 which encode TPU v5e VMEM calibrations.
@@ -85,16 +89,17 @@ _PACKED_RESIDENT = 2 * 132
 _PACK_ROWS = 4096
 # The dense TMA kernel's statistics pass (csrc/mu_dense_tma.cu): 128-column
 # N tiles plus one gram tile, 64-row stages, one resident block per SM on
-# the H100's 132 SMs; its chunks fill at least this share of their waves.
+# the H100's 132 SMs; its chunks fill at least this share of their waves
+# (csrc/mu_dense_packed.cu's the same, in 32-row stages).
 _TMA_N_TILE = 128
 _TMA_STAGE_ROWS = 64
 _TMA_RESIDENT = 132
 _TMA_WAVE_FILL = 0.95
 _TMA_MAX_CHUNKS = 64
 # The packed KL kernels' statistics pass (csrc/kl_masked_packed.cu,
-# csrc/kl_dense_packed.cu, and csrc/grad_dict_packed.cu, which runs dense
-# KL's): 128-column N tiles and 32-row stages, one resident block per SM
-# on the H100's 132 SMs.
+# csrc/kl_dense_packed.cu, and csrc/grad_dict_packed.cu and
+# csrc/mu_dense_packed.cu, which run dense KL's chain): 128-column N tiles
+# and 32-row stages, one resident block per SM on the H100's 132 SMs.
 _KL_N_TILE = 128
 _KL_STAGE_ROWS = 32
 _KL_RESIDENT = 132
@@ -290,6 +295,7 @@ def _check_kernel_args(y, x, d, inner_iter, block_rows, *, mask=None,
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL = ctypes.c_longlong
 
 
 @functools.cache
@@ -334,28 +340,29 @@ def _is_bf16(t):
 def dense_route(dtype, device):
     """Which code ``mu_stats_dense`` runs for data of ``dtype`` on
     ``device``: ``'plain'`` (the twin) on the CPU; on the card ``'tma'``
-    (``csrc/mu_dense_tma.cu``) for bf16 data and ``'mma'``
-    (``csrc/mu_stats_dense.cu``) for any other dtype, whose checks refuse
-    all but f32. Other devices raise. A route by dtype, never a
-    fallback."""
+    (``csrc/mu_dense_tma.cu``) for bf16 data and ``'packed'``
+    (``csrc/mu_dense_packed.cu``, bf16x6 on ``wgmma``) for any other
+    dtype, whose checks refuse all but f32. Other devices raise. A route
+    by dtype, never a fallback."""
     kind = torch.device(device).type
     if kind == "cpu":
         return "plain"
     if kind != "cuda":
         raise DecompError(f"no kernel for device {device}")
-    return "tma" if dtype == torch.bfloat16 else "mma"
+    return "tma" if dtype == torch.bfloat16 else "packed"
 
 
-def dense_tma_block_rows(m: int, n: int) -> int:
-    """Rows per partial of ``csrc/mu_dense_tma.cu``'s statistics pass: the
-    fewest row chunks for which chunks x (128-column N tiles + the gram
-    tile) fill at least 95% of their waves of resident blocks (one per SM
-    on 132 SMs), else the best fill up to 64 chunks; in whole 64-row
-    stages. At 1,048,576 x 10,112: 8 chunks of 131,072 rows (80 tiles, 640
-    blocks, 97% of 5 waves). A function of (M, N) alone, so the summation
-    order, and every bit of the result, is."""
+@functools.cache
+def _wave_rows(m, n, stage_rows):
+    """Rows per partial of a dense statistics pass over 128-column N tiles
+    plus the gram tile: the fewest row chunks for which chunks x tiles
+    fill at least 95% of their waves of resident blocks (one per SM on
+    132 SMs), else the best fill up to 64 chunks; in whole stages of
+    ``stage_rows``. A function of (M, N) alone, so the summation order,
+    and every bit of the result, is (and is kept: config 1's calls are
+    paced by the host)."""
     tiles = -(-n // _TMA_N_TILE) + 1
-    stages = -(-m // _TMA_STAGE_ROWS)
+    stages = -(-m // stage_rows)
     best, best_fill = 1, 0.0
     for chunks in range(1, min(_TMA_MAX_CHUNKS, stages) + 1):
         blocks = tiles * chunks
@@ -365,7 +372,25 @@ def dense_tma_block_rows(m: int, n: int) -> int:
         if fill >= _TMA_WAVE_FILL:
             break
     rows = -(-m // best)
-    return -(-rows // _TMA_STAGE_ROWS) * _TMA_STAGE_ROWS
+    return -(-rows // stage_rows) * stage_rows
+
+
+def dense_tma_block_rows(m: int, n: int) -> int:
+    """Rows per partial of ``csrc/mu_dense_tma.cu``'s statistics pass
+    (``_wave_rows``, 64-row stages). At 1,048,576 x 10,112: 8 chunks of
+    131,072 rows (80 tiles, 640 blocks, 97% of 5 waves)."""
+    return _wave_rows(m, n, _TMA_STAGE_ROWS)
+
+
+def dense_packed_block_rows(m: int, n: int, block_rows=None) -> int:
+    """Rows per partial of ``csrc/mu_dense_packed.cu``'s statistics pass:
+    ``_wave_rows`` in 32-row stages (8 chunks of 32,768 rows at 262,144 x
+    10,112: 640 blocks, 97% of 5 waves), or ``block_rows`` rounded up to
+    whole 32-row stages. A function of the shape (and ``block_rows``)
+    alone."""
+    if block_rows is None:
+        return _wave_rows(m, n, _KL_STAGE_ROWS)
+    return -(-block_rows // _KL_STAGE_ROWS) * _KL_STAGE_ROWS
 
 
 def mu_stats_dense(y, x, d, eps, *, block_rows=None, inner_iter=1):
@@ -377,7 +402,8 @@ def mu_stats_dense(y, x, d, eps, *, block_rows=None, inner_iter=1):
     bf16 ``y`` launches ``csrc/mu_dense_tma.cu`` (TMA ring, wgmma; its
     chunks are whole 64-row stages, so ``block_rows`` is rounded up to a
     multiple of 64) and counts it in ``.tma_launches``; f32 ``y`` launches
-    ``csrc/mu_stats_dense.cu``. ``.launches`` counts both."""
+    ``csrc/mu_dense_packed.cu`` (bf16x6 on wgmma; whole 32-row stages) and
+    counts it in ``.packed_launches``. ``.launches`` counts both."""
     validate_block_rows(block_rows)
     route = dense_route(y.dtype, y.device)
     if route == "plain":
@@ -387,7 +413,8 @@ def mu_stats_dense(y, x, d, eps, *, block_rows=None, inner_iter=1):
         out = _dense_tma_launch(y, x, d, eps, block_rows, inner_iter)
         mu_stats_dense.tma_launches += 1
     else:
-        out = _dense_mma_launch(y, x, d, eps, block_rows, inner_iter)
+        out = _dense_packed_launch(y, x, d, eps, block_rows, inner_iter)
+        mu_stats_dense.packed_launches += 1
     mu_stats_dense.launches += 1
     return out
 
@@ -423,10 +450,73 @@ def _dense_tma_launch(y, x, d, eps, block_rows, inner_iter):
     return x_new, out[:k * n].view(k, n), out[k * n:].view(k, k)
 
 
+def _dense_packed_workspace(kt, m, n, k, rows):
+    """Bytes of ``csrc/mu_dense_packed.cu``'s workspace (``workspace_bytes``
+    there, which checks it): d's limbs (N x 3 kt bf16), xc (M x 3 kt bf16)
+    and the chunks' partials (K N + K K f32 each), each in whole KB."""
+    def section(nbytes):
+        return -(-nbytes // 1024) * 1024
+
+    return (section(2 * n * 3 * kt) + section(2 * m * 3 * kt)
+            + section(4 * -(-m // rows) * (k * n + k * k)))
+
+
+def _dense_packed_launch(y, x, d, eps, block_rows, inner_iter):
+    """Launch ``csrc/mu_dense_packed.cu`` on f32 ``y``, ``x`` and ``d``
+    (``mu_stats_dense``'s f32 route). The kernel splits d into its limbs
+    (``column_limbs``' layout) in its first launch; ``ddt`` is formed
+    here, outside the kernel. At config 1 a call is paced by the host, so
+    its scratch is one allocation, ``_dense_packed_workspace``."""
+    m, n = y.shape
+    k = d.shape[0]
+    rows = dense_packed_block_rows(m, n, block_rows)
+    _check_kernel_args(y, x, d, inner_iter, rows, wide_x=False)
+    if y.dtype != torch.float32:
+        raise DtypeError(f"the packed dense MU kernel takes f32 data, got "
+                         f"{y.dtype}")
+    kt = 64 if k <= 64 else 128
+    fn = _c_function("mu_dense_packed", "mu_dense_packed_launch",
+                     (_I, _P, _I, _P, _P, _P, _F) + (_I,) * 5
+                     + (_P, _LL) + (_P,) * 3)
+    ws_bytes = _dense_packed_workspace(kt, m, n, k, rows)
+    with torch.cuda.device(y.device):
+        y_t, ld_y = _tma_rows(y)
+        ddt = gram_rows(d)
+        ws = torch.empty(ws_bytes, dtype=torch.uint8, device=y.device)
+        x_new = torch.empty_like(x)
+        out = _f32(k * n + k * k, y.device)
+        _launch("mu_stats_dense (packed)", fn, y.device, kt, y_t.data_ptr(),
+                ld_y, x.data_ptr(), d.data_ptr(), ddt.data_ptr(), float(eps),
+                m, n, k, int(inner_iter), rows, ws.data_ptr(), ws_bytes,
+                x_new.data_ptr(), out.data_ptr())
+    numd, gram = out.split((k * n, k * k))
+    return x_new, numd.view(k, n), gram.view(k, k)
+
+
+def _dense_packed_limbs(d, kt):
+    """d's limbs as ``csrc/mu_dense_packed.cu``'s first launch writes them
+    ((N, 3 kt) bf16; ``column_limbs(d, kt)``'s layout), for the card's
+    bit-for-bit check against ``column_limbs``."""
+    k, n = d.shape
+    if d.dtype != torch.float32 or not d.is_contiguous():
+        raise DtypeError("d must be contiguous f32")
+    if not 1 <= k <= kt or kt not in (64, 128):
+        raise ShapeError(f"rank {k} does not fit the rank tile {kt}")
+    fn = _c_function("mu_dense_packed", "mu_dense_packed_split",
+                     (_I, _P, _I, _I, _P))
+    with torch.cuda.device(d.device):
+        limbs = torch.empty((n, 3 * kt), dtype=torch.bfloat16,
+                            device=d.device)
+        _launch("mu_dense_packed split", fn, d.device, kt, d.data_ptr(), k,
+                n, limbs.data_ptr())
+    return limbs
+
+
 def _dense_mma_launch(y, x, d, eps, block_rows=None, inner_iter=1):
-    """Launch ``csrc/mu_stats_dense.cu`` (``mu_stats_dense``'s f32 route).
-    It takes bf16 data too, so that both designs can be timed on the same
-    inputs; nothing on the main path calls it with bf16."""
+    """Launch ``csrc/mu_stats_dense.cu``, the first design, which no route
+    takes any more: it stays so that ``chip_smoke.py`` can time it in
+    turns with the kernels that replaced it, on f32 and bf16 data.
+    Counts nothing."""
     rows = block_rows or default_block_rows(y.shape[0])
     _check_kernel_args(y, x, d, inner_iter, rows)
     m, n = y.shape
@@ -448,6 +538,7 @@ def _dense_mma_launch(y, x, d, eps, block_rows=None, inner_iter=1):
 
 mu_stats_dense.launches = 0
 mu_stats_dense.tma_launches = 0
+mu_stats_dense.packed_launches = 0
 
 
 def mu_stats_masked(my, mask, x, d, eps, *, block_rows=None):

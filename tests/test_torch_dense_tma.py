@@ -52,7 +52,7 @@ def test_tma_chunks_fill_their_waves_at_the_main_path():
 @pytest.mark.parametrize("dtype,device,route", [
     (torch.bfloat16, torch.device("cuda"), "tma"),
     (torch.bfloat16, "cuda:1", "tma"),
-    (torch.float32, torch.device("cuda", 0), "mma"),
+    (torch.float32, torch.device("cuda", 0), "packed"),
     (torch.bfloat16, "cpu", "plain"),
     (torch.float32, torch.device("cpu"), "plain"),
     (torch.float64, "cpu", "plain"),
