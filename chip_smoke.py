@@ -11,7 +11,8 @@ for sm_90a (one nvcc per source, all at once), and then:
 1. prints the card's name and power limit (nvidia-smi), the build time
    and ptxas' register-spill report, and fails where an instance of the
    bf16x6 wgmma chain (``csrc/kl_dense_packed.cu``,
-   ``csrc/grad_dict_packed.cu``, ``csrc/mu_dense_packed.cu``) spills;
+   ``csrc/grad_dict_packed.cu``, ``csrc/mu_dense_packed.cu``,
+   ``csrc/mu_masked_f32.cu``) spills;
 2. holds the kernel ``mu_stats_dense`` against its plain PyTorch twin on
    the card and checks that two runs give the same bits: f32 data on
    ``csrc/mu_dense_packed.cu``, and bf16 data with f32 or bf16 x on the
@@ -48,7 +49,13 @@ for sm_90a (one nvcc per source, all at once), and then:
    decades at 65,536 x 1,024 K = 128 (kernel and twin also against f64),
    within the f32 limit of the full-f32 twin, each with a bit-identical
    rerun and d's limbs from the kernel's split launch held bit for bit to
-   ``cuda_mu.column_limbs``;
+   ``cuda_mu.column_limbs``; and (3f) ``mu_stats_masked`` on f32 data with
+   the mask's bits (the kernel of ``csrc/mu_masked_f32.cu``, bf16x6
+   products on wgmma) at phase 3c's shapes, 333 x 257 K = 7 with eps =
+   EPS and eps = 0, 1000 x 1000 K = 1, 64 and 128, and on log-normal my,
+   x and d over six decades at 65,536 x 1,024 K = 128 (kernel and twin
+   also against f64), within the f32 limit of the full-f32 twin, each
+   call counted in ``.f32_launches`` with a bit-identical rerun;
 4. drives the dense main path, ``decomp_tpu_torch.nmf.solve`` on a
    1,048,576 x 10,112 bf16 matrix at rank 128 with f32 factors, 20
    iterations, and checks that every iteration went through the TMA
@@ -73,7 +80,10 @@ for sm_90a (one nvcc per source, all at once), and then:
    with 30% missing (bf16 data, f32 factors, held-out stopping), and
    checks one ``mu_stats_masked`` launch per iteration, all on the packed
    route and none on the dense one, convergence, the held-out error and
-   the factors;
+   the factors; then (6b) the same call on the same f32 data with
+   ``mixed=False``, every launch on ``csrc/mu_masked_f32.cu`` (none on
+   ``csrc/mu_masked_packed.cu`` or ``csrc/mu_kl_stats.cu``), its time to
+   stop and ms an iteration beside phase 6's;
 7. drives KL-MU, ``nmf.solve(method='kl-mu')`` at 100,000 x 1,024 rank
    128 f32, dense and masked, 20 iterations each, and checks one kernel
    launch per iteration (dense: all on ``csrc/kl_dense_packed.cu``, none
@@ -82,7 +92,9 @@ for sm_90a (one nvcc per source, all at once), and then:
 8. times each new kernel against its twin per call at its path's shape;
    masked MU's packed-mask kernel in turns with the dense-mask kernel on
    the same inputs, at config 4 and at 262,144 x 10,112 K = 128 bf16, and
-   the dense-mask kernel on f32 data at config 4's shape; masked KL's
+   its f32 route (``csrc/mu_masked_f32.cu``) in turns with the dense-mask
+   kernel on f32 data at config 4, 100,000 x 1,024 K = 128 and 262,144 x
+   10,112 K = 128, with each pass from ``torch.profiler``; masked KL's
    packed-mask kernel in turns with its dense-mask kernel at phase 7's
    shape, with each pass from ``torch.profiler``; dense KL's f32 kernel
    (``csrc/kl_dense_packed.cu``) in turns with ``csrc/mu_kl_stats.cu``'s
@@ -265,8 +277,9 @@ just after. It exits non-zero on any failure, without a CUDA device, and
 where the package is absent. The line before the last is a JSON summary
 of the kernels (the eight, and ``solve_rows``' complex mode, the packed
 routes of ``masked_grad_rows`` and ``masked_grad_dict``, f32 dense MU's
-``csrc/mu_dense_packed.cu`` and the shared-memory route of ``bcd_sweep``
-as entries of their own), each with
+``csrc/mu_dense_packed.cu``, f32 masked MU's ``csrc/mu_masked_f32.cu``
+and the shared-memory route of ``bcd_sweep`` as entries of their own),
+each with
 its bound: the larger of its bytes (each input
 read once, each output written once) over 3.35 TB/s and its operations
 over the H100's peak for their type: 989 TFLOP/s for bf16 on the tensor
@@ -388,7 +401,8 @@ EPS = 1e-6
 SOURCES = ("mu_stats_dense", "mu_dense_tma", "mu_kl_stats", "mu_masked_packed",
            "kl_masked_packed", "kl_dense_packed", "lasso_fista",
            "lasso_fista_tma", "lasso_grad", "lasso_grad_packed", "dl_bcd",
-           "dl_bcd_sm90", "grad_dict_packed", "mu_dense_packed")
+           "dl_bcd_sm90", "grad_dict_packed", "mu_dense_packed",
+           "mu_masked_f32")
 # name -> (source, masked, the TPU kernel it replaces)
 NEW_KERNELS = {
     "mu_stats_masked": ("mu_masked_packed", True, "pallas_mu.py:522"),
@@ -833,6 +847,99 @@ def kl_dense_passes(cuda_mu, args, card):
     pass_times(lambda: cuda_mu.kl_stats_dense(my, x, d, EPS), nbytes,
                f"{m}x{n} K={k} ({chunks} chunks, {groups} row groups)", card,
                ops={"dense_x_update": per_pass, "dense_stats": per_pass})
+
+
+def masked_f64(my, mask, x, d, eps):
+    """mu_stats_masked's function in f64: (x_new, numd, dend)."""
+    my, mask, x, d = my.double(), mask.double(), x.double(), d.double()
+    x_new = x * (my @ d.T) / ((mask * (x @ d)) @ d.T + eps)
+    return x_new, x_new.T @ my, x_new.T @ (mask * (x_new @ d))
+
+
+def compare_masked_f32(cuda_mu, args, eps=EPS, tag="", f64=False):
+    """mu_stats_masked on f32 data with the mask's bits
+    (csrc/mu_masked_f32.cu, bf16x6 on wgmma) against its full-f32 twin on
+    ``args`` = (my, mask, x, d): ``compare_new`` with both calls counted
+    in ``.f32_launches`` (LIMIT[f32], a bit-identical rerun); ``f64``:
+    kernel and twin also against the function in f64, the kernel held to
+    LIMIT[f32] there too. Returns the outputs' max abs error."""
+    err = compare_new(cuda_mu, "mu_stats_masked", args, packed=True,
+                      eps=eps, tag=tag, route="f32_launches")
+    if f64:
+        my, mask, x, d = args
+        out = cuda_mu.mu_stats_masked(my, cuda_mu.pack_mask(mask), x, d, eps)
+        ref = cuda_mu.mu_stats_masked_plain(my, mask, x, d, eps)
+        wide_ref = masked_f64(my, mask, x, d, eps)
+        e_k = [rel_fro(a, b) for a, b in zip(out, wide_ref)]
+        e_t = [rel_fro(a, b) for a, b in zip(ref, wide_ref)]
+        del out, ref, wide_ref
+        print(f"  against f64 ({tag}): kernel " + " ".join(
+            f"{e:.3e}" for e in e_k) + ", twin " + " ".join(
+            f"{e:.3e}" for e in e_t) + f" (limit {LIMIT[torch.float32]:.0e})",
+            flush=True)
+        check(all(e <= LIMIT[torch.float32] for e in e_k),
+              f"mu_stats_masked f32 {tag}: kernel disagrees with f64")
+    return err
+
+
+def masked_f32_passes(cuda_mu, args, card):
+    """csrc/mu_masked_f32.cu's five launches: the split reads d and writes
+    its limbs; num reads my and d's limbs and writes num (into x_new); the
+    x update reads the bits, x, num and d's limbs and writes x_new and its
+    limbs xc; the statistics read my, the bits, xc and the N tiles' limbs
+    and write the partials; the reduction reads the partials and writes
+    numd and dend. The bf16 MMA operations each pass issues: six limb
+    products of 2 M N' KT a product (N' the issued columns), one product
+    in num, two in the x update, three in the statistics."""
+    my, mask, x, d = args
+    bits = cuda_mu.pack_mask(mask)
+    (m, n), k = my.shape, d.shape[0]
+    kt = 64 if k <= 64 else 128
+    chunks = -(-m // cuda_mu.masked_f32_block_rows(m, n))
+    mn, xb, words = m * n * 4, m * k * 4, bits.numel() * 4
+    limbs, xc = n * 3 * kt * 2, m * 3 * kt * 2
+    part = chunks * 2 * k * n * 4
+    nbytes = {"split_cols": k * n * 4 + limbs,
+              "masked_num": mn + limbs + xb,
+              "masked_x_update": words + 3 * xb + limbs + xc,
+              "masked_stats": mn + words + xc + limbs + part,
+              "reduce_kernel": part + 2 * k * n * 4}
+    per = 12.0 * m * kt
+    ops = {"masked_num": per * (-(-n // 32) * 32),
+           "masked_x_update": 2 * per * (-(-n // 32) * 32),
+           "masked_stats": 3 * per * (-(-n // 128) * 128)}
+    pass_times(lambda: cuda_mu.mu_stats_masked(my, bits, x, d, EPS), nbytes,
+               f"{m}x{n} K={k} f32 ({chunks} chunks)", card, ops=ops)
+
+
+def time_masked_f32(cuda_mu, args, reps, card, err_abs):
+    """f32 masked MU per call on ``args`` = (my, mask, x, d): the f32 route
+    (csrc/mu_masked_f32.cu, the mask's bits) in turns with the dense-mask
+    kernel of csrc/mu_kl_stats.cu (the wrapper given the dense mask; dense,
+    f32, f32, dense; each figure the mean of its two), the twin once,
+    beside the bf16x6 and f32-FMA bounds; then each launch's device time.
+    Returns (ms, the dense-mask kernel's ms, the twin's ms, bound)."""
+    my, mask, x, d = args
+    (m, n), k = my.shape, d.shape[0]
+    f32 = torch.float32
+    w = cuda_mu.mu_stats_masked
+    before = (w.f32_launches, w.dense_launches)
+    t = time_packed(cuda_mu, "mu_stats_masked", args, reps)
+    moved = (w.f32_launches - before[0], w.dense_launches - before[1])
+    check(moved[0] == moved[1] == 2 * reps + 2,
+          f"f32 masked MU turns: (f32, dense) route launches {moved}")
+    b = stats_bound("mu_stats_masked", m, n, k, f32, f32, packed=True)
+    b_dense = stats_bound("mu_stats_masked", m, n, k, f32, f32)
+    b_fma = stats_bound("mu_stats_masked", m, n, k, f32, f32, fma=True)
+    print(f"mu_stats_masked {m}x{n} K={k} data=float32 x=float32: "
+          f"mu_masked_f32.cu (bf16x6, wgmma, packed mask) {t[0]:.4f} ms, "
+          f"mu_kl_stats.cu (f32 FMA, dense mask) {t[1]:.4f} ms, plain twin "
+          f"{t[2]:.4f} ms per call; new / old {t[0] / t[1]:.3f}; bound "
+          f"bf16x6 {b[0]:.4f} ms ({b[1]}, {b[0] / t[0]:.1%} of it; dense "
+          f"mask {b_dense[0]:.4f} ms), f32-FMA {b_fma[0]:.4f} ms ({card}); "
+          f"max_abs_err {err_abs:.3e}", flush=True)
+    masked_f32_passes(cuda_mu, args, card)
+    return t[0], t[1], t[2], b
 
 
 def lognormal_inputs(gen, dev, m, n, k, missing=0.3):
@@ -3880,6 +3987,7 @@ def main():
         for w in (cuda_mu.mu_stats_masked, cuda_mu.kl_stats_masked):
             w.packed_launches = 0
             w.dense_launches = 0
+        cuda_mu.mu_stats_masked.f32_launches = 0
         cuda_mu.mu_stats_dense.tma_launches = 0
         cuda_mu.mu_stats_dense.packed_launches = 0
         cuda_mu.kl_stats_dense.packed_launches = 0
@@ -3940,7 +4048,8 @@ def main():
                   and " 0 bytes spill stores, 0 bytes spill loads" not in ln]
         print(f"built decomp_tpu_torch/csrc/{s}.cu with nvcc for sm_90a; "
               f"register spills: {spills or 'none'}", flush=True)
-        if s in ("kl_dense_packed", "grad_dict_packed", "mu_dense_packed"):
+        if s in ("kl_dense_packed", "grad_dict_packed", "mu_dense_packed",
+                 "mu_masked_f32"):
             check(not spills, f"{s}.cu: the wgmma chain's instances spill")
         if s == "dl_bcd_sm90":
             check(not spills, f"{s}.cu: d, held in registers, spills")
@@ -4085,6 +4194,27 @@ def main():
                          "decades")
     del y, x, d
     t_phase = phase("3e dense MU f32 kernel vs twin", t_phase)
+
+    # Phase 3f: masked MU on f32 data with the mask's bits
+    # (csrc/mu_masked_f32.cu, bf16x6 on wgmma) against its full-f32 twin:
+    # phase 3c's shapes, ragged M, N and K with eps = EPS and 0, K = 1, 64
+    # and 128, and log-normal data over six decades (also against f64).
+    for m, n, k, eps in ((1000, 1000, 100, EPS), (100_000, 1000, 50, EPS),
+                         (65536, 10112, 128, EPS), (333, 257, 7, EPS),
+                         (333, 257, 7, 0.0), (1000, 1000, 64, EPS),
+                         (1000, 1000, 1, EPS), (1000, 1000, 128, EPS)):
+        args = stats_inputs(gen, dev, m, n, k, f32, f32, True)
+        compare_masked_f32(cuda_mu, args, eps)
+        del args
+    args = lognormal_inputs(gen, dev, 65536, 1024, 128)
+    lo, hi = (float(q) for q in torch.quantile(
+        torch.log10(args[0][args[1] > 0][:1 << 20]),
+        torch.tensor([0.0015, 0.9985], device=dev)))
+    compare_masked_f32(cuda_mu, args, f64=True,
+                       tag=f"log-normal, 99.7% of observed my over "
+                       f"{hi - lo:.1f} decades")
+    del args
+    t_phase = phase("3f masked MU f32 kernel vs twin", t_phase)
 
     # Phase 4: the dense main path at the real size.
     m, n, k, iters = 1 << 20, 10112, 128, 20
@@ -4251,8 +4381,51 @@ def main():
         check(bool(torch.isfinite(t).all()), f"{name} has non-finite values")
         check(bool((t >= 0).all()), f"{name} has negative values")
     phase6 = (res.niter, res.x, res.d, wall4)   # phase 22's reference
-    del res, y4, ym4, miss
+    niter6 = res.niter
+    del res
     t_phase = phase("6 masked completion", t_phase)
+
+    # Phase 6b: the f32 masked path, config 4 on phase 6's f32 data with
+    # mixed=False: every mu_stats_masked launch on csrc/mu_masked_f32.cu.
+    # The same held-out stop (tol 1e-4) with room to reach it: on these
+    # noiseless planted data the f32 run's held-out error keeps falling
+    # past the 2,975 iterations where bf16's rounding stops phase 6 (on
+    # an H100: 6.99e-3 at 4,000, the stop at 47,800 with 5.21e-3).
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = nmf.masked_completion(ym4, mask4, rank=k4, tol=1e-4,
+                                maxiter=60_000, random_seed=4, mixed=False)
+    torch.cuda.synchronize()
+    wall6b = time.perf_counter() - t0
+    launches6b = read_counts("mu_stats_masked", res.niter)
+    routes6b = (cuda_mu.mu_stats_masked.f32_launches,
+                cuda_mu.mu_stats_masked.packed_launches,
+                cuda_mu.mu_stats_masked.dense_launches)
+    check(routes6b == (res.niter, 0, 0), f"config 4 f32: (f32, bf16 "
+          f"packed, dense) route launches {routes6b}, expected "
+          f"({res.niter}, 0, 0)")
+    ho6b = float(res.aux["heldout_rel_err"])
+    true6b = float(
+        torch.linalg.vector_norm(miss * (res.x @ res.d - y4))
+        / torch.linalg.vector_norm(miss * y4))
+    print(f"config 4 f32 nmf.masked_completion(mixed=False) {m4}x{n4} rank "
+          f"{k4}, 30% missing (f32 data and factors): converged="
+          f"{res.converged} after {res.niter} iterations in {wall6b:.3f} s "
+          f"({wall6b * 1e3 / res.niter:.4f} ms an iteration; phase 6's "
+          f"bf16 run {wall4 * 1e3 / niter6:.4f} ms over {niter6}; {card}); "
+          f"held-out relative error {ho6b:.4e}, true error on the missing "
+          f"entries {true6b:.4e}; mu_stats_masked launches {launches6b} "
+          f"(mu_masked_f32.cu {routes6b[0]}, mu_masked_packed.cu "
+          f"{routes6b[1]}, mu_kl_stats.cu {routes6b[2]})", flush=True)
+    check(res.converged, "f32 masked completion did not converge")
+    check(ho6b < 5e-2, f"f32 held-out relative error {ho6b} >= 5e-2")
+    check(res.x.dtype == f32 and res.d.dtype == f32, "f32 factor dtypes")
+    for name, t in (("x", res.x), ("d", res.d)):
+        check(bool(torch.isfinite(t).all()), f"{name} has non-finite values")
+        check(bool((t >= 0).all()), f"{name} has negative values")
+    del res, y4, ym4, miss
+    t_phase = phase("6b f32 masked completion", t_phase)
 
     # Phase 7: KL-MU at 100,000 x 1,024 rank 128 f32 (BASELINE.md's KL
     # rows), dense and masked, 20 iterations at tol = 0.
@@ -4329,19 +4502,19 @@ def main():
             errs_abs["mu_stats_masked"] = e
             times["mu_stats_masked"] = (t[0], t[2])
         del args
-    # f32 data (and weighted masks) take the dense-mask kernel of
-    # csrc/mu_kl_stats.cu: at config 4's shape.
-    args = stats_inputs(gen, dev, m4, n4, k4, f32, f32, True)
-    e = compare_new(cuda_mu, "mu_stats_masked", args)
-    t = time_new(cuda_mu, "mu_stats_masked", args)
-    b = stats_bound("mu_stats_masked", m4, n4, k4, f32, f32)
-    b_fma = stats_bound("mu_stats_masked", m4, n4, k4, f32, f32, fma=True)
-    print(f"mu_stats_masked {m4}x{n4} K={k4} data=float32 x=float32 (dense "
-          f"mask, csrc/mu_kl_stats.cu): kernel {t[0]:.3f} ms, plain twin "
-          f"{t[1]:.3f} ms per call, bound bf16x6 {b[0]:.3f} ms ({b[1]}), "
-          f"f32-FMA {b_fma[0]:.3f} ms ({card}); max_abs_err {e:.3e}",
-          flush=True)
-    del args
+    # f32 data with a 0/1 mask run csrc/mu_masked_f32.cu (phase 6b's
+    # route), timed in turns with the dense-mask kernel of
+    # csrc/mu_kl_stats.cu (weighted masks' route) on the same inputs, at
+    # config 4, at dense KL's shape and at the f32 path's width.
+    for m_, n_, k_, reps in ((m4, n4, k4, 10), (100_000, 1024, 128, 10),
+                             (262_144, 10112, 128, 3)):
+        args = stats_inputs(gen, dev, m_, n_, k_, f32, f32, True)
+        e = compare_masked_f32(cuda_mu, args)
+        t = time_masked_f32(cuda_mu, args, reps, card, e)
+        if (m_, n_, k_) == (m4, n4, k4):
+            errs_abs["mu_stats_masked_f32"] = e
+            times["mu_stats_masked_f32"] = (t[0], t[2])
+        del args
     # Dense KL on f32 data runs its main path's route, csrc/kl_dense_packed.cu,
     # timed in turns with csrc/mu_kl_stats.cu's f32 path on the same inputs.
     args = stats_inputs(gen, dev, m7, n7, k7, f32, f32, False)
@@ -4573,11 +4746,16 @@ def main():
     stats = {name: s + bounds[name] for name, s in stats.items()}
     # f32 dense MU at phase 4b's shape, 262,144 x 10,112, K = 128.
     stats["mu_stats_dense_packed"] = f32_path[1:4] + f32_path[4]
+    # f32 masked MU at config 4 (phase 8), launched by phase 6b.
+    stats["mu_stats_masked_f32"] = (
+        (errs_abs["mu_stats_masked_f32"],) + times["mu_stats_masked_f32"]
+        + stats_bound("mu_stats_masked", m4, n4, k4, f32, f32, packed=True))
     stats.update(lasso_stats)
     stats.update(dl_stats)
     main_launches = {"mu_stats_dense": launches,
                      "mu_stats_dense_packed": f32_path[0],
                      "mu_stats_masked": launches4,
+                     "mu_stats_masked_f32": launches6b,
                      **kl_launches, "solve_rows": launches2,
                      "solve_rows_complex": launches2c,
                      "masked_grad_rows": launches_grad_dense,
@@ -4591,6 +4769,7 @@ def main():
                                          "pallas_mu.py:438"),
                **{name: (src, rep) for name, (src, _, rep)
                   in NEW_KERNELS.items()},
+               "mu_stats_masked_f32": ("mu_masked_f32", "pallas_mu.py:522"),
                "solve_rows": ("lasso_fista_tma", "pallas_fista.py:349"),
                "solve_rows_complex": ("lasso_fista_tma",
                                       "pallas_fista.py:349 (group_fc)"),

@@ -99,7 +99,7 @@ struct Args {
 
 template <int KT>
 int launch(const Args& a) {
-  using C = Cfg<KT, true>;
+  using C = Cfg<KT, Pass::GradDict>;
   constexpr CUtensorMapSwizzle SW = CU_TENSOR_MAP_SWIZZLE_128B;
   CUtensorMap my, xc, dl, mask;
   const bool ok =

@@ -95,7 +95,7 @@ template <int KT, typename Kernel>
 cudaError_t run_pass(Kernel kernel, const CUtensorMap& my,
                      const CUtensorMap& b, const CUtensorMap& r, dim3 grid,
                      const Params& p, cudaStream_t stream) {
-  constexpr size_t smem = Cfg<KT>::kSmem;
+  constexpr size_t smem = Cfg<KT, Pass::XUpdate>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;

@@ -62,32 +62,6 @@
 namespace {
 
 template <int KT>
-__global__ void __launch_bounds__(THREADS)
-    split_cols(const float* __restrict__ d, int K, int N,
-               bf16* __restrict__ dl) {
-  constexpr int G = KT / 8;   // groups of 8 features per column
-  const long long e = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (e >= (long long)N * G) return;
-  const int n = (int)(e % N), c0 = (int)(e / N) * 8;
-  float v[8];
-#pragma unroll
-  for (int u = 0; u < 8; ++u)
-    v[u] = c0 + u < K ? __ldg(d + (long long)(c0 + u) * N + n) : 0.f;
-  uint32_t w[3][4];
-#pragma unroll
-  for (int pp = 0; pp < 4; ++pp) {
-    uint32_t f[3];
-    split_pair(v[2 * pp], v[2 * pp + 1], f);
-#pragma unroll
-    for (int l = 0; l < 3; ++l) w[l][pp] = f[l];
-  }
-#pragma unroll
-  for (int l = 0; l < 3; ++l)
-    *reinterpret_cast<uint4*>(dl + (long long)n * (3 * KT) + l * KT + c0) =
-        make_uint4(w[l][0], w[l][1], w[l][2], w[l][3]);
-}
-
-template <int KT>
 __global__ void __launch_bounds__(kThreads, 1)
     mu_x_update(const __grid_constant__ CUtensorMap tm_y,
                 const __grid_constant__ CUtensorMap tm_d, const Params p) {
@@ -124,20 +98,11 @@ long long workspace_bytes(int kt, int M, int N, int K, int chunk_rows) {
          section(4LL * chunks * ((long long)K * N + (long long)K * K));
 }
 
-template <int KT>
-int split(const void* d, int K, int N, void* dl, cudaStream_t stream) {
-  const long long groups = (long long)N * (KT / 8);
-  split_cols<KT><<<(unsigned)((groups + THREADS - 1) / THREADS), THREADS, 0,
-                   stream>>>(static_cast<const float*>(d), K, N,
-                             static_cast<bf16*>(dl));
-  return (int)cudaGetLastError();
-}
-
 template <int KT, typename Kernel>
 cudaError_t run_pass(Kernel kernel, const CUtensorMap& y,
                      const CUtensorMap& b, dim3 grid, const Params& p,
                      cudaStream_t stream) {
-  constexpr size_t smem = Cfg<KT, false, true>::kSmem;
+  constexpr size_t smem = Cfg<KT, Pass::MuXUpdate>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -178,7 +143,7 @@ int launch(const Args& a) {
   p.xc = static_cast<bf16*>(a.xc);
   p.tiles = tiles;
 
-  int rc = split<KT>(a.d, a.K, a.N, a.dl, a.stream);
+  int rc = split_cols_launch<KT>(a.d, a.K, a.N, a.dl, a.stream);
   if (rc != 0) return rc;
   const int stripes = (a.M + BR - 1) / BR;
   err = run_pass<KT>(mu_x_update<KT>, y1, dl1, stripes < sms ? stripes : sms,
@@ -229,5 +194,6 @@ extern "C" int mu_dense_packed_split(int kt, const void* d, int K, int N,
   if (N < 1 || K < 1 || K > kt || (kt != 64 && kt != 128))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return kt == 64 ? split<64>(d, K, N, dl, s) : split<128>(d, K, N, dl, s);
+  return kt == 64 ? split_cols_launch<64>(d, K, N, dl, s)
+                  : split_cols_launch<128>(d, K, N, dl, s);
 }

@@ -8,11 +8,12 @@
 //   KL_MASKED  kl_stats_masked (:678, body _kl_masked_kernel :325)
 // and one of decomp_tpu/ops/pallas_lasso.py:
 //   GRAD_DICT  masked_grad_dict (:225, body _grad_dict_kernel :201)
-// The masked variants serve a dense mask: MU_MASKED f32 data and weighted
-// masks (bf16 data with a 0/1 mask go to mu_masked_packed.cu), KL_MASKED
-// bf16 data and weighted masks (f32 data with a 0/1 mask go to
-// kl_masked_packed.cu, bf16x6 on the tensor cores); ops/cuda_mu.py routes
-// by the data's dtype and the mask's form.
+// The masked variants serve a dense mask: MU_MASKED weighted masks only (a
+// 0/1 mask goes as bits to mu_masked_f32.cu with f32 data, bf16x6 on
+// wgmma, and to mu_masked_packed.cu with bf16 data), KL_MASKED bf16 data
+// and weighted masks (f32 data with a 0/1 mask go to kl_masked_packed.cu,
+// bf16x6 on the tensor cores); ops/cuda_mu.py routes by the data's dtype
+// and the mask's form.
 // Given my = mask * y (M, N), mask (M, N) (masked variants), x (M, K) and
 // d (K, N) in my's dtype (cdt), each forms a reconstruction R = cdt(x) d
 // on chip, applies the variant's elementwise step E(R), and returns

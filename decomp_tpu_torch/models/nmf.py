@@ -599,7 +599,7 @@ def _kernel_step(my, mask, method, eps, block_rows, inner_iter, reduce=None):
     else:
         # A 0/1 mask goes to the kernel as bits, packed once per solve
         # (under stop='heldout' this is the training mask); a weighted
-        # mask, or f32 data on the card, stays dense.
+        # mask stays dense.
         packed = (cuda_mu.pack_mask_agreed(mask, reduce)
                   if cuda_mu.takes_packed(my) else None)
         mask_k = mask if packed is None else packed

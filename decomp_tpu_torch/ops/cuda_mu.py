@@ -34,8 +34,11 @@ kernels). The routes, by dtype and by the mask's form:
   products run as bf16x6 limb products on ``wgmma`` (the chain of
   ``csrc/wgmma_chain.cuh``); the first design, ``csrc/mu_stats_dense.cu``,
   stays only behind the private ``_dense_mma_launch``, for timing;
-- ``mu_stats_masked``: the mask as bits (``pack_mask``) with bf16 data to
-  ``csrc/mu_masked_packed.cu``; a dense mask to ``csrc/mu_kl_stats.cu``;
+- ``mu_stats_masked``: the mask as bits (``pack_mask``) with f32 data to
+  ``csrc/mu_masked_f32.cu``, whose f32 products run as bf16x6 limb
+  products on ``wgmma`` (the chain of ``csrc/wgmma_chain.cuh``), and with
+  bf16 data to ``csrc/mu_masked_packed.cu``; a dense mask (a weighted
+  one, which ``pack_mask`` refuses) to ``csrc/mu_kl_stats.cu``;
 - ``kl_stats_masked``: the mask as bits with f32 data to
   ``csrc/kl_masked_packed.cu``, whose f32 products run as bf16x6 limb
   products on the tensor cores (``split_bf16x3``; the TPU's
@@ -51,7 +54,9 @@ or ``kl_takes_packed`` (KL) says the route takes bits. On a CPU tensor a
 wrapper runs its ``*_plain`` twin (unpacking a packed mask first). It
 never falls back from one to the other. Each wrapper counts its kernel
 launches in ``.launches``; the masked ones also per route, in
-``.packed_launches`` and ``.dense_launches``, ``kl_stats_dense`` in
+``.packed_launches`` and ``.dense_launches`` (``mu_stats_masked`` counts
+its f32 route, ``csrc/mu_masked_f32.cu``, in ``.f32_launches`` and its
+bf16 one in ``.packed_launches``), ``kl_stats_dense`` in
 ``.packed_launches`` and ``.mu_kl_launches``, and ``mu_stats_dense`` in
 ``.tma_launches`` and ``.packed_launches``.
 
@@ -97,12 +102,19 @@ _TMA_RESIDENT = 132
 _TMA_WAVE_FILL = 0.95
 _TMA_MAX_CHUNKS = 64
 # The packed KL kernels' statistics pass (csrc/kl_masked_packed.cu,
-# csrc/kl_dense_packed.cu, and csrc/grad_dict_packed.cu and
-# csrc/mu_dense_packed.cu, which run dense KL's chain): 128-column N tiles
-# and 32-row stages, one resident block per SM on the H100's 132 SMs.
+# csrc/kl_dense_packed.cu, and csrc/grad_dict_packed.cu,
+# csrc/mu_dense_packed.cu and csrc/mu_masked_f32.cu, which run dense KL's
+# chain): 128-column N tiles and 32-row stages, one resident block per SM
+# on the H100's 132 SMs.
 _KL_N_TILE = 128
 _KL_STAGE_ROWS = 32
 _KL_RESIDENT = 132
+# csrc/mu_masked_f32.cu's statistics grid aims at this many waves of its
+# blocks: half of them (numd's tiles) do half the work of the other half,
+# so many small blocks balance the SMs (on an H100 at config 4, 8 waves
+# took 1.157 ms a call against 1.201 for 4 and 1.294 for 2, in turns; at
+# K = 128 they tie).
+_MASKED_F32_WAVES = 8
 
 
 def validate_block_rows(block_rows):
@@ -547,25 +559,37 @@ def mu_stats_masked(my, mask, x, d, eps, *, block_rows=None):
 
     ``mask`` is either dense, in ``my``'s shape, or the bits of a 0/1
     mask from ``pack_mask`` (int32). On a CUDA tensor a packed mask
-    launches ``csrc/mu_masked_packed.cu`` (bf16 ``my`` only) and counts
-    it in ``.packed_launches``; a dense mask launches the masked kernel of
+    launches ``csrc/mu_masked_f32.cu`` for f32 ``my`` (bf16x6 on
+    ``wgmma``; ``block_rows`` is rounded up to whole 32-row stages),
+    counted in ``.f32_launches``, and ``csrc/mu_masked_packed.cu`` for
+    bf16 ``my``, counted in ``.packed_launches`` (``masked_packed_route``
+    names the counter); a dense mask launches the masked kernel of
     ``csrc/mu_kl_stats.cu`` and counts it in ``.dense_launches``;
-    ``.launches`` counts both. On a CPU tensor a packed mask is unpacked
-    to ``my``'s dtype for the twin, which then gives the dense mask's
-    bits."""
+    ``.launches`` counts all three. On a CPU tensor a packed mask is
+    unpacked to ``my``'s dtype for the twin, which then gives the dense
+    mask's bits."""
     return _route_masked(mu_stats_masked, mu_stats_masked_plain,
-                         _packed_launch, my, mask, x, d, eps, block_rows)
+                         _packed_launch, my, mask, x, d, eps, block_rows,
+                         masked_packed_route)
+
+
+def masked_packed_route(dtype):
+    """The counter of ``mu_stats_masked``'s packed route for data of
+    ``dtype`` on the card: ``'f32_launches'`` (``csrc/mu_masked_f32.cu``)
+    for f32 and ``'packed_launches'`` (``csrc/mu_masked_packed.cu``, whose
+    checks refuse all but bf16) for any other dtype."""
+    return "f32_launches" if dtype == torch.float32 else "packed_launches"
 
 
 def _route_masked(wrapper, plain, packed_launch, my, mask, x, d, eps,
-                  block_rows):
+                  block_rows, packed_route=lambda dtype: "packed_launches"):
     """The routes of a masked wrapper (``mu_stats_masked`` or
     ``kl_stats_masked``) by the mask's form: on the CPU its twin ``plain``
     (a packed mask unpacked to ``my``'s dtype first); on the card
-    ``packed_launch`` for the bits of a 0/1 mask, counted in
-    ``.packed_launches``, and the dense-mask kernel of
+    ``packed_launch`` for the bits of a 0/1 mask, counted in the counter
+    ``packed_route(my.dtype)`` names, and the dense-mask kernel of
     ``csrc/mu_kl_stats.cu`` for a dense mask, counted in
-    ``.dense_launches``; ``.launches`` counts both."""
+    ``.dense_launches``; ``.launches`` counts them all."""
     validate_block_rows(block_rows)
     packed = mask.dtype == torch.int32
     if packed:
@@ -576,7 +600,8 @@ def _route_masked(wrapper, plain, packed_launch, my, mask, x, d, eps,
         return plain(my, mask, x, d, eps, block_rows=block_rows)
     if packed:
         out = packed_launch(my, mask, x, d, eps, block_rows)
-        wrapper.packed_launches += 1
+        route = packed_route(my.dtype)
+        setattr(wrapper, route, getattr(wrapper, route) + 1)
         wrapper.launches += 1
         return out
     out = _masked_launch(wrapper, my, mask, x, d, eps, block_rows)
@@ -586,6 +611,7 @@ def _route_masked(wrapper, plain, packed_launch, my, mask, x, d, eps,
 
 mu_stats_masked.launches = 0
 mu_stats_masked.packed_launches = 0
+mu_stats_masked.f32_launches = 0
 mu_stats_masked.dense_launches = 0
 
 
@@ -651,10 +677,11 @@ def unpack_mask(packed, n, dtype):
 
 
 def takes_packed(my):
-    """Whether ``mu_stats_masked`` runs ``my`` with a packed mask: bf16
-    data on the card (the packed kernel), any data on the CPU (the
-    twin)."""
-    return my.dtype == torch.bfloat16 or my.device.type == "cpu"
+    """Whether ``mu_stats_masked`` runs ``my`` with a packed mask: f32
+    data on the card (``csrc/mu_masked_f32.cu``), bf16 data on the card
+    (``csrc/mu_masked_packed.cu``), any data on the CPU (the twin)."""
+    return (my.dtype in (torch.bfloat16, torch.float32)
+            or my.device.type == "cpu")
 
 
 def packed_block_rows(m: int, n: int, k: int) -> int:
@@ -698,8 +725,18 @@ def _tma_rows(t):
 
 
 def _packed_launch(my, packed, x, d, eps, block_rows):
+    """``mu_stats_masked``'s packed routes, by the data's dtype: f32
+    ``my`` to ``csrc/mu_masked_f32.cu`` (``_masked_f32_launch``), any other
+    to ``csrc/mu_masked_packed.cu`` (``_masked_bf16_launch``, which
+    refuses all but bf16)."""
+    if my.dtype == torch.float32:
+        return _masked_f32_launch(my, packed, x, d, eps, block_rows)
+    return _masked_bf16_launch(my, packed, x, d, eps, block_rows)
+
+
+def _masked_bf16_launch(my, packed, x, d, eps, block_rows):
     """Launch ``csrc/mu_masked_packed.cu`` on bf16 ``my`` and the packed
-    mask (``mu_stats_masked``'s packed route)."""
+    mask (``mu_stats_masked``'s bf16 packed route)."""
     m, n = my.shape
     k = d.shape[0]
     rows = block_rows or packed_block_rows(m, n, k)
@@ -726,6 +763,73 @@ def _packed_launch(my, packed, x, d, eps, block_rows):
                 x_new.data_ptr(), xc.data_ptr(), part.data_ptr(),
                 out.data_ptr())
     return x_new, out[:k * n].view(k, n), out[k * n:].view(k, n)
+
+
+def masked_f32_block_rows(m: int, n: int, block_rows=None) -> int:
+    """Rows per partial of ``csrc/mu_masked_f32.cu``'s statistics pass:
+    enough chunks that chunks x (numd's and dend's 128-column N tiles)
+    make ``_MASKED_F32_WAVES`` waves of one block per SM on the H100's 132
+    SMs (66 chunks of 1,536 rows at 100,000 x 1,000 and at 100,000 x
+    1,024; 7 of 37,472 at 262,144 x 10,112), in whole 32-row stages; or
+    ``block_rows`` rounded up to whole stages. A function of the shape
+    (and ``block_rows``) alone, so the summation order, and every bit of
+    the result, is."""
+    if block_rows is not None:
+        return -(-block_rows // _KL_STAGE_ROWS) * _KL_STAGE_ROWS
+    tiles = 2 * -(-n // _KL_N_TILE)
+    chunks = max(1, -(-_MASKED_F32_WAVES * _KL_RESIDENT // tiles))
+    rows = -(-m // chunks)
+    return -(-rows // _KL_STAGE_ROWS) * _KL_STAGE_ROWS
+
+
+def _masked_f32_workspace(kt, m, n, k, rows):
+    """Bytes of ``csrc/mu_masked_f32.cu``'s workspace (``workspace_bytes``
+    there, which checks it): d's limbs (N x 3 kt bf16), xc (M x 3 kt bf16)
+    and the chunks' partials (2 K N f32 each), each in whole KB."""
+    def section(nbytes):
+        return -(-nbytes // 1024) * 1024
+
+    return (section(2 * n * 3 * kt) + section(2 * m * 3 * kt)
+            + section(4 * -(-m // rows) * 2 * k * n))
+
+
+def _masked_f32_launch(my, packed, x, d, eps, block_rows):
+    """Launch ``csrc/mu_masked_f32.cu`` on f32 ``my``, ``x`` and ``d``
+    and the packed mask (``mu_stats_masked``'s f32 packed route). The
+    kernel splits d into its limbs (``column_limbs``' layout) in its first
+    launch and parks num in ``x_new`` until its x update overwrites it;
+    its scratch is one allocation, ``_masked_f32_workspace``. Refuses what
+    the kernel does not take before any build or launch."""
+    m, n = my.shape
+    k = d.shape[0]
+    rows = masked_f32_block_rows(m, n, block_rows)
+    _check_kernel_args(my, x, d, 1, rows, wide_x=False)
+    if my.dtype != torch.float32:
+        raise DtypeError(f"the f32 masked MU kernel takes f32 data, got "
+                         f"{my.dtype}")
+    if packed.dtype != torch.int32:
+        raise DtypeError(f"the packed mask must be int32, got "
+                         f"{packed.dtype}")
+    _check_packed(my, packed)
+    packed = packed.contiguous()
+    if packed.data_ptr() % 16:
+        packed = packed.clone()
+    kt = 64 if k <= 64 else 128
+    fn = _c_function("mu_masked_f32", "mu_masked_f32_launch",
+                     (_I, _P, _I, _P, _I, _P, _P, _F) + (_I,) * 4
+                     + (_P, _LL) + (_P,) * 3)
+    ws_bytes = _masked_f32_workspace(kt, m, n, k, rows)
+    with torch.cuda.device(my.device):
+        my_t, ld_my = _tma_rows(my)
+        ws = torch.empty(ws_bytes, dtype=torch.uint8, device=my.device)
+        x_new = torch.empty_like(x)
+        out = _f32(2 * k * n, my.device)
+        _launch("mu_stats_masked (f32)", fn, my.device, kt, my_t.data_ptr(),
+                ld_my, packed.data_ptr(), packed.shape[1], x.data_ptr(),
+                d.data_ptr(), float(eps), m, n, k, rows, ws.data_ptr(),
+                ws_bytes, x_new.data_ptr(), out.data_ptr())
+    numd, dend = out.split((k * n, k * n))
+    return x_new, numd.view(k, n), dend.view(k, n)
 
 
 def kl_stats_dense(my, x, d, eps, *, block_rows=None):
