@@ -271,6 +271,23 @@ for sm_90a (one nvcc per source, all at once), and then:
     reserve against the global draw's, and the time per iteration or
     solve a rank with the all-reduce's share (``torch.profiler``, and
     each all-reduce timed alone). A ``{"sharded": [...]}`` line holds it.
+    Phase 23, on the same worlds, drives the sharded out-of-core solvers;
+24. drives the solver artifacts of ``utils.aot``: (24a) on phase 22's
+    world of 2, ``parallel.nmf.solve`` at the main path's width exported
+    on each rank, serialized and loaded back, equal to the rank's live
+    solve bit for bit with 20 TMA launches, pinned to the rank's block;
+    then the main path's ``nmf.solve`` (phase 4's data and call) exported
+    and saved, its size and carried libraries printed (it must carry
+    ``mu_dense_tma``), and loaded in this process: equal to the live solve
+    bit for bit, every launch on the TMA route; a cold serving process (a
+    subprocess on a copy of ``decomp_tpu_torch/`` without ``_build/``,
+    after this process freed its data) loads the artifact and serves the
+    same seeded data: d and x equal by SHA-256, its ``_build/`` holding
+    only the artifact's libraries and no nvcc log, the time to load plus
+    the first call beside phase 1's build time; and config 4's
+    ``masked_completion`` (packed ``mu_stats_masked``) and config 2's
+    ``lasso.solve`` (``solve_rows``) round trips, bit-equal. An
+    ``{"aot": {...}}`` line holds it.
 
 Each path runs with every launch count set to 0 just before it and read
 just after. It exits non-zero on any failure, without a CUDA device, and
@@ -3962,6 +3979,288 @@ def sharded_streaming_phase(nmf, nmf_mod, lasso, dl, cuda_mu, dev, card,
     return report
 
 
+# Phase 24's cold serving process, run from a copy of decomp_tpu_torch/
+# whose _build/ is empty: it loads the headline artifact (argv[1]), makes
+# the headline's data from its seed and serves a first call and a second.
+# It prints one JSON line: its times, its launches and digests of d and x.
+SERVE_SCRIPT = r"""
+import hashlib, json, os, sys, time
+t_start = time.perf_counter()
+import torch
+import decomp_tpu_torch
+from decomp_tpu_torch.ops import cuda_mu
+from decomp_tpu_torch.utils import aot
+import_s = time.perf_counter() - t_start
+dev = torch.device("cuda", 0)
+y = torch.rand((1 << 20, 10112), generator=torch.Generator(
+    device=dev).manual_seed(0), device=dev, dtype=torch.bfloat16)
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+art = aot.load_solver(sys.argv[1])
+load_s = time.perf_counter() - t0
+res = art(y)
+torch.cuda.synchronize()
+first_s = time.perf_counter() - t0
+t0 = time.perf_counter()
+again = art(y)
+torch.cuda.synchronize()
+second_s = time.perf_counter() - t0
+
+
+def digest(t):
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()
+                          ).hexdigest()
+
+
+print(json.dumps({
+    "package": os.path.dirname(os.path.abspath(decomp_tpu_torch.__file__)),
+    "import_s": import_s, "load_s": load_s,
+    "load_and_first_call_s": first_s, "second_call_s": second_s,
+    "same_again": torch.equal(again.d, res.d), "niter": res.niter,
+    "launches": cuda_mu.mu_stats_dense.launches,
+    "tma_launches": cuda_mu.mu_stats_dense.tma_launches,
+    "d_sha256": digest(res.d), "x_sha256": digest(res.x)}))
+"""
+
+
+def result_bits(res, live):
+    """Whether each of x, d (where the family has it), niter and
+    converged holds the same bits in ``res`` as in ``live``."""
+    out = {}
+    for field in ("x", "d", "niter", "converged"):
+        if hasattr(live, field):
+            a, b = getattr(res, field), getattr(live, field)
+            out[field] = (torch.equal(a, b) if isinstance(b, torch.Tensor)
+                          else a == b)
+    return out
+
+
+def aot_roundtrip(aot, solve, args, kw, path):
+    """A live solve, its artifact exported, saved to ``path`` and loaded
+    in this process: (live result, loaded artifact, export seconds, the
+    artifact's bytes)."""
+    live = solve(*args, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    aot.export_solver(solve, *args, **kw).save(path)
+    torch.cuda.synchronize()
+    export_s = time.perf_counter() - t0
+    return live, aot.load_solver(path), export_s, os.path.getsize(path)
+
+
+def aot_rank(rank, n):
+    """One rank of phase 24's sharded artifact: ``parallel.nmf.solve`` on
+    the rank's rows of phase 22's "mu" case, seeded factors, 20
+    iterations, live and through an artifact exported on every rank,
+    serialized and loaded back; the artifact's launches per route."""
+    from decomp_tpu_torch import parallel
+    from decomp_tpu_torch.utils import aot
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rows = SHARD_CASES["mu"][0]
+    lo, hi = rank * rows // n, (rank + 1) * rows // n
+    data = shard_data("mu", lo, hi, dev)
+    y, d = data["y"], data["d"]
+    del data
+    kw = dict(tol=0.0, maxiter=20, eps=EPS, precision="default",
+              factor_dtype=torch.float32,
+              mesh=parallel.make_mesh((n,), ("rows",)))
+    live = parallel.nmf.solve(y, d, **kw)
+    blob = aot.export_solver(parallel.nmf.solve, y, d, **kw).serialize()
+    loaded = aot.load_solver(blob)
+    torch.cuda.synchronize()
+    shard_read(reset=True)
+    res = loaded(y, d)
+    torch.cuda.synchronize()
+    return {"rank": rank, "bits": result_bits(res, live),
+            "launches": shard_read(), "bytes": len(blob),
+            "pinned": list(loaded.in_avals[0].shape),
+            "libraries": list(loaded.libraries)}
+
+
+def sharded_aot(world, card):
+    """Phase 24a, on phase 22's world of 2: each rank's artifact gives its
+    live solve's bits, every launch on the TMA route."""
+    outs = world.run(aot_rank)
+    rows = SHARD_CASES["mu"][0] // 2
+    for o in outs:
+        check(all(o["bits"].values()), f"phase 24a rank {o['rank']}: the "
+              f"artifact's result differs from the live solve {o['bits']}")
+        check(o["launches"] == {"mu_stats_dense.tma": 20}, f"phase 24a rank "
+              f"{o['rank']}: launches {o['launches']}")
+        check(o["pinned"] == [rows, 10112], f"phase 24a: pinned "
+              f"{o['pinned']}, not the rank's block")
+    print(f"phase 24a: parallel.nmf.solve artifacts on two gloo ranks "
+          f"({card}): each rank's round trip equals its live solve bit for "
+          f"bit, 20 launches on the TMA route; " + json.dumps(outs),
+          flush=True)
+    return outs
+
+
+def aot_phase(nmf, lasso, cuda_mu, cuda_lasso, dev, card, build_s,
+              reset_counts, read_counts, shard_aot):
+    """Phase 24: solver artifacts (``utils.aot``). (a) The headline path at
+    full width exported, saved and loaded in this process: bit-equal to the
+    live solve, every launch on the TMA route; (b) a cold serving process
+    on a copy of the package with an empty ``_build/``: it serves the
+    headline's call on the same seeded data with the same bits, and its
+    ``_build/`` then holds the artifact's libraries and no nvcc log; (c)
+    config 4's ``masked_completion`` (the packed ``mu_stats_masked``) and
+    config 2's ``lasso.solve`` (``solve_rows``), each round trip bit-equal.
+    Returns the JSON summary's entry."""
+    import shutil
+    import tempfile
+
+    import decomp_tpu_torch
+    from decomp_tpu_torch.utils import aot
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    report = {"card": card, "build_s": build_s, "sharded": shard_aot}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the headline path: 1,048,576 x 10,112 bf16, rank 128, f32
+        # factors, tol 0, 20 iterations (21.2 GB of data).
+        m, n, k, iters = 1 << 20, 10112, 128, 20
+        y = torch.rand((m, n), generator=_seeded(0, dev), device=dev,
+                       dtype=bf16)
+        kw = dict(rank=k, tol=0.0, eps=EPS, precision="default",
+                  factor_dtype=f32, random_seed=0, maxiter=iters)
+        path = os.path.join(tmp, "headline.dttaot")
+        live, loaded, export_s, size = aot_roundtrip(aot, nmf.solve, (y,),
+                                                     kw, path)
+        check(any(lib.startswith("libmu_dense_tma-")
+                  for lib in loaded.libraries),
+              f"the headline artifact lacks mu_dense_tma: {loaded.libraries}")
+        torch.cuda.synchronize()
+        reset_counts()
+        res = loaded(y)
+        torch.cuda.synchronize()
+        launches = read_counts("mu_stats_dense", iters)
+        tma = cuda_mu.mu_stats_dense.tma_launches
+        check(tma == iters, f"phase 24: {tma} of {iters} launches of the "
+              "artifact on the TMA route")
+        bits = result_bits(res, live)
+        check(all(bits.values()), f"phase 24: the headline artifact's "
+              f"result differs from the live solve {bits}")
+        digests = {"d": x_digest(live.d), "x": x_digest(live.x)}
+        print(f"phase 24: headline artifact (nmf.solve {m}x{n} bf16, rank "
+              f"{k}, f32 factors, {iters} iterations): {size} bytes, "
+              f"libraries {list(loaded.libraries)}, exported and saved in "
+              f"{export_s:.2f} s; loaded in this process it equals the live "
+              f"solve bit for bit ({bits}); mu_stats_dense launches "
+              f"{launches}, TMA route {tma} ({card})", flush=True)
+        report["headline"] = {"bytes": size, "libraries":
+                              list(loaded.libraries), "export_s": export_s,
+                              "bits_equal": True, "launches": launches,
+                              "tma_launches": tma}
+        libraries = set(loaded.libraries)
+        del y, live, res, loaded
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+        # (b) a cold serving process: the package copied without _build/.
+        root = os.path.realpath(os.path.join(tmp, "serve"))
+        copy = os.path.join(root, "decomp_tpu_torch")
+        shutil.copytree(os.path.dirname(os.path.abspath(
+            decomp_tpu_torch.__file__)), copy,
+            ignore=shutil.ignore_patterns("_build", "__pycache__"))
+        build = os.path.join(copy, "_build")
+        check(not os.path.exists(build), "the copy holds a _build/")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", SERVE_SCRIPT, path], cwd=root,
+            env={**os.environ, "PYTHONPATH": root}, capture_output=True,
+            text=True, timeout=600)
+        wall_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"phase 24: the cold serving process "
+              f"failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+        served = json.loads(proc.stdout.strip().splitlines()[-1])
+        held = sorted(os.listdir(build)) if os.path.isdir(build) else []
+        check(os.path.realpath(served["package"]) == copy,
+              f"the serving process imported {served['package']}")
+        check(set(held) == libraries and not any(
+            f.endswith(".log") for f in held), f"phase 24: the copy's "
+              f"_build/ holds {held}, not the artifact's {sorted(libraries)}")
+        check(served["d_sha256"] == digests["d"]
+              and served["x_sha256"] == digests["x"], "phase 24: the cold "
+              "serving process's d or x differs from the live solve's")
+        check(served["niter"] == iters and served["same_again"]
+              and served["tma_launches"] == 2 * iters
+              == served["launches"], f"phase 24: the cold calls ran "
+              f"{served['niter']} iterations, {served['tma_launches']} of "
+              f"{served['launches']} launches on the TMA route, the second "
+              f"call's d {'equal' if served['same_again'] else 'not equal'}")
+        print(f"phase 24: cold serving process on a copy of the package "
+              f"with an empty _build/: import {served['import_s']:.2f} s, "
+              f"load_solver {served['load_s']:.3f} s, load plus first call "
+              f"{served['load_and_first_call_s']:.3f} s, a second call "
+              f"{served['second_call_s']:.3f} s (phase 1 built the "
+              f"{len(SOURCES)} sources in {build_s:.1f} s); d equal bit for "
+              f"bit, x sha256 {served['x_sha256'][:16]} equal; its _build/ "
+              f"holds {held}, no nvcc log; process wall {wall_s:.1f} s "
+              f"({card})", flush=True)
+        report["cold"] = {k_: served[k_] for k_ in (
+            "import_s", "load_s", "load_and_first_call_s", "second_call_s",
+            "x_sha256")}
+        report["cold"].update({"process_s": wall_s, "build_dir": held,
+                               "d_bits_equal": True})
+
+        # (c) config 4's preset (phase 6's data and call) and config 2.
+        m4, n4, k4 = 100_000, 1000, 50
+        g = _seeded(3, dev)
+        y4 = (torch.rand((m4, k4), generator=g, device=dev)
+              @ torch.rand((k4, n4), generator=g, device=dev))
+        mask4 = (torch.rand((m4, n4), generator=g, device=dev) >= 0.3).float()
+        ym4 = y4 * mask4
+        del y4
+        live, loaded, _, size4 = aot_roundtrip(
+            aot, nmf.masked_completion, (ym4, mask4),
+            dict(rank=k4, tol=1e-4, maxiter=4000, random_seed=4),
+            os.path.join(tmp, "config4.dttaot"))
+        torch.cuda.synchronize()
+        reset_counts()
+        res = loaded(ym4, mask4)
+        torch.cuda.synchronize()
+        launches4 = read_counts("mu_stats_masked", res.niter)
+        packed = cuda_mu.mu_stats_masked.packed_launches
+        bits4 = result_bits(res, live)
+        check(packed == res.niter and all(bits4.values()), f"phase 24 "
+              f"config 4: bits {bits4}, {packed} of {res.niter} launches "
+              "packed")
+        print(f"phase 24: config 4 masked_completion artifact: {size4} "
+              f"bytes, libraries {list(loaded.libraries)}; equals the live "
+              f"solve bit for bit ({bits4}), stop at {res.niter}; "
+              f"mu_stats_masked launches {launches4}, all packed ({card})",
+              flush=True)
+        report["config4"] = {"bytes": size4, "libraries":
+                             list(loaded.libraries), "niter": res.niter,
+                             "bits_equal": True, "packed_launches": packed}
+        del ym4, mask4, live, loaded, res
+
+        y2, a2 = (torch.from_numpy(v).to(dev) for v in config2_data()[:2])
+        live, loaded, _, size2 = aot_roundtrip(
+            aot, lasso.solve, (y2, a2, 0.1),
+            dict(tol=1e-4, maxiter=4000, method="acc_ista",
+                 per_problem=True, precision="high"),
+            os.path.join(tmp, "config2.dttaot"))
+        torch.cuda.synchronize()
+        reset_counts()
+        res = loaded(y2, a2, 0.1)
+        torch.cuda.synchronize()
+        launches2 = read_counts("solve_rows", 1)
+        tma2 = cuda_lasso.solve_rows.tma_launches
+        bits2 = result_bits(res, live)
+        check(tma2 == 1 and all(bits2.values()), f"phase 24 config 2: bits "
+              f"{bits2}, TMA launches {tma2}")
+        print(f"phase 24: config 2 lasso.solve artifact: {size2} bytes, "
+              f"libraries {list(loaded.libraries)}; equals the live solve "
+              f"bit for bit ({bits2}); solve_rows launches {launches2}, on "
+              f"lasso_fista_tma.cu {tma2} ({card})", flush=True)
+        report["config2"] = {"bytes": size2, "libraries":
+                             list(loaded.libraries), "bits_equal": True,
+                             "solve_rows_launches": launches2}
+    return report
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -4726,13 +5025,22 @@ def main():
         out = sharded_streaming_phase(
             nmf, nmf_mod, lasso, dictionary_learning, cuda_mu, dev, card,
             reset_counts, read_counts, world, tmp, phase19, phase20, phase21)
-        phase("23 sharded streaming", t_23)
-        return out
+        t_24 = phase("23 sharded streaming", t_23)
+        # Phase 24a: a sharded solve's artifact on the same world.
+        shard_aot = sharded_aot(world, card)
+        phase("24a sharded AOT artifact", t_24)
+        return out, shard_aot
 
-    sharded, streamed = sharded_phase(nmf_mod, cuda_mu, dev, card,
-                                      reset_counts, read_counts, main4,
-                                      phase6, phase23)
+    sharded, (streamed, shard_aot) = sharded_phase(
+        nmf_mod, cuda_mu, dev, card, reset_counts, read_counts, main4,
+        phase6, phase23)
     del main4, phase6, phase19, phase20, phase21
+
+    # Phase 24: solver artifacts, in this process and in a cold one.
+    t_phase = time.perf_counter()
+    aot_report = aot_phase(nmf, lasso, cuda_mu, cuda_lasso, dev, card,
+                           build_s, reset_counts, read_counts, shard_aot)
+    t_phase = phase("24 AOT artifacts", t_phase)
 
     bounds = {"mu_stats_dense": dense_b,
               "mu_stats_masked": stats_bound("mu_stats_masked", m4, n4, k4,
@@ -4800,6 +5108,7 @@ def main():
         })
     print(json.dumps({"sharded": sharded}))
     print(json.dumps({"sharded_streaming": streamed}))
+    print(json.dumps({"aot": aot_report}))
     print(card, flush=True)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

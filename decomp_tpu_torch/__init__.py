@@ -27,7 +27,11 @@ Hopper (``sm_90a``) on first use. Ported so far:
   core, ``nmf.solve_streaming``, ``lasso.solve_streaming``,
   ``dictionary_learning.solve_streaming`` and
   ``nmf.masked_completion_streaming(mesh=...)``), which run those kernels
-  on each rank's block or chunks and all-reduce the statistics.
+  on each rank's block or chunks and all-reduce the statistics;
+- solver artifacts for serving (``utils.aot``): a solve with its inputs
+  pinned and its configuration baked, carrying the built ``sm_90a``
+  libraries that it launches, so that a serving process needs no
+  ``nvcc``.
 An entry point runs on the card unless the caller asks for the CPU: a
 tensor stays on its device, and host arrays go to ``device=`` or, by
 default, the CUDA device (``utils.device``). ``decomp_tpu`` (JAX) stays the
@@ -37,10 +41,11 @@ reference the port is tested against; this package never imports JAX.
 from decomp_tpu_torch import parallel
 from decomp_tpu_torch.models import dictionary_learning, lasso, nmf
 from decomp_tpu_torch.utils.result import (DictionaryLearningResult,
-                                           LassoResult, NMFResult)
+                                           LassoResult, NMFResult,
+                                           SplitComplex)
 
 __version__ = "0.1.0"
 
 __all__ = ["dictionary_learning", "lasso", "nmf", "parallel",
-           "DictionaryLearningResult",
+           "SplitComplex", "DictionaryLearningResult",
            "LassoResult", "NMFResult"]

@@ -645,7 +645,7 @@ def _heldout_machinery(hd, compute_dtype, reduce=_identity):
 def masked_completion(y, mask, rank=None, d=None, x=None, *, tol=1e-4,
                       maxiter=4000, heldout_frac=0.05, random_seed=0,
                       mixed="auto", refit=0, mesh=None, row_axis="rows",
-                      col_axis=None, **kwargs):
+                      col_axis=None, **kwargs) -> NMFResult:
     """Matrix-completion preset: masked MU-NMF stopped on held-out
     validation error (``solve(stop='heldout')``).
 

@@ -887,7 +887,7 @@ def masked_completion_streaming(y, mask, rank=None, d=None, x=None, *,
                                 chunk_rows=65536, tol=1e-4, maxiter=4000,
                                 heldout_frac=0.05, check_every=25,
                                 random_seed=0, mixed="auto", mesh=None,
-                                row_axis="rows", **kwargs):
+                                row_axis="rows", **kwargs) -> NMFResult:
     """Out-of-core matrix completion: the ``nmf.masked_completion`` recipe
     (masked MU stopped on held-out error) over chunk loaders, in loader
     mode (``solve_streaming(jit_loader=True, x_device=True,

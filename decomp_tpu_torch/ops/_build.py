@@ -8,18 +8,27 @@ header rebuilds and a stale library is never loaded. ``nvcc``'s
 ``-Xptxas -v`` report (registers, shared memory, spills per kernel) is
 kept beside the library as ``<library>.log``.
 
+A built library also travels in a solver artifact (``utils.aot``):
+``recording`` collects the libraries that a solve launches, and
+``install`` puts a carried library where ``build`` finds it, so that a
+machine without ``nvcc`` loads it instead of compiling.
+
 Nothing here runs at import: the CPU tests import every module, and
 this machine class has no ``nvcc``.
 """
 
+import contextlib
 import ctypes
 import functools
 import hashlib
 import os
+import re
 import subprocess
 import tempfile
 import time
 from pathlib import Path
+
+from decomp_tpu_torch.utils.exceptions import DecompError
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG_DIR / "csrc"
@@ -27,6 +36,11 @@ BUILD_DIR = _PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")
+#: The compute capability that ``sm_90a`` code runs on, and only on.
+CAPABILITY = (9, 0)
+_LIBRARY_NAME = re.compile(r"lib(?P<src>[A-Za-z0-9_]+)-[0-9a-f]{16}\.so")
+# The sets of the active ``recording`` blocks.
+_recordings = []
 
 
 def _nvcc() -> str:
@@ -77,3 +91,58 @@ def build(name: str) -> Path:
 def load(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu`` (built on first call)."""
     return ctypes.CDLL(str(build(name)))
+
+
+@contextlib.contextmanager
+def recording():
+    """Collect, in the set this yields, the names of the sources
+    (``csrc/<name>.cu``) whose libraries the launches made inside the
+    block go through, libraries loaded before the block included."""
+    seen = set()
+    _recordings.append(seen)
+    try:
+        yield seen
+    finally:
+        _recordings.remove(seen)
+
+
+def reached(name: str) -> None:
+    """Note, in every active ``recording``, a launch through the library
+    of ``csrc/<name>.cu``. The kernels' wrappers call it at each launch."""
+    for seen in _recordings:
+        seen.add(name)
+
+
+def install(name: str, blob: bytes, sha256: str) -> Path:
+    """Put a built library carried elsewhere (``blob``, whose file name was
+    ``name``) where ``build`` finds it, unless a library of that name is
+    already built; return its path. Raises ``DecompError`` when the bytes'
+    digest is not ``sha256``, or when ``name`` is not this package's
+    ``library_path`` of a source in ``csrc/``: such a library was built
+    from other sources, headers or flags. Written atomically, as
+    ``build`` writes."""
+    if hashlib.sha256(blob).hexdigest() != sha256:
+        raise DecompError(f"library {name}: its bytes do not match their "
+                          "sha256 digest")
+    match = _LIBRARY_NAME.fullmatch(name)
+    src = match and match["src"]
+    if not src or not (SRC_DIR / f"{src}.cu").exists():
+        raise DecompError(f"library {name} was not built from a source of "
+                          f"this package ({SRC_DIR})")
+    out = library_path(src)
+    if out.name != name:
+        raise DecompError(f"library {name} was built from other sources, "
+                          f"headers or flags than this package's {out.name}")
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    try:
+        with os.fdopen(fd, "wb") as f:
+            f.write(blob)
+        os.replace(tmp, out)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
+    return out

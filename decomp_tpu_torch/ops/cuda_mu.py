@@ -70,6 +70,7 @@ import functools
 import numpy as np
 import torch
 
+from decomp_tpu_torch.ops import _build
 from decomp_tpu_torch.utils.exceptions import DecompError, DtypeError, ShapeError
 
 # Largest rank the kernel takes (its rank tile, KP in the CUDA source).
@@ -310,13 +311,17 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LL = ctypes.c_longlong
 
 
-@functools.cache
 def _c_function(source, name, argtypes):
     """The C entry point ``name`` of ``csrc/<source>.cu``, built on first
     use, with its ctypes signature (pointers and the stream as
-    c_void_p)."""
-    from decomp_tpu_torch.ops import _build
+    c_void_p). Every launch asks for it, so that ``_build.recording``
+    sees the library at each launch."""
+    _build.reached(source)
+    return _c_entry(source, name, argtypes)
 
+
+@functools.cache
+def _c_entry(source, name, argtypes):
     fn = getattr(_build.load(source), name)
     fn.restype = ctypes.c_int
     fn.argtypes = list(argtypes)

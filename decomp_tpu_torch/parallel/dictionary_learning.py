@@ -31,6 +31,7 @@ from decomp_tpu_torch.utils import assertion
 from decomp_tpu_torch.utils import device as _device
 from decomp_tpu_torch.utils.dtypes import real_dtype
 from decomp_tpu_torch.utils.exceptions import DecompError
+from decomp_tpu_torch.utils.result import DictionaryLearningResult
 
 
 def solve(
@@ -56,7 +57,7 @@ def solve(
     heldout_frac: float = 0.05,
     random_seed: int = 0,
     _val=None,
-):
+) -> DictionaryLearningResult:
     """Row-sharded ``decomp_tpu_torch.dictionary_learning.solve`` over
     ``mesh[axis]`` (one dim name or a tuple of them), full batch: the same
     contract and kernel routes on each rank's rows. Every rank of the
@@ -130,7 +131,7 @@ def solve_streaming(
     use_kernel="auto",
     _bcd_kernel=None,
     _chunk_reserve=None,
-):
+) -> DictionaryLearningResult:
     """Sharded out-of-core dictionary learning over ``mesh[row_axis]`` (one
     dim name or a tuple): every rank of the process group calls it with the
     same arguments and streams its own rows in chunks through

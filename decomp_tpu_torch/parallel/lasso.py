@@ -49,7 +49,7 @@ def solve(
     per_problem: bool = False,
     use_kernel="auto",
     kernel_block_rows=None,
-):
+) -> LassoResult:
     """Row-sharded ``decomp_tpu_torch.lasso.solve`` over ``mesh[axis]``
     (one dim name or a tuple of them). Every rank of the process group
     calls it with its own rows of ``y`` (2-D), ``mask``, ``x`` and a
@@ -113,7 +113,7 @@ def solve_streaming(
     precision: str = "highest",
     per_problem: bool = False,
     use_kernel="auto",
-):
+) -> LassoResult:
     """Out-of-core sharded batch lasso (``decomp_tpu.parallel.lasso
     .solve_streaming``). Every rank of the process group calls it with the
     same global host ``y`` (ndarray or memmap), ``a``, ``mask``, ``x`` and

@@ -30,6 +30,7 @@ from decomp_tpu_torch.utils import assertion
 from decomp_tpu_torch.utils import device as _device
 from decomp_tpu_torch.utils.dtypes import acc_dtype, real_dtype
 from decomp_tpu_torch.utils.exceptions import DecompError
+from decomp_tpu_torch.utils.result import NMFResult
 
 
 def solve(
@@ -56,7 +57,7 @@ def solve(
     stop: str = "rel_change",
     heldout_frac: float = 0.05,
     _val=None,
-):
+) -> NMFResult:
     """Sharded ``y ≈ x @ d`` with nonnegative factors: the contract of
     ``decomp_tpu_torch.nmf.solve`` (full batch: methods 'mu', 'kl-mu' and
     'hals', masked or not, ``factor_dtype``, held-out stopping), computed

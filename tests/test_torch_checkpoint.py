@@ -254,3 +254,48 @@ def test_port_snapshot_resumes_in_jax(tmp_path):
                                       maxiter=40, method="acc_ista")
     assert total == 40
     assert rel_err(np.asarray(res.x), straight.x) < 1e-10
+
+
+# f64, minibatch rows drawn by decomp_tpu: the same products in other
+# summation orders over 30 iterations, so the parity limit of
+# tests/test_torch_nmf_minibatch.py, 1e-10 relative (Frobenius).
+@pytest.mark.parametrize("method", ["mu", "kl-mu"])
+def test_chunked_minibatch_matches_jax_chunked(tmp_path, method):
+    """checkpointed_solve over minibatch=: each chunk restarts the draws and
+    the forget statistics, in both packages alike, so a chunked run differs
+    from the straight one. The port's chunked run, each chunk fed
+    decomp_tpu's draws of that chunk (its seed's first draws again, through
+    the private ``_solve(batch_idx=)``), equals decomp_tpu's chunked run."""
+    from decomp_tpu_torch.models import nmf as tnmf
+    from decomp_tpu_torch.utils import convert
+    from test_torch_nmf_minibatch import _jax_batches
+
+    y, x0, d0 = _problem()
+    m, k, batch, seed, chunk, iters = 60, 4, 16, 7, 10, 30
+    kw = dict(tol=0.0, method=method, minibatch=batch, forget=0.8,
+              random_seed=seed)
+    rj, tj = jckpt.checkpointed_solve(
+        decomp_tpu.nmf.solve, y.numpy(),
+        manager=jckpt.CheckpointManager(str(tmp_path / "jax")),
+        chunk_iters=chunk, maxiter=iters, d=d0, x=x0, **kw)
+    straight_j = decomp_tpu.nmf.solve(y.numpy(), d0, x=x0, maxiter=iters,
+                                      **kw)
+    draws = _jax_batches(seed, chunk, batch, m)
+
+    def port_solve(y, *, d, x, maxiter, tol, method, minibatch, forget,
+                   random_seed):
+        return tnmf._solve(y, _t(d), _t(x), None, None, rank=k, tol=tol,
+                           maxiter=maxiter, method=method,
+                           minibatch=minibatch, forget=forget,
+                           batch_idx=convert.batch_indices(
+                               draws[:maxiter], "cpu", m))
+
+    rt, tt = checkpointed_solve(
+        port_solve, y, manager=CheckpointManager(str(tmp_path / "port")),
+        chunk_iters=chunk, maxiter=iters, d=d0, x=x0, **kw)
+    assert tt == tj == iters and rt.niter == int(rj.niter) == chunk
+    assert rel_err(rt.d.numpy(), rj.d) < 1e-10
+    assert rel_err(rt.x.numpy(), rj.x) < 1e-10
+    # chunked differs from straight, in both packages alike
+    assert rel_err(np.asarray(rj.d), straight_j.d) > 1e-2
+    assert rel_err(rt.d.numpy(), straight_j.d) > 1e-2

@@ -205,3 +205,35 @@ def test_auto_takes_no_kernel():
     finally:
         tnmf._kernel_step = orig
     assert calls == []
+
+
+# bf16 data and factors against the f32 run from the same start: bf16's
+# rounding (eps 7.8e-3) enters every product and update, in other places
+# in the two packages (the port's addmv / addcdiv round once, JAX's bf16
+# elementwise steps at each), so neither follows the other; each stays
+# within a bf16 bound of the f32 trajectory. Measured on this problem:
+# <= 1.3e-2 after 1 iteration and <= 5.7e-2 after 20 (d and x, both
+# packages); the limits are 2.5e-2 and 1.5e-1.
+@pytest.mark.parametrize("iters,lim", [(1, 2.5e-2), (20, 1.5e-1)])
+@pytest.mark.parametrize("package", ["jax", "port"])
+def test_bf16_stays_within_a_bf16_bound_of_f32(package, iters, lim):
+    y, *_ = planted_nmf(seed=51)
+    x0, d0 = _start(52, y.shape[0], y.shape[1], 5, np.float32)
+    y = y.astype(np.float32)
+    ref = decomp_tpu.nmf.solve(y, d0, x=x0, method="hals", tol=0.0,
+                               maxiter=iters)
+    if package == "jax":
+        r = decomp_tpu.nmf.solve(
+            *(jnp.asarray(a, jnp.bfloat16) for a in (y, d0)),
+            x=jnp.asarray(x0, jnp.bfloat16), method="hals", tol=0.0,
+            maxiter=iters)
+        assert r.d.dtype == jnp.bfloat16
+        x, d = (np.asarray(jnp.asarray(a, jnp.float32)) for a in (r.x, r.d))
+    else:
+        r = decomp_tpu_torch.nmf.solve(
+            *(_t(a, torch.bfloat16) for a in (y, d0)),
+            x=_t(x0, torch.bfloat16), method="hals", tol=0.0, maxiter=iters)
+        assert r.d.dtype == torch.bfloat16 and r.niter == iters
+        x, d = r.x.float().numpy(), r.d.float().numpy()
+    assert rel_err(d, ref.d) < lim
+    assert rel_err(x, ref.x) < lim

@@ -212,6 +212,50 @@ def checkpointed(rank, n, arrays, directory, chunk, maxiter):
             torch.equal(res.x, straight.x))
 
 
+def aot_nmf(rank, n, spec, row_axis, arrays, kw):
+    """``parallel.nmf.solve`` on the rank's rows, live and through an
+    artifact (``utils.aot``: export, serialize, load, call). ``spec``
+    "multislice" builds ``make_multislice_mesh(n_slices=2)``. Returns the
+    artifact's result, whether it equals the live one bit for bit, the
+    pinned shape of y, the refusal of the global y, and rank 0's artifact
+    bytes."""
+    from decomp_tpu_torch.utils import aot
+
+    mesh = (parallel.make_multislice_mesh(n_slices=2) if spec == "multislice"
+            else parallel.make_mesh(*spec))
+    b = _blocks(mesh, row_axis, None, arrays)
+    y, d = b["y"], torch.as_tensor(b["d"])
+    kw = dict(kw, mesh=mesh, row_axis=row_axis)
+    live = parallel.nmf.solve(y, d, **kw)
+    blob = aot.export_solver(parallel.nmf.solve, y, d, **kw).serialize()
+    loaded = aot.load_solver(blob)
+    res = loaded(y, d)
+    try:
+        loaded(torch.as_tensor(arrays["y"]), d)
+        global_refusal = None
+    except DecompError as e:
+        global_refusal = str(e)
+    return dict(_result(res, mesh, row_axis),
+                same=[torch.equal(res.x, live.x), torch.equal(res.d, live.d),
+                      res.niter == live.niter,
+                      res.converged == live.converged],
+                pinned=tuple(loaded.in_avals[0].shape),
+                global_refusal=global_refusal,
+                blob=blob if rank == 0 else None)
+
+
+def aot_call(rank, n, blob, y, d):
+    """The error that calling the artifact ``blob`` with ``y`` and ``d``
+    raises on this rank: (type name, message), or None."""
+    from decomp_tpu_torch.utils import aot
+
+    try:
+        aot.load_solver(blob)(torch.as_tensor(y), torch.as_tensor(d))
+    except DecompError as e:
+        return type(e).__name__, str(e)
+    return None
+
+
 def refusal(rank, n, spec, solver, kw, per_rank=None, meta_y=False,
             loaders=()):
     """The error a sharded call raises on this rank: (type name, message),
