@@ -10,9 +10,9 @@ for sm_90a (one nvcc per source, all at once), and then:
 
 1. prints the card's name and power limit (nvidia-smi), the build time
    and ptxas' register-spill report, and fails where an instance of the
-   bf16x6 wgmma chain (``csrc/kl_dense_packed.cu``,
-   ``csrc/grad_dict_packed.cu``, ``csrc/mu_dense_packed.cu``,
-   ``csrc/mu_masked_f32.cu``) spills;
+   wgmma chain (``csrc/kl_dense_packed.cu``, ``csrc/grad_dict_packed.cu``,
+   ``csrc/mu_dense_packed.cu``, ``csrc/mu_masked_f32.cu``) or of
+   ``csrc/lasso_grad_packed.cu`` spills;
 2. holds the kernel ``mu_stats_dense`` against its plain PyTorch twin on
    the card and checks that two runs give the same bits: f32 data on
    ``csrc/mu_dense_packed.cu``, and bf16 data with f32 or bf16 x on the
@@ -101,7 +101,9 @@ for sm_90a (one nvcc per source, all at once), and then:
    f32 path on the same inputs at phase 7's shape, with each pass, dense
    MU's f32 kernel (``csrc/mu_dense_packed.cu``) in turns with
    ``csrc/mu_stats_dense.cu`` at that shape, with each pass, and dense
-   KL's bf16 route (``csrc/mu_kl_stats.cu``) at that shape;
+   KL's bf16 route (``csrc/mu_kl_stats.cu``) at that shape, and masked
+   KL's routes on ``csrc/mu_kl_stats.cu`` (bf16 data on a 0/1 mask, f32
+   data on a weighted mask) there;
 9. holds the lasso kernel ``solve_rows`` against its twin at a ragged
    1,000 x 200 and 300 x 1,000, at 10,000 x 512, at 7 x 200 (fewer rows
    than one block's slots) and at 4,229 x 200 (a queue ragged past one
@@ -115,12 +117,14 @@ for sm_90a (one nvcc per source, all at once), and then:
    features, every call counted on the complex route, and
    ``masked_grad_rows`` on a dense mask (``csrc/lasso_grad.cu``) at
    1,000 x 1,000 F = 100 and a ragged 333 x 257 F = 7 in f32 and bf16,
-   and on a packed mask with f32 data (``csrc/lasso_grad_packed.cu``,
-   bf16x6 products on wgmma) at 1,000 x 1,000 F = 100, 333 x 257 F = 7
-   (N % 4 != 0: my's padded copy), 7 x 1,000 F = 100 (fewer rows than a
-   stripe), F = 1, F = 64 (the 64-feature tile) and on log-normal my, x
-   and a at 100,000 x 1,024 F = 128, each within the f32 limit of the
-   full-f32 twin with a bit-identical rerun;
+   and on a packed mask (``csrc/lasso_grad_packed.cu`` on wgmma) with f32
+   data (bf16x6 products) and with bf16 data (its one-limb instance) at
+   1,000 x 1,000 F = 100, 333 x 257 F = 7 (N % 4 != 0: my's padded copy),
+   7 x 1,000 F = 100 (fewer rows than a stripe), F = 1, F = 64 (the
+   64-feature tile) and on log-normal my, x and a at 100,000 x 1,024
+   F = 128, each within the limit of its dtype (f32, bf16) of the twin with
+   a bit-identical rerun, bf16 also against the dense-mask kernel on the
+   same 0/1 mask;
 10. drives batch lasso at BASELINE config 2, ``lasso.solve`` on 10,000
     problems of 256 channels over 512 features (acc_ista, precision
     'high', per-problem stopping, tol 1e-4), and checks one
@@ -143,11 +147,13 @@ for sm_90a (one nvcc per source, all at once), and then:
     kernel once per chunk;
 11. drives the masked lasso, ``lasso.solve(mask=...)`` at 100,000 x
     1,024, F = 128, 30% missing, 50 FISTA iterations in f32 and in bf16,
-    and checks one ``masked_grad_rows`` launch per iteration (f32: all on
-    the packed route; bf16: all on the dense one), a falling objective
-    and the agreement with the composition run;
+    and checks one ``masked_grad_rows`` launch per iteration (f32 and
+    bf16: all on the packed route), a falling objective and the agreement
+    with the composition run; then 10 iterations in bf16 on a weighted
+    mask, all on the dense route;
 12. times the lasso kernels against their twins: ``solve_rows`` per
-    config-2 solve and at 262,144 x 512 for 100 fixed-budget iterations,
+    config-2 solve ('high', and 'highest' on ``csrc/lasso_fista.cu``) and
+    at 262,144 x 512 for 100 fixed-budget iterations,
     its complex mode per config-2-complex solve, each in turns with
     ``csrc/lasso_fista.cu``'s 'high' path on the same inputs (bit for
     bit first) and with the slot waste (slot-iterations over the
@@ -158,7 +164,8 @@ for sm_90a (one nvcc per source, all at once), and then:
     200, 300 x 1,000 and 300 x 500 complex, dictionary learning's 'whole'
     inner coding at config 3's shape); ``masked_grad_rows`` at 100,000 x
     1,024, F = 128: f32 on the packed route timed in turns with
-    ``csrc/lasso_grad.cu``'s f32 path on the same inputs, and bf16;
+    ``csrc/lasso_grad.cu``'s f32 path on the same inputs, and bf16 on the
+    packed route in turns with the dense one on the same 0/1 mask;
 13. holds the dictionary-learning kernels against their twins:
     ``bcd_sweep``'s register route (``csrc/dl_bcd_sm90.cu``) at K = 256,
     N = 64 (config 3, and the largest K x N of its one instance), a
@@ -176,7 +183,10 @@ for sm_90a (one nvcc per source, all at once), and then:
     1,000 K = 100, 333 x 257 K = 7 (the KT = 64 instance) and on
     log-normal my, x and d at 100,000 x 1,024 K = 128, within the f32
     limit of the full-f32 twin, with x's limbs from its split launch
-    held bit for bit to ``cuda_mu.column_limbs``; each with a
+    held bit for bit to ``cuda_mu.column_limbs``, and on a packed mask with
+    bf16 data (its one-limb instance) at phase 9's packed shapes (K = 100,
+    7 and 1: x's padded copy) and log-normal data, within the bf16 limit
+    of the twin and against the dense-mask kernel; each with a
     bit-identical rerun;
 14. drives dictionary learning at BASELINE config 3,
     ``dictionary_learning.solve`` on bench.py's 20,000 x 64 patches with
@@ -193,9 +203,9 @@ for sm_90a (one nvcc per source, all at once), and then:
     missing (planted: unit atoms, truth 10% sparse, 0.01 noise), 20 outer
     iterations at tol 0 with lasso_iter 15 in f32, then 10 in bf16, and
     checks ``niter`` launches of ``masked_grad_dict`` and ``niter x 15``
-    of ``masked_grad_rows`` (both f32 on the packed route, bf16 on the
-    dense one), a falling objective and the agreement with the
-    composition run;
+    of ``masked_grad_rows`` (f32 and bf16: both on the packed route), a
+    falling objective and the agreement with the composition run; then 2
+    outer iterations in bf16 on a weighted mask, both on the dense routes;
 15b. times the dictionary-learning kernels against their twins per call,
     with their bounds: ``bcd_sweep`` on config 3's statistics, the
     register route in turns with the shared-memory one on the same inputs
@@ -203,7 +213,8 @@ for sm_90a (one nvcc per source, all at once), and then:
     config 3's marginal per solve, ``masked_grad_dict`` at 100,000 x 1,024, K = 128 on phase
     15's factors: f32 on the packed route in turns with the dense-mask
     kernel's f32 path on the same inputs, with each pass from
-    ``torch.profiler``, and bf16 on the dense route;
+    ``torch.profiler``, and bf16 on the packed route in turns with the
+    dense one;
 16. drives ``nmf.solve(method='hals')``: at BASELINE config 1 (planted
     1000 x 500 rank 10 f32) HALS and MU from the same factors, each to its
     own stop at tol 1e-4 and at equal iteration counts, with their
@@ -293,7 +304,8 @@ Each path runs with every launch count set to 0 just before it and read
 just after. It exits non-zero on any failure, without a CUDA device, and
 where the package is absent. The line before the last is a JSON summary
 of the kernels (the eight, and ``solve_rows``' complex mode, the packed
-routes of ``masked_grad_rows`` and ``masked_grad_dict``, f32 dense MU's
+routes of ``masked_grad_rows`` and ``masked_grad_dict`` in f32 and in
+bf16, f32 dense MU's
 ``csrc/mu_dense_packed.cu``, f32 masked MU's ``csrc/mu_masked_f32.cu``
 and the shared-memory route of ``bcd_sweep`` as entries of their own),
 each with
@@ -358,6 +370,11 @@ SOLVE_LIMITS = {"nit_eq": 0.94, "eq_rows": 5e-5, "all_rows": 5e-4,
 # product and a one-ulp f32 difference flips a rounding); 4x margin. The
 # packed route's bf16x6 products are held to the same f32 limit.
 GRAD_LIMIT = {torch.float32: 2e-6, torch.bfloat16: 2.5e-4}
+# The packed-mask gradients' shapes in phases 9 and 13, (M, N, F or K):
+# N = 257 needs my's padded copy, 7 rows are fewer than a stripe, F = 1
+# and 64 take the 64-wide tile; bf16 x (dictionary) is padded where K % 8.
+GRAD_PACKED_SHAPES = ((1000, 1000, 100), (333, 257, 7), (7, 1000, 100),
+                      (1000, 1000, 1), (1000, 1000, 64))
 # Config 2 (acc_ista, tol 1e-4, 'high'), measured on the H100: x of
 # solve_rows against its twin on config 2's inputs 6.8e-4 (their niter
 # agree on only ~56% of rows: config 2's unnormalised dictionary, L ~
@@ -1151,12 +1168,16 @@ def grad_inputs(gen, dev, m, n, f, dt):
     return my, mask, x, a
 
 
-def compare_grad(module, name, args, packed=False, tag="", f64=False):
+def compare_grad(module, name, args, packed=False, tag="", f64=False,
+                 dense=False):
     """The masked gradient ``name`` of ``module`` (masked_grad_rows, or
     cuda_dl's masked_grad_dict) against its twin; ``packed``: on the
     mask's bits (the packed route), else on the dense mask (the dense
     route), each call counted on that route; ``f64``: also both against
-    the function in f64. Returns the max abs error."""
+    the function in f64; ``dense``: the packed route also against the
+    dense-mask kernel on the same 0/1 mask (each within the limit of the
+    twin, so within twice the limit of each other). Returns the max abs
+    error."""
     from decomp_tpu_torch.ops.cuda_mu import pack_mask
 
     my, mask, x, a = args
@@ -1167,6 +1188,7 @@ def compare_grad(module, name, args, packed=False, tag="", f64=False):
     out = fn(*kargs)
     again = fn(*kargs)
     ref = getattr(module, f"{name}_plain")(*args)
+    dense_out = fn(*args) if dense else None
     torch.cuda.synchronize()
     err = rel_fro(out, ref)
     same = torch.equal(out, again)
@@ -1182,8 +1204,14 @@ def compare_grad(module, name, args, packed=False, tag="", f64=False):
         exact = (f"; against f64: kernel {rel_fro(out, g64):.3e}, twin "
                  f"{rel_fro(ref, g64):.3e}")
         del xd, ad, r64, g64
+    err_d = rel_fro(out, dense_out) if dense else 0.0
+    if dense:
+        exact += (f"; against the dense-mask kernel {err_d:.3e} (limit "
+                  f"{2 * lim:g})")
     print(f"kernel vs twin {tag}: rel_fro {err:.3e} (limit {lim:g}); "
           f"bit-identical rerun: {same}{exact}", flush=True)
+    check(np.isfinite(err_d) and err_d <= 2 * lim,
+          f"{tag}: the packed and dense-mask kernels disagree")
     if hasattr(fn, route):
         check(getattr(fn, route) == before + 2,
               f"{tag}: not on the {route[:-len('_launches')]} route")
@@ -1514,9 +1542,10 @@ def lasso_crossover(lasso, gen, dev, card):
 def masked_lasso_phase(lasso, dev, card, reset_counts, read_counts,
                        grad_routes, m, n, f):
     """Phase 11: the masked lasso at M x N, F features, 30% missing, 50
-    FISTA iterations, in f32 (the packed route) and in bf16 (the dense
-    one). Returns the masked_grad_rows launches of the f32 run on the
-    packed route and of the bf16 run on the dense route."""
+    FISTA iterations, in f32 and in bf16 (both on the packed route), then
+    10 iterations in bf16 on a weighted mask (the dense route). Returns
+    the masked_grad_rows launches of the three runs: f32 packed, bf16
+    packed, weighted bf16 dense."""
     iters, alpha = 50, 0.05
     g = torch.Generator(device=dev).manual_seed(11)
     a = torch.randn((f, n), generator=g, device=dev) / n ** 0.5
@@ -1545,7 +1574,7 @@ def masked_lasso_phase(lasso, dev, card, reset_counts, read_counts,
         ms, res = event_ms(solve)
         launches[dt] = read_counts("masked_grad_rows", iters)
         routes = grad_routes()
-        want = (iters, 0) if dt == torch.float32 else (0, iters)
+        want = (iters, 0)
         comp_ms, comp = event_ms(lambda: solve(use_kernel=False))
         obj0 = objective(torch.zeros((m, f), device=dev), my_, mask_, a_)
         obj1 = objective(res.x, my_, mask_, a_)
@@ -1567,16 +1596,41 @@ def masked_lasso_phase(lasso, dev, card, reset_counts, read_counts,
         check(err <= MASKED_X_LIMIT[dt], f"{tag}: x disagrees with the "
               "composition run")
         del my_, mask_, a_, res, comp
-    return launches[torch.float32], launches[torch.bfloat16]
+    # A weighted bf16 mask (observed entries weighted in [0.5, 1)):
+    # pack_mask refuses it and every gradient stays on the dense route.
+    witers, bf16 = 10, torch.bfloat16
+    w = 0.5 + 0.5 * torch.rand(mask.shape, generator=g, device=dev)
+    my_, mask_, a_ = (my * w).to(bf16), (mask * w).to(bf16), a.to(bf16)
+    del w
+    reset_counts()
+    ms, res = event_ms(lambda: lasso.solve(my_, a_, alpha, mask=mask_,
+                                           method="fista", tol=0.0,
+                                           maxiter=witers))
+    wlaunches = read_counts("masked_grad_rows", witers)
+    routes = grad_routes()
+    obj0 = objective(torch.zeros((m, f), device=dev), my_, mask_, a_)
+    obj1 = objective(res.x, my_, mask_, a_)
+    tag = f"masked lasso {m}x{n} F={f} bfloat16, weighted mask"
+    print(f"{tag}, fista, {witers} iterations ({card}): {ms:.3f} ms; "
+          f"objective {obj0:.6e} -> {obj1:.6e}; masked_grad_rows launches "
+          f"{wlaunches} (packed, dense route {routes})", flush=True)
+    check(routes == (0, witers), f"{tag}: masked_grad_rows routes {routes},"
+          f" expected {(0, witers)}")
+    check(bool(torch.isfinite(res.x).all()), f"{tag}: non-finite x")
+    check(np.isfinite(obj1) and obj1 < obj0,
+          f"{tag}: the objective did not fall")
+    del my_, mask_, a_, res
+    return launches[torch.float32], launches[bf16], wlaunches
 
 
 def lasso_times(cl, gen, dev, card, y, a, fixed_shape, grad_shape):
     """Phase 12: the lasso kernels against their twins per call, with
     their bounds: solve_rows on config 2's data (y, a) and in the fixed
     budget at ``fixed_shape`` (M, F), masked_grad_rows at ``grad_shape``
-    (M, N, F), f32 on the packed route and bf16 on the dense one. Returns
-    {name: (max_abs_err, ms, plain_ms, bound_ms, bound_by)} at the main
-    path's shapes."""
+    (M, N, F): f32 on the packed route in turns with csrc/lasso_grad.cu's
+    f32 path, bf16 on the packed route in turns with the dense one (on the
+    same 0/1 mask). Returns {name: (max_abs_err, ms, plain_ms, bound_ms,
+    bound_by)} at the main path's shapes."""
     from decomp_tpu_torch.ops import cuda_mu
     from decomp_tpu_torch.ops.spectral import spectral_norm_psd
 
@@ -1608,7 +1662,20 @@ def lasso_times(cl, gen, dev, card, y, a, fixed_shape, grad_shape):
           f"(in turns; new / old {k_ms / old_ms:.3f}), plain twin "
           f"{p_ms:.3f} ms per call, bound {b[0]:.3f} ms ({b[1]}), slot "
           f"waste {waste:.4f} ({card})", flush=True)
-    del gram, yah, args, got, ref
+    # 'highest' (full f32 FMAs, csrc/lasso_fista.cu) on the same inputs.
+    kw_h = dict(kw, hi_lo=False)
+    got_h = cl.solve_rows(*args, **kw_h)
+    ref_h = cl.solve_rows_plain(*args, **kw_h)
+    h_ms = cuda_ms(lambda: cl.solve_rows(*args, **kw_h), 2)
+    ph_ms = cuda_ms(lambda: cl.solve_rows_plain(*args, **kw_h), 1)
+    bh = solve_rows_bound(m, f, int(got_h[4].double().sum()), False)
+    print(f"solve_rows config 2 ({m}x{f}, 'highest', acc_ista, tol 1e-4): "
+          f"lasso_fista.cu {h_ms:.3f} ms, plain twin {ph_ms:.3f} ms per "
+          f"call, bound {bh[0]:.3f} ms ({bh[1]}: full-f32 FMAs) ({card}); "
+          f"rel_fro x vs twin {rel_fro(got_h[0], ref_h[0]):.3e}, niter equal "
+          f"on {float((got_h[4] == ref_h[4]).float().mean()):.4f} of rows",
+          flush=True)
+    del gram, yah, args, got, ref, got_h, ref_h
 
     # solve_rows' fixed budget, 100 iterations.
     (m, f), iters = fixed_shape, 100
@@ -1665,16 +1732,40 @@ def lasso_times(cl, gen, dev, card, y, a, fixed_shape, grad_shape):
           f"{b[0] / k_ms * 100:.1f}% of it ({card})", flush=True)
     out["masked_grad_rows_packed"] = (e, k_ms, p_ms) + b
     del args, my, mask, x, a, bits, limbs
+    # bf16: the packed route (csrc/lasso_grad_packed.cu's one-limb
+    # instance) in turns with the dense one (csrc/lasso_grad.cu) on the same
+    # inputs and 0/1 mask (dense, packed, packed, dense).
     args = grad_inputs(gen, dev, m, n, f, bf16)
+    my, mask, x, a = args
+    e_p = compare_grad(cl, "masked_grad_rows", args, packed=True, f64=True,
+                       dense=True)
     e = compare_grad(cl, "masked_grad_rows", args)
-    k_ms = cuda_ms(lambda: cl.masked_grad_rows(*args), 5)
+    bits, limbs = cuda_mu.pack_mask(mask), cl.grad_limbs(a)
+    t = [cuda_ms(fn, 10) for fn in (
+        lambda: cl.masked_grad_rows(*args),
+        lambda: cl.masked_grad_rows(my, bits, x, a, a_limbs=limbs))]
+    t += [cuda_ms(fn, 10) for fn in (
+        lambda: cl.masked_grad_rows(my, bits, x, a, a_limbs=limbs),
+        lambda: cl.masked_grad_rows(*args))]
+    k_ms, old_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
     p_ms = cuda_ms(lambda: cl.masked_grad_rows_plain(*args), 2)
+    # Packed: my, the bits, x, g and a in bf16; dense: the bf16 mask for
+    # the bits.
+    bp = bound(2 * (m * n + 2 * m * f + f * n) + 4 * m * bits.shape[1],
+               4.0 * m * n * f, bf16)
     b = bound((2 * m * n + 2 * m * f + f * n) * 2, 4.0 * m * n * f, bf16)
-    print(f"masked_grad_rows {m}x{n} F={f} bfloat16 (dense mask, "
-          f"lasso_grad.cu): kernel {k_ms:.3f} ms, plain twin {p_ms:.3f} ms "
-          f"per call, bound {bound_text(b, None)} ({card})", flush=True)
-    out["masked_grad_rows"] = (e, k_ms, p_ms) + b
-    del args
+    print(f"masked_grad_rows {m}x{n} F={f} bfloat16: packed-mask kernel "
+          f"(one bf16 pass a product on wgmma) {k_ms:.4f} ms ({t[1]:.4f}, "
+          f"{t[2]:.4f}), lasso_grad.cu dense mask {old_ms:.4f} ms "
+          f"({t[0]:.4f}, {t[3]:.4f}) in turns, new / old "
+          f"{k_ms / old_ms:.3f}; plain twin {p_ms:.3f} ms per call; bound "
+          f"packed {bound_text(bp, None)}, new kernel at "
+          f"{bp[0] / k_ms * 100:.1f}% of it; bound dense "
+          f"{bound_text(b, None)}, dense kernel at "
+          f"{b[0] / old_ms * 100:.1f}% of it ({card})", flush=True)
+    out["masked_grad_rows_packed_bf16"] = (e_p, k_ms, p_ms) + bp
+    out["masked_grad_rows"] = (e, old_ms, p_ms) + b
+    del args, my, mask, x, a, bits, limbs
     return out
 
 
@@ -1977,11 +2068,12 @@ def shared_route_phase(dl, dev, card, reset_counts, read_counts, bcd_routes,
 def masked_dl_phase(dl, dev, card, reset_counts, read_counts, grad_routes,
                     dict_routes, m, n, k):
     """Phase 15: masked dictionary learning at M x N, K atoms, 30% missing,
-    planted; 20 outer iterations in f32 (both gradients on the packed
-    route) and 10 in bf16 (on the dense one) at tol 0, 15 inner iterations
-    each (lasso_tol 0: a fixed inner budget). Returns masked_grad_dict's
-    launches on the f32 run's packed route and the bf16 run's dense one,
-    and the f32 run's (my, mask, x, d)."""
+    planted; 20 outer iterations in f32 and 10 in bf16 (both gradients on
+    the packed route) at tol 0, 15 inner iterations each (lasso_tol 0: a
+    fixed inner budget), then 2 in bf16 on a weighted mask (both on the
+    dense route). Returns masked_grad_dict's launches on the f32 run's
+    packed route, the bf16 run's and the weighted run's dense one, and
+    the f32 run's (my, mask, x, d)."""
     alpha, inner = 0.05, 15
     g = torch.Generator(device=dev).manual_seed(15)
     d_true = torch.randn((k, n), generator=g, device=dev)
@@ -2015,9 +2107,7 @@ def masked_dl_phase(dl, dev, card, reset_counts, read_counts, grad_routes,
         launches[dt] = read_counts({"masked_grad_dict": iters,
                                     "masked_grad_rows": iters * inner})
         routes, d_routes = grad_routes(), dict_routes()
-        want = ((iters * inner, 0) if dt == torch.float32
-                else (0, iters * inner))
-        d_want = (iters, 0) if dt == torch.float32 else (0, iters)
+        want, d_want = (iters * inner, 0), (iters, 0)
         comp_ms, comp = event_ms(lambda: solve(use_kernel=False))
         obj1 = objective(first.x, first.d, my_, mask_)
         obj = objective(res.x, res.d, my_, mask_)
@@ -2049,8 +2139,32 @@ def masked_dl_phase(dl, dev, card, reset_counts, read_counts, grad_routes,
         if dt == torch.float32:
             kept = (my_, mask_, res.x, res.d)
         del first, res, comp
+    # A weighted bf16 mask (observed entries weighted in [0.5, 1)):
+    # pack_mask refuses it and both gradients stay on the dense routes.
+    witers, bf16 = 2, torch.bfloat16
+    w = 0.5 + 0.5 * torch.rand(mask.shape, generator=g, device=dev)
+    my_, mask_, d0_ = (my * w).to(bf16), (mask * w).to(bf16), d0.to(bf16)
+    del w
+    reset_counts()
+    ms, res = event_ms(lambda: dl.solve(my_, d0_, alpha, mask=mask_, tol=0.0,
+                                        maxiter=witers, lasso_iter=inner,
+                                        lasso_tol=0.0))
+    read_counts({"masked_grad_dict": witers,
+                 "masked_grad_rows": witers * inner})
+    routes, d_routes = grad_routes(), dict_routes()
+    tag = f"masked dictionary learning {m}x{n} K={k} bfloat16, weighted mask"
+    print(f"{tag}, {witers} outer x {inner} inner ({card}): "
+          f"{ms / witers:.3f} ms per outer iteration; launches "
+          f"masked_grad_dict (packed, dense route {d_routes}), "
+          f"masked_grad_rows (packed, dense route {routes})", flush=True)
+    check(routes == (0, witers * inner) and d_routes == (0, witers),
+          f"{tag}: not all on the dense routes")
+    check(bool(torch.isfinite(res.d).all())
+          and bool(torch.isfinite(res.x).all()), f"{tag}: non-finite "
+          "factors")
+    del my_, mask_, d0_, res
     return (launches[torch.float32]["routes"][0],
-            launches[torch.bfloat16]["routes"][1], kept)
+            launches[bf16]["routes"][0], d_routes[1], kept)
 
 
 def grad_dict_passes(cd, cuda_mu, args, card):
@@ -2076,12 +2190,13 @@ def grad_dict_passes(cd, cuda_mu, args, card):
 
 
 def dl_times(cd, card, c3, c3_marg, c3_niter, masked):
-    """Phase 16: the dictionary-learning kernels against their twins per
+    """Phase 15b: the dictionary-learning kernels against their twins per
     call, with their bounds: bcd_sweep on config 3's statistics ``c3`` =
     (A, B, d), masked_grad_dict on phase 15's (my, mask, x, d): f32 on the
     packed route (csrc/grad_dict_packed.cu) in turns with the dense-mask
     kernel's f32 path on the same inputs (old, new, new, old), bf16 on the
-    dense route. Returns {name: (max_abs_err, ms, plain_ms, bound_ms,
+    packed route (its one-limb instance) in turns with the dense one the
+    same way. Returns {name: (max_abs_err, ms, plain_ms, bound_ms,
     bound_by)}."""
     from decomp_tpu_torch.ops import cuda_mu
 
@@ -2142,18 +2257,37 @@ def dl_times(cd, card, c3, c3_marg, c3_niter, masked):
     limbs_ms = cuda_ms(lambda: cuda_mu.column_limbs(dd, 128), 10)
     print(f"  d's limbs (cuda_mu.column_limbs, torch ops, once per call): "
           f"{limbs_ms:.4f} ms per call ({card})", flush=True)
-    del bits
     args = tuple(v.to(torch.bfloat16) for v in args)
+    my, mask, x, dd = args
+    e_p = compare_grad(cd, "masked_grad_dict", args, packed=True, f64=True,
+                       dense=True)
     e = compare_grad(cd, "masked_grad_dict", args)
-    k_ms = cuda_ms(lambda: cd.masked_grad_dict(*args), 5)
+    t = [cuda_ms(fn, 10) for fn in (
+        lambda: cd.masked_grad_dict(*args),
+        lambda: cd.masked_grad_dict(my, bits, x, dd))]
+    t += [cuda_ms(fn, 10) for fn in (
+        lambda: cd.masked_grad_dict(my, bits, x, dd),
+        lambda: cd.masked_grad_dict(*args))]
+    k_ms, old_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
     p_ms = cuda_ms(lambda: cd.masked_grad_dict_plain(*args), 2)
+    # Packed: my, the bits, x and d in bf16, G in f32; dense: the bf16 mask
+    # for the bits.
+    bp = bound(2 * (m * n + m * k + k * n) + 4 * m * bits.shape[1]
+               + 4 * k * n, 4.0 * m * n * k, torch.bfloat16)
     bnd = bound((2 * m * n + m * k + k * n) * 2 + 4 * k * n,
                 4.0 * m * n * k, torch.bfloat16)
-    print(f"masked_grad_dict {m}x{n} K={k} bfloat16 (dense mask, "
-          f"mu_kl_stats.cu): kernel {k_ms:.3f} ms, plain twin {p_ms:.3f} ms "
-          f"per call, bound {bound_text(bnd, None)} ({card})", flush=True)
-    out["masked_grad_dict"] = (e, k_ms, p_ms) + bnd
-    del args
+    print(f"masked_grad_dict {m}x{n} K={k} bfloat16: packed-mask kernel "
+          f"(one bf16 pass a product on wgmma) {k_ms:.4f} ms ({t[1]:.4f}, "
+          f"{t[2]:.4f}), mu_kl_stats.cu dense mask {old_ms:.4f} ms "
+          f"({t[0]:.4f}, {t[3]:.4f}) in turns, new / old "
+          f"{k_ms / old_ms:.3f}; plain twin {p_ms:.3f} ms per call; bound "
+          f"packed {bound_text(bp, None)}, new kernel at "
+          f"{bp[0] / k_ms * 100:.1f}% of it; bound dense "
+          f"{bound_text(bnd, None)}, dense kernel at "
+          f"{bnd[0] / old_ms * 100:.1f}% of it ({card})", flush=True)
+    out["masked_grad_dict_packed_bf16"] = (e_p, k_ms, p_ms) + bp
+    out["masked_grad_dict"] = (e, old_ms, p_ms) + bnd
+    del args, my, mask, x, dd, bits
     return out
 
 
@@ -4348,8 +4482,8 @@ def main():
         print(f"built decomp_tpu_torch/csrc/{s}.cu with nvcc for sm_90a; "
               f"register spills: {spills or 'none'}", flush=True)
         if s in ("kl_dense_packed", "grad_dict_packed", "mu_dense_packed",
-                 "mu_masked_f32"):
-            check(not spills, f"{s}.cu: the wgmma chain's instances spill")
+                 "mu_masked_f32", "lasso_grad_packed"):
+            check(not spills, f"{s}.cu: a wgmma kernel's instance spills")
         if s == "dl_bcd_sm90":
             check(not spills, f"{s}.cu: d, held in registers, spills")
     print(f"{len(SOURCES)} sources built in parallel in {build_s:.1f} s "
@@ -4878,6 +5012,24 @@ def main():
           f"max_abs_err {e:.3e}", flush=True)
     kl_packed_passes(cuda_mu, args, card)
     del args
+    # The masked-KL routes still on csrc/mu_kl_stats.cu, on no path, at the
+    # same shape: bf16 data and x on a 0/1 mask (bf16 takes the dense
+    # mask), and f32 data on a weighted mask.
+    for dt, what in ((bf16, "data=bfloat16 x=bfloat16, 0/1 mask"),
+                     (f32, "data=float32 x=float32, weighted mask")):
+        args = stats_inputs(gen, dev, m7, n7, k7, dt, dt, True)
+        if dt == f32:
+            args = weighted(gen, args)
+        e = compare_new(cuda_mu, "kl_stats_masked", args)
+        t = time_new(cuda_mu, "kl_stats_masked", args)
+        b = stats_bound("kl_stats_masked", m7, n7, k7, dt, dt)
+        b_fma = (stats_bound("kl_stats_masked", m7, n7, k7, dt, dt, fma=True)
+                 if dt == f32 else None)
+        print(f"kl_stats_masked {m7}x{n7} K={k7} {what} (dense mask, "
+              f"csrc/mu_kl_stats.cu): kernel {t[0]:.3f} ms, plain twin "
+              f"{t[1]:.3f} ms per call, bound {bound_text(b, b_fma)} "
+              f"({card}); max_abs_err {e:.3e}", flush=True)
+        del args
     t_phase = phase("8 kernel times", t_phase)
 
     # Phase 9: the lasso kernels against their twins.
@@ -4894,16 +5046,20 @@ def main():
         for dt in (f32, bf16):
             compare_grad(cuda_lasso, "masked_grad_rows",
                          grad_inputs(gen, dev, m_, n_, f_, dt))
-    # The packed route (f32 data, the mask as bits): N % 4 != 0 at 257
-    # (my's padded copy), 7 rows (fewer than a stripe), F = 1, F = 64 (the
-    # 64-feature tile), and log-normal my, x and a over six decades.
-    for m_, n_, f_ in ((1000, 1000, 100), (333, 257, 7), (7, 1000, 100),
-                       (1000, 1000, 1), (1000, 1000, 64)):
+    # The packed route (f32 and bf16 data, the mask as bits): N % 4 != 0
+    # at 257 (my's padded copy; bf16: N % 8 != 0), 7 rows (fewer than a
+    # stripe), F = 1, F = 64 (the 64-feature tile), and log-normal my, x and
+    # a over six decades; bf16 also against the dense-mask kernel.
+    for dt in (f32, bf16):
+        for m_, n_, f_ in GRAD_PACKED_SHAPES:
+            compare_grad(cuda_lasso, "masked_grad_rows",
+                         grad_inputs(gen, dev, m_, n_, f_, dt), packed=True,
+                         dense=dt == bf16)
+        args = lognormal_inputs(gen, dev, 100_000, 1024, 128)
         compare_grad(cuda_lasso, "masked_grad_rows",
-                     grad_inputs(gen, dev, m_, n_, f_, f32), packed=True)
-    compare_grad(cuda_lasso, "masked_grad_rows",
-                 lognormal_inputs(gen, dev, 100_000, 1024, 128), packed=True,
-                 tag="log-normal", f64=True)
+                     tuple(t.to(dt) for t in args), packed=True,
+                     tag="log-normal", f64=True, dense=dt == bf16)
+        del args
     t_phase = phase("9 lasso kernels vs twins", t_phase)
 
     # Phase 10: batch lasso at BASELINE config 2.
@@ -4920,9 +5076,9 @@ def main():
     t_phase = phase("10c config-2-complex", t_phase)
 
     # Phase 11: the masked lasso.
-    launches_grad, launches_grad_dense = masked_lasso_phase(
-        lasso, dev, card, reset_counts, read_counts, grad_routes, 100_000,
-        1024, 128)
+    launches_grad, launches_grad_bf16, launches_grad_dense = (
+        masked_lasso_phase(lasso, dev, card, reset_counts, read_counts,
+                           grad_routes, 100_000, 1024, 128))
     t_phase = phase("11 masked lasso", t_phase)
 
     # Phase 12: the lasso kernels' times against their twins.
@@ -4964,7 +5120,17 @@ def main():
     compare_grad(cuda_dl, "masked_grad_dict", args, packed=True,
                  tag="log-normal", f64=True)
     compare_split(cuda_dl, cuda_mu, args[2])
+    # The bf16 instance at phase 9's packed shapes (K % 8 != 0 at 100, 7
+    # and 1: x's padded copy) and log-normal data, each also against the
+    # dense-mask kernel.
+    compare_grad(cuda_dl, "masked_grad_dict",
+                 tuple(t.to(bf16) for t in args), packed=True,
+                 tag="log-normal", f64=True, dense=True)
     del args
+    for m_, n_, k_ in GRAD_PACKED_SHAPES:
+        compare_grad(cuda_dl, "masked_grad_dict",
+                     grad_inputs(gen, dev, m_, n_, k_, bf16), packed=True,
+                     dense=True)
     t_phase = phase("13 dictionary-learning kernels vs twins", t_phase)
 
     # Phase 14: dictionary learning at BASELINE config 3.
@@ -4977,9 +5143,10 @@ def main():
     t_phase = phase("14b shared-memory sweep route", t_phase)
 
     # Phase 15: masked dictionary learning.
-    launches_gd, launches_gd_dense, masked15 = masked_dl_phase(
-        dictionary_learning, dev, card, reset_counts, read_counts,
-        grad_routes, dict_routes, 100_000, 1024, 128)
+    launches_gd, launches_gd_bf16, launches_gd_dense, masked15 = (
+        masked_dl_phase(dictionary_learning, dev, card, reset_counts,
+                        read_counts, grad_routes, dict_routes, 100_000, 1024,
+                        128))
     t_phase = phase("15 masked dictionary learning", t_phase)
 
     # Phase 15b: the dictionary-learning kernels' times against their twins.
@@ -5068,10 +5235,12 @@ def main():
                      "solve_rows_complex": launches2c,
                      "masked_grad_rows": launches_grad_dense,
                      "masked_grad_rows_packed": launches_grad,
+                     "masked_grad_rows_packed_bf16": launches_grad_bf16,
                      "bcd_sweep": launches3,
                      "bcd_sweep_shared": launches14b,
                      "masked_grad_dict": launches_gd_dense,
-                     "masked_grad_dict_packed": launches_gd}
+                     "masked_grad_dict_packed": launches_gd,
+                     "masked_grad_dict_packed_bf16": launches_gd_bf16}
     kernels = {"mu_stats_dense": ("mu_dense_tma", "pallas_mu.py:438"),
                "mu_stats_dense_packed": ("mu_dense_packed",
                                          "pallas_mu.py:438"),
@@ -5084,11 +5253,15 @@ def main():
                "masked_grad_rows": ("lasso_grad", "pallas_lasso.py:159"),
                "masked_grad_rows_packed": ("lasso_grad_packed",
                                            "pallas_lasso.py:159"),
+               "masked_grad_rows_packed_bf16": ("lasso_grad_packed",
+                                                "pallas_lasso.py:159"),
                "bcd_sweep": ("dl_bcd_sm90", "pallas_bcd.py:115"),
                "bcd_sweep_shared": ("dl_bcd", "pallas_bcd.py:115"),
                "masked_grad_dict": ("mu_kl_stats", "pallas_lasso.py:225"),
                "masked_grad_dict_packed": ("grad_dict_packed",
-                                           "pallas_lasso.py:225")}
+                                           "pallas_lasso.py:225"),
+               "masked_grad_dict_packed_bf16": ("grad_dict_packed",
+                                                "pallas_lasso.py:225")}
     entries = []
     for name, (source, replaces) in kernels.items():
         err, ms, p_ms, b_ms, b_by = stats[name]

@@ -1,71 +1,86 @@
-// The masked lasso gradient on f32 data with a bit-packed 0/1 mask, on
-// Hopper (sm_90a): every f32 product as bf16x6 limb products on wgmma.
+// The masked lasso gradient with a bit-packed 0/1 mask, on Hopper
+// (sm_90a), on wgmma: f32 data with every f32 product as bf16x6 limb
+// products (L = 3 limbs an operand), and bf16 data, where each product is
+// one bf16 pass (L = 1). One template, grad_packed<KT, L>.
 //
 // Replaces the Pallas TPU kernel decomp_tpu/ops/pallas_lasso.py:159
 // masked_grad_rows (pallas_call :176, body _grad_rows_kernel :144-156) for
-// f32 data and a 0/1 mask. Given my = mask * y (M, N) f32, the mask as bits
-// (M, W) int32 (bit j of word w in row r is mask[r, 32 w + j]; W =
-// ceil(N / 32) rounded up to a multiple of 4, pad bits 0), x (M, F) f32,
-// 1 <= F <= 128, and a (F, N) as its three bf16 limbs, it returns
-//   g = (mask * (x a) - my) a^T                                 (M, F) f32
-// at the TPU kernel's f32 quantisation points: both products at the TPU's
-// Precision.HIGHEST (bf16x6 there, and here); the residual E = f32(mask) *
-// R - my formed in f32 with round-to-nearest operations and not rounded
-// further; g stored in f32.
+// a 0/1 mask. Given my = mask * y (M, N), the mask as bits (M, W) int32
+// (bit j of word w in row r is mask[r, 32 w + j]; W = ceil(N / 32) rounded
+// up to a multiple of 4, pad bits 0), x (M, F), 1 <= F <= 128, and a (F,
+// N) as its L bf16 limbs, it returns
+//   g = cdt(f32(mask) * (x a) - f32(my)) a^T                   (M, F)
+// at the TPU kernel's quantisation points, cdt the data's dtype:
+//   - f32: both products at the TPU's Precision.HIGHEST (bf16x6 there, and
+//     here); the residual E = f32(mask) R - my formed in f32 with
+//     round-to-nearest operations and not rounded further; g stored in f32;
+//   - bf16: both products on bf16 operands summed in f32; E rounded to
+//     bf16 (round to nearest) from the f32 f32(mask) R - f32(my), as the
+//     TPU kernel's .astype(a.dtype) (:151); g stored in bf16, x's dtype.
 //
-// Products. Each f32 operand v is split into round-to-nearest bf16 limbs
-// v0 = bf16(v), v1 = bf16(v - v0), v2 = bf16(v - v0 - v1) (the residuals
-// are exact in f32), and a product u v is the sum of the six limb products
-// whose order is at most 2^-16 of u0 v0: u0 v0 (the "big" chain) and u2 v0,
-// u1 v1, u0 v2, u1 v0, u0 v1 (the "small" one). The tensor cores' f32 sums
-// do not round to nearest and a long chain drifts (nmf_common.cuh:206-212),
-// so each big chain is summed in its own registers over at most 64 deep
-// (R's per 64-feature chunk, g's per 32-column stage) and added with
-// round-to-nearest f32 adds, the small chain beside it
+// Products. At L = 3 each f32 operand v is split into round-to-nearest
+// bf16 limbs v0 = bf16(v), v1 = bf16(v - v0), v2 = bf16(v - v0 - v1) (the
+// residuals are exact in f32), and a product u v is the sum of the six limb
+// products whose order is at most 2^-16 of u0 v0: u0 v0 (the "big" chain)
+// and u2 v0, u1 v1, u0 v2, u1 v0, u0 v1 (the "small" one). At L = 1 the
+// bf16 data is its own limb and u0 v0 is the product. The tensor cores' f32
+// sums do not round to nearest and a long chain drifts
+// (nmf_common.cuh:206-212), so each big chain is summed in its own
+// registers over at most 64 deep (R's per 64-feature chunk, g's per stage)
+// and added with round-to-nearest f32 adds, the small chain beside it
 // (kl_masked_packed.cu's discipline). No TF32 anywhere.
 //
-// What bounds it on an H100. 12 bf16 passes of 2 MNF operations: at
-// 100,000 x 1,024, F = 128, 3.15e11 operations, 0.318 ms at 989 TFLOP/s,
-// against 0.53 GB (my 409.6 MB, the bits 12.8 MB, x and g 51.2 MB each,
-// a's limbs 0.8 MB: 0.157 ms at 3.35 TB/s): bound by operations. The
-// design keeps the tensor cores fed from shared memory and the bytes low:
+// What bounds it on an H100, at 100,000 x 1,024, F = 128:
+//   - f32: 12 bf16 passes of 2 MNF operations, 3.15e11 operations, 0.318
+//     ms at 989 TFLOP/s, against 0.53 GB (my 409.6 MB, the bits 12.8 MB, x
+//     and g 51.2 MB each, a's limbs 0.8 MB: 0.157 ms at 3.35 TB/s): bound
+//     by operations;
+//   - bf16: 2 passes, 5.2e10 operations, 0.053 ms, against 269 MB (my
+//     204.8 MB, the bits 12.8 MB, x and g 25.6 MB each, a 0.26 MB: 0.080
+//     ms): bound by bytes. The dense-mask kernel csrc/lasso_grad.cu also
+//     reads a 204.8 MB bf16 mask.
+// The design keeps the tensor cores fed from shared memory and the bytes
+// low:
 //   - a persistent block per SM walks 128-row stripes; one producer thread
-//     keeps a ring of 32-column stages full by TMA (cp.async.bulk.tensor.2d,
+//     keeps a ring of SC-column stages full by TMA (cp.async.bulk.tensor.2d,
 //     one full and one empty mbarrier per stage) across stripes: my (128 x
-//     32 f32, 128-byte swizzle), the stage's mask word of each row (a box
-//     of 4 words), and a's limbs for the stage's 32 columns (a^T rows of
-//     64 features, 128-byte swizzle; 3 x 2 boxes at F > 64);
-//   - two consumer warpgroups own 64 rows each; the stripe's x is split
-//     once into three limbs and kept resident (96 KB at F > 64), written by
-//     the threads in the 128-byte-swizzled layout wgmma reads;
-//   - R = x a_s (64 x 32 per warpgroup) on wgmma from shared memory, both
-//     operands K-major: x0 against a0 (m64n32, the big chain, summed per
-//     64-feature chunk in its own registers and added with round-to-nearest
-//     adds), x0 against [a1 | a2] and x1 against [a0 | a1] (m64n64) and x2
-//     against a0 (m64n32): the three limb boxes of a stage lie side by
-//     side, so two limbs are one 64-row operand;
-//   - E = f32(mask) R - my in registers, from the stage's mask word, split
-//     into three limbs: the accumulator layout of R is the register-A
-//     fragment of the next wgmma's two 16-deep steps, so E never touches
-//     shared memory;
+//     SC, 128-byte rows: SC = 32 f32 or 64 bf16 columns, 16 KB either way,
+//     128-byte swizzle), the stage's mask words of each row (a box of 4
+//     words) and a's limbs for the stage's SC columns (a^T rows of 64
+//     features, 128-byte swizzle; L x 2 boxes at F > 64). The bf16 ring
+//     holds 5 stages of 34 KB (7 of 26 KB at F <= 64): the kernel is bound
+//     by bytes there, and the freed shared memory keeps more in flight;
+//   - two consumer warpgroups own 64 rows each; the stripe's x is kept
+//     resident as its L limbs (96 KB f32, 32 KB bf16 at F > 64), split by
+//     the threads and written in the 128-byte-swizzled layout wgmma reads;
+//   - R = x a_s (64 x SC per warpgroup) on wgmma from shared memory, both
+//     operands K-major: x0 against a0 (the big chain, summed per 64-feature
+//     chunk in its own registers and added with round-to-nearest adds); at
+//     L = 3 beside it x0 against [a1 | a2] and x1 against [a0 | a1]
+//     (m64n64) and x2 against a0 (m64n32): the three limb boxes of a stage
+//     lie side by side, so two limbs are one 64-row operand;
+//   - E = f32(mask) R - my in registers, from the stage's mask words, split
+//     into L limbs (at L = 1 rounded to bf16): the accumulator layout of R
+//     is the register-A fragment of the next wgmma's 16-deep steps, so E
+//     never touches shared memory;
 //   - g += E a_s^T on wgmma with A from registers and B the same limb boxes
 //     read transposed (MN-major), per 64-feature chunk (m64n64) with its own
 //     stage temporaries, so registers hold the running g (64 per thread at
-//     F > 64), the chunk's two chains and E's limbs; setmaxnreg gives the
+//     F > 64), the chunk's chains and E's limbs; setmaxnreg gives the
 //     consumers 232 registers and the producer warpgroup 40.
 // Each block owns its rows of g: no cross-block sum and no float atomics,
 // so a rerun gives the same bits. Ragged M, N and F are masked: TMA
 // zero-fills boxes outside the tensors (so R, my and the mask bits are 0
 // there and E is 0), x's limbs are zero past M and F, and a's limbs are
-// zero past F in the wrapper's array. F <= 64 takes a KT = 64
-// instance.
+// zero past F in the wrapper's array. F <= 64 takes a KT = 64 instance.
 //
-// The wrapper (ops/cuda_lasso.py) gives a's limbs as one (N, 3 KT) bf16
-// array, row n = [limb 0 of a[:, n] | limb 1 | limb 2], each KT wide with
-// zeros past F (cuda_lasso.grad_limbs, made once per solve), and my with
-// 16-byte-aligned rows (a padded copy where N % 4 != 0). The tensor maps
-// are encoded with cuTensorMapEncodeTiled through the runtime's entry-point
-// query (sm90_common.cuh), so the library needs no -lcuda.
+// The wrapper (ops/cuda_lasso.py) gives a's limbs as one (N, L KT) bf16
+// array, row n = [limb 0 of a[:, n] | limb 1 | limb 2] (L = 3) or a[:, n]
+// (L = 1), each KT wide with zeros past F (cuda_lasso.grad_limbs, made once
+// per solve), and my with 16-byte-aligned rows (a padded copy where N is
+// not a multiple of 4 f32 or 8 bf16). The tensor maps are encoded with
+// cuTensorMapEncodeTiled through the runtime's entry-point query
+// (sm90_common.cuh), so the library needs no -lcuda.
 
 #include "sm90_common.cuh"
 
@@ -74,36 +89,41 @@ namespace {
 constexpr int kThreads = 384;          // producer warpgroup + 2 consumers
 constexpr int kConsumerWarps = 8;
 constexpr int BM = 128;                // rows per stripe, 64 per consumer
-constexpr int SC = 32;                 // columns per stage: one mask word
-constexpr int kMy = BM * SC * 4;       // my, 128 x 32 f32 (SW128)
-constexpr int kBox = SC * 128;         // 32 rows x 64 bf16 of a's limbs
+constexpr int kMy = BM * 128;          // my, 128 rows of 128 bytes (SW128)
 constexpr int kMask = BM * 16;         // 4 mask words per row
 constexpr int kXChunk = BM * 128;      // 128 rows x 64 bf16 of x's limbs
 
 // Shared memory, from a 1024-aligned base: kStages slots of [my | a's
-// limbs, box (c, l) of feature chunk c and limb l at (3 c + l) kBox |
-// mask words], then x's limbs (chunk (c, l) at (3 c + l) kXChunk, the
-// warpgroup's 64 rows at 64 cw) and 2 kStages mbarriers.
-template <int KT>
+// limbs, box (c, l) of feature chunk c and limb l at (L c + l) kBox |
+// mask words], then x's limbs (chunk (c, l) at (L c + l) kXChunk, the
+// warpgroup's 64 rows at 64 cw) and 2 kStages mbarriers. T is the data's
+// type (my, x and g).
+template <int KT, int L>
 struct Cfg {
+  static_assert(L == 1 || L == 3, "one limb (bf16) or three (f32)");
+  using T = std::conditional_t<L == 3, float, bf16>;
+  static constexpr int SC = 128 / (int)sizeof(T);   // columns per stage
   static constexpr int KC = KT / 64;
-  static constexpr int kA = 3 * KC * kBox;
+  static constexpr int kBox = SC * 128;   // SC rows x 64 bf16 of a's limbs
+  static constexpr int kA = L * KC * kBox;
   static constexpr int kSlot = kMy + kA + kMask;
-  static constexpr int kStages = KT == 64 ? 4 : 3;
-  static constexpr int kX = 3 * KC * kXChunk;
+  static constexpr int kStages =
+      L == 3 ? (KT == 64 ? 4 : 3) : (KT == 64 ? 7 : 5);
+  static constexpr int kX = L * KC * kXChunk;
   static constexpr size_t kSmem =
       1024 + (size_t)kStages * kSlot + kX + 16 * kStages;
 };
 
-template <int KT>
+template <int KT, int L>
 __global__ void __launch_bounds__(kThreads, 1)
     grad_packed(const __grid_constant__ CUtensorMap tm_my,
                 const __grid_constant__ CUtensorMap tm_mask,
                 const __grid_constant__ CUtensorMap tm_a,
-                const float* __restrict__ x, int M, int N, int F,
-                float* __restrict__ g) {
-  using C = Cfg<KT>;
-  constexpr int S = C::kStages, KC = C::KC;
+                const typename Cfg<KT, L>::T* __restrict__ x, int M, int N,
+                int F, typename Cfg<KT, L>::T* __restrict__ g) {
+  using C = Cfg<KT, L>;
+  using T = typename C::T;
+  constexpr int S = C::kStages, KC = C::KC, SC = C::SC, kBox = C::kBox;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = align1024(smem_raw);
   unsigned char* xs = ring + S * C::kSlot;
@@ -136,10 +156,12 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
           for (int c = 0; c < KC; ++c)
 #pragma unroll
-            for (int l = 0; l < 3; ++l)
-              tma_load(dst + kMy + (3 * c + l) * kBox, tm_a, l * KT + 64 * c,
+            for (int l = 0; l < L; ++l)
+              tma_load(dst + kMy + (L * c + l) * kBox, tm_a, l * KT + 64 * c,
                        s * SC, bar);
-          tma_load(dst + kMy + C::kA, tm_mask, s & ~3, sp * BM, bar);
+          // The 4-word group that holds the stage's SC / 32 words.
+          tma_load(dst + kMy + C::kA, tm_mask, (s * SC / 32) & ~3, sp * BM,
+                   bar);
         }
     }
     return;
@@ -152,29 +174,40 @@ __global__ void __launch_bounds__(kThreads, 1)
   unsigned char* xw = xs + cw * (64 * 128);  // the warpgroup's x rows
   int q = 0;
   for (int sp = blockIdx.x; sp < n_stripes; sp += gridDim.x) {
-    // The warpgroup's 64 rows of x, split into limbs, 8 features a store.
+    // The warpgroup's 64 rows of x, split into limbs, 8 features a store;
+    // all of a thread's loads are issued first, so that their latencies
+    // overlap (and the wait for the warpgroup's last products).
+    constexpr int NE = KT / 16;   // groups of 8 features per thread
     const long long row0 = (long long)sp * BM + 64 * cw;
+    T v[NE][8];
+#pragma unroll
+    for (int qe = 0; qe < NE; ++qe) {
+      const int e = tid + 128 * qe, r = e / (KT / 8), c0 = e % (KT / 8) * 8;
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        v[qe][u] = row0 + r < M && c0 + u < F ? x[(row0 + r) * F + c0 + u]
+                                              : from_f32<T>(0.f);
+    }
     bar_sync(1 + cw);   // the last stripe's products are done with x
-    for (int e = tid; e < 64 * (KT / 8); e += 128) {
-      const int r = e / (KT / 8), c0 = e % (KT / 8) * 8;
-      uint32_t w[3][4];
+#pragma unroll
+    for (int qe = 0; qe < NE; ++qe) {
+      const int e = tid + 128 * qe, r = e / (KT / 8), c0 = e % (KT / 8) * 8;
+      uint32_t w[L][4];
 #pragma unroll
       for (int p = 0; p < 4; ++p) {
-        float v[2];
+        if constexpr (L == 3) {
+          uint32_t f[3];
+          split_pair(v[qe][2 * p], v[qe][2 * p + 1], f);
 #pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const int c = c0 + 2 * p + u;
-          v[u] = row0 + r < M && c < F ? x[(row0 + r) * F + c] : 0.f;
+          for (int l = 0; l < 3; ++l) w[l][p] = f[l];
+        } else {
+          w[0][p] = pack(v[qe][2 * p], v[qe][2 * p + 1]);
         }
-        uint32_t f[3];
-        split_pair(v[0], v[1], f);
-#pragma unroll
-        for (int l = 0; l < 3; ++l) w[l][p] = f[l];
       }
       const uint32_t off = r * 128 + ((((c0 % 64) / 8) ^ (r & 7)) << 4);
 #pragma unroll
-      for (int l = 0; l < 3; ++l)
-        *reinterpret_cast<uint4*>(xw + (3 * (c0 / 64) + l) * kXChunk + off) =
+      for (int l = 0; l < L; ++l)
+        *reinterpret_cast<uint4*>(xw + (L * (c0 / 64) + l) * kXChunk + off) =
             make_uint4(w[l][0], w[l][1], w[l][2], w[l][3]);
     }
     // Thread writes to shared memory, then wgmma's reads of them.
@@ -192,95 +225,130 @@ __global__ void __launch_bounds__(kThreads, 1)
       const unsigned char* base = ring + slot * C::kSlot;
       mbar_wait(full + slot, (q / S) & 1);
 
-      // R = x a_s: the big chain x0 a0 per 64-feature chunk c (rb[c]);
-      // the small one as x0 [a1 | a2], x1 [a0 | a1] and x2 a0.
-      float rb[KC][16], r0[32], r1[32], r2[16];
+      // R = x a_s: the big chain x0 a0 per 64-feature chunk c (rb[c],
+      // m64n32 at L = 3, m64n64 at L = 1); at L = 3 the small one as x0
+      // [a1 | a2], x1 [a0 | a1] and x2 a0.
+      float rb[KC][SC / 2], r0[32], r1[32], r2[16];
 #pragma unroll
       for (int c = 0; c < KC; ++c) fence_operand(rb[c]);
-      fence_operand(r0);
-      fence_operand(r1);
-      fence_operand(r2);
+      if constexpr (L == 3) {
+        fence_operand(r0);
+        fence_operand(r1);
+        fence_operand(r2);
+      }
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
       for (int kk = 0; kk < KT / 16; ++kk) {
         const int c = kk / 4, k32 = (kk % 4) * 32;
-        const unsigned char* ab = base + kMy + 3 * c * kBox + k32;
+        const unsigned char* ab = base + kMy + L * c * kBox + k32;
         const uint64_t da0 = smem_desc(ab, 16, 1024);
-        const uint64_t da1 = smem_desc(ab + kBox, 16, 1024);
-        const unsigned char* xa = xw + 3 * c * kXChunk + k32;
+        const unsigned char* xa = xw + L * c * kXChunk + k32;
         const uint64_t dx0 = smem_desc(xa, 16, 1024);
         wgmma_ss(rb[c], dx0, da0, kk % 4);
-        wgmma_ss(r0, dx0, da1, kk);
-        wgmma_ss(r1, smem_desc(xa + kXChunk, 16, 1024), da0, kk);
-        wgmma_ss(r2, smem_desc(xa + 2 * kXChunk, 16, 1024), da0, kk);
+        if constexpr (L == 3) {
+          const uint64_t da1 = smem_desc(ab + kBox, 16, 1024);
+          wgmma_ss(r0, dx0, da1, kk);
+          wgmma_ss(r1, smem_desc(xa + kXChunk, 16, 1024), da0, kk);
+          wgmma_ss(r2, smem_desc(xa + 2 * kXChunk, 16, 1024), da0, kk);
+        }
       }
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
       asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 #pragma unroll
       for (int c = 0; c < KC; ++c) fence_operand(rb[c]);
-      fence_operand(r0);
-      fence_operand(r1);
-      fence_operand(r2);
+      if constexpr (L == 3) {
+        fence_operand(r0);
+        fence_operand(r1);
+        fence_operand(r2);
+      }
 
       // E = f32(mask) R - my, split into limbs: register i of R sits at row
       // rr + 8 ((i / 2) % 2), column 8 (i / 4) + 2 t + i % 2; the A
       // fragment of depth step ks takes 8-column blocks 2 ks and 2 ks + 1.
-      const SwzF<BM> ms{reinterpret_cast<const float*>(base)};
+      // Column col = 8 j + 2 t of the stage is bit 8 (j % 4) + 2 t of word
+      // (s SC / 32 + j / 4) % 4 of the row's 4-word group.
       const uint32_t* mw =
           reinterpret_cast<const uint32_t*>(base + kMy + C::kA);
-      uint32_t ea[2][3][4];
+      uint32_t ea[SC / 16][L][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < SC / 8; ++j)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int row = rr + 8 * h, col = 8 * j + 2 * t;
-          const uint32_t word = mw[row * 4 + (s & 3)];
+          const uint32_t word = mw[row * 4 + ((s * SC / 32 + j / 4) & 3)] >>
+                                (8 * (j % 4) + 2 * t);
+          // my at (row, col) and (row, col + 1), side by side.
+          float my[2];
+          if constexpr (L == 3) {
+            const SwzF<BM> ms{reinterpret_cast<const float*>(base)};
+            my[0] = ms.at(row, col);
+            my[1] = ms.at(row, col + 1);
+          } else {
+            const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(
+                Swz<128, BM>{reinterpret_cast<const bf16*>(base)}.at(row,
+                                                                     col));
+            my[0] = __low2float(v);
+            my[1] = __high2float(v);
+          }
           float e[2];
 #pragma unroll
           for (int u = 0; u < 2; ++u) {
             const int i = 4 * j + 2 * h + u;
-            float big = rb[0][i];
+            float r = rb[0][i];
 #pragma unroll
-            for (int c = 1; c < KC; ++c) big = __fadd_rn(big, rb[c][i]);
-            const float small = (r0[i] + r0[16 + i]) +
-                                (r1[i] + r1[16 + i]) + r2[i];
-            const float m = (float)((word >> (col + u)) & 1u);
-            e[u] = __fsub_rn(__fmul_rn(m, __fadd_rn(big, small)),
-                             ms.at(row, col + u));
+            for (int c = 1; c < KC; ++c) r = __fadd_rn(r, rb[c][i]);
+            if constexpr (L == 3)
+              r = __fadd_rn(r, (r0[i] + r0[16 + i]) + (r1[i] + r1[16 + i]) +
+                                   r2[i]);
+            const float m = (float)((word >> u) & 1u);
+            e[u] = __fsub_rn(__fmul_rn(m, r), my[u]);
           }
-          uint32_t f[3];
-          split_pair(e[0], e[1], f);
+          if constexpr (L == 3) {
+            uint32_t f[3];
+            split_pair(e[0], e[1], f);
 #pragma unroll
-          for (int l = 0; l < 3; ++l) ea[j / 2][l][2 * (j % 2) + h] = f[l];
+            for (int l = 0; l < 3; ++l) ea[j / 2][l][2 * (j % 2) + h] = f[l];
+          } else {
+            const __nv_bfloat162 v = __floats2bfloat162_rn(e[0], e[1]);
+            ea[j / 2][0][2 * (j % 2) + h] =
+                *reinterpret_cast<const uint32_t*>(&v);
+          }
         }
 
-      // g += E a_s^T per 64-feature chunk: the big chain (e0 a0) and the
-      // small one in their own registers, then added to g.
+      // g += E a_s^T per 64-feature chunk: the big chain (e0 a0) and, at
+      // L = 3, the small one in their own registers, then added to g.
 #pragma unroll
       for (int c = 0; c < KC; ++c) {
         float tb[32], ts[32];
         fence_operand(tb);
-        fence_operand(ts);
+        if constexpr (L == 3) fence_operand(ts);
         asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-        for (int ks = 0; ks < 2; ++ks) {
-          const unsigned char* bb = base + kMy + 3 * c * kBox + ks * 2048;
+        for (int ks = 0; ks < SC / 16; ++ks) {
+          const unsigned char* bb = base + kMy + L * c * kBox + ks * 2048;
           const uint64_t b0 = smem_desc(bb, kBox, 1024);
-          const uint64_t b1 = smem_desc(bb + kBox, kBox, 1024);
-          const uint64_t b2 = smem_desc(bb + 2 * kBox, kBox, 1024);
           wgmma_rs(tb, ea[ks][0], b0, ks);
-          wgmma_rs(ts, ea[ks][2], b0, ks);
-          wgmma_rs(ts, ea[ks][1], b1, 1);
-          wgmma_rs(ts, ea[ks][0], b2, 1);
-          wgmma_rs(ts, ea[ks][1], b0, 1);
-          wgmma_rs(ts, ea[ks][0], b1, 1);
+          if constexpr (L == 3) {
+            const uint64_t b1 = smem_desc(bb + kBox, kBox, 1024);
+            const uint64_t b2 = smem_desc(bb + 2 * kBox, kBox, 1024);
+            wgmma_rs(ts, ea[ks][2], b0, ks);
+            wgmma_rs(ts, ea[ks][1], b1, 1);
+            wgmma_rs(ts, ea[ks][0], b2, 1);
+            wgmma_rs(ts, ea[ks][1], b0, 1);
+            wgmma_rs(ts, ea[ks][0], b1, 1);
+          }
         }
         asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
         asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
         fence_operand(tb);
-        fence_operand(ts);
+        if constexpr (L == 3) {
+          fence_operand(ts);
 #pragma unroll
-        for (int i = 0; i < 32; ++i) acc[c][i] += tb[i] + ts[i];
+          for (int i = 0; i < 32; ++i) acc[c][i] += tb[i] + ts[i];
+        } else {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) acc[c][i] += tb[i];
+        }
       }
       // This warp's products and reads of the slot are done.
       __syncwarp();
@@ -288,14 +356,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
 
     // g: register i of chunk c at row rr + 8 ((i / 2) % 2), feature
-    // 64 c + 8 (i / 4) + 2 t + i % 2.
+    // 64 c + 8 (i / 4) + 2 t + i % 2; bf16 rounded to nearest.
 #pragma unroll
     for (int c = 0; c < KC; ++c)
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         const long long gr = (long long)sp * BM + rr + 8 * ((i / 2) % 2);
         const int col = 64 * c + 8 * (i / 4) + 2 * t + i % 2;
-        if (gr < M && col < F) g[gr * F + col] = acc[c][i];
+        if (gr < M && col < F) g[gr * F + col] = from_f32<T>(acc[c][i]);
       }
   }
 }
@@ -307,50 +375,60 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int KT>
+template <int KT, int L>
 int launch(const Args& a) {
-  using C = Cfg<KT>;
+  using C = Cfg<KT, L>;
+  using T = typename C::T;
   CUtensorMap my, mask, al;
   const bool ok =
-      make_map(&my, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, a.my, a.N, a.M,
-               a.ld_my, SC, BM, CU_TENSOR_MAP_SWIZZLE_128B) &&
+      make_map(&my,
+               L == 3 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+               (int)sizeof(T), a.my, a.N, a.M, a.ld_my, C::SC, BM,
+               CU_TENSOR_MAP_SWIZZLE_128B) &&
       make_map(&mask, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, a.mask, a.words, a.M,
                a.words, 4, BM, CU_TENSOR_MAP_SWIZZLE_NONE) &&
-      make_map(&al, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.al, 3 * KT, a.N,
-               3 * KT, 64, SC, CU_TENSOR_MAP_SWIZZLE_128B);
+      make_map(&al, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.al, L * KT, a.N,
+               L * KT, 64, C::SC, CU_TENSOR_MAP_SWIZZLE_128B);
   if (!ok) return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(grad_packed<KT>,
+  err = cudaFuncSetAttribute(grad_packed<KT, L>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)C::kSmem);
   if (err != cudaSuccess) return (int)err;
   const int stripes = (a.M + BM - 1) / BM;
-  grad_packed<KT><<<stripes < sms ? stripes : sms, kThreads, C::kSmem,
-                    a.stream>>>(my, mask, al, static_cast<const float*>(a.x),
-                                a.M, a.N, a.F, static_cast<float*>(a.g));
+  grad_packed<KT, L><<<stripes < sms ? stripes : sms, kThreads, C::kSmem,
+                       a.stream>>>(my, mask, al,
+                                   static_cast<const T*>(a.x), a.M, a.N, a.F,
+                                   static_cast<T*>(a.g));
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// The C interface, loaded with ctypes. my (M x N f32, row stride ld_my, a
-// multiple of 4); mask the packed bits (M x words int32, words % 4 == 0);
-// x (M x F) f32; al a's limbs (N x 3 kt bf16: row n = [limb 0 | limb 1 |
-// limb 2] of a[:, n], each kt wide, zero past F); kt the feature tile, 64
-// (F <= 64) or 128 (F <= 128); g (M x F) f32. Returns 0 or the first
-// non-zero cudaError_t.
-extern "C" int lasso_grad_packed_launch(int kt, const void* my, int ld_my,
-                                        const void* mask, int words,
-                                        const void* x, const void* al, int M,
-                                        int N, int F, void* g, void* stream) {
+// The C interface, loaded with ctypes. limbs 3 (f32 data: my, x and g f32)
+// or 1 (bf16 data: my, x and g bf16); my (M x N, row stride ld_my, 16-byte
+// aligned rows: a multiple of 4 f32 or 8 bf16); mask the packed bits (M x
+// words int32, words % 4 == 0); x (M x F); al a's limbs (N x limbs kt
+// bf16: row n = [limb 0 | limb 1 | limb 2] of a[:, n], or a[:, n] at one
+// limb, each kt wide, zero past F); kt the feature tile, 64 (F <= 64) or
+// 128 (F <= 128); g (M x F). Returns 0 or the first non-zero cudaError_t.
+extern "C" int lasso_grad_packed_launch(int limbs, int kt, const void* my,
+                                        int ld_my, const void* mask,
+                                        int words, const void* x,
+                                        const void* al, int M, int N, int F,
+                                        void* g, void* stream) {
   const Args a{my, mask, x, al, ld_my, words, M, N, F, g,
                static_cast<cudaStream_t>(stream)};
+  const int per = limbs == 3 ? 4 : 8;   // elements in 16 bytes
   if (M < 1 || N < 1 || F < 1 || F > kt || (kt != 64 && kt != 128) ||
-      words % 4 != 0 || words * 32 < N || ld_my < N || ld_my % 4 != 0)
+      (limbs != 1 && limbs != 3) || words % 4 != 0 || words * 32 < N ||
+      ld_my < N || ld_my % per != 0)
     return (int)cudaErrorInvalidValue;
-  return kt == 64 ? launch<64>(a) : launch<128>(a);
+  if (limbs == 3) return kt == 64 ? launch<64, 3>(a) : launch<128, 3>(a);
+  return kt == 64 ? launch<64, 1>(a) : launch<128, 1>(a);
 }

@@ -375,7 +375,8 @@ def _auto_takes_masked(dtype, binary):
     card on the masked-gradient kernels, which it does where the card
     measured them faster than the composition (PERF.md §6; chip_smoke.py
     phases 11 and 15, the masked lasso and masked dictionary learning):
-    bf16 data (``csrc/lasso_grad.cu``), and f32 data with a 0/1 mask
+    bf16 data (a 0/1 mask packed, ``csrc/lasso_grad_packed.cu``; a weighted
+    one on ``csrc/lasso_grad.cu``), and f32 data with a 0/1 mask
     (``binary``: it packs; ``csrc/lasso_grad_packed.cu``). A weighted f32
     mask would take ``csrc/lasso_grad.cu``'s f32 path, which loses, so it
     runs the composition."""
@@ -385,8 +386,8 @@ def _auto_takes_masked(dtype, binary):
 def _kernel_mask(mask, y, auto, reduce=None):
     """The mask the masked-gradient kernel route reads: the bits of a 0/1
     mask (``cuda_mu.pack_mask``: one host read, once per solve) where the
-    route takes bits (``cuda_lasso.grad_takes_packed``: f32 data on the
-    card, any data on the CPU), else the dense mask. Under 'auto'
+    route takes bits (``cuda_lasso.grad_takes_packed``: f32 or bf16 data
+    on the card, any data on the CPU), else the dense mask. Under 'auto'
     (``auto``) None where ``_auto_takes_masked`` sends the solve to the
     composition instead. ``reduce``: a sharded solve's sum over its ranks,
     which packs only where every rank's block is 0/1."""

@@ -29,10 +29,11 @@ registers of one 512-thread block (K <= 256 atoms, N <= 64 channels:
 (d in registers, one barrier per atom, rows of A and B by bulk copies);
 every other shape ``csrc/dl_bcd.cu`` (d resident in shared memory, two
 barriers per atom). For ``masked_grad_dict`` a packed mask
-with f32 data launches ``csrc/grad_dict_packed.cu`` (bf16x6 limb products
-on ``wgmma``, the statistics chain of ``csrc/wgmma_chain.cuh``), a dense
-mask the GRAD_DICT variant of ``csrc/mu_kl_stats.cu`` (bf16 data, weighted
-f32 masks; every operand in the data's dtype), both for 1 <= K <=
+with f32 or bf16 data launches ``csrc/grad_dict_packed.cu`` (the
+statistics chain of ``csrc/wgmma_chain.cuh`` on ``wgmma``: bf16x6 limb
+products for f32, one bf16 pass a product for bf16), a dense mask, i.e. a
+weighted one, the GRAD_DICT variant of ``csrc/mu_kl_stats.cu`` (bf16 or
+f32 data, every operand in the data's dtype), both for 1 <= K <=
 ``GRAD_DICT_MAX_ATOMS``. On a CPU tensor it runs its ``*_plain`` twin (a
 packed mask unpacked to my's dtype first). It never falls back from one to
 the other. Each wrapper counts its kernel launches in ``.launches``, and
@@ -52,7 +53,7 @@ from decomp_tpu_torch.ops import cuda_mu
 from decomp_tpu_torch.ops.cuda_lasso import (GRAD_MAX_FEATURES,
                                              check_masked_grad_args,
                                              check_packed_grad_args,
-                                             grad_tile)
+                                             grad_limb_count, grad_tile)
 from decomp_tpu_torch.ops.cuda_mu import (_I, _P, _c_function, _f32, _launch,
                                           _runs_plain, _work_dtype)
 from decomp_tpu_torch.utils.dtypes import real_dtype
@@ -252,11 +253,12 @@ def masked_grad_dict(my, mask, x, d):
 
     ``mask`` is dense, in my's shape, or the bits of a 0/1 mask from
     ``cuda_mu.pack_mask`` (int32). On a CUDA tensor a packed mask launches
-    ``csrc/grad_dict_packed.cu`` (f32 data only) and counts it in
-    ``.packed_launches``; a dense mask launches the GRAD_DICT variant of
-    ``csrc/mu_kl_stats.cu`` and counts it in ``.dense_launches``;
-    ``.launches`` counts both. On a CPU tensor a packed mask is unpacked to
-    my's dtype for the twin, which then gives the dense mask's bits."""
+    ``csrc/grad_dict_packed.cu`` (f32 or bf16 data, its instance by the
+    dtype) and counts it in ``.packed_launches``; a dense mask launches the
+    GRAD_DICT variant of ``csrc/mu_kl_stats.cu`` and counts it in
+    ``.dense_launches``; ``.launches`` counts both. On a CPU tensor a
+    packed mask is unpacked to my's dtype for the twin, which then gives
+    the dense mask's bits."""
     packed = mask.dtype == torch.int32
     if packed:
         cuda_mu._check_packed(my, mask)
@@ -300,7 +302,7 @@ def _split_rows(x, kt):
         return cuda_mu.column_limbs(x.T, kt)
     m, k = x.shape
     fn = _c_function("grad_dict_packed", "grad_dict_split_launch",
-                     (_I, _P, _I, _I, _P))
+                     (_I, _P, _I, _I, _P, _P))
     with torch.cuda.device(x.device):
         xc = x.contiguous()
         out = torch.empty((m, 3 * kt), dtype=torch.bfloat16, device=x.device)
@@ -310,32 +312,41 @@ def _split_rows(x, kt):
 
 
 def _grad_dict_packed_launch(my, packed, x, d):
-    """Launch ``csrc/grad_dict_packed.cu`` on f32 ``my`` and the packed
-    mask (``masked_grad_dict``'s packed route). d's limbs go to the kernel
-    as ``cuda_mu.column_limbs(d, KT)``, made once per call; x's limbs are
-    split by the kernel's first launch."""
+    """Launch ``csrc/grad_dict_packed.cu`` on f32 or bf16 ``my`` and the
+    packed mask (``masked_grad_dict``'s packed route), the instance of
+    ``cuda_lasso.grad_limb_count(my.dtype)`` limbs. d's limbs go to the
+    kernel as ``cuda_mu.column_limbs(d, KT, limbs)``, made once per call;
+    f32 x's limbs are split by the kernel's first launch, bf16 x is
+    streamed as it is (a padded copy where K % 8 != 0, as TMA needs)."""
     check_packed_grad_args(my, packed, x, d)
     m, n = my.shape
     k = d.shape[0]
     kt = grad_tile(k)
+    limbs = grad_limb_count(my.dtype)
     rows = grad_dict_packed_rows(m, n)
     packed = packed.contiguous()
     if packed.data_ptr() % 16:
         packed = packed.clone()
     fn = _c_function("grad_dict_packed", "grad_dict_packed_launch",
-                     (_I, _P, _I, _P, _I, _P, _P) + (_I,) * 4 + (_P,) * 3)
+                     (_I, _I, _P, _I, _P, _I, _P, _I, _P) + (_I,) * 4
+                     + (_P,) * 4)
     with torch.cuda.device(my.device):
         my_t, ld_my = cuda_mu._tma_rows(my.contiguous())
-        xc = x.contiguous()
-        limbs = cuda_mu.column_limbs(d, kt)
-        x_limbs = torch.empty((m, 3 * kt), dtype=torch.bfloat16,
-                              device=my.device)
+        d_limbs = cuda_mu.column_limbs(d, kt, limbs)
+        x_limbs = None   # f32: the split launch's output (M, 3 KT)
+        if limbs == 3:
+            x_t, ld_x = x.contiguous(), k
+            x_limbs = torch.empty((m, 3 * kt), dtype=torch.bfloat16,
+                                  device=my.device)
+        else:
+            x_t, ld_x = cuda_mu._tma_rows(x.contiguous())
         part = _f32(-(-m // rows) * k * n, my.device)
         out = _f32(k * n, my.device)
-        _launch("masked_grad_dict (packed)", fn, my.device, kt,
+        _launch("masked_grad_dict (packed)", fn, my.device, limbs, kt,
                 my_t.data_ptr(), ld_my, packed.data_ptr(), packed.shape[1],
-                xc.data_ptr(), limbs.data_ptr(), m, n, k, rows,
-                x_limbs.data_ptr(), part.data_ptr(), out.data_ptr())
+                x_t.data_ptr(), ld_x, d_limbs.data_ptr(), m, n, k, rows,
+                0 if x_limbs is None else x_limbs.data_ptr(),
+                part.data_ptr(), out.data_ptr())
     return out.view(k, n)
 
 

@@ -49,13 +49,14 @@ with 1 <= F <= ``SOLVE_MAX_FEATURES``, or complex64 with 1 <= Fc <=
 ``SOLVE_MAX_COMPLEX_FEATURES``, on ``csrc/lasso_fista_tma.cu`` for
 ``hi_lo=True`` and ``csrc/lasso_fista.cu`` for ``hi_lo=False``;
 ``masked_grad_rows``, 1 <= F <= ``GRAD_MAX_FEATURES``: a packed mask with
-f32 data on ``csrc/lasso_grad_packed.cu``, whose f32 products run as bf16x6
-limb products on wgmma (a's limbs from ``grad_limbs``); a dense mask, bf16
-or f32 data with every operand in the data's dtype, on
-``csrc/lasso_grad.cu``) and raises on anything else. On a CPU tensor it
-runs its ``*_plain`` twin (a packed mask unpacked to my's dtype first). It
-never falls back from one to the other. Each wrapper counts its kernel
-launches in ``.launches``; ``solve_rows`` counts its complex-mode launches
+f32 or bf16 data on ``csrc/lasso_grad_packed.cu``, on wgmma, whose f32
+products run as bf16x6 limb products and whose bf16 products as one bf16
+pass (a's limbs from ``grad_limbs``: three, or one for bf16); a dense mask,
+i.e. a weighted one, bf16 or f32 data with every operand in the data's
+dtype, on ``csrc/lasso_grad.cu``) and raises on anything else. On a CPU
+tensor it runs its ``*_plain`` twin (a packed mask unpacked to my's dtype
+first). It never falls back from one to the other. Each wrapper counts
+its kernel launches in ``.launches``; ``solve_rows`` counts its complex-mode launches
 in ``.complex_launches`` and its launches of the 'high' kernel in
 ``.tma_launches`` as well; ``masked_grad_rows`` counts each route, in
 ``.packed_launches`` and ``.dense_launches``. The 'high' kernel gives,
@@ -580,11 +581,12 @@ def masked_grad_rows(my, mask, x, a, *, a_limbs=None):
 
     ``mask`` is dense, in my's shape, or the bits of a 0/1 mask from
     ``cuda_mu.pack_mask`` (int32). On a CUDA tensor a packed mask launches
-    ``csrc/lasso_grad_packed.cu`` (f32 data only) and counts it in
-    ``.packed_launches``; a dense mask launches ``csrc/lasso_grad.cu`` and
-    counts it in ``.dense_launches``; ``.launches`` counts both. The packed
-    route reads a as ``a_limbs``, ``grad_limbs(a)`` made once by a caller
-    that keeps a for many calls, or here when None. On a CPU tensor a
+    ``csrc/lasso_grad_packed.cu`` (f32 or bf16 data, its instance by the
+    dtype) and counts it in ``.packed_launches``; a dense mask launches
+    ``csrc/lasso_grad.cu`` and counts it in ``.dense_launches``;
+    ``.launches`` counts both. The packed route reads a as ``a_limbs``,
+    ``grad_limbs(a)`` made once by a caller that keeps a for many calls,
+    or here when None. On a CPU tensor a
     packed mask is unpacked to my's dtype for the twin, which then gives
     the dense mask's bits, and ``a_limbs`` is not read."""
     packed = mask.dtype == torch.int32
@@ -610,10 +612,18 @@ masked_grad_rows.dense_launches = 0
 
 
 def grad_takes_packed(my):
-    """Whether ``masked_grad_rows`` runs ``my`` with a packed mask: f32
-    data on the card (``csrc/lasso_grad_packed.cu``), any data on the CPU
-    (the twin)."""
-    return my.dtype == torch.float32 or my.device.type == "cpu"
+    """Whether ``masked_grad_rows`` and ``cuda_dl.masked_grad_dict`` run
+    ``my`` with a packed mask: f32 or bf16 data on the card
+    (``csrc/lasso_grad_packed.cu``, ``csrc/grad_dict_packed.cu``), any data
+    on the CPU (the twin)."""
+    return (my.dtype in (torch.float32, torch.bfloat16)
+            or my.device.type == "cpu")
+
+
+def grad_limb_count(dtype) -> int:
+    """The bf16 limbs of an operand in the packed gradient kernels: 3 for
+    f32 data (bf16x6 products), 1 for bf16 data (the data itself)."""
+    return 1 if dtype == torch.bfloat16 else 3
 
 
 def grad_tile(f: int) -> int:
@@ -627,27 +637,36 @@ def grad_tile(f: int) -> int:
 
 
 def grad_limbs(a):
-    """a (F, N) as the packed kernel reads it: (N, 3 KT) bf16 with KT =
-    ``grad_tile(F)``, row n = [limb 0 of a[:, n] | limb 1 | limb 2] in
-    ``cuda_mu.split_bf16x3``'s round-to-nearest limbs, each zero past F.
-    A solve makes it once for its fixed a (``cuda_mu.column_limbs``)."""
-    return cuda_mu.column_limbs(a, grad_tile(a.shape[0]))
+    """a (F, N) as the packed kernel reads it: (N, L KT) bf16 with KT =
+    ``grad_tile(F)`` and L = ``grad_limb_count(a.dtype)``, row n = [limb 0
+    of a[:, n] | limb 1 | limb 2] in ``cuda_mu.split_bf16x3``'s
+    round-to-nearest limbs, or for bf16 a (one limb) a[:, n] itself, each
+    zero past F. A solve makes it once for its fixed a
+    (``cuda_mu.column_limbs``)."""
+    return cuda_mu.column_limbs(a, grad_tile(a.shape[0]),
+                                grad_limb_count(a.dtype))
 
 
 def check_packed_grad_args(my, packed, x, a, a_limbs=None):
-    """Refuse what ``csrc/lasso_grad_packed.cu`` does not take, before any
-    launch: a packed mask of another shape or device, data other than f32,
-    F outside 1 .. ``GRAD_MAX_FEATURES``, ``a_limbs`` other than
-    ``grad_limbs(a)``'s shape."""
+    """Refuse what ``csrc/lasso_grad_packed.cu`` (and, for the dictionary
+    gradient, ``csrc/grad_dict_packed.cu``) does not take, before any
+    launch: a packed mask of another shape or device, data other than all
+    f32 or all bf16 (mixed dtypes, f64), F outside 1 ..
+    ``GRAD_MAX_FEATURES``, ``a_limbs`` other than ``grad_limbs(a)``'s
+    shape."""
     cuda_mu._check_packed(my, packed)
+    if my.dtype not in (torch.float32, torch.bfloat16):
+        raise DtypeError(f"the packed-mask gradient kernels take f32 or "
+                         f"bf16 data, got my {my.dtype}")
     for name, t in (("my", my), ("x", x), ("a", a)):
         if t.device != my.device:
             raise DecompError(f"{name} is on {t.device}, my on {my.device}")
         if t.dim() != 2:
             raise ShapeError(f"{name} must be 2-D, got {tuple(t.shape)}")
-        if t.dtype != torch.float32:
-            raise DtypeError(f"the packed-mask gradient kernel takes f32 "
-                             f"data, got {name} {t.dtype}")
+        if t.dtype != my.dtype:
+            raise DtypeError(f"the packed-mask gradient kernels take all-f32 "
+                             f"or all-bf16 data: my is {my.dtype}, {name} "
+                             f"{t.dtype}")
     m, n = my.shape
     f = a.shape[0]
     if x.shape != (m, f) or a.shape != (f, n):
@@ -655,7 +674,7 @@ def check_packed_grad_args(my, packed, x, a, a_limbs=None):
                          f"fit my {tuple(my.shape)}")
     if max(m, n) >= 2 ** 31:
         raise ShapeError(f"my's sides must be < 2^31, got {tuple(my.shape)}")
-    want = (n, 3 * grad_tile(f))
+    want = (n, grad_limb_count(my.dtype) * grad_tile(f))
     if a_limbs is not None and (
             a_limbs.dtype != torch.bfloat16 or a_limbs.device != my.device
             or tuple(a_limbs.shape) != want or not a_limbs.is_contiguous()):
@@ -665,8 +684,9 @@ def check_packed_grad_args(my, packed, x, a, a_limbs=None):
 
 
 def _grad_packed_launch(my, packed, x, a, a_limbs):
-    """Launch ``csrc/lasso_grad_packed.cu`` on f32 ``my`` and the packed
-    mask (``masked_grad_rows``' packed route)."""
+    """Launch ``csrc/lasso_grad_packed.cu`` on f32 or bf16 ``my`` and the
+    packed mask (``masked_grad_rows``' packed route): the instance of
+    ``grad_limb_count(my.dtype)`` limbs; g in the data's dtype."""
     check_packed_grad_args(my, packed, x, a, a_limbs)
     m, n = my.shape
     f = a.shape[0]
@@ -677,14 +697,16 @@ def _grad_packed_launch(my, packed, x, a, a_limbs):
     if packed.data_ptr() % 16:
         packed = packed.clone()
     fn = _c_function("lasso_grad_packed", "lasso_grad_packed_launch",
-                     (_I, _P, _I, _P, _I, _P, _P) + (_I,) * 3 + (_P,))
+                     (_I, _I, _P, _I, _P, _I, _P, _P) + (_I,) * 3
+                     + (_P,) * 2)
     with torch.cuda.device(my.device):
         my_t, ld_my = cuda_mu._tma_rows(my.contiguous())
         xc = x.contiguous()
-        g = torch.empty((m, f), dtype=torch.float32, device=my.device)
-        _launch("masked_grad_rows (packed)", fn, my.device, kt,
-                my_t.data_ptr(), ld_my, packed.data_ptr(), packed.shape[1],
-                xc.data_ptr(), a_limbs.data_ptr(), m, n, f, g.data_ptr())
+        g = torch.empty((m, f), dtype=my.dtype, device=my.device)
+        _launch("masked_grad_rows (packed)", fn, my.device,
+                grad_limb_count(my.dtype), kt, my_t.data_ptr(), ld_my,
+                packed.data_ptr(), packed.shape[1], xc.data_ptr(),
+                a_limbs.data_ptr(), m, n, f, g.data_ptr())
     return g
 
 

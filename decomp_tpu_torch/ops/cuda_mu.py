@@ -520,7 +520,7 @@ def _dense_packed_limbs(d, kt):
     if not 1 <= k <= kt or kt not in (64, 128):
         raise ShapeError(f"rank {k} does not fit the rank tile {kt}")
     fn = _c_function("mu_dense_packed", "mu_dense_packed_split",
-                     (_I, _P, _I, _I, _P))
+                     (_I, _P, _I, _I, _P, _P))
     with torch.cuda.device(d.device):
         limbs = torch.empty((n, 3 * kt), dtype=torch.bfloat16,
                             device=d.device)
@@ -1003,17 +1003,21 @@ def split_bf16x3(t):
     return torch.stack((t0, t1, t2))
 
 
-def column_limbs(t, kt):
-    """``t`` (K, N), K <= ``kt``, as the bf16x6 ``wgmma`` kernels read it:
-    (N, 3 kt) bf16, row n = [limb 0 of t[:, n] | limb 1 | limb 2] in
+def column_limbs(t, kt, limbs=3):
+    """``t`` (K, N), K <= ``kt``, as the ``wgmma`` kernels read it: (N,
+    limbs kt) bf16, row n = [limb 0 of t[:, n] | limb 1 | limb 2] in
     ``split_bf16x3``'s round-to-nearest limbs, each zero past K. d's
     limbs for ``csrc/kl_dense_packed.cu`` and ``csrc/grad_dict_packed.cu``
     (made once per call) and a's for ``csrc/lasso_grad_packed.cu``
-    (``cuda_lasso.grad_limbs``)."""
+    (``cuda_lasso.grad_limbs``). ``limbs=1``, the bf16 instances of the
+    last two: limb 0 alone, which for bf16 ``t`` is ``t`` itself."""
     k, n = t.shape
-    out = torch.zeros((n, 3, kt), dtype=torch.bfloat16, device=t.device)
-    out[:, :, :k] = split_bf16x3(t).permute(2, 0, 1)
-    return out.view(n, 3 * kt)
+    out = torch.zeros((n, limbs, kt), dtype=torch.bfloat16, device=t.device)
+    if limbs == 1:   # limb 0, without the residuals' launches
+        out[:, 0, :k] = t.to(torch.float32).to(torch.bfloat16).T
+    else:
+        out[:, :, :k] = split_bf16x3(t)[:limbs].permute(2, 0, 1)
+    return out.view(n, limbs * kt)
 
 
 def kl_packed_block_rows(m: int, n: int) -> int:

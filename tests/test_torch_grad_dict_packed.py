@@ -161,13 +161,13 @@ def test_route_by_the_masks_form(on_card, packed):
 
 def test_packed_route_refuses_before_any_launch():
     """What csrc/grad_dict_packed.cu does not take raises before a build or
-    a launch: data other than f32, K above 128, a packed mask of another
-    shape."""
+    a launch: mixed f32 and bf16 data, K above 128, a packed mask of
+    another shape."""
     my, mask, x, d = _inputs(4, 40, 70, 8)
     bits = cuda_mu.pack_mask(mask)
     bf = torch.bfloat16
     with pytest.raises(texc.DtypeError):
-        cuda_dl._grad_dict_packed_launch(my.to(bf), bits, x.to(bf), d.to(bf))
+        cuda_dl._grad_dict_packed_launch(my.to(bf), bits, x, d.to(bf))
     wide_x, wide_d = torch.zeros((40, 129)), torch.zeros((129, 70))
     with pytest.raises(texc.ShapeError):
         cuda_dl._grad_dict_packed_launch(my, bits, wide_x, wide_d)
@@ -322,15 +322,15 @@ def test_heldout_solve_hands_the_training_bits_to_the_dictionary_gradient(
 
 
 @pytest.mark.parametrize("dtype,routes", [(torch.float32, (4, 0)),
-                                          (torch.bfloat16, (0, 4))])
+                                          (torch.bfloat16, (4, 0))])
 def test_solve_routes_as_on_the_card(monkeypatch, on_card, dtype, routes):
-    """With the card's routes faked (f32 takes bits, bf16 the dense mask,
-    as cuda_lasso.grad_takes_packed says on the card), masked dictionary
-    learning launches masked_grad_dict once per outer iteration: f32 all on
-    the packed route, bf16 all on the dense one (chip_smoke.py phase 15's
-    check)."""
+    """With the card's routes faked (f32 and bf16 take bits, as
+    cuda_lasso.grad_takes_packed says on the card), masked dictionary
+    learning launches masked_grad_dict once per outer iteration, all on the
+    packed route (chip_smoke.py phase 15's check)."""
     monkeypatch.setattr(cuda_lasso, "grad_takes_packed",
-                        lambda my: my.dtype == torch.float32)
+                        lambda my: my.dtype in (torch.float32,
+                                                torch.bfloat16))
     y, mask, x0, d0 = _dl_problem(92)
     res = tdl.solve(_t(y).to(dtype), _t(d0).to(dtype), ALPHA,
                     x=_t(x0).to(dtype), mask=_t(mask).to(dtype),
@@ -339,5 +339,4 @@ def test_solve_routes_as_on_the_card(monkeypatch, on_card, dtype, routes):
     w = cuda_dl.masked_grad_dict
     assert res.niter == 4
     assert (w.packed_launches, w.dense_launches, w.launches) == routes + (4,)
-    want = torch.int32 if dtype == torch.float32 else dtype
-    assert [m for _, m in on_card] == [want] * 4
+    assert [m for _, m in on_card] == [torch.int32] * 4

@@ -302,12 +302,13 @@ def test_auto_gate_for_masked_data(dtype, binary, want):
     (torch.float64, "cpu", True),
     (torch.bfloat16, "cpu", True),
     (torch.float32, "meta", True),
-    (torch.bfloat16, "meta", False),
+    (torch.bfloat16, "meta", True),
+    (torch.float64, "meta", False),
 ])
 def test_grad_takes_packed(dtype, device, want):
-    """f32 data on a device with kernels (a meta tensor stands in for the
-    card: only the dtype and device type are read), any data on the
-    CPU."""
+    """f32 and bf16 data on a device with kernels (a meta tensor stands in
+    for the card: only the dtype and device type are read), any data on
+    the CPU; f64 on the card keeps the dense mask."""
     my = torch.empty((3, 4), dtype=dtype, device=device)
     assert cuda_lasso.grad_takes_packed(my) is want
 
