@@ -11,8 +11,9 @@ for sm_90a (one nvcc per source, all at once), and then:
 1. prints the card's name and power limit (nvidia-smi), the build time
    and ptxas' register-spill report, and fails where an instance of the
    wgmma chain (``csrc/kl_dense_packed.cu``, ``csrc/grad_dict_packed.cu``,
-   ``csrc/mu_dense_packed.cu``, ``csrc/mu_masked_f32.cu``) or of
-   ``csrc/lasso_grad_packed.cu`` spills;
+   ``csrc/mu_dense_packed.cu``, ``csrc/mu_masked_f32.cu``), of
+   ``csrc/lasso_grad_packed.cu`` or of either ``bcd_sweep`` kernel
+   (``csrc/dl_bcd_sm90.cu``, ``csrc/dl_bcd_cluster.cu``) spills;
 2. holds the kernel ``mu_stats_dense`` against its plain PyTorch twin on
    the card and checks that two runs give the same bits: f32 data on
    ``csrc/mu_dense_packed.cu``, and bf16 data with f32 or bf16 x on the
@@ -173,9 +174,15 @@ for sm_90a (one nvcc per source, all at once), and then:
     all-zero atom, which must be kept, and (after phase 14) on config 3's
     final statistics, and bit for bit where its division leaves the fast
     path (subnormal quotients, a tie at the least subnormal, an infinite
-    norm); its shared-memory route (``csrc/dl_bcd.cu``) at the
-    largest K x N it takes (256 x 208) with an all-zero atom, and on 256
-    x 64 through its private launch; each launch checked on its route;
+    norm); its cluster route (``csrc/dl_bcd_cluster.cu``, one
+    thread-block cluster) just past the register route (256 x 65, 257 x
+    64), at phase 14b's 256 x 208, at 256 x 1,024, at the TPU gate's
+    three corners (256 x 3,712, 8 x 98,176, 1,736 x 128), at a ragged 300
+    x 777, and at 40 x 20,000 and 16 x 50,000, with an all-zero atom on
+    every instance of the kernel and every home of d (256 x 208, 256 x
+    3,712, 8 x 98,176 and the last two); the first design, ``csrc/dl_bcd.cu``
+    (on no route), on 256 x 64 through its private launch; each launch
+    checked on its route;
     ``masked_grad_dict`` on a dense mask
     (``csrc/mu_kl_stats.cu``) at 1,000 x 1,000 K = 100 and a ragged 333 x
     257 K = 7, in f32 and bf16, and on a packed mask with f32 data
@@ -192,13 +199,17 @@ for sm_90a (one nvcc per source, all at once), and then:
     ``dictionary_learning.solve`` on bench.py's 20,000 x 64 patches with
     256 atoms (alpha 0.05, tol 1e-5, 60 outer iterations, lasso_iter 15,
     precision 'high'), and checks one ``bcd_sweep`` launch per outer
-    iteration, all on the register route and none on the shared-memory
-    one, none of the masked kernels, unit atoms, a falling objective and
+    iteration, all on the register route and none on the cluster one,
+    none of the masked kernels, unit atoms, a falling objective and
     the agreement with the composition run; it prints the time per solve,
     the marginal per solve over a chain of 6 beside the sweep's share of
     it, and the device's busy share from one ``torch.profiler`` run; then
     (14b) dictionary learning on 20,000 x 208 data, 256 atoms, 5 outer
-    iterations, whose every sweep takes the shared-memory route;
+    iterations, whose every sweep takes the cluster route; and (14c)
+    ``dictionary_learning.solve`` on 100,000 x 1,024 f32 (masked DL's data
+    width, config 3's 256 atoms), 5 outer x 15 inner iterations at tol 0,
+    'high': every sweep on the cluster route, d against the same run with
+    ``_bcd_kernel=False`` (the host loop), unit atoms, both runs timed;
 15. drives masked dictionary learning at 100,000 x 1,024, 128 atoms, 30%
     missing (planted: unit atoms, truth 10% sparse, 0.01 noise), 20 outer
     iterations at tol 0 with lasso_iter 15 in f32, then 10 in bf16, and
@@ -208,9 +219,12 @@ for sm_90a (one nvcc per source, all at once), and then:
     outer iterations in bf16 on a weighted mask, both on the dense routes;
 15b. times the dictionary-learning kernels against their twins per call,
     with their bounds: ``bcd_sweep`` on config 3's statistics, the
-    register route in turns with the shared-memory one on the same inputs
-    (old, new, new, old), each per sweep, per atom and as a share of
-    config 3's marginal per solve, ``masked_grad_dict`` at 100,000 x 1,024, K = 128 on phase
+    register route in turns with the first design (``csrc/dl_bcd.cu``) on
+    the same inputs (old, new, new, old), each per sweep, per atom and as a
+    share of config 3's marginal per solve; the cluster route in turns
+    with the first design at 256 x 208, and against the twin at 256 x
+    1,024 and the gate's three corners, each per sweep and per atom
+    beside its bound; ``masked_grad_dict`` at 100,000 x 1,024, K = 128 on phase
     15's factors: f32 on the packed route in turns with the dense-mask
     kernel's f32 path on the same inputs, with each pass from
     ``torch.profiler``, and bf16 on the packed route in turns with the
@@ -307,7 +321,7 @@ of the kernels (the eight, and ``solve_rows``' complex mode, the packed
 routes of ``masked_grad_rows`` and ``masked_grad_dict`` in f32 and in
 bf16, f32 dense MU's
 ``csrc/mu_dense_packed.cu``, f32 masked MU's ``csrc/mu_masked_f32.cu``
-and the shared-memory route of ``bcd_sweep`` as entries of their own),
+and the cluster route of ``bcd_sweep`` as entries of their own),
 each with
 its bound: the larger of its bytes (each input
 read once, each output written once) over 3.35 TB/s and its operations
@@ -406,10 +420,13 @@ MASKED_X_LIMIT = {torch.float32: 5e-7, torch.bfloat16: 2e-2}
 # 7.3e-7 over K x N = 256 x 64, 37 x 50, 256 x 208, 16 x 3,000 and 1,024 x
 # 52; csrc/dl_bcd_sm90.cu at most 7.9e-7 over 256 x 64, 37 x 50, 256 x
 # 61, 250 x 64, 32 x 64 and 200 x 16 (2.2e-6 to 3.6e-6 at 5 x 3, where
-# one rounding is a large share of 15 entries).
+# one rounding is a large share of 15 entries); csrc/dl_bcd_cluster.cu
+# at most 7.5e-7 over 256 x 65, 257 x 64, 256 x 208, 256 x 1,024, 300 x
+# 777 and the TPU gate's corners.
 BCD_LIMIT = 5e-6
 # Config 3: d of the kernel run against the composition run after 60
-# outer iterations (measured 2.5e-6, x 1.0e-5), and the atoms' norms.
+# outer iterations (measured 2.5e-6, x 1.0e-5), and the atoms' norms;
+# phase 14c's d against its host-loop run after 5 (measured 6.7e-7).
 C3_D_LIMIT = 2.5e-5
 UNIT_LIMIT = 1e-5
 # Masked dictionary learning, kernel path against composition path (d and
@@ -435,8 +452,8 @@ EPS = 1e-6
 SOURCES = ("mu_stats_dense", "mu_dense_tma", "mu_kl_stats", "mu_masked_packed",
            "kl_masked_packed", "kl_dense_packed", "lasso_fista",
            "lasso_fista_tma", "lasso_grad", "lasso_grad_packed", "dl_bcd",
-           "dl_bcd_sm90", "grad_dict_packed", "mu_dense_packed",
-           "mu_masked_f32")
+           "dl_bcd_sm90", "dl_bcd_cluster", "grad_dict_packed",
+           "mu_dense_packed", "mu_masked_f32")
 # name -> (source, masked, the TPU kernel it replaces)
 NEW_KERNELS = {
     "mu_stats_masked": ("mu_masked_packed", True, "pallas_mu.py:522"),
@@ -1910,19 +1927,23 @@ def bcd_inputs(gen, dev, k, n, dead=None):
                                                           keepdim=True)
 
 
+BCD_SOURCES = {"registers": "dl_bcd_sm90.cu", "cluster": "dl_bcd_cluster.cu",
+               "shared": "dl_bcd.cu"}
+
+
 def compare_bcd(cd, a, b, d, tag, dead=None, route=None):
     """bcd_sweep against its twin, with a bit-identical rerun; atom
     ``dead`` must be kept. ``route``: None, the public wrapper, whose two
-    launches must take ``cd.bcd_route``'s route; 'shared', the
-    shared-memory kernel through its private launch. Returns the max abs
-    error."""
+    launches must take ``cd.bcd_route``'s route; 'shared', the first
+    design (``csrc/dl_bcd.cu``, on no route) through its private launch.
+    Returns the max abs error."""
     if route == "shared":
         sweep = cd._bcd_shared_launch
     else:
         sweep, route = cd.bcd_sweep, cd.bcd_route(*d.shape)
-    counter = {"registers": "register_launches",
-               "shared": "shared_launches"}[route]
-    before = getattr(cd.bcd_sweep, counter)
+        counter = {"registers": "register_launches",
+                   "cluster": "cluster_launches"}[route]
+        before = getattr(cd.bcd_sweep, counter)
     out = sweep(a, b, d)
     again = sweep(a, b, d)
     ref = cd.bcd_sweep_plain(a, b, d)
@@ -1930,8 +1951,7 @@ def compare_bcd(cd, a, b, d, tag, dead=None, route=None):
     err = rel_fro(out, ref)
     same = torch.equal(out, again)
     kept = dead is None or torch.equal(out[dead], d[dead])
-    src = "dl_bcd_sm90.cu" if route == "registers" else "dl_bcd.cu"
-    tag = f"bcd_sweep {tag} ({route} route, {src})"
+    tag = f"bcd_sweep {tag} ({route} route, {BCD_SOURCES[route]})"
     print(f"kernel vs twin {tag}: rel_fro {err:.3e} (limit {BCD_LIMIT:g}); "
           f"bit-identical rerun: {same}; dead atom kept: {kept}", flush=True)
     if sweep is cd.bcd_sweep:
@@ -1987,7 +2007,7 @@ def config3_phase(dl, dev, card, reset_counts, read_counts, bcd_routes):
     launches = read_counts("bcd_sweep", res.niter)
     routes = bcd_routes()
     check(routes == (launches, 0), f"config 3: bcd_sweep routes {routes} "
-          f"(register, shared), expected ({launches}, 0)")
+          f"(register, cluster), expected ({launches}, 0)")
     comp_ms, comp = event_ms(lambda: solve(use_kernel=False))
     rec = solve(record_objective=True)
     obj = rec.objective[:rec.niter]
@@ -2009,7 +2029,7 @@ def config3_phase(dl, dev, card, reset_counts, read_counts, bcd_routes):
           f"{d0.shape[0]} atoms, tol 1e-5, 60 outer x 15 inner, 'high' "
           f"({card}): {ms:.3f} ms per solve, marginal per solve (chain of 6) "
           f"{marg:.3f} ms; niter {res.niter}, converged {res.converged}; "
-          f"bcd_sweep launches {launches} (register, shared route "
+          f"bcd_sweep launches {launches} (register, cluster route "
           f"{routes}); use_kernel=False {comp_ms:.3f} ms",
           flush=True)
     print(f"  objective {float(obj[0]):.6e} -> {float(obj[-1]):.6e}; max "
@@ -2032,13 +2052,13 @@ def config3_phase(dl, dev, card, reset_counts, read_counts, bcd_routes):
     return launches, (x.T @ x, x.T @ y, res.d), marg
 
 
-def shared_route_phase(dl, dev, card, reset_counts, read_counts, bcd_routes,
-                       m=20_000, n=208, k=256, iters=5):
+def cluster_route_phase(dl, dev, card, reset_counts, read_counts,
+                        bcd_routes, m=20_000, n=208, k=256, iters=5):
     """Phase 14b: dictionary learning whose sweep takes bcd_sweep's
-    shared-memory route (csrc/dl_bcd.cu): M x N data with N above the
-    register route's 64 channels, K atoms (256 x 208 is the largest K x N
-    the route takes), ``iters`` outer iterations at tol 0 ('high').
-    Returns the run's shared-route launches."""
+    cluster route (csrc/dl_bcd_cluster.cu): M x N data with N above the
+    register route's 64 channels, K atoms (256 x 208 was the largest K x N
+    of the first design, csrc/dl_bcd.cu), ``iters`` outer iterations at
+    tol 0 ('high'). Returns the run's cluster-route launches."""
     g = torch.Generator(device=dev).manual_seed(141)
     y = torch.randn((m, n), generator=g, device=dev)
     d0 = torch.randn((k, n), generator=g, device=dev)
@@ -2056,12 +2076,53 @@ def shared_route_phase(dl, dev, card, reset_counts, read_counts, bcd_routes,
     unit = float((torch.linalg.vector_norm(res.d, dim=1) - 1).abs().max())
     print(f"dictionary_learning.solve {m}x{n}, {k} atoms, {iters} outer x 15 "
           f"inner, 'high' ({card}): {ms:.3f} ms; bcd_sweep launches "
-          f"{launches} (register, shared route {routes}); max | ||d_k|| - 1 "
+          f"{launches} (register, cluster route {routes}); max | ||d_k|| - 1 "
           f"| {unit:.2e}", flush=True)
     check(routes == (0, iters), f"phase 14b: bcd_sweep routes {routes}, "
           f"expected (0, {iters})")
     check(bool(torch.isfinite(res.d).all()) and unit <= UNIT_LIMIT,
           "phase 14b: non-finite or non-unit atoms")
+    return launches
+
+
+def wide_dictionary_phase(dl, dev, card, reset_counts, read_counts,
+                          bcd_routes, m=100_000, n=1024, k=256, iters=5):
+    """Phase 14c: ``dictionary_learning.solve`` on M x N f32 data (masked
+    DL's width) with config 3's K atoms, ``iters`` outer x 15 inner
+    iterations at tol 0, 'high': a dictionary (K x N = 262,144) that the
+    first design did not take, so 'auto' sent it to the host loop. Every
+    sweep must take the cluster route; d is held against the same run with
+    ``_bcd_kernel=False`` (the twin, a host loop of launches per atom);
+    unit atoms. Both runs are timed. Returns the run's cluster launches."""
+    g = torch.Generator(device=dev).manual_seed(142)
+    y = torch.randn((m, n), generator=g, device=dev)
+    d0 = torch.randn((k, n), generator=g, device=dev)
+
+    def solve(**kw):
+        return dl.solve(y, d0, 0.05, tol=0.0, maxiter=iters, lasso_iter=15,
+                        precision="high", **kw)
+
+    solve()   # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    ms, res = event_ms(solve)
+    launches = read_counts("bcd_sweep", iters)
+    routes = bcd_routes()
+    loop_ms, loop = event_ms(lambda: solve(_bcd_kernel=False))
+    unit = float((torch.linalg.vector_norm(res.d, dim=1) - 1).abs().max())
+    err_d = rel_fro(res.d, loop.d)
+    print(f"dictionary_learning.solve {m}x{n} f32, {k} atoms, {iters} outer "
+          f"x 15 inner, 'high' ({card}): {ms:.3f} ms ({ms / iters:.3f} ms an "
+          f"outer iteration); _bcd_kernel=False (the host loop) "
+          f"{loop_ms:.3f} ms ({loop_ms / iters:.3f}); bcd_sweep launches "
+          f"{launches} (register, cluster route {routes}); rel_fro d vs the "
+          f"host loop's {err_d:.3e} (limit {C3_D_LIMIT:g}); max | ||d_k|| - "
+          f"1 | {unit:.2e}", flush=True)
+    check(routes == (0, iters), f"phase 14c: bcd_sweep routes {routes}, "
+          f"expected (0, {iters})")
+    check(bool(torch.isfinite(res.d).all()) and unit <= UNIT_LIMIT,
+          "phase 14c: non-finite or non-unit atoms")
+    check(err_d <= C3_D_LIMIT, "phase 14c: d disagrees with the host loop")
     return launches
 
 
@@ -2217,17 +2278,17 @@ def dl_times(cd, card, c3, c3_marg, c3_niter, masked):
     p_ms = cuda_ms(lambda: cd.bcd_sweep_plain(a, b, d), 2)
     bnd = bound(4 * (k * k + 3 * k * n), 2.0 * k * k * n, torch.float32)
     out["bcd_sweep"] = (e, k_ms, p_ms) + bnd
-    out["bcd_sweep_shared"] = (e_old, old_ms, p_ms) + bnd
     print(f"bcd_sweep config 3 (K={k}, N={n}), in turns on the same inputs: "
           f"register route (dl_bcd_sm90.cu) {k_ms:.4f} ms per sweep "
           f"({t[1]:.4f}, {t[2]:.4f}; {k_ms * 1e3 / k:.3f} us per atom), "
-          f"shared-memory route (dl_bcd.cu) {old_ms:.4f} ms ({t[0]:.4f}, "
+          f"first design (dl_bcd.cu) {old_ms:.4f} ms ({t[0]:.4f}, "
           f"{t[3]:.4f}; {old_ms * 1e3 / k:.3f} us per atom), new / old "
           f"{k_ms / old_ms:.3f}; plain twin {p_ms:.3f} ms, bound "
           f"{bnd[0] * 1e3:.4f} us ({bnd[1]}) ({card}); {c3_niter} sweeps = "
           f"{c3_niter * k_ms / c3_marg * 100:.1f}% of config 3's marginal "
-          f"per solve ({c3_niter * old_ms / c3_marg * 100:.1f}% on the "
-          "shared-memory route)", flush=True)
+          f"per solve ({c3_niter * old_ms / c3_marg * 100:.1f}% with the "
+          "first design)", flush=True)
+    out["bcd_sweep_cluster"] = cluster_times(cd, card, e_old)
     my, mask, x, dd = masked
     m, n = my.shape
     k = dd.shape[0]
@@ -2289,6 +2350,53 @@ def dl_times(cd, card, c3, c3_marg, c3_niter, masked):
     out["masked_grad_dict"] = (e, old_ms, p_ms) + bnd
     del args, my, mask, x, dd, bits
     return out
+
+
+def cluster_times(cd, card, e_first):
+    """bcd_sweep's cluster route (csrc/dl_bcd_cluster.cu): at phase 14b's
+    256 x 208 in turns with the first design, csrc/dl_bcd.cu, on the same
+    inputs (old, new, new, old), then at 256 x 1,024 and the TPU gate's
+    corners against the twin; each per sweep and per atom beside its bytes
+    bound (4 (K^2 + 3 K N) over 3.35 TB/s). ``e_first``: the first
+    design's error, printed beside. Returns the kernels-line entry of
+    256 x 208: (max_abs_err, ms, plain_ms, bound_ms, bound_by)."""
+    gen = torch.Generator(device="cuda").manual_seed(1515)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    entry = None
+    for k, n in ((256, 208), (256, 1024), (256, 3712), (8, 98176),
+                 (1736, 128)):
+        a, b, d = bcd_inputs(gen, dev, k, n)
+        plan = cd.bcd_cluster_plan(k, n)
+        e = compare_bcd(cd, a, b, d, f"K={k} N={n} (timed)")
+        bnd = bound(4 * (k * k + 3 * k * n), 2.0 * k * k * n, torch.float32)
+        p_ms = cuda_ms(lambda: cd.bcd_sweep_plain(a, b, d), 2)
+        if (k, n) == (256, 208):
+            t = [cuda_ms(fn, 20) for fn in (
+                lambda: cd._bcd_shared_launch(a, b, d),
+                lambda: cd.bcd_sweep(a, b, d))]
+            t += [cuda_ms(fn, 20) for fn in (
+                lambda: cd.bcd_sweep(a, b, d),
+                lambda: cd._bcd_shared_launch(a, b, d))]
+            k_ms, old_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+            turns = (f"{t[1]:.4f}, {t[2]:.4f}; first design (dl_bcd.cu) "
+                     f"{old_ms:.4f} ms ({t[0]:.4f}, {t[3]:.4f}; "
+                     f"{old_ms * 1e3 / k:.3f} us per atom; rel_fro "
+                     f"{e_first:.3e} at config 3's shape) in turns, new / old "
+                     f"{k_ms / old_ms:.3f}")
+            entry = (e, k_ms, p_ms) + bnd
+        else:
+            t = [cuda_ms(lambda: cd.bcd_sweep(a, b, d), 10) for _ in range(2)]
+            k_ms = sum(t) / 2
+            turns = f"{t[0]:.4f}, {t[1]:.4f}"
+        print(f"bcd_sweep K={k} N={n}, cluster route (dl_bcd_cluster.cu, "
+              f"{plan.clusters} blocks of {plan.threads} threads, "
+              f"{plan.sets - plan.on_sets} of {plan.sets} sets a block off "
+              f"chip): {k_ms:.4f} ms per sweep ({turns}), "
+              f"{k_ms * 1e3 / k:.3f} us per atom; plain twin {p_ms:.3f} ms "
+              f"({p_ms / k_ms:.1f}x); bound {bnd[0] * 1e3:.4f} us ({bnd[1]}), "
+              f"kernel / bound {k_ms / bnd[0]:.1f} ({card})", flush=True)
+        del a, b, d
+    return entry
 
 
 def profiled(fn):
@@ -4431,7 +4539,7 @@ def main():
             w.packed_launches = 0
             w.dense_launches = 0
         cuda_dl.bcd_sweep.register_launches = 0
-        cuda_dl.bcd_sweep.shared_launches = 0
+        cuda_dl.bcd_sweep.cluster_launches = 0
 
     def grad_routes():
         """masked_grad_rows' launches since the reset: (packed, dense)."""
@@ -4444,9 +4552,9 @@ def main():
         return w.packed_launches, w.dense_launches
 
     def bcd_routes():
-        """bcd_sweep's launches since the reset: (register, shared)."""
+        """bcd_sweep's launches since the reset: (register, cluster)."""
         w = cuda_dl.bcd_sweep
-        return w.register_launches, w.shared_launches
+        return w.register_launches, w.cluster_launches
 
     def read_counts(expected, launches=None):
         """The counts after one path: ``expected`` launched ``launches``
@@ -4486,6 +4594,9 @@ def main():
             check(not spills, f"{s}.cu: a wgmma kernel's instance spills")
         if s == "dl_bcd_sm90":
             check(not spills, f"{s}.cu: d, held in registers, spills")
+        if s == "dl_bcd_cluster":
+            check(not spills, f"{s}.cu: an instance of the cluster sweep "
+                  "spills")
     print(f"{len(SOURCES)} sources built in parallel in {build_s:.1f} s "
           f"(0 s = already built); torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
@@ -5094,10 +5205,20 @@ def main():
 
     # Phase 13: the dictionary-learning kernels against their twins.
     # bcd_sweep: the register route at config 3's shape (its instance's
-    # largest K x N), ragged shapes and a dead atom; the shared-memory
-    # route at its largest K x N with a dead atom and at config 3's shape.
+    # largest K x N), ragged shapes and a dead atom; the cluster route just
+    # past it, at phase 14b's shape, at 256 x 1,024, at the TPU gate's
+    # three corners and at a ragged shape, with a dead atom on each of the
+    # kernel's instances (R groups of 4 columns a thread) and on each home
+    # of d: 256 x 208 (R = 1, shared memory), 256 x 3,712 (R = 1, partly
+    # the global scratch), 40 x 20,000 (R = 2), 16 x 50,000 (R = 4) and
+    # 8 x 98,176 (R = 8), the last three partly in the scratch, R = 4 and
+    # 8 with u waiting in row k; the first design (on no route) at config
+    # 3's shape.
     for k_, n_, dead in ((256, 64, None), (37, 50, None), (256, 61, None),
-                         (250, 64, None), (256, 64, 3), (256, 208, 3)):
+                         (250, 64, None), (256, 64, 3), (256, 65, None),
+                         (257, 64, None), (256, 208, 3), (256, 1024, None),
+                         (256, 3712, 3), (8, 98176, 3), (1736, 128, None),
+                         (300, 777, None), (40, 20000, 3), (16, 50000, 3)):
         compare_bcd(cuda_dl, *bcd_inputs(gen, dev, k_, n_, dead),
                     f"K={k_} N={n_}", dead)
     compare_bcd(cuda_dl, *bcd_inputs(gen, dev, 256, 64), "K=256 N=64",
@@ -5138,9 +5259,12 @@ def main():
                                          reset_counts, read_counts,
                                          bcd_routes)
     t_phase = phase("14 config 3", t_phase)
-    launches14b = shared_route_phase(dictionary_learning, dev, card,
-                                     reset_counts, read_counts, bcd_routes)
-    t_phase = phase("14b shared-memory sweep route", t_phase)
+    launches14b = cluster_route_phase(dictionary_learning, dev, card,
+                                      reset_counts, read_counts, bcd_routes)
+    t_phase = phase("14b cluster sweep route", t_phase)
+    launches14c = wide_dictionary_phase(dictionary_learning, dev, card,
+                                        reset_counts, read_counts, bcd_routes)
+    t_phase = phase("14c wide dictionary", t_phase)
 
     # Phase 15: masked dictionary learning.
     launches_gd, launches_gd_bf16, launches_gd_dense, masked15 = (
@@ -5237,7 +5361,7 @@ def main():
                      "masked_grad_rows_packed": launches_grad,
                      "masked_grad_rows_packed_bf16": launches_grad_bf16,
                      "bcd_sweep": launches3,
-                     "bcd_sweep_shared": launches14b,
+                     "bcd_sweep_cluster": launches14b + launches14c,
                      "masked_grad_dict": launches_gd_dense,
                      "masked_grad_dict_packed": launches_gd,
                      "masked_grad_dict_packed_bf16": launches_gd_bf16}
@@ -5256,7 +5380,7 @@ def main():
                "masked_grad_rows_packed_bf16": ("lasso_grad_packed",
                                                 "pallas_lasso.py:159"),
                "bcd_sweep": ("dl_bcd_sm90", "pallas_bcd.py:115"),
-               "bcd_sweep_shared": ("dl_bcd", "pallas_bcd.py:115"),
+               "bcd_sweep_cluster": ("dl_bcd_cluster", "pallas_bcd.py:115"),
                "masked_grad_dict": ("mu_kl_stats", "pallas_lasso.py:225"),
                "masked_grad_dict_packed": ("grad_dict_packed",
                                            "pallas_lasso.py:225"),

@@ -9,12 +9,11 @@
 // step k wrote, so the sweep is sequential over atoms: one thread block
 // runs all of it.
 //
-// Two routes, chosen from K and N alone (ops/cuda_dl.py: bcd_route).
-// Where d fits the registers of one 512-thread block, K <= 256 atoms and
-// N <= 64 channels (BASELINE config 3 is 256 x 64), csrc/dl_bcd_sm90.cu
-// runs the sweep with d in registers and one barrier per atom. This
-// kernel, d resident in shared memory, takes every other shape up to the
-// limit below.
+// The first design, on no route: ops/cuda_dl.py's bcd_route sends K <=
+// 256 atoms and N <= 64 channels to csrc/dl_bcd_sm90.cu (d in registers)
+// and every other shape to csrc/dl_bcd_cluster.cu (one thread-block
+// cluster). Only cuda_dl._bcd_shared_launch reaches this kernel, so that
+// the replacements can be timed in turns with it.
 //
 // What bounds it on an H100. 2 K^2 N FLOP against 4 (K^2 + 3 K N) bytes:
 // at K = 256, N = 64 (BASELINE config 3) 8.4 MFLOP and 0.46 MB, 0.13 us at
@@ -42,9 +41,9 @@
 // No atomics, so reruns give the same bits. Ragged K and N are handled by
 // the loop bounds; nothing is padded. The largest shape is what shared
 // memory holds: 4 (K ld + 2 (K + N) + N + 16) bytes <= 227 KB, e.g. K =
-// 256, N = 208 (ops/cuda_dl.py: BCD_MAX_ELEMS and bcd_fits). A cluster of
-// blocks splitting N, with ||u||^2 reduced through distributed shared
-// memory, would lift that limit.
+// 256, N = 208. csrc/dl_bcd_cluster.cu lifts that limit with a cluster of
+// blocks splitting N and ||u||^2 reduced through distributed shared
+// memory.
 
 #include <cuda_runtime.h>
 #include <float.h>

@@ -130,7 +130,9 @@ def solve(
         kernel (a fixed short inner budget leaves it nothing to gain). On
         a CPU tensor each kernel's plain twin runs. ``use_kernel=False``
         also vetoes the BCD sweep kernel, which 'auto' takes for unmasked
-        real f32 data on the card whose K x N fits ``cuda_dl.bcd_fits``.
+        real f32 data on the card whose K x N is inside the TPU kernel's
+        gate (``cuda_dl.bcd_fits``: up to 256 x 3,712, 8 x 98,176 or
+        1,736 x 128 atoms x channels), here, streamed and sharded.
     kernel_block_rows : rows per stripe of the whole-solve inner kernel (16
         or 32); refused where that kernel does not run.
     _bcd_kernel : private override of the BCD sweep kernel: None (auto),

@@ -22,13 +22,20 @@ cast to ``cdt``, and ``g`` is f32 (K, N). Its mask is dense, in my's shape,
 or the bits of a 0/1 mask from ``cuda_mu.pack_mask`` (int32).
 
 On a CUDA tensor a wrapper launches its kernel and raises on anything else.
-``bcd_sweep`` (f32, one thread block, K x N bounded by ``bcd_fits``) has two
-routes, chosen by ``bcd_route`` from K and N alone: where d fits the
+``bcd_sweep`` (f32, K x N up to the TPU kernel's own gate, ``bcd_fits``) has
+two routes, chosen by ``bcd_route`` from K and N alone: where d fits the
 registers of one 512-thread block (K <= 256 atoms, N <= 64 channels:
 ``BCD_REG_MAX_ATOMS``, ``BCD_REG_MAX_CHANNELS``) ``csrc/dl_bcd_sm90.cu``
 (d in registers, one barrier per atom, rows of A and B by bulk copies);
-every other shape ``csrc/dl_bcd.cu`` (d resident in shared memory, two
-barriers per atom). For ``masked_grad_dict`` a packed mask
+every other shape ``csrc/dl_bcd_cluster.cu`` (one thread-block cluster of
+up to 8 blocks splitting the columns, d on chip where it fits and in an
+L2-resident scratch past that; per atom each warp's share of ||u||^2 goes
+into every block's shared memory by ``st.async`` on an mbarrier, and each
+block sums the 128 shares in one fixed order; ``bcd_cluster_plan`` says
+how). ``csrc/dl_bcd.cu``, the first design (one block, d in shared memory,
+up to K x N = 53,248), is on no route: only the private
+``_bcd_shared_launch`` reaches it, for timing. For ``masked_grad_dict`` a
+packed mask
 with f32 or bf16 data launches ``csrc/grad_dict_packed.cu`` (the
 statistics chain of ``csrc/wgmma_chain.cuh`` on ``wgmma``: bf16x6 limb
 products for f32, one bf16 pass a product for bf16), a dense mask, i.e. a
@@ -37,15 +44,17 @@ f32 data, every operand in the data's dtype), both for 1 <= K <=
 ``GRAD_DICT_MAX_ATOMS``. On a CPU tensor it runs its ``*_plain`` twin (a
 packed mask unpacked to my's dtype first). It never falls back from one to
 the other. Each wrapper counts its kernel launches in ``.launches``, and
-per route: ``bcd_sweep`` in ``.register_launches`` and ``.shared_launches``,
+per route: ``bcd_sweep`` in ``.register_launches`` and ``.cluster_launches``,
 ``masked_grad_dict`` in ``.packed_launches`` and ``.dense_launches``.
 
-Not ported: the TPU kernels' VMEM gates and alignment padding
-(``pallas_bcd.py:44-79``, ``pallas_lasso.py:58-132``): the CUDA kernels
-mask ragged K and N themselves (``bcd_sweep``'s register route reads A and
-B in row strides of 8 and 4 floats, and pads a copy where K or N is
-ragged).
+Not ported: the TPU kernels' alignment padding (``pallas_bcd.py:44-79``,
+``pallas_lasso.py:58-132``): the CUDA kernels mask ragged K and N
+themselves (``bcd_sweep`` reads A and B in row strides of 4 or 8 floats,
+and pads a copy where K or N is ragged). ``bcd_fits`` keeps
+``pallas_bcd.fits_vmem``'s gate as the port's own predicate.
 """
+
+import collections
 
 import torch
 
@@ -61,12 +70,23 @@ from decomp_tpu_torch.utils.exceptions import (DecompError, DtypeError,
                                                ShapeError)
 from decomp_tpu_torch.utils.normalize import l2_norm
 
-# Largest K x N that bcd_sweep's kernel takes (208 KB of d in f32), and
-# only where its shared memory fits too (bcd_fits): d in K x (N | 1)
-# floats, two row buffers of K + N, u (N) and 16 warp partials.
-BCD_MAX_ELEMS = 53_248
-_BCD_WARPS = 16
+# The shapes bcd_sweep takes: the TPU kernel's gate (pallas_bcd.py:53-65),
+# the padded working set 4 (Kp^2 + 4 Kp Np) + 32 max(Kp, Np) at most
+# 15 MiB, Kp = K rounded up to 8, Np = N to 128 (bcd_fits). Its corners:
+# N <= 3,712 at K = 256, N <= 98,176 at K <= 8, K <= 1,736 at N <= 128.
+BCD_GATE_BYTES = 15 * 2**20
 _MAX_BLOCK_SMEM = 232_448      # 227 KB, the most one block may take
+# bcd_sweep's cluster route (csrc/dl_bcd_cluster.cu): at most 8 blocks (the
+# portable cluster size) of at most 512 threads; a ring of 4 stages of A's
+# rows, 6 mbarriers (the ring's and two exchange ones) and 2 x 128 warp
+# partials of ||u||^2 beside shared d.
+BCD_CLUSTER_MAX = 8
+_BCD_CLUSTER_THREADS = 512
+# 8 groups of 4 columns a thread take at most 384 threads, so that each may
+# hold 168 registers: up to 12,288 columns a block, 98,304 a cluster.
+_BCD_R8_THREADS = 384
+_BCD_CLUSTER_STAGES = 4
+_BCD_CLUSTER_SLOTS = 128
 # bcd_sweep's register route (csrc/dl_bcd_sm90.cu): a thread holds 8 rows
 # x 4 columns of d (32 f32), a warp 4 columns of up to 32 x 8 = 256 rows,
 # and one block at most 16 warps, 512 threads, so that each may take 128
@@ -86,28 +106,99 @@ _STATS_TILE_COLS = 64
 _GRAD_CHUNK_ROWS = 8192
 
 
-def bcd_smem_bytes(k: int, n: int) -> int:
-    """Shared memory of ``bcd_sweep``'s kernel at K atoms, N channels."""
-    return 4 * (k * (n | 1) + 2 * (k + n) + n + _BCD_WARPS)
-
-
 def bcd_fits(k: int, n: int) -> bool:
-    """Whether ``bcd_sweep``'s kernel takes K x N: at most
-    ``BCD_MAX_ELEMS`` entries, and the shared memory fits one block."""
-    return k * n <= BCD_MAX_ELEMS and bcd_smem_bytes(k, n) <= _MAX_BLOCK_SMEM
+    """Whether ``bcd_sweep``'s kernels take K atoms x N channels: the TPU
+    kernel's gate (``pallas_bcd.fits_vmem`` after its padding), the port's
+    own copy, ``4 (Kp^2 + 4 Kp Np) + 32 max(Kp, Np) <= 15 MiB`` with Kp =
+    K rounded up to 8 and Np = N rounded up to 128."""
+    kp, np_ = -(-k // 8) * 8, -(-n // 128) * 128
+    return 4 * (kp * kp + 4 * kp * np_) + 32 * max(kp, np_) <= BCD_GATE_BYTES
 
 
 def bcd_route(k: int, n: int) -> str:
     """Which kernel ``bcd_sweep`` launches for K atoms and N channels:
     ``'registers'`` (``csrc/dl_bcd_sm90.cu``) where d fits the registers of
     one block, 1 <= K <= ``BCD_REG_MAX_ATOMS`` and 1 <= N <=
-    ``BCD_REG_MAX_CHANNELS``; ``'shared'`` (``csrc/dl_bcd.cu``) for every
-    other shape, which ``check_bcd_args`` then holds to ``bcd_fits``. A
-    function of the shape only: no shape moves to the other route on a
-    failure."""
+    ``BCD_REG_MAX_CHANNELS``; ``'cluster'`` (``csrc/dl_bcd_cluster.cu``)
+    for every other shape, which ``check_bcd_args`` then holds to
+    ``bcd_fits``. A function of the shape only: no shape moves to another
+    route on a failure."""
     if 1 <= k <= BCD_REG_MAX_ATOMS and 1 <= n <= BCD_REG_MAX_CHANNELS:
         return "registers"
-    return "shared"
+    return "cluster"
+
+
+def bcd_cluster_size(k: int, n: int) -> int:
+    """The blocks of ``csrc/dl_bcd_cluster.cu``'s cluster for K x N, 1 to
+    ``BCD_CLUSTER_MAX``: a function of the shape alone, so the column
+    split, the summation order and every bit of d depend on nothing
+    else. One block for every group of 4 columns, up to 8: on the H100
+    the sweep was fastest, or within a few per cent of it, on 8 blocks at
+    every shape from 256 x 65 to the TPU gate's corners
+    (``tools/bcd_cluster_turns.py``)."""
+    return min(BCD_CLUSTER_MAX, -(-n // 4))
+
+
+BcdClusterPlan = collections.namedtuple(
+    "BcdClusterPlan", "clusters threads nb r sets lanes on_sets l4 ldw lda "
+    "ldb smem_bytes")
+
+
+def _bcd_l4(slots: int, lanes: int) -> int:
+    """Row stride of shared d in float4 slots, at least ``slots``, so that
+    the 8 lanes of a 16-byte read hit 8 distinct bank groups: lane p of
+    set s reads slot p l4 + s, so l4 is odd for 8 or more lanes a set, 2
+    (mod 8) for 4, 4 (mod 8) for 2 and anything for 1."""
+    if slots == 0 or lanes == 1:
+        return slots
+    if lanes >= 8:
+        return slots | 1
+    return slots + (8 // lanes - slots) % 8
+
+
+def bcd_cluster_plan(k: int, n: int) -> BcdClusterPlan:
+    """How ``csrc/dl_bcd_cluster.cu`` splits K x N, on
+    ``bcd_cluster_size(K, N)`` blocks. Each block owns ``nb`` consecutive
+    columns (ceil(N / clusters) rounded up to 4; the last blocks may own
+    fewer, or none), cut into groups of 4 columns; ``r`` groups (1, 2, 4
+    or 8: the fewest that leave at most 512 sets, 384 for 8) make a set,
+    set s holding groups s, s + sets, ...; each set's rows are split over
+    ``lanes`` lanes (the largest power of two <= K and <= 32 with sets x
+    lanes <= 512), lane p taking rows p, p + lanes, ...; ``threads`` is
+    sets x lanes rounded up to a warp. The first ``on_sets`` sets (all
+    that fit, in whole warps) keep d in shared memory in rows of ``l4``
+    float4 slots, the others in a global scratch of ``ldw`` floats a row
+    per block. A and B go in row strides ``lda`` and ``ldb`` (K and N
+    rounded up to 4)."""
+    return _bcd_cluster_plan_at(k, n, bcd_cluster_size(k, n))
+
+
+def _bcd_cluster_plan_at(k: int, n: int, c: int) -> BcdClusterPlan:
+    """``bcd_cluster_plan`` on a cluster of ``c`` blocks (the tests and
+    ``tools/bcd_cluster_turns.py`` try other sizes than the route's)."""
+    nb = -(-(-(-n // c)) // 4) * 4
+    groups = nb // 4
+    if groups > 8 * _BCD_R8_THREADS:
+        raise ShapeError(f"bcd_sweep's cluster of {c} blocks cannot split "
+                         f"N={n}: more than 12,288 columns a block")
+    r = next(r for r in (1, 2, 4, 8)
+             if -(-groups // r) <= (_BCD_R8_THREADS if r == 8
+                                    else _BCD_CLUSTER_THREADS))
+    sets = -(-groups // r)
+    lanes = 32
+    while lanes > 1 and (sets * lanes > _BCD_CLUSTER_THREADS or lanes > k):
+        lanes //= 2
+    threads = -(-sets * lanes // 32) * 32
+    lda, ldb = -(-k // 4) * 4, -(-n // 4) * 4
+    fixed = (4 * _BCD_CLUSTER_STAGES * lda + 8 * (_BCD_CLUSTER_STAGES + 2)
+             + 4 * 2 * _BCD_CLUSTER_SLOTS)
+    per_warp = 32 // lanes
+    on = sets
+    while on and fixed + 16 * k * _bcd_l4(r * on, lanes) > _MAX_BLOCK_SMEM:
+        on = (on - 1) // per_warp * per_warp
+    l4 = _bcd_l4(r * on, lanes)
+    return BcdClusterPlan(c, threads, nb, r, sets, lanes, on, l4,
+                          4 * r * (sets - on), lda, ldb, fixed + 16 * k * l4)
 
 
 def bcd_reg_strides(k: int, n: int) -> tuple:
@@ -160,9 +251,11 @@ def check_bcd_args(stats_a, stats_b, d):
                          f"{tuple(stats_b.shape)} do not fit d {(k, n)}")
     if k < 1 or n < 1 or not bcd_fits(k, n):
         raise ShapeError(
-            f"the BCD sweep kernel takes K x N <= {BCD_MAX_ELEMS} entries "
-            f"whose shared memory fits one block, got K={k}, N={n} "
-            "(larger dictionaries: _bcd_kernel=False)")
+            "the BCD sweep kernels take K x N whose padded working set "
+            "4 (Kp^2 + 4 Kp Np) + 32 max(Kp, Np) is at most 15 MiB (Kp = K "
+            "rounded up to 8, Np = N to 128: up to 256 x 3,712, 8 x 98,176 "
+            f"or 1,736 x 128), got K={k}, N={n} (larger dictionaries: "
+            "_bcd_kernel=False)")
 
 
 def bcd_sweep(stats_a, stats_b, d):
@@ -170,7 +263,7 @@ def bcd_sweep(stats_a, stats_b, d):
     (K, K), ``stats_b`` and ``d`` (K, N). Returns the swept (K, N)
     dictionary as a new tensor. On a CUDA tensor it launches the kernel of
     ``bcd_route(K, N)`` and counts it in ``.register_launches`` or
-    ``.shared_launches``; ``.launches`` counts both."""
+    ``.cluster_launches``; ``.launches`` counts both."""
     if _runs_plain(d):
         return bcd_sweep_plain(stats_a, stats_b, d)
     check_bcd_args(stats_a, stats_b, d)
@@ -178,15 +271,15 @@ def bcd_sweep(stats_a, stats_b, d):
         out = _bcd_registers_launch(stats_a, stats_b, d)
         bcd_sweep.register_launches += 1
     else:
-        out = _bcd_shared_launch(stats_a, stats_b, d)
-        bcd_sweep.shared_launches += 1
+        out = _bcd_cluster_launch(stats_a, stats_b, d)
+        bcd_sweep.cluster_launches += 1
     bcd_sweep.launches += 1
     return out
 
 
 bcd_sweep.launches = 0
 bcd_sweep.register_launches = 0
-bcd_sweep.shared_launches = 0
+bcd_sweep.cluster_launches = 0
 
 
 def _bcd_registers_launch(stats_a, stats_b, d):
@@ -205,8 +298,37 @@ def _bcd_registers_launch(stats_a, stats_b, d):
     return out
 
 
+def _bcd_cluster_launch(stats_a, stats_b, d):
+    """Launch ``csrc/dl_bcd_cluster.cu`` (``bcd_sweep``'s cluster route) on
+    ``bcd_cluster_plan(K, N)``."""
+    return _bcd_cluster_run(stats_a, stats_b, d, bcd_cluster_plan(*d.shape))
+
+
+def _bcd_cluster_run(stats_a, stats_b, d, plan):
+    """``csrc/dl_bcd_cluster.cu`` on ``plan``: A and B in row strides of 4
+    floats, d's columns past the plan's shared memory in a scratch of
+    ``clusters x K x ldw`` floats."""
+    k, n = d.shape
+    fn = _c_function("dl_bcd_cluster", "bcd_sweep_cluster_launch",
+                     (_P,) * 5 + (_I,) * 13 + (_P,))
+    with torch.cuda.device(d.device):
+        ac, bc = _bcd_rows(stats_a, plan.lda), _bcd_rows(stats_b, plan.ldb)
+        dc = d.contiguous()
+        out = torch.empty((k, n), dtype=torch.float32, device=d.device)
+        dw = (_f32(plan.clusters * k * plan.ldw, d.device) if plan.ldw
+              else None)
+        _launch("bcd_sweep", fn, d.device, ac.data_ptr(), bc.data_ptr(),
+                dc.data_ptr(), out.data_ptr(),
+                0 if dw is None else dw.data_ptr(), k, n, plan.lda, plan.ldb,
+                plan.clusters, plan.threads, plan.nb, plan.r, plan.sets,
+                plan.lanes, plan.on_sets, plan.l4, plan.ldw)
+    return out
+
+
 def _bcd_shared_launch(stats_a, stats_b, d):
-    """Launch ``csrc/dl_bcd.cu`` (``bcd_sweep``'s shared-memory route)."""
+    """Launch ``csrc/dl_bcd.cu``, ``bcd_sweep``'s first design (one block,
+    d in shared memory, K x N <= 53,248), on no route: kept to be timed
+    in turns with the cluster route."""
     k, n = d.shape
     fn = _c_function("dl_bcd", "bcd_sweep_launch",
                      (_P,) * 3 + (_I,) * 2 + (_P,) * 2)

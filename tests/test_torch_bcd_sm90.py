@@ -149,11 +149,11 @@ def test_emulation_is_not_the_twin_bit_for_bit():
     (1, 1, "registers"),
     (256, 1, "registers"),
     (1, 64, "registers"),
-    (256, 65, "shared"),
-    (257, 64, "shared"),
-    (256, 208, "shared"),        # K N = BCD_MAX_ELEMS
-    (16, 3000, "shared"),
-    (1024, 52, "shared"),
+    (256, 65, "cluster"),
+    (257, 64, "cluster"),
+    (256, 208, "cluster"),       # phase 14b's dictionary
+    (16, 3000, "cluster"),
+    (1024, 52, "cluster"),
 ])
 def test_route_by_shape(k, n, route):
     assert cuda_dl.bcd_route(k, n) == route
@@ -164,9 +164,11 @@ def test_register_route_limits_and_bcd_fits_unchanged():
     assert (cuda_dl.BCD_REG_MAX_ATOMS, cuda_dl.BCD_REG_MAX_CHANNELS) == (256, 64)
     # 512 threads x 32 registers of d hold the largest register shape.
     assert 512 * ROWS * COLS == 256 * 64
-    assert cuda_dl.BCD_MAX_ELEMS == 53_248
-    assert not cuda_dl.bcd_fits(256, 209) and not cuda_dl.bcd_fits(2048, 26)
-    assert cuda_dl.bcd_route(256, 209) == "shared"
+    # bcd_fits is the TPU kernel's gate: the first design's K x N <=
+    # 53,248 no longer bounds it, the padded working set does.
+    assert cuda_dl.bcd_fits(256, 209) and cuda_dl.bcd_fits(256, 3712)
+    assert not cuda_dl.bcd_fits(256, 3713) and not cuda_dl.bcd_fits(2048, 26)
+    assert cuda_dl.bcd_route(256, 209) == "cluster"
 
 
 @pytest.mark.parametrize("k,n,strides", [
@@ -204,8 +206,9 @@ def on_card(monkeypatch):
 
     monkeypatch.setattr(cuda_dl, "_runs_plain", lambda t: False)
     monkeypatch.setattr(cuda_dl, "_bcd_registers_launch", launch("registers"))
+    monkeypatch.setattr(cuda_dl, "_bcd_cluster_launch", launch("cluster"))
     monkeypatch.setattr(cuda_dl, "_bcd_shared_launch", launch("shared"))
-    for name in ("launches", "register_launches", "shared_launches"):
+    for name in ("launches", "register_launches", "cluster_launches"):
         monkeypatch.setattr(cuda_dl.bcd_sweep, name, 0)
     return calls
 
@@ -218,10 +221,10 @@ def _sweep(k, n):
 def test_wrapper_counts_each_route(on_card):
     for k, n in ((256, 64), (37, 50), (256, 208), (256, 64), (16, 3000)):
         _sweep(k, n)
-    assert on_card == ["registers", "registers", "shared", "registers",
-                       "shared"]
+    assert on_card == ["registers", "registers", "cluster", "registers",
+                       "cluster"]
     w = cuda_dl.bcd_sweep
-    assert (w.launches, w.register_launches, w.shared_launches) == (5, 3, 2)
+    assert (w.launches, w.register_launches, w.cluster_launches) == (5, 3, 2)
 
 
 def test_a_failed_launch_raises_and_never_falls_back(on_card, monkeypatch):
@@ -231,11 +234,11 @@ def test_a_failed_launch_raises_and_never_falls_back(on_card, monkeypatch):
     monkeypatch.setattr(cuda_dl, "_bcd_registers_launch", broken)
     with pytest.raises(RuntimeError, match="cudaError 700"):
         _sweep(256, 64)
-    assert on_card == []              # the shared route was not tried
+    assert on_card == []              # the cluster route was not tried
     assert cuda_dl.bcd_sweep.launches == 0
 
 
 def test_shapes_neither_route_takes_are_refused_before_launch(on_card):
-    with pytest.raises(Exception, match="K x N <= 53248"):
-        _sweep(256, 209)
+    with pytest.raises(Exception, match="at most 15 MiB"):
+        _sweep(256, 3713)
     assert on_card == []

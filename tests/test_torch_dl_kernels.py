@@ -132,16 +132,19 @@ def test_masked_grad_dict_twin_matches_the_composition(m, n, k, rows):
 
 def test_bcd_kernel_limit():
     assert cuda_dl.bcd_fits(256, 64)                      # BASELINE config 3
-    assert cuda_dl.bcd_fits(256, 208)                     # K N = the limit
-    assert 256 * 208 == cuda_dl.BCD_MAX_ELEMS
-    assert not cuda_dl.bcd_fits(256, 209)
-    assert not cuda_dl.bcd_fits(2048, 26)                 # rows do not fit
-    assert cuda_dl.bcd_smem_bytes(256, 64) == 4 * (256 * 65 + 640 + 64 + 16)
+    assert cuda_dl.bcd_fits(256, 208)                     # phase 14b
+    assert cuda_dl.bcd_fits(256, 3712)                    # the TPU gate's
+    assert not cuda_dl.bcd_fits(256, 3713)                # largest N at 256
+    assert not cuda_dl.bcd_fits(2048, 26)                 # A does not fit
+    # The cluster route's shared memory: a ring of 4 rows of A, 6
+    # mbarriers, 2 x 128 warp partials and shared d (K rows of l4 float4s).
+    plan = cuda_dl.bcd_cluster_plan(256, 208)
+    assert plan.smem_bytes == 4 * 4 * 256 + 48 + 1024 + 16 * 256 * plan.l4
 
 
 @pytest.mark.parametrize("k,n,exc,match", [
-    (256, 209, texc.ShapeError, "K x N <= 53248"),
-    (4000, 13, texc.ShapeError, "K x N <= 53248"),
+    (256, 3713, texc.ShapeError, "at most 15 MiB"),
+    (4000, 13, texc.ShapeError, "at most 15 MiB"),
     (8, 8, texc.DtypeError, "f32"),
     (8, 8, texc.ShapeError, "do not fit"),
 ])
