@@ -116,16 +116,19 @@ for sm_90a (one nvcc per source, all at once), and then:
    niter; then its complex mode the same way on complex64 data at 1,000
    x 100, 300 x 500, 10,000 x 512, 7 x 100 and 2,117 x 512 complex
    features, every call counted on the complex route, and
-   ``masked_grad_rows`` on a dense mask (``csrc/lasso_grad.cu``) at
-   1,000 x 1,000 F = 100 and a ragged 333 x 257 F = 7 in f32 and bf16,
-   and on a packed mask (``csrc/lasso_grad_packed.cu`` on wgmma) with f32
-   data (bf16x6 products) and with bf16 data (its one-limb instance) at
-   1,000 x 1,000 F = 100, 333 x 257 F = 7 (N % 4 != 0: my's padded copy),
-   7 x 1,000 F = 100 (fewer rows than a stripe), F = 1, F = 64 (the
-   64-feature tile) and on log-normal my, x and a at 100,000 x 1,024
-   F = 128, each within the limit of its dtype (f32, bf16) of the twin with
-   a bit-identical rerun, bf16 also against the dense-mask kernel on the
-   same 0/1 mask;
+   ``masked_grad_rows`` (``csrc/lasso_grad_packed.cu`` on wgmma, f32 data
+   as bf16x6 products, bf16 data in one limb) on a dense 0/1 mask (its
+   weighted instance) at 1,000 x 1,000 F = 100 and a ragged 333 x 257 F = 7
+   in f32 and bf16, on a packed mask (its bits instance) and on weights in
+   [0.5, 1) (its weighted instance) with f32 and bf16 data at 1,000 x
+   1,000 F = 100, 333 x 257 F = 7 (N % 4 != 0: my's and the weights'
+   padded copies), 7 x 1,000 F = 100 (fewer rows than a stripe), F = 1,
+   F = 64 (the 64-feature tile) and on log-normal my, x and a at 100,000 x
+   1,024 F = 128 (the weighted route with log-normal weights over four
+   decades, also against f64), each within the limit of its dtype (f32,
+   bf16) of the twin with a bit-identical rerun, bf16 bits also against
+   the weighted instance on the same 0/1 mask, every weighted call also
+   against the first design (``csrc/lasso_grad.cu``, on no route);
 10. drives batch lasso at BASELINE config 2, ``lasso.solve`` on 10,000
     problems of 256 channels over 512 features (acc_ista, precision
     'high', per-problem stopping, tol 1e-4), and checks one
@@ -150,8 +153,11 @@ for sm_90a (one nvcc per source, all at once), and then:
     1,024, F = 128, 30% missing, 50 FISTA iterations in f32 and in bf16,
     and checks one ``masked_grad_rows`` launch per iteration (f32 and
     bf16: all on the packed route), a falling objective and the agreement
-    with the composition run; then 10 iterations in bf16 on a weighted
-    mask, all on the dense route;
+    with the composition run; then 10 iterations in f32 and in bf16 on a
+    weighted mask, all on the dense route (the weighted instances), all
+    under the default ``use_kernel='auto'``, each timed against
+    ``use_kernel=False`` (the f32 pair is the measurement behind 'auto''s
+    gate for weighted f32 masks) with the same checks;
 12. times the lasso kernels against their twins: ``solve_rows`` per
     config-2 solve ('high', and 'highest' on ``csrc/lasso_fista.cu``) and
     at 262,144 x 512 for 100 fixed-budget iterations,
@@ -164,9 +170,10 @@ for sm_90a (one nvcc per source, all at once), and then:
     the new kernel (the crossover's batches, real and complex, 1,000 x
     200, 300 x 1,000 and 300 x 500 complex, dictionary learning's 'whole'
     inner coding at config 3's shape); ``masked_grad_rows`` at 100,000 x
-    1,024, F = 128: f32 on the packed route timed in turns with
-    ``csrc/lasso_grad.cu``'s f32 path on the same inputs, and bf16 on the
-    packed route in turns with the dense one on the same 0/1 mask;
+    1,024, F = 128, f32 and bf16, on the packed route (a 0/1 mask's bits)
+    and on the weighted one (weights in [0.5, 1)), each held to its twin
+    and f64 and timed in turns with the first design (``csrc/lasso_grad.cu``)
+    on the same inputs, beside its bound;
 13. holds the dictionary-learning kernels against their twins:
     ``bcd_sweep``'s register route (``csrc/dl_bcd_sm90.cu``) at K = 256,
     N = 64 (config 3, and the largest K x N of its one instance), a
@@ -183,9 +190,9 @@ for sm_90a (one nvcc per source, all at once), and then:
     3,712, 8 x 98,176 and the last two); the first design, ``csrc/dl_bcd.cu``
     (on no route), on 256 x 64 through its private launch; each launch
     checked on its route;
-    ``masked_grad_dict`` on a dense mask
-    (``csrc/mu_kl_stats.cu``) at 1,000 x 1,000 K = 100 and a ragged 333 x
-    257 K = 7, in f32 and bf16, and on a packed mask with f32 data
+    ``masked_grad_dict`` on a dense 0/1 mask (the weighted instance of
+    ``csrc/grad_dict_packed.cu``) at 1,000 x 1,000 K = 100 and a ragged 333
+    x 257 K = 7, in f32 and bf16, and on a packed mask with f32 data
     (``csrc/grad_dict_packed.cu``, bf16x6 products on wgmma) at 1,000 x
     1,000 K = 100, 333 x 257 K = 7 (the KT = 64 instance) and on
     log-normal my, x and d at 100,000 x 1,024 K = 128, within the f32
@@ -193,8 +200,10 @@ for sm_90a (one nvcc per source, all at once), and then:
     held bit for bit to ``cuda_mu.column_limbs``, and on a packed mask with
     bf16 data (its one-limb instance) at phase 9's packed shapes (K = 100,
     7 and 1: x's padded copy) and log-normal data, within the bf16 limit
-    of the twin and against the dense-mask kernel; each with a
-    bit-identical rerun;
+    of the twin and against the weighted instance; and on weights (the
+    weighted instances, f32 and bf16) as phase 9's, each also against the
+    first design (``csrc/mu_kl_stats.cu``'s GRAD_DICT, on no route); each
+    with a bit-identical rerun;
 14. drives dictionary learning at BASELINE config 3,
     ``dictionary_learning.solve`` on bench.py's 20,000 x 64 patches with
     256 atoms (alpha 0.05, tol 1e-5, 60 outer iterations, lasso_iter 15,
@@ -216,7 +225,9 @@ for sm_90a (one nvcc per source, all at once), and then:
     checks ``niter`` launches of ``masked_grad_dict`` and ``niter x 15``
     of ``masked_grad_rows`` (f32 and bf16: both on the packed route), a
     falling objective and the agreement with the composition run; then 2
-    outer iterations in bf16 on a weighted mask, both on the dense routes;
+    outer iterations in f32 and in bf16 on a weighted mask, both gradients
+    on the dense routes (the weighted instances), each timed against the
+    composition with the same checks;
 15b. times the dictionary-learning kernels against their twins per call,
     with their bounds: ``bcd_sweep`` on config 3's statistics, the
     register route in turns with the first design (``csrc/dl_bcd.cu``) on
@@ -224,11 +235,11 @@ for sm_90a (one nvcc per source, all at once), and then:
     share of config 3's marginal per solve; the cluster route in turns
     with the first design at 256 x 208, and against the twin at 256 x
     1,024 and the gate's three corners, each per sweep and per atom
-    beside its bound; ``masked_grad_dict`` at 100,000 x 1,024, K = 128 on phase
-    15's factors: f32 on the packed route in turns with the dense-mask
-    kernel's f32 path on the same inputs, with each pass from
-    ``torch.profiler``, and bf16 on the packed route in turns with the
-    dense one;
+    beside its bound; ``masked_grad_dict`` at 100,000 x 1,024, K = 128 on
+    phase 15's factors as phase 12's ``masked_grad_rows`` (f32 and bf16,
+    packed and weighted, each in turns with the first design,
+    ``csrc/mu_kl_stats.cu``'s GRAD_DICT), with the f32 packed route's
+    passes from ``torch.profiler``;
 16. drives ``nmf.solve(method='hals')``: at BASELINE config 1 (planted
     1000 x 500 rank 10 f32) HALS and MU from the same factors, each to its
     own stop at tol 1e-4 and at equal iteration counts, with their
@@ -277,7 +288,10 @@ for sm_90a (one nvcc per source, all at once), and then:
     against in-core); masked DL at 100,000 x 1,024, 128 atoms, 30%
     missing, chunks of 16,384, 3 outer iterations in loader mode (every
     ``masked_grad_rows`` and ``masked_grad_dict`` launch on the packed
-    route, a falling objective) and one ``stop='heldout'`` run;
+    route, a falling objective) and one ``stop='heldout'`` run; then the
+    same 3 outer iterations on a weighted mask under ``use_kernel='auto'``
+    (every gradient on the dense route, the weighted instances), in turns
+    with ``use_kernel=False`` and against it;
 22. drives the sharded solves of ``decomp_tpu_torch.parallel``: (a) a
     world of 1 over NCCL in this process (a ``FileStore`` in a temporary
     directory, no network): ``parallel.nmf.solve`` at the main path's
@@ -318,8 +332,8 @@ Each path runs with every launch count set to 0 just before it and read
 just after. It exits non-zero on any failure, without a CUDA device, and
 where the package is absent. The line before the last is a JSON summary
 of the kernels (the eight, and ``solve_rows``' complex mode, the packed
-routes of ``masked_grad_rows`` and ``masked_grad_dict`` in f32 and in
-bf16, f32 dense MU's
+and weighted routes of ``masked_grad_rows`` and ``masked_grad_dict`` in
+f32 and in bf16, f32 dense MU's
 ``csrc/mu_dense_packed.cu``, f32 masked MU's ``csrc/mu_masked_f32.cu``
 and the cluster route of ``bcd_sweep`` as entries of their own),
 each with
@@ -1010,12 +1024,20 @@ def lognormal_inputs(gen, dev, m, n, k, missing=0.3):
     return my, mask, x, d
 
 
-def weighted(gen, args):
-    """Masked inputs with the observed entries weighted in [0.5, 1):
-    ``pack_mask`` refuses such a mask, which keeps the dense route."""
+def weighted(gen, args, lognormal=False):
+    """Masked inputs with the observed entries weighted in [0.5, 1), or
+    (``lognormal``) by e^(ln 10 z / 1.5) for standard normal z, 99.7% of
+    them within 10^-2 .. 10^2, four decades: ``pack_mask`` refuses such a
+    mask, which keeps the dense route (the weighted instances)."""
     my, mask, x, d = args
-    w = (0.5 + 0.5 * torch.rand(mask.shape, generator=gen,
-                                device=mask.device)).to(mask.dtype)
+    if lognormal:
+        w = torch.exp(float(np.log(10.0)) / 1.5
+                      * torch.randn(mask.shape, generator=gen,
+                                    device=mask.device))
+    else:
+        w = 0.5 + 0.5 * torch.rand(mask.shape, generator=gen,
+                                   device=mask.device)
+    w = w.to(mask.dtype)
     return my * w, mask * w, x, d
 
 
@@ -1186,15 +1208,18 @@ def grad_inputs(gen, dev, m, n, f, dt):
 
 
 def compare_grad(module, name, args, packed=False, tag="", f64=False,
-                 dense=False):
+                 dense=False, first=False):
     """The masked gradient ``name`` of ``module`` (masked_grad_rows, or
     cuda_dl's masked_grad_dict) against its twin; ``packed``: on the
     mask's bits (the packed route), else on the dense mask (the dense
-    route), each call counted on that route; ``f64``: also both against
-    the function in f64; ``dense``: the packed route also against the
-    dense-mask kernel on the same 0/1 mask (each within the limit of the
-    twin, so within twice the limit of each other). Returns the max abs
-    error."""
+    route: the weighted instance), each call counted on that route;
+    ``f64``: also both against the function in f64; ``dense``: the packed
+    route also against the weighted instance on the same 0/1 mask;
+    ``first``: the kernel also against the first design of the dense-mask
+    gradient (csrc/lasso_grad.cu, or csrc/mu_kl_stats.cu's GRAD_DICT,
+    through its private launch) on the same inputs (each within the limit
+    of the twin, so within twice the limit of each other). Returns the max
+    abs error."""
     from decomp_tpu_torch.ops.cuda_mu import pack_mask
 
     my, mask, x, a = args
@@ -1205,12 +1230,19 @@ def compare_grad(module, name, args, packed=False, tag="", f64=False,
     out = fn(*kargs)
     again = fn(*kargs)
     ref = getattr(module, f"{name}_plain")(*args)
-    dense_out = fn(*args) if dense else None
+    other = None
+    if dense:
+        other = ("the weighted instance", fn(*args))
+    elif first:
+        launch = ("_grad_dict_dense_mma_launch" if name.endswith("dict")
+                  else "_grad_dense_mma_launch")
+        other = ("the first design", getattr(module, launch)(*args))
     torch.cuda.synchronize()
     err = rel_fro(out, ref)
     same = torch.equal(out, again)
     lim = GRAD_LIMIT[my.dtype]
-    tag = (f"{name}{' packed' if packed else ''} {my.shape[0]}x{my.shape[1]} "
+    tag = (f"{name}{' packed' if packed else ' weighted'} "
+           f"{my.shape[0]}x{my.shape[1]} "
            f"{'K' if name.endswith('dict') else 'F'}={x.shape[1]} "
            f"{str(my.dtype)[6:]}{', ' + tag if tag else ''}")
     exact = ""
@@ -1221,14 +1253,13 @@ def compare_grad(module, name, args, packed=False, tag="", f64=False,
         exact = (f"; against f64: kernel {rel_fro(out, g64):.3e}, twin "
                  f"{rel_fro(ref, g64):.3e}")
         del xd, ad, r64, g64
-    err_d = rel_fro(out, dense_out) if dense else 0.0
-    if dense:
-        exact += (f"; against the dense-mask kernel {err_d:.3e} (limit "
-                  f"{2 * lim:g})")
+    err_d = rel_fro(out, other[1]) if other else 0.0
+    if other:
+        exact += (f"; against {other[0]} {err_d:.3e} (limit {2 * lim:g})")
     print(f"kernel vs twin {tag}: rel_fro {err:.3e} (limit {lim:g}); "
           f"bit-identical rerun: {same}{exact}", flush=True)
     check(np.isfinite(err_d) and err_d <= 2 * lim,
-          f"{tag}: the packed and dense-mask kernels disagree")
+          f"{tag}: the kernel and {other and other[0]} disagree")
     if hasattr(fn, route):
         check(getattr(fn, route) == before + 2,
               f"{tag}: not on the {route[:-len('_launches')]} route")
@@ -1559,11 +1590,13 @@ def lasso_crossover(lasso, gen, dev, card):
 def masked_lasso_phase(lasso, dev, card, reset_counts, read_counts,
                        grad_routes, m, n, f):
     """Phase 11: the masked lasso at M x N, F features, 30% missing, 50
-    FISTA iterations, in f32 and in bf16 (both on the packed route), then
-    10 iterations in bf16 on a weighted mask (the dense route). Returns
-    the masked_grad_rows launches of the three runs: f32 packed, bf16
-    packed, weighted bf16 dense."""
-    iters, alpha = 50, 0.05
+    FISTA iterations in f32 and in bf16 (both on the packed route), then
+    10 in f32 and in bf16 on a weighted mask (the dense route, the weighted
+    instances), all under the default use_kernel='auto', so the route
+    checks hold its gate, each timed against use_kernel=False. Returns the
+    masked_grad_rows launches, {dtype: launches} for the packed route and
+    for the weighted one."""
+    alpha = 0.05
     g = torch.Generator(device=dev).manual_seed(11)
     a = torch.randn((f, n), generator=g, device=dev) / n ** 0.5
     xt = torch.randn((m, f), generator=g, device=dev) * (
@@ -1571,84 +1604,67 @@ def masked_lasso_phase(lasso, dev, card, reset_counts, read_counts,
     mask = (torch.rand((m, n), generator=g, device=dev) >= 0.3).float()
     my = (xt @ a + 0.01 * torch.randn((m, n), generator=g, device=dev)) * mask
     del xt
+    # Observed entries weighted in [0.5, 1): pack_mask refuses such a mask
+    # and every gradient takes the dense route; 'auto' sends weighted f32
+    # and bf16 there (lasso._auto_takes_masked), and the f32 weighted run's
+    # time against the composition's is the measurement behind that gate.
+    w = 0.5 + 0.5 * torch.rand(mask.shape, generator=g, device=dev)
 
     def objective(x, my_, mask_, a_):
         r = mask_.float() * (x.float() @ a_.float()) - my_.float()
         return (0.5 * float(torch.sum(r.double() ** 2))
                 + alpha * float(x.double().abs().sum()))
 
-    launches = {}
-    for dt in (torch.float32, torch.bfloat16):
-        my_, mask_, a_ = (t.to(dt) for t in (my, mask, a))
+    launches = {False: {}, True: {}}
+    for weighted_, iters in ((False, 50), (True, 10)):
+        for dt in (torch.float32, torch.bfloat16):
+            my_, mask_ = (my * w, mask * w) if weighted_ else (my, mask)
+            my_, mask_, a_ = my_.to(dt), mask_.to(dt), a.to(dt)
 
-        def solve(maxiter=iters, **kw):
-            return lasso.solve(my_, a_, alpha, mask=mask_, method="fista",
-                               tol=0.0, maxiter=maxiter, **kw)
+            def solve(maxiter=iters, **kw_):
+                return lasso.solve(my_, a_, alpha, mask=mask_,
+                                   method="fista", tol=0.0, maxiter=maxiter,
+                                   **kw_)
 
-        solve(maxiter=2)   # warm-up
-        torch.cuda.synchronize()
-        reset_counts()
-        ms, res = event_ms(solve)
-        launches[dt] = read_counts("masked_grad_rows", iters)
-        routes = grad_routes()
-        want = (iters, 0)
-        comp_ms, comp = event_ms(lambda: solve(use_kernel=False))
-        obj0 = objective(torch.zeros((m, f), device=dev), my_, mask_, a_)
-        obj1 = objective(res.x, my_, mask_, a_)
-        err = rel_fro(res.x, comp.x)
-        tag = f"masked lasso {m}x{n} F={f} {str(dt)[6:]}"
-        print(f"{tag}, 30% missing, fista, {iters} iterations ({card}): "
-              f"{iters / ms * 1e3:.1f} iterations/s ({ms:.3f} ms), "
-              f"use_kernel=False {iters / comp_ms * 1e3:.1f} iterations/s "
-              f"({comp_ms:.3f} ms); objective {obj0:.6e} -> {obj1:.6e}; "
-              f"rel_fro x vs composition {err:.3e} (limit "
-              f"{MASKED_X_LIMIT[dt]:.0e}); masked_grad_rows launches "
-              f"{launches[dt]} (packed, dense route {routes})", flush=True)
-        check(routes == want, f"{tag}: masked_grad_rows routes {routes}, "
-              f"expected {want}")
-        check(res.niter == iters, f"{tag}: niter {res.niter} != {iters}")
-        check(bool(torch.isfinite(res.x).all()), f"{tag}: non-finite x")
-        check(np.isfinite(obj1) and obj1 < obj0,
-              f"{tag}: the objective did not fall")
-        check(err <= MASKED_X_LIMIT[dt], f"{tag}: x disagrees with the "
-              "composition run")
-        del my_, mask_, a_, res, comp
-    # A weighted bf16 mask (observed entries weighted in [0.5, 1)):
-    # pack_mask refuses it and every gradient stays on the dense route.
-    witers, bf16 = 10, torch.bfloat16
-    w = 0.5 + 0.5 * torch.rand(mask.shape, generator=g, device=dev)
-    my_, mask_, a_ = (my * w).to(bf16), (mask * w).to(bf16), a.to(bf16)
-    del w
-    reset_counts()
-    ms, res = event_ms(lambda: lasso.solve(my_, a_, alpha, mask=mask_,
-                                           method="fista", tol=0.0,
-                                           maxiter=witers))
-    wlaunches = read_counts("masked_grad_rows", witers)
-    routes = grad_routes()
-    obj0 = objective(torch.zeros((m, f), device=dev), my_, mask_, a_)
-    obj1 = objective(res.x, my_, mask_, a_)
-    tag = f"masked lasso {m}x{n} F={f} bfloat16, weighted mask"
-    print(f"{tag}, fista, {witers} iterations ({card}): {ms:.3f} ms; "
-          f"objective {obj0:.6e} -> {obj1:.6e}; masked_grad_rows launches "
-          f"{wlaunches} (packed, dense route {routes})", flush=True)
-    check(routes == (0, witers), f"{tag}: masked_grad_rows routes {routes},"
-          f" expected {(0, witers)}")
-    check(bool(torch.isfinite(res.x).all()), f"{tag}: non-finite x")
-    check(np.isfinite(obj1) and obj1 < obj0,
-          f"{tag}: the objective did not fall")
-    del my_, mask_, a_, res
-    return launches[torch.float32], launches[bf16], wlaunches
+            solve(maxiter=2)   # warm-up
+            torch.cuda.synchronize()
+            reset_counts()
+            ms, res = event_ms(solve)
+            launches[weighted_][dt] = read_counts("masked_grad_rows", iters)
+            routes = grad_routes()
+            want = (0, iters) if weighted_ else (iters, 0)
+            comp_ms, comp = event_ms(lambda: solve(use_kernel=False))
+            obj0 = objective(torch.zeros((m, f), device=dev), my_, mask_, a_)
+            obj1 = objective(res.x, my_, mask_, a_)
+            err = rel_fro(res.x, comp.x)
+            tag = (f"masked lasso {m}x{n} F={f} {str(dt)[6:]}, "
+                   f"{'weighted mask' if weighted_ else '30% missing'}")
+            print(f"{tag}, fista, {iters} iterations ({card}): "
+                  f"{iters / ms * 1e3:.1f} iterations/s ({ms:.3f} ms), "
+                  f"use_kernel=False {iters / comp_ms * 1e3:.1f} "
+                  f"iterations/s ({comp_ms:.3f} ms), kernel / composition "
+                  f"{ms / comp_ms:.3f}; objective {obj0:.6e} -> {obj1:.6e}; "
+                  f"rel_fro x vs composition {err:.3e} (limit "
+                  f"{MASKED_X_LIMIT[dt]:.0e}); masked_grad_rows launches "
+                  f"{iters} (packed, dense route {routes})", flush=True)
+            check(routes == want, f"{tag}: masked_grad_rows routes {routes}, "
+                  f"expected {want}")
+            check(res.niter == iters, f"{tag}: niter {res.niter} != {iters}")
+            check(bool(torch.isfinite(res.x).all()), f"{tag}: non-finite x")
+            check(np.isfinite(obj1) and obj1 < obj0,
+                  f"{tag}: the objective did not fall")
+            check(err <= MASKED_X_LIMIT[dt], f"{tag}: x disagrees with the "
+                  "composition run")
+            del my_, mask_, a_, res, comp
+    return launches[False], launches[True]
 
 
 def lasso_times(cl, gen, dev, card, y, a, fixed_shape, grad_shape):
     """Phase 12: the lasso kernels against their twins per call, with
     their bounds: solve_rows on config 2's data (y, a) and in the fixed
     budget at ``fixed_shape`` (M, F), masked_grad_rows at ``grad_shape``
-    (M, N, F): f32 on the packed route in turns with csrc/lasso_grad.cu's
-    f32 path, bf16 on the packed route in turns with the dense one (on the
-    same 0/1 mask). Returns {name: (max_abs_err, ms, plain_ms, bound_ms,
-    bound_by)} at the main path's shapes."""
-    from decomp_tpu_torch.ops import cuda_mu
+    (M, N, F) as ``grad_times``. Returns {name: (max_abs_err, ms, plain_ms,
+    bound_ms, bound_by)} at the main path's shapes."""
     from decomp_tpu_torch.ops.spectral import spectral_norm_psd
 
     f32, bf16 = torch.float32, torch.bfloat16
@@ -1720,69 +1736,75 @@ def lasso_times(cl, gen, dev, card, y, a, fixed_shape, grad_shape):
           flush=True)
     del yah, gram, args, got, ref, x0
 
-    # masked_grad_rows at the masked lasso's shape: f32 on the packed route
-    # (csrc/lasso_grad_packed.cu), timed in turns with csrc/lasso_grad.cu's
-    # f32 path on the same inputs (old, new, new, old); bf16 on the dense
-    # route.
+    # masked_grad_rows at the masked lasso's shape, f32 and bf16, on the
+    # packed route (a 0/1 mask's bits) and on the weighted one (weights in
+    # [0.5, 1)), each in turns with the first design of the dense-mask
+    # gradient, csrc/lasso_grad.cu, on the same inputs.
     m, n, f = grad_shape
-    args = grad_inputs(gen, dev, m, n, f, f32)
+    for dt in (f32, bf16):
+        args = grad_inputs(gen, dev, m, n, f, dt)
+        limbs = cl.grad_limbs(args[3])
+        out.update(grad_times(cl, "masked_grad_rows", args, card,
+                              lambda my, mk, x, a: cl.masked_grad_rows(
+                                  my, mk, x, a, a_limbs=limbs)))
+        del args, limbs
+    return out
+
+
+def grad_times(module, name, args, card, call):
+    """Phase 12 and 15b's per-call times of the masked gradient ``name`` of
+    ``module`` on ``args`` = (my, 0/1 mask, x, a or d): its packed route
+    on the mask's bits, then its weighted route on ``weighted(args)``,
+    each held to its twin (and f64) and timed in turns with the first
+    design on the same inputs (first, new, new, first), each beside its
+    bound and its plain twin's time. ``call(my, mask, x, a)`` launches the
+    route. Returns {entry name: (max_abs_err, ms, plain_ms, bound_ms,
+    bound_by)}, the entries ``name`` + _packed or _weighted, + _bf16 for
+    bf16 data."""
+    from decomp_tpu_torch.ops import cuda_mu
+
+    rows = name == "masked_grad_rows"
+    first = getattr(module, "_grad_dense_mma_launch" if rows
+                    else "_grad_dict_dense_mma_launch")
+    plain = getattr(module, f"{name}_plain")
     my, mask, x, a = args
-    e = compare_grad(cl, "masked_grad_rows", args, packed=True, f64=True)
-    compare_grad(cl, "masked_grad_rows", args)
-    bits, limbs = cuda_mu.pack_mask(mask), cl.grad_limbs(a)
-    t = [cuda_ms(fn, 10) for fn in (
-        lambda: cl.masked_grad_rows(my, mask, x, a),
-        lambda: cl.masked_grad_rows(my, bits, x, a, a_limbs=limbs))]
-    t += [cuda_ms(fn, 10) for fn in (
-        lambda: cl.masked_grad_rows(my, bits, x, a, a_limbs=limbs),
-        lambda: cl.masked_grad_rows(my, mask, x, a))]
-    k_ms, old_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
-    p_ms = cuda_ms(lambda: cl.masked_grad_rows_plain(*args), 2)
-    # my, the bits, x, g and a's three bf16 limbs; both products bf16x6.
-    b, fma = f32_bounds(4 * (m * n + m * bits.shape[1] + 2 * m * f)
-                        + 3 * 2 * f * n, 4.0 * m * n * f)
-    print(f"masked_grad_rows {m}x{n} F={f} float32: packed-mask kernel "
-          f"(bf16x6 on wgmma) {k_ms:.4f} ms ({t[1]:.4f}, {t[2]:.4f}), "
-          f"lasso_grad.cu f32 {old_ms:.4f} ms ({t[0]:.4f}, {t[3]:.4f}) in "
-          f"turns, new / old {k_ms / old_ms:.3f}; plain twin {p_ms:.3f} ms "
-          f"per call; bound {bound_text(b, fma)}, new kernel at "
-          f"{b[0] / k_ms * 100:.1f}% of it ({card})", flush=True)
-    out["masked_grad_rows_packed"] = (e, k_ms, p_ms) + b
-    del args, my, mask, x, a, bits, limbs
-    # bf16: the packed route (csrc/lasso_grad_packed.cu's one-limb
-    # instance) in turns with the dense one (csrc/lasso_grad.cu) on the same
-    # inputs and 0/1 mask (dense, packed, packed, dense).
-    args = grad_inputs(gen, dev, m, n, f, bf16)
-    my, mask, x, a = args
-    e_p = compare_grad(cl, "masked_grad_rows", args, packed=True, f64=True,
-                       dense=True)
-    e = compare_grad(cl, "masked_grad_rows", args)
-    bits, limbs = cuda_mu.pack_mask(mask), cl.grad_limbs(a)
-    t = [cuda_ms(fn, 10) for fn in (
-        lambda: cl.masked_grad_rows(*args),
-        lambda: cl.masked_grad_rows(my, bits, x, a, a_limbs=limbs))]
-    t += [cuda_ms(fn, 10) for fn in (
-        lambda: cl.masked_grad_rows(my, bits, x, a, a_limbs=limbs),
-        lambda: cl.masked_grad_rows(*args))]
-    k_ms, old_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
-    p_ms = cuda_ms(lambda: cl.masked_grad_rows_plain(*args), 2)
-    # Packed: my, the bits, x, g and a in bf16; dense: the bf16 mask for
-    # the bits.
-    bp = bound(2 * (m * n + 2 * m * f + f * n) + 4 * m * bits.shape[1],
-               4.0 * m * n * f, bf16)
-    b = bound((2 * m * n + 2 * m * f + f * n) * 2, 4.0 * m * n * f, bf16)
-    print(f"masked_grad_rows {m}x{n} F={f} bfloat16: packed-mask kernel "
-          f"(one bf16 pass a product on wgmma) {k_ms:.4f} ms ({t[1]:.4f}, "
-          f"{t[2]:.4f}), lasso_grad.cu dense mask {old_ms:.4f} ms "
-          f"({t[0]:.4f}, {t[3]:.4f}) in turns, new / old "
-          f"{k_ms / old_ms:.3f}; plain twin {p_ms:.3f} ms per call; bound "
-          f"packed {bound_text(bp, None)}, new kernel at "
-          f"{bp[0] / k_ms * 100:.1f}% of it; bound dense "
-          f"{bound_text(b, None)}, dense kernel at "
-          f"{b[0] / old_ms * 100:.1f}% of it ({card})", flush=True)
-    out["masked_grad_rows_packed_bf16"] = (e_p, k_ms, p_ms) + bp
-    out["masked_grad_rows"] = (e, old_ms, p_ms) + b
-    del args, my, mask, x, a, bits, limbs
+    dt = my.dtype
+    (m, n), f = my.shape, x.shape[1]
+    bits = cuda_mu.pack_mask(mask)
+    out = {}
+    g = torch.Generator(device=my.device).manual_seed(24)
+    for route, kargs, targs in (
+            ("packed", (my, bits, x, a), args),
+            ("weighted",) + 2 * (weighted(g, args),)):
+        e = compare_grad(module, name, targs, packed=route == "packed",
+                         f64=True, first=True)
+        t = [cuda_ms(fn, 10) for fn in (lambda: first(*targs),
+                                        lambda: call(*kargs))]
+        t += [cuda_ms(fn, 10) for fn in (lambda: call(*kargs),
+                                         lambda: first(*targs))]
+        k_ms, old_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+        p_ms = cuda_ms(lambda: plain(*targs), 2)
+        # my and the mask (its bits, or the weights in the data's dtype),
+        # x, a or d, and g in the data's dtype or G in f32; the first
+        # product's operand a (d) as its limbs (f32: 3 bf16, at the rows
+        # kernel), both products bf16x6 at f32.
+        e_b = dt.itemsize
+        mask_b = 4 * m * bits.shape[1] if route == "packed" else e_b * m * n
+        if rows:
+            nbytes = e_b * (m * n + 2 * m * f) + mask_b + 2 * f * n * (
+                3 if dt == torch.float32 else 1)
+        else:
+            nbytes = e_b * (m * n + m * f + f * n) + mask_b + 4 * f * n
+        b, fma = dtype_bounds(nbytes, 4.0 * m * n * f, dt)
+        entry = f"{name}_{route}{'' if dt == torch.float32 else '_bf16'}"
+        out[entry] = (e, k_ms, p_ms) + b
+        print(f"{name} {m}x{n} {'F' if rows else 'K'}={f} {str(dt)[6:]}, "
+              f"{route} route: {k_ms:.4f} ms ({t[1]:.4f}, {t[2]:.4f}), first "
+              f"design {old_ms:.4f} ms ({t[0]:.4f}, {t[3]:.4f}) in turns, new "
+              f"/ first {k_ms / old_ms:.3f}; plain twin {p_ms:.3f} ms per "
+              f"call; bound {bound_text(b, fma)} ({nbytes / 1e6:.1f} MB), new "
+              f"kernel at {b[0] / k_ms * 100:.1f}% of it, first design at "
+              f"{b[0] / old_ms * 100:.1f}% ({card})", flush=True)
     return out
 
 
@@ -2131,10 +2153,12 @@ def masked_dl_phase(dl, dev, card, reset_counts, read_counts, grad_routes,
     """Phase 15: masked dictionary learning at M x N, K atoms, 30% missing,
     planted; 20 outer iterations in f32 and 10 in bf16 (both gradients on
     the packed route) at tol 0, 15 inner iterations each (lasso_tol 0: a
-    fixed inner budget), then 2 in bf16 on a weighted mask (both on the
-    dense route). Returns masked_grad_dict's launches on the f32 run's
-    packed route, the bf16 run's and the weighted run's dense one, and
-    the f32 run's (my, mask, x, d)."""
+    fixed inner budget), then 2 in f32 and in bf16 on a weighted mask (both
+    on the dense route, the weighted instances), all under the default
+    use_kernel='auto', so the route checks hold its gate, each timed against
+    the composition. Returns masked_grad_dict's launches, {dtype: launches} on
+    the packed route and on the weighted one, and the f32 run's (my, mask,
+    x, d)."""
     alpha, inner = 0.05, 15
     g = torch.Generator(device=dev).manual_seed(15)
     d_true = torch.randn((k, n), generator=g, device=dev)
@@ -2152,43 +2176,50 @@ def masked_dl_phase(dl, dev, card, reset_counts, read_counts, grad_routes,
         return (0.5 * float(torch.sum(r.double() ** 2))
                 + alpha * float(x.double().abs().sum()))
 
-    launches, kept = {}, None
-    for dt, iters in ((torch.float32, 20), (torch.bfloat16, 10)):
-        my_, mask_, d0_ = (t.to(dt) for t in (my, mask, d0))
+    # Observed entries weighted in [0.5, 1): pack_mask refuses such a mask
+    # and both gradients take the dense routes, where 'auto' sends them.
+    w = 0.5 + 0.5 * torch.rand(mask.shape, generator=g, device=dev)
+    launches, kept = {False: {}, True: {}}, None
+    for weighted_, dt, iters in ((False, torch.float32, 20),
+                                 (False, torch.bfloat16, 10),
+                                 (True, torch.float32, 2),
+                                 (True, torch.bfloat16, 2)):
+        my_, mask_ = (my * w, mask * w) if weighted_ else (my, mask)
+        my_, mask_, d0_ = my_.to(dt), mask_.to(dt), d0.to(dt)
 
-        def solve(maxiter=iters, **kw):
+        def solve(maxiter=iters, **kw_):
             return dl.solve(my_, d0_, alpha, mask=mask_, tol=0.0,
                             maxiter=maxiter, lasso_iter=inner, lasso_tol=0.0,
-                            **kw)
+                            **kw_)
 
         first = solve(maxiter=1)   # warm-up, and the objective it leaves
         torch.cuda.synchronize()
         reset_counts()
         ms, res = event_ms(solve)
-        launches[dt] = read_counts({"masked_grad_dict": iters,
-                                    "masked_grad_rows": iters * inner})
+        read_counts({"masked_grad_dict": iters,
+                     "masked_grad_rows": iters * inner})
         routes, d_routes = grad_routes(), dict_routes()
-        want, d_want = (iters * inner, 0), (iters, 0)
+        launches[weighted_][dt] = d_routes[1 if weighted_ else 0]
         comp_ms, comp = event_ms(lambda: solve(use_kernel=False))
         obj1 = objective(first.x, first.d, my_, mask_)
         obj = objective(res.x, res.d, my_, mask_)
         err_d, err_x = rel_fro(res.d, comp.d), rel_fro(res.x, comp.x)
         lim = MASKED_DL_LIMIT[dt]
-        tag = f"masked dictionary learning {m}x{n} K={k} {str(dt)[6:]}"
-        print(f"{tag}, 30% missing, {iters} outer x {inner} inner ({card}): "
+        tag = (f"masked dictionary learning {m}x{n} K={k} {str(dt)[6:]}, "
+               f"{'weighted mask' if weighted_ else '30% missing'}")
+        print(f"{tag}, {iters} outer x {inner} inner ({card}): "
               f"{ms / iters:.3f} ms per outer iteration, use_kernel=False "
-              f"{comp_ms / iters:.3f} ms; objective after 1 iteration "
+              f"{comp_ms / iters:.3f} ms, kernel / composition "
+              f"{ms / comp_ms:.3f}; objective after 1 iteration "
               f"{obj1:.6e}, after {iters} {obj:.6e}; rel_fro vs composition "
               f"d {err_d:.3e}, x {err_x:.3e} (limit {lim:g}); launches "
-              f"masked_grad_dict {launches[dt]['masked_grad_dict']} "
-              f"(packed, dense route {d_routes}), masked_grad_rows "
-              f"{launches[dt]['masked_grad_rows']} (packed, dense route "
+              f"masked_grad_dict {iters} (packed, dense route {d_routes}), "
+              f"masked_grad_rows {iters * inner} (packed, dense route "
               f"{routes})", flush=True)
-        check(routes == want, f"{tag}: masked_grad_rows routes {routes}, "
-              f"expected {want}")
-        check(d_routes == d_want, f"{tag}: masked_grad_dict routes "
-              f"{d_routes}, expected {d_want}")
-        launches[dt]["routes"] = d_routes
+        r_want, d_want = (((0, iters * inner), (0, iters)) if weighted_
+                          else ((iters * inner, 0), (iters, 0)))
+        check(routes == r_want and d_routes == d_want, f"{tag}: routes "
+              f"{routes} and {d_routes}, expected {r_want} and {d_want}")
         check(res.niter == iters, f"{tag}: niter {res.niter} != {iters}")
         check(bool(torch.isfinite(res.d).all())
               and bool(torch.isfinite(res.x).all()), f"{tag}: non-finite "
@@ -2197,35 +2228,10 @@ def masked_dl_phase(dl, dev, card, reset_counts, read_counts, grad_routes,
               "not fall")
         check(err_d <= lim and err_x <= lim, f"{tag}: the kernel path "
               "disagrees with the composition")
-        if dt == torch.float32:
+        if not weighted_ and dt == torch.float32:
             kept = (my_, mask_, res.x, res.d)
         del first, res, comp
-    # A weighted bf16 mask (observed entries weighted in [0.5, 1)):
-    # pack_mask refuses it and both gradients stay on the dense routes.
-    witers, bf16 = 2, torch.bfloat16
-    w = 0.5 + 0.5 * torch.rand(mask.shape, generator=g, device=dev)
-    my_, mask_, d0_ = (my * w).to(bf16), (mask * w).to(bf16), d0.to(bf16)
-    del w
-    reset_counts()
-    ms, res = event_ms(lambda: dl.solve(my_, d0_, alpha, mask=mask_, tol=0.0,
-                                        maxiter=witers, lasso_iter=inner,
-                                        lasso_tol=0.0))
-    read_counts({"masked_grad_dict": witers,
-                 "masked_grad_rows": witers * inner})
-    routes, d_routes = grad_routes(), dict_routes()
-    tag = f"masked dictionary learning {m}x{n} K={k} bfloat16, weighted mask"
-    print(f"{tag}, {witers} outer x {inner} inner ({card}): "
-          f"{ms / witers:.3f} ms per outer iteration; launches "
-          f"masked_grad_dict (packed, dense route {d_routes}), "
-          f"masked_grad_rows (packed, dense route {routes})", flush=True)
-    check(routes == (0, witers * inner) and d_routes == (0, witers),
-          f"{tag}: not all on the dense routes")
-    check(bool(torch.isfinite(res.d).all())
-          and bool(torch.isfinite(res.x).all()), f"{tag}: non-finite "
-          "factors")
-    del my_, mask_, d0_, res
-    return (launches[torch.float32]["routes"][0],
-            launches[bf16]["routes"][0], d_routes[1], kept)
+    return launches[False], launches[True], kept
 
 
 def grad_dict_passes(cd, cuda_mu, args, card):
@@ -2253,12 +2259,9 @@ def grad_dict_passes(cd, cuda_mu, args, card):
 def dl_times(cd, card, c3, c3_marg, c3_niter, masked):
     """Phase 15b: the dictionary-learning kernels against their twins per
     call, with their bounds: bcd_sweep on config 3's statistics ``c3`` =
-    (A, B, d), masked_grad_dict on phase 15's (my, mask, x, d): f32 on the
-    packed route (csrc/grad_dict_packed.cu) in turns with the dense-mask
-    kernel's f32 path on the same inputs (old, new, new, old), bf16 on the
-    packed route (its one-limb instance) in turns with the dense one the
-    same way. Returns {name: (max_abs_err, ms, plain_ms, bound_ms,
-    bound_by)}."""
+    (A, B, d), masked_grad_dict on phase 15's (my, mask, x, d) as
+    ``grad_times``, in f32 and bf16. Returns {name: (max_abs_err, ms,
+    plain_ms, bound_ms, bound_by)}."""
     from decomp_tpu_torch.ops import cuda_mu
 
     out = {}
@@ -2289,66 +2292,18 @@ def dl_times(cd, card, c3, c3_marg, c3_niter, masked):
           f"per solve ({c3_niter * old_ms / c3_marg * 100:.1f}% with the "
           "first design)", flush=True)
     out["bcd_sweep_cluster"] = cluster_times(cd, card, e_old)
-    my, mask, x, dd = masked
-    m, n = my.shape
-    k = dd.shape[0]
-    args = (my, mask, x, dd)
-    e = compare_grad(cd, "masked_grad_dict", args, packed=True, f64=True)
-    compare_grad(cd, "masked_grad_dict", args)
-    bits = cuda_mu.pack_mask(mask)
-    t = [cuda_ms(fn, 10) for fn in (
-        lambda: cd.masked_grad_dict(my, mask, x, dd),
-        lambda: cd.masked_grad_dict(my, bits, x, dd))]
-    t += [cuda_ms(fn, 10) for fn in (
-        lambda: cd.masked_grad_dict(my, bits, x, dd),
-        lambda: cd.masked_grad_dict(my, mask, x, dd))]
-    k_ms, old_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
-    p_ms = cuda_ms(lambda: cd.masked_grad_dict_plain(*args), 2)
-    # my, the bits, x, d and G; both products bf16x6.
-    bnd, fma = f32_bounds(4 * (m * n + m * bits.shape[1] + m * k + 2 * k * n),
-                          4.0 * m * n * k)
-    print(f"masked_grad_dict {m}x{n} K={k} float32: packed-mask kernel "
-          f"(bf16x6 on wgmma) {k_ms:.4f} ms ({t[1]:.4f}, {t[2]:.4f}), "
-          f"mu_kl_stats.cu f32 {old_ms:.4f} ms ({t[0]:.4f}, {t[3]:.4f}) in "
-          f"turns, new / old {k_ms / old_ms:.3f}; plain twin {p_ms:.3f} ms "
-          f"per call; bound {bound_text(bnd, fma)}, new kernel at "
-          f"{bnd[0] / k_ms * 100:.1f}% of it ({card})", flush=True)
-    out["masked_grad_dict_packed"] = (e, k_ms, p_ms) + bnd
-    grad_dict_passes(cd, cuda_mu, args, card)
-    limbs_ms = cuda_ms(lambda: cuda_mu.column_limbs(dd, 128), 10)
-    print(f"  d's limbs (cuda_mu.column_limbs, torch ops, once per call): "
-          f"{limbs_ms:.4f} ms per call ({card})", flush=True)
-    args = tuple(v.to(torch.bfloat16) for v in args)
-    my, mask, x, dd = args
-    e_p = compare_grad(cd, "masked_grad_dict", args, packed=True, f64=True,
-                       dense=True)
-    e = compare_grad(cd, "masked_grad_dict", args)
-    t = [cuda_ms(fn, 10) for fn in (
-        lambda: cd.masked_grad_dict(*args),
-        lambda: cd.masked_grad_dict(my, bits, x, dd))]
-    t += [cuda_ms(fn, 10) for fn in (
-        lambda: cd.masked_grad_dict(my, bits, x, dd),
-        lambda: cd.masked_grad_dict(*args))]
-    k_ms, old_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
-    p_ms = cuda_ms(lambda: cd.masked_grad_dict_plain(*args), 2)
-    # Packed: my, the bits, x and d in bf16, G in f32; dense: the bf16 mask
-    # for the bits.
-    bp = bound(2 * (m * n + m * k + k * n) + 4 * m * bits.shape[1]
-               + 4 * k * n, 4.0 * m * n * k, torch.bfloat16)
-    bnd = bound((2 * m * n + m * k + k * n) * 2 + 4 * k * n,
-                4.0 * m * n * k, torch.bfloat16)
-    print(f"masked_grad_dict {m}x{n} K={k} bfloat16: packed-mask kernel "
-          f"(one bf16 pass a product on wgmma) {k_ms:.4f} ms ({t[1]:.4f}, "
-          f"{t[2]:.4f}), mu_kl_stats.cu dense mask {old_ms:.4f} ms "
-          f"({t[0]:.4f}, {t[3]:.4f}) in turns, new / old "
-          f"{k_ms / old_ms:.3f}; plain twin {p_ms:.3f} ms per call; bound "
-          f"packed {bound_text(bp, None)}, new kernel at "
-          f"{bp[0] / k_ms * 100:.1f}% of it; bound dense "
-          f"{bound_text(bnd, None)}, dense kernel at "
-          f"{bnd[0] / old_ms * 100:.1f}% of it ({card})", flush=True)
-    out["masked_grad_dict_packed_bf16"] = (e_p, k_ms, p_ms) + bp
-    out["masked_grad_dict"] = (e, old_ms, p_ms) + bnd
-    del args, my, mask, x, dd, bits
+    # masked_grad_dict on phase 15's factors, f32 and bf16, as phase 12's
+    # masked_grad_rows; the f32 packed route's passes from torch.profiler.
+    for dt in (torch.float32, torch.bfloat16):
+        args = tuple(v.to(dt) for v in masked)
+        out.update(grad_times(cd, "masked_grad_dict", args, card,
+                              cd.masked_grad_dict))
+        if dt == torch.float32:
+            grad_dict_passes(cd, cuda_mu, args, card)
+            limbs_ms = cuda_ms(lambda: cuda_mu.column_limbs(args[3], 128), 10)
+            print(f"  d's limbs (cuda_mu.column_limbs, torch ops, once per "
+                  f"call): {limbs_ms:.4f} ms per call ({card})", flush=True)
+        del args
     return out
 
 
@@ -3088,7 +3043,8 @@ def dl_streaming_phase(dl, dev, card, reset_counts, read_counts, bcd_routes,
     in-core solve's; then masked DL at m x n, k atoms, 30% missing, chunks
     of ``chunk``, ``miters`` outer iterations in loader mode (every
     gradient on the packed routes, a falling objective) and one held-out
-    run. Returns config 3's loader-mode d, which phase 23 holds a world of
+    run, then on a weighted mask under 'auto' in turns with the
+    composition (every gradient on the dense routes). Returns config 3's loader-mode d, which phase 23 holds a world of
     2 to."""
     f32 = torch.float32
     y_np, d0_np = config3_data()
@@ -3168,6 +3124,62 @@ def dl_streaming_phase(dl, dev, card, reset_counts, read_counts, bcd_routes,
           f"{ho:.4e}", flush=True)
     check(np.isfinite(ho) and bool(torch.isfinite(res.d).all()),
           "masked DL streaming: held-out run not finite")
+
+    # The same data on a weighted mask (observed entries weighted in
+    # [0.5, 1)) under the default use_kernel='auto': both gradients on the
+    # dense routes (the weighted instances), after a warm-up of each in
+    # turns with use_kernel=False (kernels, composition, composition,
+    # kernels, twice: this path is paced by the host and its times spread).
+    g = torch.Generator(device=dev).manual_seed(21)
+    w = 0.5 + 0.5 * torch.rand(mask.shape, generator=g, device=dev)
+    wmy, wmask = my * w, mask * w
+    del w, my, mask
+    kw["mask"] = lambda lo, hi: wmask[lo:hi]
+
+    def weighted_run(**kw_):
+        return dl.solve_streaming(
+            lambda lo, hi: wmy[lo:hi], d0, alpha, tol=0.0, maxiter=miters,
+            record_objective=True, **kw, **kw_)
+
+    weighted_run()   # warm-up
+    weighted_run(use_kernel=False)
+    times, seq = {True: [], False: []}, []
+    for kernel in 2 * (True, False, False, True):
+        reset_counts()
+        ms, out = event_ms(lambda: weighted_run(
+            **({} if kernel else {"use_kernel": False})))
+        times[kernel].append(ms / miters)
+        seq.append(ms / miters)
+        if kernel:
+            read_counts({"masked_grad_dict": miters * n_chunks,
+                         "masked_grad_rows": miters * n_chunks * inner})
+            routes, d_routes, res = grad_routes(), dict_routes(), out
+        else:
+            read_counts({})
+            comp = out
+    obj = res.objective
+    err_d, err_x = rel_fro(res.d, comp.d), rel_fro(res.x, comp.x)
+    lim = MASKED_DL_LIMIT[f32]
+    tag = (f"masked dictionary_learning.solve_streaming {m}x{n} K={k} "
+           "float32, weighted mask, use_kernel='auto'")
+    turns = " / ".join(f"{t:.3f}" for t in seq)
+    print(f"{tag}, loader mode, chunks of {chunk}, {miters} outer x {inner} "
+          f"inner ({card}): ms per outer iteration in turns, kernels / "
+          f"composition / composition / kernels, twice: {turns}; kernels "
+          f"/ composition {sum(times[True]) / sum(times[False]):.3f}; "
+          f"objective {float(obj[0]):.6e} -> "
+          f"{float(obj[-1]):.6e}; rel_fro vs composition d {err_d:.3e}, x "
+          f"{err_x:.3e} (limit {lim:g}); launches masked_grad_dict "
+          f"{miters * n_chunks} (packed, dense route {d_routes}), "
+          f"masked_grad_rows {miters * n_chunks * inner} (packed, dense "
+          f"route {routes})", flush=True)
+    check(routes == (0, miters * n_chunks * inner)
+          and d_routes == (0, miters * n_chunks), f"{tag}: a gradient left "
+          "the dense route")
+    check(bool(torch.isfinite(obj).all()) and float(obj[-1]) < float(obj[0]),
+          f"{tag}: the objective did not fall")
+    check(err_d <= lim and err_x <= lim, f"{tag}: the kernel path disagrees "
+          "with the composition")
     return phase21
 
 
@@ -5171,6 +5183,22 @@ def main():
                      tuple(t.to(dt) for t in args), packed=True,
                      tag="log-normal", f64=True, dense=dt == bf16)
         del args
+    # The weighted route (a dense mask: the weighted instances of
+    # csrc/lasso_grad_packed.cu) on weights in [0.5, 1) at the packed
+    # shapes, and on log-normal my, x and a with log-normal weights, each
+    # also against the first design (csrc/lasso_grad.cu).
+    for dt in (f32, bf16):
+        for m_, n_, f_ in GRAD_PACKED_SHAPES:
+            compare_grad(cuda_lasso, "masked_grad_rows",
+                         weighted(gen, grad_inputs(gen, dev, m_, n_, f_, dt)),
+                         first=True)
+        args = weighted(gen, lognormal_inputs(gen, dev, 100_000, 1024, 128),
+                        lognormal=True)
+        compare_grad(cuda_lasso, "masked_grad_rows",
+                     tuple(t.to(dt) for t in args),
+                     tag="log-normal, log-normal weights", f64=True,
+                     first=True)
+        del args
     t_phase = phase("9 lasso kernels vs twins", t_phase)
 
     # Phase 10: batch lasso at BASELINE config 2.
@@ -5187,9 +5215,9 @@ def main():
     t_phase = phase("10c config-2-complex", t_phase)
 
     # Phase 11: the masked lasso.
-    launches_grad, launches_grad_bf16, launches_grad_dense = (
-        masked_lasso_phase(lasso, dev, card, reset_counts, read_counts,
-                           grad_routes, 100_000, 1024, 128))
+    launches_grad, launches_grad_w = masked_lasso_phase(
+        lasso, dev, card, reset_counts, read_counts, grad_routes, 100_000,
+        1024, 128)
     t_phase = phase("11 masked lasso", t_phase)
 
     # Phase 12: the lasso kernels' times against their twins.
@@ -5252,6 +5280,21 @@ def main():
         compare_grad(cuda_dl, "masked_grad_dict",
                      grad_inputs(gen, dev, m_, n_, k_, bf16), packed=True,
                      dense=True)
+    # The weighted route (the weighted instances of
+    # csrc/grad_dict_packed.cu), as phase 9's, each also against the first
+    # design (csrc/mu_kl_stats.cu's GRAD_DICT).
+    for dt in (f32, bf16):
+        for m_, n_, k_ in GRAD_PACKED_SHAPES:
+            compare_grad(cuda_dl, "masked_grad_dict",
+                         weighted(gen, grad_inputs(gen, dev, m_, n_, k_, dt)),
+                         first=True)
+        args = weighted(gen, lognormal_inputs(gen, dev, 100_000, 1024, 128),
+                        lognormal=True)
+        compare_grad(cuda_dl, "masked_grad_dict",
+                     tuple(t.to(dt) for t in args),
+                     tag="log-normal, log-normal weights", f64=True,
+                     first=True)
+        del args
     t_phase = phase("13 dictionary-learning kernels vs twins", t_phase)
 
     # Phase 14: dictionary learning at BASELINE config 3.
@@ -5267,10 +5310,9 @@ def main():
     t_phase = phase("14c wide dictionary", t_phase)
 
     # Phase 15: masked dictionary learning.
-    launches_gd, launches_gd_bf16, launches_gd_dense, masked15 = (
-        masked_dl_phase(dictionary_learning, dev, card, reset_counts,
-                        read_counts, grad_routes, dict_routes, 100_000, 1024,
-                        128))
+    launches_gd, launches_gd_w, masked15 = masked_dl_phase(
+        dictionary_learning, dev, card, reset_counts, read_counts,
+        grad_routes, dict_routes, 100_000, 1024, 128)
     t_phase = phase("15 masked dictionary learning", t_phase)
 
     # Phase 15b: the dictionary-learning kernels' times against their twins.
@@ -5357,14 +5399,16 @@ def main():
                      "mu_stats_masked_f32": launches6b,
                      **kl_launches, "solve_rows": launches2,
                      "solve_rows_complex": launches2c,
-                     "masked_grad_rows": launches_grad_dense,
-                     "masked_grad_rows_packed": launches_grad,
-                     "masked_grad_rows_packed_bf16": launches_grad_bf16,
+                     "masked_grad_rows_packed": launches_grad[f32],
+                     "masked_grad_rows_packed_bf16": launches_grad[bf16],
+                     "masked_grad_rows_weighted": launches_grad_w[f32],
+                     "masked_grad_rows_weighted_bf16": launches_grad_w[bf16],
                      "bcd_sweep": launches3,
                      "bcd_sweep_cluster": launches14b + launches14c,
-                     "masked_grad_dict": launches_gd_dense,
-                     "masked_grad_dict_packed": launches_gd,
-                     "masked_grad_dict_packed_bf16": launches_gd_bf16}
+                     "masked_grad_dict_packed": launches_gd[f32],
+                     "masked_grad_dict_packed_bf16": launches_gd[bf16],
+                     "masked_grad_dict_weighted": launches_gd_w[f32],
+                     "masked_grad_dict_weighted_bf16": launches_gd_w[bf16]}
     kernels = {"mu_stats_dense": ("mu_dense_tma", "pallas_mu.py:438"),
                "mu_stats_dense_packed": ("mu_dense_packed",
                                          "pallas_mu.py:438"),
@@ -5374,18 +5418,16 @@ def main():
                "solve_rows": ("lasso_fista_tma", "pallas_fista.py:349"),
                "solve_rows_complex": ("lasso_fista_tma",
                                       "pallas_fista.py:349 (group_fc)"),
-               "masked_grad_rows": ("lasso_grad", "pallas_lasso.py:159"),
-               "masked_grad_rows_packed": ("lasso_grad_packed",
-                                           "pallas_lasso.py:159"),
-               "masked_grad_rows_packed_bf16": ("lasso_grad_packed",
-                                                "pallas_lasso.py:159"),
+               **{f"masked_grad_rows_{r}": ("lasso_grad_packed",
+                                            "pallas_lasso.py:159")
+                  for r in ("packed", "packed_bf16", "weighted",
+                            "weighted_bf16")},
                "bcd_sweep": ("dl_bcd_sm90", "pallas_bcd.py:115"),
                "bcd_sweep_cluster": ("dl_bcd_cluster", "pallas_bcd.py:115"),
-               "masked_grad_dict": ("mu_kl_stats", "pallas_lasso.py:225"),
-               "masked_grad_dict_packed": ("grad_dict_packed",
-                                           "pallas_lasso.py:225"),
-               "masked_grad_dict_packed_bf16": ("grad_dict_packed",
-                                                "pallas_lasso.py:225")}
+               **{f"masked_grad_dict_{r}": ("grad_dict_packed",
+                                            "pallas_lasso.py:225")
+                  for r in ("packed", "packed_bf16", "weighted",
+                            "weighted_bf16")}}
     entries = []
     for name, (source, replaces) in kernels.items():
         err, ms, p_ms, b_ms, b_by = stats[name]

@@ -1,6 +1,11 @@
 // The masked lasso gradient on Hopper (sm_90a), one launch:
 //   g = (mask * (x a) - my) a^T        (M x F)
 //
+// The first design of the dense-mask gradient, on no route:
+// lasso_grad_packed.cu's weighted instance takes a dense (weighted) mask,
+// and ops/cuda_lasso.py reaches this kernel only through the private
+// _grad_dense_mma_launch, to time it beside that instance.
+//
 // Replaces the Pallas TPU kernel decomp_tpu/ops/pallas_lasso.py:159
 // masked_grad_rows (pallas_call :176, body _grad_rows_kernel :144). my =
 // mask * y and mask are (M, N), x (M, F), a (F, N), all in the data's dtype

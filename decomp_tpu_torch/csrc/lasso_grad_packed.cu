@@ -1,14 +1,15 @@
-// The masked lasso gradient with a bit-packed 0/1 mask, on Hopper
-// (sm_90a), on wgmma: f32 data with every f32 product as bf16x6 limb
-// products (L = 3 limbs an operand), and bf16 data, where each product is
-// one bf16 pass (L = 1). One template, grad_packed<KT, L>.
+// The masked lasso gradient on Hopper (sm_90a), on wgmma: f32 data with
+// every f32 product as bf16x6 limb products (L = 3 limbs an operand), and
+// bf16 data, where each product is one bf16 pass (L = 1). One template,
+// grad_packed<KT, L, W>: a 0/1 mask as packed bits (W = false), or a
+// weighted mask as a dense tile of weights in the data's dtype (W = true).
 //
 // Replaces the Pallas TPU kernel decomp_tpu/ops/pallas_lasso.py:159
-// masked_grad_rows (pallas_call :176, body _grad_rows_kernel :144-156) for
-// a 0/1 mask. Given my = mask * y (M, N), the mask as bits (M, W) int32
-// (bit j of word w in row r is mask[r, 32 w + j]; W = ceil(N / 32) rounded
-// up to a multiple of 4, pad bits 0), x (M, F), 1 <= F <= 128, and a (F,
-// N) as its L bf16 limbs, it returns
+// masked_grad_rows (pallas_call :176, body _grad_rows_kernel :144-156).
+// Given my = mask * y (M, N), the mask as bits (M, W) int32 (bit j of word
+// w in row r is mask[r, 32 w + j]; W = ceil(N / 32) rounded up to a
+// multiple of 4, pad bits 0) or as weights (M, N) in my's dtype, x (M, F),
+// 1 <= F <= 128, and a (F, N) as its L bf16 limbs, it returns
 //   g = cdt(f32(mask) * (x a) - f32(my)) a^T                   (M, F)
 // at the TPU kernel's quantisation points, cdt the data's dtype:
 //   - f32: both products at the TPU's Precision.HIGHEST (bf16x6 there, and
@@ -34,11 +35,12 @@
 //   - f32: 12 bf16 passes of 2 MNF operations, 3.15e11 operations, 0.318
 //     ms at 989 TFLOP/s, against 0.53 GB (my 409.6 MB, the bits 12.8 MB, x
 //     and g 51.2 MB each, a's limbs 0.8 MB: 0.157 ms at 3.35 TB/s): bound
-//     by operations;
+//     by operations; weighted, the weights' 409.6 MB for the bits make
+//     0.92 GB (0.275 ms), still below the operations;
 //   - bf16: 2 passes, 5.2e10 operations, 0.053 ms, against 269 MB (my
 //     204.8 MB, the bits 12.8 MB, x and g 25.6 MB each, a 0.26 MB: 0.080
-//     ms): bound by bytes. The dense-mask kernel csrc/lasso_grad.cu also
-//     reads a 204.8 MB bf16 mask.
+//     ms): bound by bytes; weighted, 461 MB with the 204.8 MB of bf16
+//     weights (0.138 ms).
 // The design keeps the tensor cores fed from shared memory and the bytes
 // low:
 //   - a persistent block per SM walks 128-row stripes; one producer thread
@@ -46,10 +48,14 @@
 //     one full and one empty mbarrier per stage) across stripes: my (128 x
 //     SC, 128-byte rows: SC = 32 f32 or 64 bf16 columns, 16 KB either way,
 //     128-byte swizzle), the stage's mask words of each row (a box of 4
-//     words) and a's limbs for the stage's SC columns (a^T rows of 64
-//     features, 128-byte swizzle; L x 2 boxes at F > 64). The bf16 ring
-//     holds 5 stages of 34 KB (7 of 26 KB at F <= 64): the kernel is bound
-//     by bytes there, and the freed shared memory keeps more in flight;
+//     words) or, weighted, the weights' box at my's coordinates (128 x SC
+//     in the data's dtype, 16 KB, the same swizzle), and a's limbs for the
+//     stage's SC columns (a^T rows of 64 features, 128-byte swizzle; L x 2
+//     boxes at F > 64). The bf16 ring holds 5 stages of 34 KB (7 of 26 KB
+//     at F <= 64): the kernel is bound by bytes there, and the freed shared
+//     memory keeps more in flight. The weights' box costs the ring stages
+//     (Cfg::kStages): 2 of 56 KB at f32, F > 64 (beside x's 96 KB of
+//     limbs), 4 at f32, F <= 64, 4 of 48 KB at bf16, F > 64, 5 at F <= 64;
 //   - two consumer warpgroups own 64 rows each; the stripe's x is kept
 //     resident as its L limbs (96 KB f32, 32 KB bf16 at F > 64), split by
 //     the threads and written in the 128-byte-swizzled layout wgmma reads;
@@ -59,8 +65,9 @@
 //     L = 3 beside it x0 against [a1 | a2] and x1 against [a0 | a1]
 //     (m64n64) and x2 against a0 (m64n32): the three limb boxes of a stage
 //     lie side by side, so two limbs are one 64-row operand;
-//   - E = f32(mask) R - my in registers, from the stage's mask words, split
-//     into L limbs (at L = 1 rounded to bf16): the accumulator layout of R
+//   - E = f32(mask) R - my in registers, from the stage's mask words or
+//     its weights at my's (row, column), split into L limbs (at L = 1
+//     rounded to bf16): the accumulator layout of R
 //     is the register-A fragment of the next wgmma's 16-deep steps, so E
 //     never touches shared memory;
 //   - g += E a_s^T on wgmma with A from registers and B the same limb boxes
@@ -70,17 +77,18 @@
 //     consumers 232 registers and the producer warpgroup 40.
 // Each block owns its rows of g: no cross-block sum and no float atomics,
 // so a rerun gives the same bits. Ragged M, N and F are masked: TMA
-// zero-fills boxes outside the tensors (so R, my and the mask bits are 0
-// there and E is 0), x's limbs are zero past M and F, and a's limbs are
-// zero past F in the wrapper's array. F <= 64 takes a KT = 64 instance.
+// zero-fills boxes outside the tensors (so R, my and the mask bits or
+// weights are 0 there and E is 0), x's limbs are zero past M and F, and
+// a's limbs are zero past F in the wrapper's array. F <= 64 takes a KT = 64
+// instance.
 //
 // The wrapper (ops/cuda_lasso.py) gives a's limbs as one (N, L KT) bf16
 // array, row n = [limb 0 of a[:, n] | limb 1 | limb 2] (L = 3) or a[:, n]
 // (L = 1), each KT wide with zeros past F (cuda_lasso.grad_limbs, made once
-// per solve), and my with 16-byte-aligned rows (a padded copy where N is
-// not a multiple of 4 f32 or 8 bf16). The tensor maps are encoded with
-// cuTensorMapEncodeTiled through the runtime's entry-point query
-// (sm90_common.cuh), so the library needs no -lcuda.
+// per solve), and my and the weights with 16-byte-aligned rows (a padded
+// copy where N is not a multiple of 4 f32 or 8 bf16). The tensor maps are
+// encoded with cuTensorMapEncodeTiled through the runtime's entry-point
+// query (sm90_common.cuh), so the library needs no -lcuda.
 
 #include "sm90_common.cuh"
 
@@ -95,10 +103,27 @@ constexpr int kXChunk = BM * 128;      // 128 rows x 64 bf16 of x's limbs
 
 // Shared memory, from a 1024-aligned base: kStages slots of [my | a's
 // limbs, box (c, l) of feature chunk c and limb l at (L c + l) kBox |
-// mask words], then x's limbs (chunk (c, l) at (L c + l) kXChunk, the
-// warpgroup's 64 rows at 64 cw) and 2 kStages mbarriers. T is the data's
-// type (my, x and g).
-template <int KT, int L>
+// mask words, or (W) the weights' box], then x's limbs (chunk (c, l) at (L
+// c + l) kXChunk, the warpgroup's 64 rows at 64 cw) and 2 kStages
+// mbarriers. T is the data's type (my, the weights, x and g).
+// The two values at (row, col) and (row, col + 1) of a 128 x SC box of
+// 128-byte swizzled rows (my's, or the weights'), col even, as f32.
+template <typename T>
+__device__ __forceinline__ void pair_at(const unsigned char* box, int row,
+                                        int col, float (&v)[2]) {
+  if constexpr (sizeof(T) == 4) {
+    const SwzF<BM> z{reinterpret_cast<const float*>(box)};
+    v[0] = z.at(row, col);
+    v[1] = z.at(row, col + 1);
+  } else {
+    const __nv_bfloat162 p = *reinterpret_cast<const __nv_bfloat162*>(
+        Swz<128, BM>{reinterpret_cast<const bf16*>(box)}.at(row, col));
+    v[0] = __low2float(p);
+    v[1] = __high2float(p);
+  }
+}
+
+template <int KT, int L, bool W>
 struct Cfg {
   static_assert(L == 1 || L == 3, "one limb (bf16) or three (f32)");
   using T = std::conditional_t<L == 3, float, bf16>;
@@ -106,22 +131,26 @@ struct Cfg {
   static constexpr int KC = KT / 64;
   static constexpr int kBox = SC * 128;   // SC rows x 64 bf16 of a's limbs
   static constexpr int kA = L * KC * kBox;
-  static constexpr int kSlot = kMy + kA + kMask;
+  static constexpr int kSlot = kMy + kA + (W ? kMy : kMask);
   static constexpr int kStages =
-      L == 3 ? (KT == 64 ? 4 : 3) : (KT == 64 ? 7 : 5);
+      W ? (L == 3 ? (KT == 64 ? 4 : 2) : (KT == 64 ? 5 : 4))
+        : (L == 3 ? (KT == 64 ? 4 : 3) : (KT == 64 ? 7 : 5));
   static constexpr int kX = L * KC * kXChunk;
   static constexpr size_t kSmem =
       1024 + (size_t)kStages * kSlot + kX + 16 * kStages;
+  static_assert(kSmem <= 232448, "more than a block's shared memory");
 };
 
-template <int KT, int L>
+// tm_mask: the bits in boxes of 4 words x 128 rows, or (W) the weights in
+// my's boxes.
+template <int KT, int L, bool W>
 __global__ void __launch_bounds__(kThreads, 1)
     grad_packed(const __grid_constant__ CUtensorMap tm_my,
                 const __grid_constant__ CUtensorMap tm_mask,
                 const __grid_constant__ CUtensorMap tm_a,
-                const typename Cfg<KT, L>::T* __restrict__ x, int M, int N,
-                int F, typename Cfg<KT, L>::T* __restrict__ g) {
-  using C = Cfg<KT, L>;
+                const typename Cfg<KT, L, W>::T* __restrict__ x, int M, int N,
+                int F, typename Cfg<KT, L, W>::T* __restrict__ g) {
+  using C = Cfg<KT, L, W>;
   using T = typename C::T;
   constexpr int S = C::kStages, KC = C::KC, SC = C::SC, kBox = C::kBox;
   extern __shared__ unsigned char smem_raw[];
@@ -159,9 +188,13 @@ __global__ void __launch_bounds__(kThreads, 1)
             for (int l = 0; l < L; ++l)
               tma_load(dst + kMy + (L * c + l) * kBox, tm_a, l * KT + 64 * c,
                        s * SC, bar);
-          // The 4-word group that holds the stage's SC / 32 words.
-          tma_load(dst + kMy + C::kA, tm_mask, (s * SC / 32) & ~3, sp * BM,
-                   bar);
+          // The 4-word group that holds the stage's SC / 32 words, or the
+          // weights of my's box.
+          if constexpr (W)
+            tma_load(dst + kMy + C::kA, tm_mask, s * SC, sp * BM, bar);
+          else
+            tma_load(dst + kMy + C::kA, tm_mask, (s * SC / 32) & ~3, sp * BM,
+                     bar);
         }
     }
     return;
@@ -266,7 +299,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       // rr + 8 ((i / 2) % 2), column 8 (i / 4) + 2 t + i % 2; the A
       // fragment of depth step ks takes 8-column blocks 2 ks and 2 ks + 1.
       // Column col = 8 j + 2 t of the stage is bit 8 (j % 4) + 2 t of word
-      // (s SC / 32 + j / 4) % 4 of the row's 4-word group.
+      // (s SC / 32 + j / 4) % 4 of the row's 4-word group; W: the weights
+      // at (row, col) and (row, col + 1) of their box, read as my is.
       const uint32_t* mw =
           reinterpret_cast<const uint32_t*>(base + kMy + C::kA);
       uint32_t ea[SC / 16][L][4];
@@ -275,20 +309,18 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int row = rr + 8 * h, col = 8 * j + 2 * t;
-          const uint32_t word = mw[row * 4 + ((s * SC / 32 + j / 4) & 3)] >>
-                                (8 * (j % 4) + 2 * t);
-          // my at (row, col) and (row, col + 1), side by side.
-          float my[2];
-          if constexpr (L == 3) {
-            const SwzF<BM> ms{reinterpret_cast<const float*>(base)};
-            my[0] = ms.at(row, col);
-            my[1] = ms.at(row, col + 1);
+          // my (and W's weights) at (row, col) and (row, col + 1), side by
+          // side.
+          float my[2], wt[2];
+          pair_at<T>(base, row, col, my);
+          if constexpr (W) {
+            pair_at<T>(base + kMy + C::kA, row, col, wt);
           } else {
-            const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(
-                Swz<128, BM>{reinterpret_cast<const bf16*>(base)}.at(row,
-                                                                     col));
-            my[0] = __low2float(v);
-            my[1] = __high2float(v);
+            const uint32_t word =
+                mw[row * 4 + ((s * SC / 32 + j / 4) & 3)] >>
+                (8 * (j % 4) + 2 * t);
+            wt[0] = (float)(word & 1u);
+            wt[1] = (float)((word >> 1) & 1u);
           }
           float e[2];
 #pragma unroll
@@ -300,8 +332,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             if constexpr (L == 3)
               r = __fadd_rn(r, (r0[i] + r0[16 + i]) + (r1[i] + r1[16 + i]) +
                                    r2[i]);
-            const float m = (float)((word >> u) & 1u);
-            e[u] = __fsub_rn(__fmul_rn(m, r), my[u]);
+            e[u] = __fsub_rn(__fmul_rn(wt[u], r), my[u]);
           }
           if constexpr (L == 3) {
             uint32_t f[3];
@@ -368,6 +399,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// mask: the bits (words per row) or, W, the weights (row stride words).
 struct Args {
   const void *my, *mask, *x, *al;
   int ld_my, words, M, N, F;
@@ -375,19 +407,21 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int KT, int L>
+template <int KT, int L, bool W>
 int launch(const Args& a) {
-  using C = Cfg<KT, L>;
+  using C = Cfg<KT, L, W>;
   using T = typename C::T;
+  constexpr CUtensorMapDataType TT = L == 3
+                                         ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap my, mask, al;
   const bool ok =
-      make_map(&my,
-               L == 3 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-               (int)sizeof(T), a.my, a.N, a.M, a.ld_my, C::SC, BM,
+      make_map(&my, TT, (int)sizeof(T), a.my, a.N, a.M, a.ld_my, C::SC, BM,
                CU_TENSOR_MAP_SWIZZLE_128B) &&
-      make_map(&mask, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, a.mask, a.words, a.M,
-               a.words, 4, BM, CU_TENSOR_MAP_SWIZZLE_NONE) &&
+      (W ? make_map(&mask, TT, (int)sizeof(T), a.mask, a.N, a.M, a.words,
+                    C::SC, BM, CU_TENSOR_MAP_SWIZZLE_128B)
+         : make_map(&mask, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, a.mask, a.words,
+                    a.M, a.words, 4, BM, CU_TENSOR_MAP_SWIZZLE_NONE)) &&
       make_map(&al, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.al, L * KT, a.N,
                L * KT, 64, C::SC, CU_TENSOR_MAP_SWIZZLE_128B);
   if (!ok) return (int)cudaErrorInvalidValue;
@@ -396,16 +430,34 @@ int launch(const Args& a) {
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(grad_packed<KT, L>,
+  err = cudaFuncSetAttribute(grad_packed<KT, L, W>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)C::kSmem);
   if (err != cudaSuccess) return (int)err;
   const int stripes = (a.M + BM - 1) / BM;
-  grad_packed<KT, L><<<stripes < sms ? stripes : sms, kThreads, C::kSmem,
-                       a.stream>>>(my, mask, al,
-                                   static_cast<const T*>(a.x), a.M, a.N, a.F,
-                                   static_cast<T*>(a.g));
+  grad_packed<KT, L, W><<<stripes < sms ? stripes : sms, kThreads,
+                          C::kSmem, a.stream>>>(my, mask, al,
+                                                static_cast<const T*>(a.x),
+                                                a.M, a.N, a.F,
+                                                static_cast<T*>(a.g));
   return (int)cudaGetLastError();
+}
+
+// Both C entries: the checks they share, the mask's own (W: the weights'
+// row stride in a.words, 16-byte aligned as my's; else the bits' words a
+// row), then the instance.
+template <bool W>
+int entry(int limbs, int kt, const Args& a) {
+  const int per = limbs == 3 ? 4 : 8;   // elements in 16 bytes
+  const bool mask_ok = W ? a.words >= a.N && a.words % per == 0
+                         : a.words % 4 == 0 && a.words * 32 >= a.N;
+  if (a.M < 1 || a.N < 1 || a.F < 1 || a.F > kt || (kt != 64 && kt != 128) ||
+      (limbs != 1 && limbs != 3) || a.ld_my < a.N || a.ld_my % per != 0 ||
+      !mask_ok)
+    return (int)cudaErrorInvalidValue;
+  if (limbs == 3)
+    return kt == 64 ? launch<64, 3, W>(a) : launch<128, 3, W>(a);
+  return kt == 64 ? launch<64, 1, W>(a) : launch<128, 1, W>(a);
 }
 
 }  // namespace
@@ -422,13 +474,19 @@ extern "C" int lasso_grad_packed_launch(int limbs, int kt, const void* my,
                                         int words, const void* x,
                                         const void* al, int M, int N, int F,
                                         void* g, void* stream) {
-  const Args a{my, mask, x, al, ld_my, words, M, N, F, g,
-               static_cast<cudaStream_t>(stream)};
-  const int per = limbs == 3 ? 4 : 8;   // elements in 16 bytes
-  if (M < 1 || N < 1 || F < 1 || F > kt || (kt != 64 && kt != 128) ||
-      (limbs != 1 && limbs != 3) || words % 4 != 0 || words * 32 < N ||
-      ld_my < N || ld_my % per != 0)
-    return (int)cudaErrorInvalidValue;
-  if (limbs == 3) return kt == 64 ? launch<64, 3>(a) : launch<128, 3>(a);
-  return kt == 64 ? launch<64, 1>(a) : launch<128, 1>(a);
+  return entry<false>(limbs, kt, Args{my, mask, x, al, ld_my, words, M, N,
+                                      F, g,
+                                      static_cast<cudaStream_t>(stream)});
+}
+
+// The weighted mask: as lasso_grad_packed_launch with the weights w (M x N
+// in my's dtype, row stride ld_w, 16-byte aligned rows as my's) for the
+// bits.
+extern "C" int lasso_grad_weighted_launch(int limbs, int kt, const void* my,
+                                          int ld_my, const void* w, int ld_w,
+                                          const void* x, const void* al,
+                                          int M, int N, int F, void* g,
+                                          void* stream) {
+  return entry<true>(limbs, kt, Args{my, w, x, al, ld_my, ld_w, M, N, F, g,
+                                     static_cast<cudaStream_t>(stream)});
 }

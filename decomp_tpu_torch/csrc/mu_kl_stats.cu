@@ -72,7 +72,10 @@
 // d (2.6 MB) is re-read from L2 by every stripe of launch 1.
 //
 // GRAD_DICT runs launches 2 and 3 only, on x itself: one pass over my and
-// mask, 4 MNK FLOP (R and x^T E). At 100,000 x 1,024, K = 128: 52 GFLOP
+// mask, 4 MNK FLOP (R and x^T E). It is the first design of the dense-mask
+// dictionary gradient and on no route: grad_dict_packed.cu's weighted
+// instance took its masks, and ops/cuda_dl.py reaches it only through the
+// private _grad_dict_dense_mma_launch, to time it beside that instance. At 100,000 x 1,024, K = 128: 52 GFLOP
 // against 0.87 GB in f32 (0.78 ms of f32 FMA at 67 TFLOP/s bounds it), 0.44
 // GB in bf16 (0.13 ms of HBM). Its row chunks are chosen by the wrapper to
 // fill the 132 SMs a few times over (ops/cuda_dl.py), since each chunk's

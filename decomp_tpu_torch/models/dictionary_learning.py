@@ -125,10 +125,11 @@ def solve(
         A 0/1 mask goes to both gradients as bits, packed once per
         solve, for f32 data (on the CPU, any data). 'auto' takes the masked
         kernels for a CUDA ``y`` with at most 128 atoms where the card
-        measured them faster than the composition (bf16, or f32 with a 0/1
-        mask: ``lasso._auto_takes_masked``), and never the whole-solve
-        kernel (a fixed short inner budget leaves it nothing to gain). On
-        a CPU tensor each kernel's plain twin runs. ``use_kernel=False``
+        measured them faster than the composition (bf16 or f32 data, a 0/1
+        or weighted mask: ``lasso._auto_takes_masked``), and never the
+        whole-solve kernel (a fixed short inner budget leaves it nothing to
+        gain). On a CPU tensor each kernel's plain twin runs.
+        ``use_kernel=False``
         also vetoes the BCD sweep kernel, which 'auto' takes for unmasked
         real f32 data on the card whose K x N is inside the TPU kernel's
         gate (``cuda_dl.bcd_fits``: up to 256 x 3,712, 8 x 98,176 or
@@ -297,7 +298,7 @@ def _solve(y, d, x, mask, val, alpha, *, tol, lasso_tol, forget, maxiter,
     ``solve`` draws it with ``nmf._heldout_reserve``, and a parity test may
     pass ``decomp_tpu``'s. ``kernel``: ``_kernel_mode``'s answer; with
     ``auto``, the masked kernels are also subject to
-    ``lasso._auto_takes_masked`` once the mask is known to pack.
+    ``lasso._auto_takes_masked``.
     ``batch_idx``: the minibatch rows of each outer iteration, (maxiter,
     minibatch), instead of the seeded draws (a parity test passes
     ``decomp_tpu``'s).

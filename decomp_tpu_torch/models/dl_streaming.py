@@ -380,15 +380,13 @@ class _Coder:
 
     def kernel_mask(self, mask, y, i=None):
         """``lasso._kernel_mask`` of one chunk."""
-        if self.mode != "masked":
+        if self.mode != "masked" or (
+                self.auto and not _lasso._auto_takes_masked(y.dtype)):
             return None
         packed = None
         if cuda_lasso.grad_takes_packed(y):
             packed = (self.bits(i, mask) if self.bits is not None
                       else cuda_mu.pack_mask(mask))
-        if self.auto and not _lasso._auto_takes_masked(y.dtype,
-                                                       packed is not None):
-            return None
         return mask if packed is None else packed
 
     def __call__(self, yc, d, xc, mc, kmask):

@@ -113,8 +113,8 @@ def solve(
         data). On a CUDA tensor the hand-written kernel runs, on a CPU
         tensor its plain twin. 'auto' takes each kernel on a CUDA tensor
         where the card measured it faster than the composition and its
-        contract holds (F <= 128 for the masked kernel, bf16 data or f32
-        data with a 0/1 mask; f32 and F <= 1024 for the whole solve,
+        contract holds (F <= 128 for the masked kernel, bf16 or f32 data
+        with a 0/1 or weighted mask; f32 and F <= 1024 for the whole solve,
         complex64 under 'high' and F <= 512, or under 'highest' and F <=
         256); it is False on the CPU.
     kernel_block_rows : rows per stripe of the whole-solve kernel, 16 or
@@ -370,17 +370,15 @@ def _kernel_mode(use_kernel, y, mask, method, dtype, n_features, per_problem,
     return "whole"
 
 
-def _auto_takes_masked(dtype, binary):
+def _auto_takes_masked(dtype):
     """Whether ``use_kernel='auto'`` keeps masked data of ``dtype`` on the
     card on the masked-gradient kernels, which it does where the card
     measured them faster than the composition (PERF.md §6; chip_smoke.py
     phases 11 and 15, the masked lasso and masked dictionary learning):
-    bf16 data (a 0/1 mask packed, ``csrc/lasso_grad_packed.cu``; a weighted
-    one on ``csrc/lasso_grad.cu``), and f32 data with a 0/1 mask
-    (``binary``: it packs; ``csrc/lasso_grad_packed.cu``). A weighted f32
-    mask would take ``csrc/lasso_grad.cu``'s f32 path, which loses, so it
-    runs the composition."""
-    return dtype == torch.bfloat16 or (dtype == torch.float32 and binary)
+    bf16 and f32 data, whatever the mask's form (a 0/1 mask as bits, a
+    weighted one as weights, both on ``csrc/lasso_grad_packed.cu`` and
+    ``csrc/grad_dict_packed.cu``)."""
+    return dtype in (torch.bfloat16, torch.float32)
 
 
 def _kernel_mask(mask, y, auto, reduce=None):
@@ -391,10 +389,10 @@ def _kernel_mask(mask, y, auto, reduce=None):
     (``auto``) None where ``_auto_takes_masked`` sends the solve to the
     composition instead. ``reduce``: a sharded solve's sum over its ranks,
     which packs only where every rank's block is 0/1."""
+    if auto and not _auto_takes_masked(y.dtype):
+        return None
     packed = (cuda_mu.pack_mask_agreed(mask, reduce)
               if cuda_lasso.grad_takes_packed(y) else None)
-    if auto and not _auto_takes_masked(y.dtype, packed is not None):
-        return None
     return mask if packed is None else packed
 
 
@@ -413,8 +411,8 @@ def build_solver(y, a, alpha, x, mask, lipschitz, *, method,
     use_kernel=True with a mask: the gradient is one
     ``cuda_lasso.masked_grad_rows`` call per iteration, reading
     ``kernel_mask`` (``_kernel_mask``'s answer, made once per solve by the
-    caller) or, when None, the dense mask; a packed mask goes with a's
-    limbs, split here once.
+    caller) or, when None, the dense mask; on the card (f32 or bf16 data)
+    either goes with a's limbs, split here once.
 
     per_problem=True (ista / fista / acc_ista / parallel_cd; requires
     ``tol``): every row converges independently. The state carries a
@@ -443,7 +441,7 @@ def build_solver(y, a, alpha, x, mask, lipschitz, *, method,
         # reaches device memory.
         mask_k = mask if kernel_mask is None else kernel_mask
         limbs = (cuda_lasso.grad_limbs(a)
-                 if mask_k.dtype == torch.int32 and a.is_cuda else None)
+                 if a.is_cuda and cuda_lasso.grad_takes_packed(a) else None)
 
         def grad(x_):
             return cuda_lasso.masked_grad_rows(my, mask_k, x_, a,

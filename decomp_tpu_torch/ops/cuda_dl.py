@@ -34,14 +34,15 @@ into every block's shared memory by ``st.async`` on an mbarrier, and each
 block sums the 128 shares in one fixed order; ``bcd_cluster_plan`` says
 how). ``csrc/dl_bcd.cu``, the first design (one block, d in shared memory,
 up to K x N = 53,248), is on no route: only the private
-``_bcd_shared_launch`` reaches it, for timing. For ``masked_grad_dict`` a
-packed mask
-with f32 or bf16 data launches ``csrc/grad_dict_packed.cu`` (the
-statistics chain of ``csrc/wgmma_chain.cuh`` on ``wgmma``: bf16x6 limb
-products for f32, one bf16 pass a product for bf16), a dense mask, i.e. a
-weighted one, the GRAD_DICT variant of ``csrc/mu_kl_stats.cu`` (bf16 or
-f32 data, every operand in the data's dtype), both for 1 <= K <=
-``GRAD_DICT_MAX_ATOMS``. On a CPU tensor it runs its ``*_plain`` twin (a
+``_bcd_shared_launch`` reaches it, for timing. For ``masked_grad_dict``
+f32 or bf16 data launch ``csrc/grad_dict_packed.cu`` (the statistics
+chain of ``csrc/wgmma_chain.cuh`` on ``wgmma``: bf16x6 limb products for
+f32, one bf16 pass a product for bf16) for 1 <= K <=
+``GRAD_DICT_MAX_ATOMS``: a packed mask on its bits instance, a dense mask,
+i.e. a weighted one, in the data's dtype on its weighted instance. The
+GRAD_DICT variant of ``csrc/mu_kl_stats.cu``, its first design, is on no
+route: only the private ``_grad_dict_dense_mma_launch`` reaches it, for
+timing. On a CPU tensor it runs its ``*_plain`` twin (a
 packed mask unpacked to my's dtype first). It never falls back from one to
 the other. Each wrapper counts its kernel launches in ``.launches``, and
 per route: ``bcd_sweep`` in ``.register_launches`` and ``.cluster_launches``,
@@ -373,11 +374,11 @@ def masked_grad_dict(my, mask, x, d):
     f32; ``my`` is the pre-masked data ``mask * y`` (M, N), ``x`` (M, K),
     ``d`` (K, N). The M x N residual never reaches device memory.
 
-    ``mask`` is dense, in my's shape, or the bits of a 0/1 mask from
-    ``cuda_mu.pack_mask`` (int32). On a CUDA tensor a packed mask launches
-    ``csrc/grad_dict_packed.cu`` (f32 or bf16 data, its instance by the
-    dtype) and counts it in ``.packed_launches``; a dense mask launches the
-    GRAD_DICT variant of ``csrc/mu_kl_stats.cu`` and counts it in
+    ``mask`` is dense, in my's shape and dtype (a weighted mask), or the
+    bits of a 0/1 mask from ``cuda_mu.pack_mask`` (int32). On a CUDA tensor
+    (f32 or bf16 data) both launch ``csrc/grad_dict_packed.cu``, its
+    instance by the dtype and the mask's form: a packed mask counts in
+    ``.packed_launches``, a dense one (the weights streamed beside my) in
     ``.dense_launches``; ``.launches`` counts both. On a CPU tensor a
     packed mask is unpacked to my's dtype for the twin, which then gives
     the dense mask's bits."""
@@ -392,7 +393,7 @@ def masked_grad_dict(my, mask, x, d):
         g = _grad_dict_packed_launch(my, mask, x, d)
         masked_grad_dict.packed_launches += 1
     else:
-        g = _grad_dict_dense_launch(my, mask, x, d)
+        g = _grad_dict_weighted_launch(my, mask, x, d)
         masked_grad_dict.dense_launches += 1
     masked_grad_dict.launches += 1
     return g
@@ -441,15 +442,36 @@ def _grad_dict_packed_launch(my, packed, x, d):
     f32 x's limbs are split by the kernel's first launch, bf16 x is
     streamed as it is (a padded copy where K % 8 != 0, as TMA needs)."""
     check_packed_grad_args(my, packed, x, d)
+    packed = packed.contiguous()
+    if packed.data_ptr() % 16:
+        packed = packed.clone()
+    return _grad_dict_chain(my, x, d, "grad_dict_packed_launch", packed,
+                            packed.shape[1])
+
+
+def _grad_dict_weighted_launch(my, w, x, d):
+    """Launch ``csrc/grad_dict_packed.cu``'s weighted instance on f32 or
+    bf16 ``my`` and the dense mask ``w`` in my's dtype
+    (``masked_grad_dict``'s dense route), launches as
+    ``_grad_dict_packed_launch``'s with the weights (16-byte-aligned rows,
+    as my's) for the bits."""
+    check_masked_grad_args(my, w, x, d)
+    with torch.cuda.device(my.device):
+        w_t, ld_w = cuda_mu._tma_rows(w.contiguous())
+        return _grad_dict_chain(my, x, d, "grad_dict_weighted_launch", w_t,
+                                ld_w)
+
+
+def _grad_dict_chain(my, x, d, entry, mask, ld_mask):
+    """Call ``csrc/grad_dict_packed.cu``'s C entry ``entry`` with the mask
+    (the bits, ``ld_mask`` words a row, or the weights, row stride
+    ``ld_mask``); G (K, N) f32."""
     m, n = my.shape
     k = d.shape[0]
     kt = grad_tile(k)
     limbs = grad_limb_count(my.dtype)
     rows = grad_dict_packed_rows(m, n)
-    packed = packed.contiguous()
-    if packed.data_ptr() % 16:
-        packed = packed.clone()
-    fn = _c_function("grad_dict_packed", "grad_dict_packed_launch",
+    fn = _c_function("grad_dict_packed", entry,
                      (_I, _I, _P, _I, _P, _I, _P, _I, _P) + (_I,) * 4
                      + (_P,) * 4)
     with torch.cuda.device(my.device):
@@ -464,17 +486,18 @@ def _grad_dict_packed_launch(my, packed, x, d):
             x_t, ld_x = cuda_mu._tma_rows(x.contiguous())
         part = _f32(-(-m // rows) * k * n, my.device)
         out = _f32(k * n, my.device)
-        _launch("masked_grad_dict (packed)", fn, my.device, limbs, kt,
-                my_t.data_ptr(), ld_my, packed.data_ptr(), packed.shape[1],
+        _launch(f"masked_grad_dict ({entry})", fn, my.device, limbs, kt,
+                my_t.data_ptr(), ld_my, mask.data_ptr(), ld_mask,
                 x_t.data_ptr(), ld_x, d_limbs.data_ptr(), m, n, k, rows,
                 0 if x_limbs is None else x_limbs.data_ptr(),
                 part.data_ptr(), out.data_ptr())
     return out.view(k, n)
 
 
-def _grad_dict_dense_launch(my, mask, x, d):
-    """Launch the GRAD_DICT variant of ``csrc/mu_kl_stats.cu`` on a dense
-    mask (``masked_grad_dict``'s dense route)."""
+def _grad_dict_dense_mma_launch(my, mask, x, d):
+    """Launch the GRAD_DICT variant of ``csrc/mu_kl_stats.cu``, the first
+    design of the dense-mask gradient, on no route of ``masked_grad_dict``:
+    kept to be timed beside the weighted instance. Counts nothing."""
     check_masked_grad_args(my, mask, x, d)
     m, n = my.shape
     k = d.shape[0]

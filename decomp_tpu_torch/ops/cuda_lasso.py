@@ -48,20 +48,23 @@ On a CUDA tensor a wrapper launches its kernel (``solve_rows``: f32
 with 1 <= F <= ``SOLVE_MAX_FEATURES``, or complex64 with 1 <= Fc <=
 ``SOLVE_MAX_COMPLEX_FEATURES``, on ``csrc/lasso_fista_tma.cu`` for
 ``hi_lo=True`` and ``csrc/lasso_fista.cu`` for ``hi_lo=False``;
-``masked_grad_rows``, 1 <= F <= ``GRAD_MAX_FEATURES``: a packed mask with
-f32 or bf16 data on ``csrc/lasso_grad_packed.cu``, on wgmma, whose f32
-products run as bf16x6 limb products and whose bf16 products as one bf16
-pass (a's limbs from ``grad_limbs``: three, or one for bf16); a dense mask,
-i.e. a weighted one, bf16 or f32 data with every operand in the data's
-dtype, on ``csrc/lasso_grad.cu``) and raises on anything else. On a CPU
+``masked_grad_rows``, 1 <= F <= ``GRAD_MAX_FEATURES``, f32 or bf16 data
+on ``csrc/lasso_grad_packed.cu``, on wgmma, whose f32 products run as
+bf16x6 limb products and whose bf16 products as one bf16 pass (a's limbs
+from ``grad_limbs``: three, or one for bf16): a packed mask on its bits
+instance, a dense mask, i.e. a weighted one, in the data's dtype on its
+weighted instance) and raises on anything else. On a CPU
 tensor it runs its ``*_plain`` twin (a packed mask unpacked to my's dtype
 first). It never falls back from one to the other. Each wrapper counts
 its kernel launches in ``.launches``; ``solve_rows`` counts its complex-mode launches
 in ``.complex_launches`` and its launches of the 'high' kernel in
 ``.tma_launches`` as well; ``masked_grad_rows`` counts each route, in
-``.packed_launches`` and ``.dense_launches``. The 'high' kernel gives,
-row for row, the bits of ``csrc/lasso_fista.cu``'s 'high' path, which
-``_solve_rows_mma`` still launches for comparison.
+``.packed_launches`` and ``.dense_launches`` (the weighted instance). The
+'high' kernel gives, row for row, the bits of ``csrc/lasso_fista.cu``'s
+'high' path, which ``_solve_rows_mma`` still launches for comparison;
+``csrc/lasso_grad.cu``, the first design of the dense-mask gradient
+(``mma.sync`` for bf16, full-f32 FMAs for f32), is on no route: only the
+private ``_grad_dense_mma_launch`` reaches it, for timing.
 
 Not ported: the TPU kernels' VMEM calibrations and 128-alignment padding
 (``default_block_rows``, ``fits_vmem``, ``auto_wins``,
@@ -579,16 +582,16 @@ def masked_grad_rows(my, mask, x, a, *, a_limbs=None):
     dtype; ``my`` is the pre-masked data ``mask * y`` (M, N), ``x`` (M, F),
     ``a`` (F, N). The M x N reconstruction never reaches device memory.
 
-    ``mask`` is dense, in my's shape, or the bits of a 0/1 mask from
-    ``cuda_mu.pack_mask`` (int32). On a CUDA tensor a packed mask launches
-    ``csrc/lasso_grad_packed.cu`` (f32 or bf16 data, its instance by the
-    dtype) and counts it in ``.packed_launches``; a dense mask launches
-    ``csrc/lasso_grad.cu`` and counts it in ``.dense_launches``;
-    ``.launches`` counts both. The packed route reads a as ``a_limbs``,
-    ``grad_limbs(a)`` made once by a caller that keeps a for many calls,
-    or here when None. On a CPU tensor a
-    packed mask is unpacked to my's dtype for the twin, which then gives
-    the dense mask's bits, and ``a_limbs`` is not read."""
+    ``mask`` is dense, in my's shape and dtype (a weighted mask), or the
+    bits of a 0/1 mask from ``cuda_mu.pack_mask`` (int32). On a CUDA tensor
+    (f32 or bf16 data) both launch ``csrc/lasso_grad_packed.cu``, its
+    instance by the dtype and the mask's form: a packed mask counts in
+    ``.packed_launches``, a dense one (the weights streamed beside my) in
+    ``.dense_launches``; ``.launches`` counts both. Both read a as
+    ``a_limbs``, ``grad_limbs(a)`` made once by a caller that keeps a for
+    many calls, or here when None. On a CPU tensor a packed mask is
+    unpacked to my's dtype for the twin, which then gives the dense mask's
+    bits, and ``a_limbs`` is not read."""
     packed = mask.dtype == torch.int32
     if packed:
         cuda_mu._check_packed(my, mask)
@@ -600,7 +603,7 @@ def masked_grad_rows(my, mask, x, a, *, a_limbs=None):
         g = _grad_packed_launch(my, mask, x, a, a_limbs)
         masked_grad_rows.packed_launches += 1
     else:
-        g = _grad_dense_launch(my, mask, x, a)
+        g = _grad_weighted_launch(my, mask, x, a, a_limbs)
         masked_grad_rows.dense_launches += 1
     masked_grad_rows.launches += 1
     return g
@@ -674,7 +677,12 @@ def check_packed_grad_args(my, packed, x, a, a_limbs=None):
                          f"fit my {tuple(my.shape)}")
     if max(m, n) >= 2 ** 31:
         raise ShapeError(f"my's sides must be < 2^31, got {tuple(my.shape)}")
-    want = (n, grad_limb_count(my.dtype) * grad_tile(f))
+    _check_a_limbs(my, a, a_limbs)
+
+
+def _check_a_limbs(my, a, a_limbs):
+    """``a_limbs``, where given, must have ``grad_limbs(a)``'s layout."""
+    want = (my.shape[1], grad_limb_count(my.dtype) * grad_tile(a.shape[0]))
     if a_limbs is not None and (
             a_limbs.dtype != torch.bfloat16 or a_limbs.device != my.device
             or tuple(a_limbs.shape) != want or not a_limbs.is_contiguous()):
@@ -688,31 +696,53 @@ def _grad_packed_launch(my, packed, x, a, a_limbs):
     packed mask (``masked_grad_rows``' packed route): the instance of
     ``grad_limb_count(my.dtype)`` limbs; g in the data's dtype."""
     check_packed_grad_args(my, packed, x, a, a_limbs)
-    m, n = my.shape
-    f = a.shape[0]
-    kt = grad_tile(f)
-    if a_limbs is None:
-        a_limbs = grad_limbs(a)
     packed = packed.contiguous()
     if packed.data_ptr() % 16:
         packed = packed.clone()
-    fn = _c_function("lasso_grad_packed", "lasso_grad_packed_launch",
+    return _grad_rows_chain(my, x, a, a_limbs, "lasso_grad_packed_launch",
+                            packed, packed.shape[1])
+
+
+def _grad_weighted_launch(my, w, x, a, a_limbs):
+    """Launch ``csrc/lasso_grad_packed.cu``'s weighted instance on f32 or
+    bf16 ``my`` and the dense mask ``w`` in my's dtype (``masked_grad_rows``'
+    dense route): the weights stream beside my, each with 16-byte-aligned
+    rows; g in the data's dtype."""
+    check_masked_grad_args(my, w, x, a)
+    _check_a_limbs(my, a, a_limbs)
+    with torch.cuda.device(my.device):
+        w_t, ld_w = cuda_mu._tma_rows(w.contiguous())
+        return _grad_rows_chain(my, x, a, a_limbs,
+                                "lasso_grad_weighted_launch", w_t, ld_w)
+
+
+def _grad_rows_chain(my, x, a, a_limbs, entry, mask, ld_mask):
+    """Call ``csrc/lasso_grad_packed.cu``'s C entry ``entry`` with the mask
+    (the bits, ``ld_mask`` words a row, or the weights, row stride
+    ``ld_mask``) and ``a_limbs`` (``grad_limbs(a)`` where None); g (M, F)
+    in the data's dtype."""
+    m, n = my.shape
+    f = a.shape[0]
+    if a_limbs is None:
+        a_limbs = grad_limbs(a)
+    fn = _c_function("lasso_grad_packed", entry,
                      (_I, _I, _P, _I, _P, _I, _P, _P) + (_I,) * 3
                      + (_P,) * 2)
     with torch.cuda.device(my.device):
         my_t, ld_my = cuda_mu._tma_rows(my.contiguous())
         xc = x.contiguous()
         g = torch.empty((m, f), dtype=my.dtype, device=my.device)
-        _launch("masked_grad_rows (packed)", fn, my.device,
-                grad_limb_count(my.dtype), kt, my_t.data_ptr(), ld_my,
-                packed.data_ptr(), packed.shape[1], xc.data_ptr(),
+        _launch(f"masked_grad_rows ({entry})", fn, my.device,
+                grad_limb_count(my.dtype), grad_tile(f), my_t.data_ptr(),
+                ld_my, mask.data_ptr(), ld_mask, xc.data_ptr(),
                 a_limbs.data_ptr(), m, n, f, g.data_ptr())
     return g
 
 
-def _grad_dense_launch(my, mask, x, a):
-    """Launch ``csrc/lasso_grad.cu`` on a dense mask (``masked_grad_rows``'
-    dense route)."""
+def _grad_dense_mma_launch(my, mask, x, a):
+    """Launch ``csrc/lasso_grad.cu``, the first design of the dense-mask
+    gradient, on no route of ``masked_grad_rows``: kept to be timed beside
+    the weighted instance. Counts nothing."""
     check_masked_grad_args(my, mask, x, a)
     m, n = my.shape
     f = a.shape[0]

@@ -240,8 +240,8 @@ def on_card(monkeypatch):
             (cuda_dl, "masked_grad_dict", cuda_dl.masked_grad_dict_plain)):
         monkeypatch.setattr(module, "_runs_plain", lambda t: False)
         short = "grad" if module is cuda_lasso else "grad_dict"
-        for route in ("packed", "dense"):
-            monkeypatch.setattr(module, f"_{short}_{route}_launch",
+        for route, kind in (("packed", "packed"), ("dense", "weighted")):
+            monkeypatch.setattr(module, f"_{short}_{kind}_launch",
                                 launch(wrapper, route, plain))
         w = getattr(module, wrapper)
         for name in ("launches", "packed_launches", "dense_launches"):

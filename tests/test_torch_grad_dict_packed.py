@@ -137,7 +137,8 @@ def on_card(monkeypatch):
     monkeypatch.setattr(cuda_dl, "_runs_plain", lambda t: False)
     monkeypatch.setattr(cuda_dl, "_grad_dict_packed_launch",
                         launch("packed"))
-    monkeypatch.setattr(cuda_dl, "_grad_dict_dense_launch", launch("dense"))
+    monkeypatch.setattr(cuda_dl, "_grad_dict_weighted_launch",
+                        launch("dense"))
     for name in ("launches", "packed_launches", "dense_launches"):
         monkeypatch.setattr(cuda_dl.masked_grad_dict, name, 0)
     return calls
@@ -145,8 +146,8 @@ def on_card(monkeypatch):
 
 @pytest.mark.parametrize("packed", [True, False])
 def test_route_by_the_masks_form(on_card, packed):
-    """On the card a packed mask takes csrc/grad_dict_packed.cu and a dense
-    one csrc/mu_kl_stats.cu's GRAD_DICT variant, each counted apart and
+    """On the card a packed mask takes csrc/grad_dict_packed.cu's bits
+    instance and a dense one its weighted instance, each counted apart and
     both in .launches; the two give the same function."""
     my, mask, x, d = _inputs(3, 70, 90, 12)
     got = cuda_dl.masked_grad_dict(

@@ -285,16 +285,22 @@ def test_masked_dictionary_learning_packs_once_per_solve(monkeypatch,
     (torch.bfloat16, True, True),
     (torch.bfloat16, False, True),
     (torch.float32, True, True),
-    (torch.float32, False, False),
+    (torch.float32, False, True),
     (torch.float64, True, False),
 ])
 def test_auto_gate_for_masked_data(dtype, binary, want):
     """use_kernel='auto' on masked data on the card takes the masked
     kernels where the card measured them faster than the composition
-    (PERF.md §6, phases 11 and 15): bf16 data, and f32 data with a 0/1
-    mask on the packed route; a weighted f32 mask runs the
-    composition."""
-    assert tl._auto_takes_masked(dtype, binary) is want
+    (PERF.md §6, phases 11 and 15): bf16 and f32 data, a 0/1 mask on the
+    packed route and a weighted one on the weighted instances alike; f64
+    runs the composition. _kernel_mask gives the solve's kernel mask, or
+    None for the composition."""
+    assert tl._auto_takes_masked(dtype) is want
+    y = torch.ones((4, 40), dtype=dtype)
+    mask = (torch.arange(160).reshape(4, 40) % 3 > 0).to(dtype)
+    if not binary:
+        mask = 0.5 * mask
+    assert (tl._kernel_mask(mask, y, True) is not None) is want
 
 
 @pytest.mark.parametrize("dtype,device,want", [
@@ -315,13 +321,13 @@ def test_grad_takes_packed(dtype, device, want):
 
 def test_kernel_mask_under_auto():
     """_kernel_mask, the mask a solve's kernel route reads: bits for a
-    0/1 mask, the dense mask for a weighted one, or None under 'auto' for
-    a weighted f32 mask (the composition runs)."""
+    0/1 mask, the dense mask for a weighted one, under 'auto' too (the
+    weighted instances run it)."""
     y = torch.ones((4, 40))
     mask = (torch.arange(160).reshape(4, 40) % 3 > 0).float()
     bits = tl._kernel_mask(mask, y, True)
     assert bits.dtype == torch.int32
     assert torch.equal(bits, cuda_mu.pack_mask(mask))
     weighted = 0.5 * mask
-    assert tl._kernel_mask(weighted, y, True) is None
+    assert tl._kernel_mask(weighted, y, True) is weighted
     assert tl._kernel_mask(weighted, y, False) is weighted

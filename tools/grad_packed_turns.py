@@ -8,7 +8,8 @@ and, on f32 data with the mask's bits, times masked_grad_rows
 per call (CUDA events, 20 calls after a warm-up) and prints a SHA-256 of
 each output: two trees whose f32 instances compute the same bits print the
 same digests. A tree whose packed route takes bf16 data also times the bf16
-instances, in turns with the dense-mask kernels on the same bf16 inputs.
+instances, in turns with the tree's dense-mask route on the same bf16
+inputs.
 
 Make the other tree from a commit with git, into a directory that
 .gitignore lists, and run from the repository root on the card's machine:
