@@ -12,7 +12,8 @@ for sm_90a (one nvcc per source, all at once), and then:
    and ptxas' register-spill report, and fails where an instance of the
    wgmma chain (``csrc/kl_dense_packed.cu``, ``csrc/grad_dict_packed.cu``,
    ``csrc/mu_dense_packed.cu``, ``csrc/mu_masked_f32.cu``), of
-   ``csrc/lasso_grad_packed.cu`` or of either ``bcd_sweep`` kernel
+   ``csrc/lasso_grad_packed.cu``, of ``csrc/grad_wide.cu`` or of either
+   ``bcd_sweep`` kernel
    (``csrc/dl_bcd_sm90.cu``, ``csrc/dl_bcd_cluster.cu``) spills;
 2. holds the kernel ``mu_stats_dense`` against its plain PyTorch twin on
    the card and checks that two runs give the same bits: f32 data on
@@ -82,7 +83,7 @@ for sm_90a (one nvcc per source, all at once), and then:
    checks one ``mu_stats_masked`` launch per iteration, all on the packed
    route and none on the dense one, convergence, the held-out error and
    the factors; then (6b) the same call on the same f32 data with
-   ``mixed=False``, every launch on ``csrc/mu_masked_f32.cu`` (none on
+   ``mixed=False`` at a shallower held-out stop (tol 1e-3), every launch on ``csrc/mu_masked_f32.cu`` (none on
    ``csrc/mu_masked_packed.cu`` or ``csrc/mu_kl_stats.cu``), its time to
    stop and ms an iteration beside phase 6's;
 7. drives KL-MU, ``nmf.solve(method='kl-mu')`` at 100,000 x 1,024 rank
@@ -128,7 +129,16 @@ for sm_90a (one nvcc per source, all at once), and then:
    decades, also against f64), each within the limit of its dtype (f32,
    bf16) of the twin with a bit-identical rerun, bf16 bits also against
    the weighted instance on the same 0/1 mask, every weighted call also
-   against the first design (``csrc/lasso_grad.cu``, on no route);
+   against the first design (``csrc/lasso_grad.cu``, on no route); then
+   above 128 features its wide route (``csrc/grad_wide.cu``), each of its
+   four instances (f32 and bf16; the mask's bits, and weights in [0.5, 1))
+   at 1,000 x 1,000 F = 256, a ragged 333 x 257 F = 129, the gate's
+   corners of its dtype (``cuda_lasso.grad_fits``: 32,768 x 1,024 at F =
+   1,152 f32 and 2,432 bf16, 16,384 x 128 at F = 10,112 f32 and 20,352
+   bf16) and on log-normal data at 100,000 x 1,024 F = 256 (log-normal
+   weights on the weighted instances; also against f64), each within the
+   limit of its dtype with a bit-identical rerun, every call counted on
+   the wide route;
 10. drives batch lasso at BASELINE config 2, ``lasso.solve`` on 10,000
     problems of 256 channels over 512 features (acc_ista, precision
     'high', per-problem stopping, tol 1e-4), and checks one
@@ -173,7 +183,13 @@ for sm_90a (one nvcc per source, all at once), and then:
     1,024, F = 128, f32 and bf16, on the packed route (a 0/1 mask's bits)
     and on the weighted one (weights in [0.5, 1)), each held to its twin
     and f64 and timed in turns with the first design (``csrc/lasso_grad.cu``)
-    on the same inputs, beside its bound;
+    on the same inputs, beside its bound; and its wide route at 100,000 x
+    1,024, F = 256 (f32 and bf16, bits and weights), at the f32 corner
+    32,768 x 1,024, F = 1,152, at config 3's 20,000 x 64, F = 256 (f32
+    and bf16) and at the f32 corner at N = 128, 16,384 x 128, F = 10,112,
+    each in turns with the composition that
+    use_kernel=False runs, beside its bound and, apart, E's round trip to
+    device memory;
 13. holds the dictionary-learning kernels against their twins:
     ``bcd_sweep``'s register route (``csrc/dl_bcd_sm90.cu``) at K = 256,
     N = 64 (config 3, and the largest K x N of its one instance), a
@@ -203,7 +219,9 @@ for sm_90a (one nvcc per source, all at once), and then:
     of the twin and against the weighted instance; and on weights (the
     weighted instances, f32 and bf16) as phase 9's, each also against the
     first design (``csrc/mu_kl_stats.cu``'s GRAD_DICT, on no route); each
-    with a bit-identical rerun;
+    with a bit-identical rerun; above 128 atoms its wide route
+    (``csrc/grad_wide.cu``) as phase 9's, and x's limbs from its split
+    launch at K = 300 and 1,152, bit for bit against ``column_limbs``;
 14. drives dictionary learning at BASELINE config 3,
     ``dictionary_learning.solve`` on bench.py's 20,000 x 64 patches with
     256 atoms (alpha 0.05, tol 1e-5, 60 outer iterations, lasso_iter 15,
@@ -239,7 +257,15 @@ for sm_90a (one nvcc per source, all at once), and then:
     phase 15's factors as phase 12's ``masked_grad_rows`` (f32 and bf16,
     packed and weighted, each in turns with the first design,
     ``csrc/mu_kl_stats.cu``'s GRAD_DICT), with the f32 packed route's
-    passes from ``torch.profiler``;
+    passes from ``torch.profiler``; and its wide route as phase 12's;
+15c. drives masked dictionary learning at phase 15's 100,000 x 1,024,
+    30% missing, with config 3's 256 atoms (planted as phase 15's data): 5
+    outer x 15 inner iterations at tol 0 in f32 and in bf16, then 2 in f32
+    and in bf16 on weights in [0.5, 1), each under 'auto' where its rule
+    takes the dtype (``lasso._auto_width``) and use_kernel=True where it
+    does not, every gradient launch on the wide route
+    (``csrc/grad_wide.cu``), with phase 15's checks (a falling objective,
+    the agreement with the composition run), each timed against it;
 16. drives ``nmf.solve(method='hals')``: at BASELINE config 1 (planted
     1000 x 500 rank 10 f32) HALS and MU from the same factors, each to its
     own stop at tol 1e-4 and at equal iteration counts, with their
@@ -325,8 +351,10 @@ for sm_90a (one nvcc per source, all at once), and then:
     only the artifact's libraries and no nvcc log, the time to load plus
     the first call beside phase 1's build time; and config 4's
     ``masked_completion`` (packed ``mu_stats_masked``) and config 2's
-    ``lasso.solve`` (``solve_rows``) round trips, bit-equal. An
-    ``{"aot": {...}}`` line holds it.
+    ``lasso.solve`` (``solve_rows``) round trips, bit-equal, and a masked
+    ``lasso.solve`` with 256 features (4,096 x 1,024 f32), whose artifact
+    carries ``grad_wide`` and whose every launch takes the wide route,
+    bit-equal. An ``{"aot": {...}}`` line holds it.
 
 Each path runs with every launch count set to 0 just before it and read
 just after. It exits non-zero on any failure, without a CUDA device, and
@@ -403,6 +431,22 @@ GRAD_LIMIT = {torch.float32: 2e-6, torch.bfloat16: 2.5e-4}
 # and 64 take the 64-wide tile; bf16 x (dictionary) is padded where K % 8.
 GRAD_PACKED_SHAPES = ((1000, 1000, 100), (333, 257, 7), (7, 1000, 100),
                       (1000, 1000, 1), (1000, 1000, 64))
+# The wide route's shapes in phases 9 and 13 (M, N, F or K): 256 wide, a
+# ragged 333 x 257 at 129 (the first width past the fused tile), and the
+# gate's corners (cuda_lasso.grad_fits) for each dtype, M cut so that x
+# fits: f32 F <= 1,152 and bf16 F <= 2,432 at N = 1,024, 10,112 and 20,352
+# at N = 128.
+WIDE_SHAPES = ((1000, 1000, 256), (333, 257, 129))
+WIDE_CORNERS = {torch.float32: ((32768, 1024, 1152), (16384, 128, 10112)),
+                torch.bfloat16: ((32768, 1024, 2432), (16384, 128, 20352))}
+# Phases 12 and 15b's wide times: 256 wide at phase 15c's 100,000 x 1,024
+# (the kernels line's entries), the f32 corner at N = 1,024, config 3's
+# 20,000 x 64 with 256 atoms, and the f32 corner at N = 128 (M cut to
+# 16,384): the shapes behind 'auto''s rule (lasso._auto_width).
+WIDE_TIME_SHAPES = (((100_000, 1024, 256), (torch.float32, torch.bfloat16)),
+                    ((32768, 1024, 1152), (torch.float32,)),
+                    ((20_000, 64, 256), (torch.float32, torch.bfloat16)),
+                    ((16384, 128, 10112), (torch.float32,)))
 # Config 2 (acc_ista, tol 1e-4, 'high'), measured on the H100: x of
 # solve_rows against its twin on config 2's inputs 6.8e-4 (their niter
 # agree on only ~56% of rows: config 2's unnormalised dictionary, L ~
@@ -467,7 +511,7 @@ SOURCES = ("mu_stats_dense", "mu_dense_tma", "mu_kl_stats", "mu_masked_packed",
            "kl_masked_packed", "kl_dense_packed", "lasso_fista",
            "lasso_fista_tma", "lasso_grad", "lasso_grad_packed", "dl_bcd",
            "dl_bcd_sm90", "dl_bcd_cluster", "grad_dict_packed",
-           "mu_dense_packed", "mu_masked_f32")
+           "mu_dense_packed", "mu_masked_f32", "grad_wide")
 # name -> (source, masked, the TPU kernel it replaces)
 NEW_KERNELS = {
     "mu_stats_masked": ("mu_masked_packed", True, "pallas_mu.py:522"),
@@ -1218,14 +1262,18 @@ def compare_grad(module, name, args, packed=False, tag="", f64=False,
     ``first``: the kernel also against the first design of the dense-mask
     gradient (csrc/lasso_grad.cu, or csrc/mu_kl_stats.cu's GRAD_DICT,
     through its private launch) on the same inputs (each within the limit
-    of the twin, so within twice the limit of each other). Returns the max
+    of the twin, so within twice the limit of each other). Above 128
+    features (or atoms) either mask form takes the wide route
+    (csrc/grad_wide.cu), counted in ``.wide_launches``. Returns the max
     abs error."""
+    from decomp_tpu_torch.ops.cuda_lasso import grad_route
     from decomp_tpu_torch.ops.cuda_mu import pack_mask
 
     my, mask, x, a = args
     fn = getattr(module, name)
     kargs = (my, pack_mask(mask), x, a) if packed else args
-    route = "packed_launches" if packed else "dense_launches"
+    route = ("wide_launches" if grad_route(x.shape[1]) == "wide"
+             else "packed_launches" if packed else "dense_launches")
     before = getattr(fn, route, 0)
     out = fn(*kargs)
     again = fn(*kargs)
@@ -1241,7 +1289,8 @@ def compare_grad(module, name, args, packed=False, tag="", f64=False,
     err = rel_fro(out, ref)
     same = torch.equal(out, again)
     lim = GRAD_LIMIT[my.dtype]
-    tag = (f"{name}{' packed' if packed else ' weighted'} "
+    tag = (f"{name}{' packed' if packed else ' weighted'}"
+           f"{' (wide route)' if route == 'wide_launches' else ''} "
            f"{my.shape[0]}x{my.shape[1]} "
            f"{'K' if name.endswith('dict') else 'F'}={x.shape[1]} "
            f"{str(my.dtype)[6:]}{', ' + tag if tag else ''}")
@@ -1270,15 +1319,115 @@ def compare_grad(module, name, args, packed=False, tag="", f64=False,
 
 
 def compare_split(cd, cuda_mu, x):
-    """x's limbs as csrc/grad_dict_packed.cu's split launch writes them,
-    bit for bit against ``cuda_mu.column_limbs(x^T, KT)``: (M, 3 KT) bf16,
-    split_bf16x3's round-to-nearest limbs, zero past K."""
-    kt = 64 if x.shape[1] <= 64 else 128
+    """x's limbs as the f32 dictionary kernels' split launch writes them
+    (``split_rows`` of csrc/sm90_common.cuh, which csrc/grad_dict_packed.cu
+    and csrc/grad_wide.cu share), bit for bit against
+    ``cuda_mu.column_limbs(x^T, KT)``: (M, 3 KT) bf16,
+    split_bf16x3's round-to-nearest limbs, zero past K; KT =
+    ``cuda_lasso.grad_width(K)``."""
+    from decomp_tpu_torch.ops.cuda_lasso import grad_width
+
+    kt = grad_width(x.shape[1])
     got = cd._split_rows(x, kt)
     same = torch.equal(got, cuda_mu.column_limbs(x.T, kt))
-    print(f"masked_grad_dict packed: x's limbs {tuple(got.shape)} from the "
-          f"split launch equal column_limbs(x^T, {kt}): {same}", flush=True)
-    check(same, "grad_dict_packed.cu's split launch: x's limbs differ")
+    print(f"masked_grad_dict: x's limbs {tuple(got.shape)} from the split "
+          f"launch equal column_limbs(x^T, {kt}): {same}", flush=True)
+    check(same, f"the split launch at width {kt}: x's limbs differ")
+
+
+def wide_checks(module, name, gen, dev):
+    """Phases 9 and 13: the wide route of the masked gradient ``name`` of
+    ``module`` (csrc/grad_wide.cu), each of its four instances (f32 and
+    bf16 data; the mask's bits, and weights in [0.5, 1)) against its twin
+    at WIDE_SHAPES and at the gate's corners of its dtype, and on
+    log-normal my, x and a (or d) over six decades at 100,000 x 1,024, 256
+    wide (with log-normal weights over four decades on the weighted
+    instances), also against f64: within GRAD_LIMIT, each with a
+    bit-identical rerun and both calls counted on the wide route
+    (``compare_grad``)."""
+    for dt in (torch.float32, torch.bfloat16):
+        for m, n, f in WIDE_SHAPES + WIDE_CORNERS[dt]:
+            tag = ("the gate's corner" if (m, n, f) in WIDE_CORNERS[dt]
+                   else "")
+            args = grad_inputs(gen, dev, m, n, f, dt)
+            compare_grad(module, name, args, packed=True, tag=tag)
+            compare_grad(module, name, weighted(gen, args), tag=tag)
+            del args
+        args = lognormal_inputs(gen, dev, 100_000, 1024, 256)
+        compare_grad(module, name, tuple(t.to(dt) for t in args),
+                     packed=True, tag="log-normal", f64=True)
+        args = weighted(gen, args, lognormal=True)
+        compare_grad(module, name, tuple(t.to(dt) for t in args),
+                     tag="log-normal, log-normal weights", f64=True)
+        del args
+
+
+def wide_times(module, name, gen, dev, card):
+    """Phases 12 and 15b: the wide route of ``name`` (csrc/grad_wide.cu)
+    per call at WIDE_TIME_SHAPES, each instance (the bits of a 0/1 mask,
+    and weights in [0.5, 1)) held to its twin and timed in turns with the
+    composition that use_kernel=False runs (composition, kernel, kernel,
+    composition), beside its bound (the TPU kernel's own work,
+    ``grad_bytes``: no E) and, apart, E's round trip to device
+    memory (the route's own bytes). Returns {entry: (max_abs_err, ms,
+    plain_ms, bound_ms, bound_by)} at the first shape (100,000 x 1,024,
+    256 wide), the entries ``name`` + _wide, + _weighted, + _bf16."""
+    from decomp_tpu_torch.ops import cuda_mu
+
+    rows = name == "masked_grad_rows"
+    fn, plain = getattr(module, name), getattr(module, f"{name}_plain")
+    out = {}
+    for (m, n, f), dts in WIDE_TIME_SHAPES:
+        for dt in dts:
+            base = grad_inputs(gen, dev, m, n, f, dt)
+            for route in ("bits", "weights"):
+                args = base if route == "bits" else weighted(gen, base)
+                my, mask, x, a = args
+                kargs = ((my, cuda_mu.pack_mask(mask), x, a)
+                         if route == "bits" else args)
+                kw = dict(a_limbs=module.grad_limbs(a)) if rows else {}
+
+                def call():
+                    return fn(*kargs, **kw)
+
+                def comp():
+                    if rows:
+                        return (mask * (x @ a) - my) @ a.T
+                    return x.T @ (mask * (x @ a) - my)
+
+                before = fn.wide_launches
+                got, ref = call(), plain(*args)
+                err, rel = max_abs([got], [ref]), rel_fro(got, ref)
+                check(fn.wide_launches == before + 1 and rel <= GRAD_LIMIT[dt],
+                      f"{name} wide {m}x{n} {f}: rel_fro {rel:.3e}, or not "
+                      "on the wide route")
+                t = [cuda_ms(comp, 10), cuda_ms(call, 10)]
+                t += [cuda_ms(call, 10), cuda_ms(comp, 10)]
+                k_ms, c_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+                p_ms = cuda_ms(lambda: plain(*args), 2)
+                e_b = dt.itemsize
+                nbytes = grad_bytes(rows, m, n, f, dt, route == "bits")
+                b, fma = dtype_bounds(nbytes, 4.0 * m * n * f, dt)
+                e_ms = 2 * e_b * m * n / HBM_BYTES_PER_S * 1e3
+                print(f"{name} wide route (grad_wide.cu) {m}x{n} "
+                      f"{'F' if rows else 'K'}={f} {str(dt)[6:]}, {route}: "
+                      f"{k_ms:.4f} ms ({t[1]:.4f}, {t[2]:.4f}), composition "
+                      f"{c_ms:.4f} ms ({t[0]:.4f}, {t[3]:.4f}) in turns, "
+                      f"kernel / composition {k_ms / c_ms:.3f}; plain twin "
+                      f"{p_ms:.3f} ms per call; bound {bound_text(b, fma)} "
+                      f"({nbytes / 1e6:.1f} MB), kernel at "
+                      f"{b[0] / k_ms * 100:.1f}% of it; E's round trip "
+                      f"{2 * e_b * m * n / 1e6:.1f} MB, {e_ms:.4f} ms of "
+                      f"bytes beside it; rel_fro vs twin {rel:.3e} ({card})",
+                      flush=True)
+                if (m, n, f) == WIDE_TIME_SHAPES[0][0]:
+                    entry = (f"{name}_wide"
+                             f"{'_weighted' if route == 'weights' else ''}"
+                             f"{'' if dt == torch.float32 else '_bf16'}")
+                    out[entry] = (err, k_ms, p_ms) + b
+                del args, kargs, kw, got, ref
+            del base
+    return out
 
 
 def config2_data():
@@ -1751,6 +1900,20 @@ def lasso_times(cl, gen, dev, card, y, a, fixed_shape, grad_shape):
     return out
 
 
+def grad_bytes(rows, m, n, f, dt, bits):
+    """The bytes a masked gradient must move at M x N, F features (or K
+    atoms) of ``dt`` data: my and the mask (its bits, or weights in the
+    data's dtype), x, and a (d), read once, and g in the data's dtype or G
+    in f32 written once; the rows gradient reads a as its limbs (f32: 3
+    bf16)."""
+    e_b = dt.itemsize
+    mask_b = 4 * m * (-(-n // 128) * 4) if bits else e_b * m * n
+    if rows:
+        return (e_b * (m * n + 2 * m * f) + mask_b
+                + 2 * f * n * (3 if dt == torch.float32 else 1))
+    return e_b * (m * n + m * f + f * n) + mask_b + 4 * f * n
+
+
 def grad_times(module, name, args, card, call):
     """Phase 12 and 15b's per-call times of the masked gradient ``name`` of
     ``module`` on ``args`` = (my, 0/1 mask, x, a or d): its packed route
@@ -1784,17 +1947,7 @@ def grad_times(module, name, args, card, call):
                                          lambda: first(*targs))]
         k_ms, old_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
         p_ms = cuda_ms(lambda: plain(*targs), 2)
-        # my and the mask (its bits, or the weights in the data's dtype),
-        # x, a or d, and g in the data's dtype or G in f32; the first
-        # product's operand a (d) as its limbs (f32: 3 bf16, at the rows
-        # kernel), both products bf16x6 at f32.
-        e_b = dt.itemsize
-        mask_b = 4 * m * bits.shape[1] if route == "packed" else e_b * m * n
-        if rows:
-            nbytes = e_b * (m * n + 2 * m * f) + mask_b + 2 * f * n * (
-                3 if dt == torch.float32 else 1)
-        else:
-            nbytes = e_b * (m * n + m * f + f * n) + mask_b + 4 * f * n
+        nbytes = grad_bytes(rows, m, n, f, dt, route == "packed")
         b, fma = dtype_bounds(nbytes, 4.0 * m * n * f, dt)
         entry = f"{name}_{route}{'' if dt == torch.float32 else '_bf16'}"
         out[entry] = (e, k_ms, p_ms) + b
@@ -2148,17 +2301,29 @@ def wide_dictionary_phase(dl, dev, card, reset_counts, read_counts,
     return launches
 
 
-def masked_dl_phase(dl, dev, card, reset_counts, read_counts, grad_routes,
-                    dict_routes, m, n, k):
-    """Phase 15: masked dictionary learning at M x N, K atoms, 30% missing,
-    planted; 20 outer iterations in f32 and 10 in bf16 (both gradients on
-    the packed route) at tol 0, 15 inner iterations each (lasso_tol 0: a
-    fixed inner budget), then 2 in f32 and in bf16 on a weighted mask (both
-    on the dense route, the weighted instances), all under the default
-    use_kernel='auto', so the route checks hold its gate, each timed against
-    the composition. Returns masked_grad_dict's launches, {dtype: launches} on
-    the packed route and on the weighted one, and the f32 run's (my, mask,
-    x, d)."""
+# Phase 15's runs, (weighted mask, dtype, outer iterations); phase 15c's.
+MASKED_DL_RUNS = ((False, torch.float32, 20), (False, torch.bfloat16, 10),
+                  (True, torch.float32, 2), (True, torch.bfloat16, 2))
+WIDE_DL_RUNS = ((False, torch.float32, 5), (False, torch.bfloat16, 5),
+                (True, torch.float32, 2), (True, torch.bfloat16, 2))
+
+
+def masked_dl_phase(dl, dev, card, reset_counts, read_counts, mask_routes,
+                    m, n, k, runs=MASKED_DL_RUNS, kernel_kw=None,
+                    name="15"):
+    """Phase 15 (and 15c): masked dictionary learning at M x N, K atoms,
+    30% missing, planted; ``runs`` at tol 0, 15 inner iterations each
+    (lasso_tol 0: a fixed inner budget): phase 15's 20 outer iterations in
+    f32 and 10 in bf16 (both gradients on the packed route), then 2 in f32
+    and in bf16 on a weighted mask (both on the dense route, the weighted
+    instances), all under the default use_kernel='auto', so the route
+    checks hold its gate; above 128 atoms every gradient on the wide route
+    (csrc/grad_wide.cu), under ``kernel_kw(dtype)`` (use_kernel=True where
+    'auto' does not take it). Each run timed against the composition.
+    ``mask_routes()``: the (packed, dense, wide) launches since the reset of
+    masked_grad_rows and of masked_grad_dict. Returns {dtype: (rows,
+    dictionary) launches} of the runs on a 0/1 mask and of those on a
+    weighted one, and the first f32 run's (my, mask, x, d)."""
     alpha, inner = 0.05, 15
     g = torch.Generator(device=dev).manual_seed(15)
     d_true = torch.randn((k, n), generator=g, device=dev)
@@ -2180,17 +2345,16 @@ def masked_dl_phase(dl, dev, card, reset_counts, read_counts, grad_routes,
     # and both gradients take the dense routes, where 'auto' sends them.
     w = 0.5 + 0.5 * torch.rand(mask.shape, generator=g, device=dev)
     launches, kept = {False: {}, True: {}}, None
-    for weighted_, dt, iters in ((False, torch.float32, 20),
-                                 (False, torch.bfloat16, 10),
-                                 (True, torch.float32, 2),
-                                 (True, torch.bfloat16, 2)):
+    wide = k > 128
+    for weighted_, dt, iters in runs:
         my_, mask_ = (my * w, mask * w) if weighted_ else (my, mask)
         my_, mask_, d0_ = my_.to(dt), mask_.to(dt), d0.to(dt)
+        kw = kernel_kw(dt) if kernel_kw else {}
 
         def solve(maxiter=iters, **kw_):
             return dl.solve(my_, d0_, alpha, mask=mask_, tol=0.0,
                             maxiter=maxiter, lasso_iter=inner, lasso_tol=0.0,
-                            **kw_)
+                            **{**kw, **kw_})
 
         first = solve(maxiter=1)   # warm-up, and the objective it leaves
         torch.cuda.synchronize()
@@ -2198,26 +2362,32 @@ def masked_dl_phase(dl, dev, card, reset_counts, read_counts, grad_routes,
         ms, res = event_ms(solve)
         read_counts({"masked_grad_dict": iters,
                      "masked_grad_rows": iters * inner})
-        routes, d_routes = grad_routes(), dict_routes()
-        launches[weighted_][dt] = d_routes[1 if weighted_ else 0]
+        routes, d_routes = mask_routes()
+        launches[weighted_][dt] = (iters * inner, iters)
         comp_ms, comp = event_ms(lambda: solve(use_kernel=False))
         obj1 = objective(first.x, first.d, my_, mask_)
         obj = objective(res.x, res.d, my_, mask_)
         err_d, err_x = rel_fro(res.d, comp.d), rel_fro(res.x, comp.x)
         lim = MASKED_DL_LIMIT[dt]
-        tag = (f"masked dictionary learning {m}x{n} K={k} {str(dt)[6:]}, "
+        tag = (f"phase {name}: masked dictionary learning {m}x{n} K={k} "
+               f"{str(dt)[6:]}, "
                f"{'weighted mask' if weighted_ else '30% missing'}")
-        print(f"{tag}, {iters} outer x {inner} inner ({card}): "
+        how = kw or {"use_kernel": "auto"}
+        print(f"{tag}, {iters} outer x {inner} inner, {how} ({card}): "
               f"{ms / iters:.3f} ms per outer iteration, use_kernel=False "
               f"{comp_ms / iters:.3f} ms, kernel / composition "
               f"{ms / comp_ms:.3f}; objective after 1 iteration "
               f"{obj1:.6e}, after {iters} {obj:.6e}; rel_fro vs composition "
               f"d {err_d:.3e}, x {err_x:.3e} (limit {lim:g}); launches "
-              f"masked_grad_dict {iters} (packed, dense route {d_routes}), "
-              f"masked_grad_rows {iters * inner} (packed, dense route "
-              f"{routes})", flush=True)
-        r_want, d_want = (((0, iters * inner), (0, iters)) if weighted_
-                          else ((iters * inner, 0), (iters, 0)))
+              f"masked_grad_dict {iters} (packed, dense, wide route "
+              f"{d_routes}), masked_grad_rows {iters * inner} (packed, "
+              f"dense, wide route {routes})", flush=True)
+
+        def want(count):
+            return ((0, 0, count) if wide else (0, count, 0) if weighted_
+                    else (count, 0, 0))
+
+        r_want, d_want = want(iters * inner), want(iters)
         check(routes == r_want and d_routes == d_want, f"{tag}: routes "
               f"{routes} and {d_routes}, expected {r_want} and {d_want}")
         check(res.niter == iters, f"{tag}: niter {res.niter} != {iters}")
@@ -2228,7 +2398,7 @@ def masked_dl_phase(dl, dev, card, reset_counts, read_counts, grad_routes,
               "not fall")
         check(err_d <= lim and err_x <= lim, f"{tag}: the kernel path "
               "disagrees with the composition")
-        if not weighted_ and dt == torch.float32:
+        if kept is None and not weighted_ and dt == torch.float32:
             kept = (my_, mask_, res.x, res.d)
         del first, res, comp
     return launches[False], launches[True], kept
@@ -4360,8 +4530,11 @@ def aot_phase(nmf, lasso, cuda_mu, cuda_lasso, dev, card, build_s,
     headline's call on the same seeded data with the same bits, and its
     ``_build/`` then holds the artifact's libraries and no nvcc log; (c)
     config 4's ``masked_completion`` (the packed ``mu_stats_masked``) and
-    config 2's ``lasso.solve`` (``solve_rows``), each round trip bit-equal.
-    Returns the JSON summary's entry."""
+    config 2's ``lasso.solve`` (``solve_rows``), each round trip bit-equal;
+    (d) a masked ``lasso.solve`` with 256 features (``masked_grad_rows``'
+    wide route, ``csrc/grad_wide.cu``), its artifact carrying that library,
+    every launch on the wide route and the round trip bit-equal. Returns the
+    JSON summary's entry."""
     import shutil
     import tempfile
 
@@ -4512,6 +4685,40 @@ def aot_phase(nmf, lasso, cuda_mu, cuda_lasso, dev, card, build_s,
         report["config2"] = {"bytes": size2, "libraries":
                              list(loaded.libraries), "bits_equal": True,
                              "solve_rows_launches": launches2}
+        del y2, a2, live, loaded, res
+
+        # (d) a wide masked solve: lasso.solve on f32 data with 256
+        # features (every gradient on csrc/grad_wide.cu), 30% missing; the
+        # mask is baked into the artifact, so the batch is small.
+        m_w, n_w, f_w, it_w = 4096, 1024, 256, 20
+        g = _seeded(25, dev)
+        a_w = torch.randn((f_w, n_w), generator=g, device=dev) / n_w ** 0.5
+        mask_w = (torch.rand((m_w, n_w), generator=g, device=dev)
+                  >= 0.3).float()
+        y_w = torch.randn((m_w, n_w), generator=g, device=dev) * mask_w
+        live, loaded, _, size_w = aot_roundtrip(
+            aot, lasso.solve, (y_w, a_w, 0.05),
+            dict(mask=mask_w, method="fista", tol=0.0, maxiter=it_w,
+                 use_kernel=True), os.path.join(tmp, "wide.dttaot"))
+        check(any(lib.startswith("libgrad_wide-") for lib in loaded.libraries),
+              f"the wide artifact lacks grad_wide: {loaded.libraries}")
+        torch.cuda.synchronize()
+        reset_counts()
+        res = loaded(y_w, a_w, 0.05)
+        torch.cuda.synchronize()
+        launches_w = read_counts("masked_grad_rows", it_w)
+        wide_w = cuda_lasso.masked_grad_rows.wide_launches
+        bits_w = result_bits(res, live)
+        check(wide_w == it_w and all(bits_w.values()), f"phase 24 wide: "
+              f"bits {bits_w}, {wide_w} of {it_w} launches on the wide route")
+        print(f"phase 24: wide masked lasso.solve artifact ({m_w}x{n_w} f32, "
+              f"F={f_w}, 30% missing, {it_w} FISTA iterations): {size_w} "
+              f"bytes, libraries {list(loaded.libraries)}; equals the live "
+              f"solve bit for bit ({bits_w}); masked_grad_rows launches "
+              f"{launches_w}, on grad_wide.cu {wide_w} ({card})", flush=True)
+        report["wide"] = {"bytes": size_w, "libraries":
+                          list(loaded.libraries), "bits_equal": True,
+                          "wide_launches": wide_w}
     return report
 
 
@@ -4550,6 +4757,7 @@ def main():
         for w in (cuda_lasso.masked_grad_rows, cuda_dl.masked_grad_dict):
             w.packed_launches = 0
             w.dense_launches = 0
+            w.wide_launches = 0
         cuda_dl.bcd_sweep.register_launches = 0
         cuda_dl.bcd_sweep.cluster_launches = 0
 
@@ -4562,6 +4770,13 @@ def main():
         """masked_grad_dict's launches since the reset: (packed, dense)."""
         w = cuda_dl.masked_grad_dict
         return w.packed_launches, w.dense_launches
+
+    def mask_routes():
+        """The masked gradients' launches since the reset: (packed, dense,
+        wide) of masked_grad_rows and of masked_grad_dict."""
+        return tuple((w.packed_launches, w.dense_launches, w.wide_launches)
+                     for w in (cuda_lasso.masked_grad_rows,
+                               cuda_dl.masked_grad_dict))
 
     def bcd_routes():
         """bcd_sweep's launches since the reset: (register, cluster)."""
@@ -4602,7 +4817,7 @@ def main():
         print(f"built decomp_tpu_torch/csrc/{s}.cu with nvcc for sm_90a; "
               f"register spills: {spills or 'none'}", flush=True)
         if s in ("kl_dense_packed", "grad_dict_packed", "mu_dense_packed",
-                 "mu_masked_f32", "lasso_grad_packed"):
+                 "mu_masked_f32", "lasso_grad_packed", "grad_wide"):
             check(not spills, f"{s}.cu: a wgmma kernel's instance spills")
         if s == "dl_bcd_sm90":
             check(not spills, f"{s}.cu: d, held in registers, spills")
@@ -4943,14 +5158,15 @@ def main():
 
     # Phase 6b: the f32 masked path, config 4 on phase 6's f32 data with
     # mixed=False: every mu_stats_masked launch on csrc/mu_masked_f32.cu.
-    # The same held-out stop (tol 1e-4) with room to reach it: on these
-    # noiseless planted data the f32 run's held-out error keeps falling
-    # past the 2,975 iterations where bf16's rounding stops phase 6 (on
-    # an H100: 6.99e-3 at 4,000, the stop at 47,800 with 5.21e-3).
+    # The held-out stop at tol 1e-3, a shallower depth than phase 6's
+    # 1e-4: on these noiseless planted data the f32 run's held-out error
+    # keeps falling past the 2,975 iterations where bf16's rounding stops
+    # phase 6 (on an H100: 6.99e-3 at 4,000, the stop at tol 1e-4 at
+    # 47,750 with 5.21e-3, 64.6 s, an eighth of the script).
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    res = nmf.masked_completion(ym4, mask4, rank=k4, tol=1e-4,
+    res = nmf.masked_completion(ym4, mask4, rank=k4, tol=1e-3,
                                 maxiter=60_000, random_seed=4, mixed=False)
     torch.cuda.synchronize()
     wall6b = time.perf_counter() - t0
@@ -5199,6 +5415,9 @@ def main():
                      tag="log-normal, log-normal weights", f64=True,
                      first=True)
         del args
+    # Above 128 features: the wide route (csrc/grad_wide.cu), each instance
+    # at WIDE_SHAPES, the gate's corners and on log-normal data.
+    wide_checks(cuda_lasso, "masked_grad_rows", gen, dev)
     t_phase = phase("9 lasso kernels vs twins", t_phase)
 
     # Phase 10: batch lasso at BASELINE config 2.
@@ -5226,6 +5445,8 @@ def main():
                               (262_144, 512), (100_000, 1024, 128))
     lasso_stats["solve_rows_complex"] = complex_times(cuda_lasso, dev, card,
                                                       y2c, a2c)
+    lasso_stats.update(wide_times(cuda_lasso, "masked_grad_rows", gen, dev,
+                                  card))
     del y2c, a2c
     solve_rows_scaling(cuda_lasso, gen, dev, card)
     solve_rows_routes(cuda_lasso, gen, dev, card)
@@ -5295,6 +5516,12 @@ def main():
                      tag="log-normal, log-normal weights", f64=True,
                      first=True)
         del args
+    # Above 128 atoms: the wide route, as phase 9's, and x's limbs from its
+    # split launch at a ragged width and at the f32 corner.
+    wide_checks(cuda_dl, "masked_grad_dict", gen, dev)
+    for m_, k_ in ((333, 300), (1000, 1152)):
+        compare_split(cuda_dl, cuda_mu,
+                      torch.randn((m_, k_), generator=gen, device=dev))
     t_phase = phase("13 dictionary-learning kernels vs twins", t_phase)
 
     # Phase 14: dictionary learning at BASELINE config 3.
@@ -5312,13 +5539,24 @@ def main():
     # Phase 15: masked dictionary learning.
     launches_gd, launches_gd_w, masked15 = masked_dl_phase(
         dictionary_learning, dev, card, reset_counts, read_counts,
-        grad_routes, dict_routes, 100_000, 1024, 128)
+        mask_routes, 100_000, 1024, 128)
     t_phase = phase("15 masked dictionary learning", t_phase)
 
     # Phase 15b: the dictionary-learning kernels' times against their twins.
     dl_stats = dl_times(cuda_dl, card, c3, marg3, launches3, masked15)
     del masked15
+    dl_stats.update(wide_times(cuda_dl, "masked_grad_dict", gen, dev, card))
     t_phase = phase("15b dictionary-learning kernel times", t_phase)
+
+    # Phase 15c: masked dictionary learning with config 3's 256 atoms at
+    # phase 15's data width: every gradient on the wide route, under 'auto'
+    # where its rule takes the dtype, else use_kernel=True.
+    launches_wide, launches_wide_w, _ = masked_dl_phase(
+        dictionary_learning, dev, card, reset_counts, read_counts,
+        mask_routes, 100_000, 1024, 256, runs=WIDE_DL_RUNS,
+        kernel_kw=lambda dt: ({} if lasso._auto_width(1024, 256, dt)
+                              else {"use_kernel": True}), name="15c")
+    t_phase = phase("15c masked dictionary learning, 256 atoms", t_phase)
 
     # Phase 16: NMF's HALS method.
     hals_phase(nmf, nmf_mod, dev, card, reset_counts, read_counts)
@@ -5405,10 +5643,15 @@ def main():
                      "masked_grad_rows_weighted_bf16": launches_grad_w[bf16],
                      "bcd_sweep": launches3,
                      "bcd_sweep_cluster": launches14b + launches14c,
-                     "masked_grad_dict_packed": launches_gd[f32],
-                     "masked_grad_dict_packed_bf16": launches_gd[bf16],
-                     "masked_grad_dict_weighted": launches_gd_w[f32],
-                     "masked_grad_dict_weighted_bf16": launches_gd_w[bf16]}
+                     "masked_grad_dict_packed": launches_gd[f32][1],
+                     "masked_grad_dict_packed_bf16": launches_gd[bf16][1],
+                     "masked_grad_dict_weighted": launches_gd_w[f32][1],
+                     "masked_grad_dict_weighted_bf16": launches_gd_w[bf16][1]}
+    for which, runs_ in (("", launches_wide), ("_weighted", launches_wide_w)):
+        for dt, (rows_n, dict_n) in runs_.items():
+            sfx = f"_wide{which}{'' if dt == f32 else '_bf16'}"
+            main_launches[f"masked_grad_rows{sfx}"] = rows_n
+            main_launches[f"masked_grad_dict{sfx}"] = dict_n
     kernels = {"mu_stats_dense": ("mu_dense_tma", "pallas_mu.py:438"),
                "mu_stats_dense_packed": ("mu_dense_packed",
                                          "pallas_mu.py:438"),
@@ -5427,7 +5670,12 @@ def main():
                **{f"masked_grad_dict_{r}": ("grad_dict_packed",
                                             "pallas_lasso.py:225")
                   for r in ("packed", "packed_bf16", "weighted",
-                            "weighted_bf16")}}
+                            "weighted_bf16")},
+               **{f"{g_}_{r}": ("grad_wide", rep_) for g_, rep_ in (
+                   ("masked_grad_rows", "pallas_lasso.py:159"),
+                   ("masked_grad_dict", "pallas_lasso.py:225"))
+                  for r in ("wide", "wide_bf16", "wide_weighted",
+                            "wide_weighted_bf16")}}
     entries = []
     for name, (source, replaces) in kernels.items():
         err, ms, p_ms, b_ms, b_by = stats[name]

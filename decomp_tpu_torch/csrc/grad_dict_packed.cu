@@ -31,10 +31,11 @@
 // of wgmma_chain.cuh (Pass::GradDict, or Pass::GradDictW on weights) with E
 // formed as lasso_grad_packed.cu forms it. Three launches at f32, two at
 // bf16:
-//   1. (f32 only) split_rows: x's limbs xc (M x 3 KT bf16, row m = [limb 0
-//      of x[m] | limb 1 | limb 2], each KT wide, zero past K;
-//      split_bf16x3's round-to-nearest limbs), one thread per 8 features of
-//      a row. bf16 x is its own limb and is streamed as it is;
+//   1. (f32 only) split_rows of sm90_common.cuh (shared with
+//      grad_wide.cu): x's limbs xc (M x 3 KT bf16, row m = [limb 0 of x[m]
+//      | limb 1 | limb 2], each KT wide, zero past K; split_bf16x3's
+//      round-to-nearest limbs), one thread per 8 features of a row. bf16 x
+//      is its own limb and is streamed as it is;
 //   2. grad_dict_stats: a grid of (128-column N tile) x (row chunk). The
 //      tile's d limbs are resident as d_tile^T (128 x L KT, by TMA); a
 //      producer thread streams x's limbs, my (128-byte boxes of 32 f32 or
@@ -62,33 +63,6 @@
 
 namespace {
 
-template <int KT>
-__global__ void __launch_bounds__(THREADS)
-    split_rows(const float* __restrict__ x, int M, int K,
-               bf16* __restrict__ xc) {
-  constexpr int G = KT / 8;   // groups of 8 features per row
-  const long long e = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (e >= (long long)M * G) return;
-  const long long r = e / G;
-  const int c0 = (int)(e % G) * 8;
-  float v[8];
-#pragma unroll
-  for (int u = 0; u < 8; ++u)
-    v[u] = c0 + u < K ? __ldg(x + r * K + c0 + u) : 0.f;
-  uint32_t w[3][4];
-#pragma unroll
-  for (int pp = 0; pp < 4; ++pp) {
-    uint32_t f[3];
-    split_pair(v[2 * pp], v[2 * pp + 1], f);
-#pragma unroll
-    for (int l = 0; l < 3; ++l) w[l][pp] = f[l];
-  }
-#pragma unroll
-  for (int l = 0; l < 3; ++l)
-    *reinterpret_cast<uint4*>(xc + r * (3 * KT) + l * KT + c0) =
-        make_uint4(w[l][0], w[l][1], w[l][2], w[l][3]);
-}
-
 // tm_mask: the bits, or (W) the weights in my's boxes.
 template <int KT, int L, bool W>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -99,14 +73,6 @@ __global__ void __launch_bounds__(kThreads, 1)
                     const Params p) {
   chain_pass<KT, W ? Pass::GradDictW : Pass::GradDict, L>(tm_my, tm_xc, tm_d,
                                                           p, &tm_mask);
-}
-
-template <int KT>
-int split(const float* x, int M, int K, bf16* xc, cudaStream_t stream) {
-  const long long n = (long long)M * (KT / 8);
-  split_rows<KT><<<(unsigned)((n + THREADS - 1) / THREADS), THREADS, 0,
-                   stream>>>(x, M, K, xc);
-  return (int)cudaGetLastError();
 }
 
 // mask: the bits (words per row) or, W, the weights (row stride words).
@@ -139,8 +105,9 @@ int launch(const Args& a) {
                     a.M, a.words, 4, SS, CU_TENSOR_MAP_SWIZZLE_NONE));
   if (!ok) return (int)cudaErrorInvalidValue;
   if constexpr (F32) {
-    const int rc = split<KT>(static_cast<const float*>(a.x), a.M, a.K,
-                             static_cast<bf16*>(a.xc), a.stream);
+    const int rc = launch_split_rows(static_cast<const float*>(a.x), a.M,
+                                     a.K, KT, static_cast<bf16*>(a.xc),
+                                     a.stream);
     if (rc != 0) return rc;
   }
   cudaError_t err = cudaFuncSetAttribute(
@@ -215,14 +182,15 @@ extern "C" int grad_dict_weighted_launch(int limbs, int kt, const void* my,
                                      static_cast<cudaStream_t>(stream)});
 }
 
-// x's limbs alone, as launch 1 writes them (xc, M x 3 kt bf16), so that a
-// check can hold the layout against cuda_mu.column_limbs(x^T, kt).
+// x's limbs alone, as launch 1 (and grad_wide.cu's split) writes them (xc,
+// M x 3 kt bf16, kt a multiple of 64: the fused tile, or the wide route's
+// width), so that a check can hold the layout against
+// cuda_mu.column_limbs(x^T, kt).
 extern "C" int grad_dict_split_launch(int kt, const void* x, int M, int K,
                                       void* xc, void* stream) {
-  if (M < 1 || K < 1 || K > kt || (kt != 64 && kt != 128))
+  if (M < 1 || K < 1 || K > kt || kt % 64 != 0)
     return (int)cudaErrorInvalidValue;
-  const auto s = static_cast<cudaStream_t>(stream);
-  const float* xf = static_cast<const float*>(x);
-  bf16* out = static_cast<bf16*>(xc);
-  return kt == 64 ? split<64>(xf, M, K, out, s) : split<128>(xf, M, K, out, s);
+  return launch_split_rows(static_cast<const float*>(x), M, K, kt,
+                           static_cast<bf16*>(xc),
+                           static_cast<cudaStream_t>(stream));
 }

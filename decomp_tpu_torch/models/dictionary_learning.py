@@ -124,9 +124,11 @@ def solve(
         at ``lasso_tol``, its fixed-budget mode at ``lasso_tol <= 0``).
         A 0/1 mask goes to both gradients as bits, packed once per
         solve, for f32 data (on the CPU, any data). 'auto' takes the masked
-        kernels for a CUDA ``y`` with at most 128 atoms where the card
-        measured them faster than the composition (bf16 or f32 data, a 0/1
-        or weighted mask: ``lasso._auto_takes_masked``), and never the
+        kernels for a CUDA ``y`` where the card measured them faster than
+        the composition (bf16 or f32 data, a 0/1 or weighted mask:
+        ``lasso._auto_takes_masked``) at up to 128 atoms, and above that,
+        up to the TPU kernel's gate (``cuda_lasso.grad_fits``), f32 data at
+        N >= 256 on the wide route (``lasso._auto_width``); it never takes the
         whole-solve kernel (a fixed short inner budget leaves it nothing to
         gain). On a CPU tensor each kernel's plain twin runs.
         ``use_kernel=False``
@@ -237,7 +239,7 @@ def _kernel_mode(use_kernel, y, mask, dtype, n_atoms, minibatch, precision,
     if use_kernel == "auto":
         ok = (mask is not None and y.is_cuda and minibatch is None
               and dtype in (torch.bfloat16, torch.float32)
-              and n_atoms <= cuda_dl.GRAD_DICT_MAX_ATOMS)
+              and _lasso._auto_width(y.shape[1], n_atoms, dtype))
         return "masked" if ok else None
     if not use_kernel:
         return None

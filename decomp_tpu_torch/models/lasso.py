@@ -113,8 +113,10 @@ def solve(
         data). On a CUDA tensor the hand-written kernel runs, on a CPU
         tensor its plain twin. 'auto' takes each kernel on a CUDA tensor
         where the card measured it faster than the composition and its
-        contract holds (F <= 128 for the masked kernel, bf16 or f32 data
-        with a 0/1 or weighted mask; f32 and F <= 1024 for the whole solve,
+        contract holds (the masked kernel: bf16 or f32 data with a 0/1 or
+        weighted mask at F <= 128, and above it, up to the TPU kernel's
+        gate ``cuda_lasso.grad_fits``, f32 data at N >= 256 on the wide
+        route, ``_auto_width``; f32 and F <= 1024 for the whole solve,
         complex64 under 'high' and F <= 512, or under 'highest' and F <=
         256); it is False on the CPU.
     kernel_block_rows : rows per stripe of the whole-solve kernel, 16 or
@@ -308,7 +310,7 @@ def _kernel_mode(use_kernel, y, mask, method, dtype, n_features, per_problem,
             return None
         if mask is not None:
             ok = (dtype in (torch.bfloat16, torch.float32)
-                  and n_features <= cuda_lasso.GRAD_MAX_FEATURES)
+                  and _auto_width(y.shape[1], n_features, dtype))
             return "masked" if ok else None
         if dtype == torch.complex64:
             max_f = (cuda_lasso.SOLVE_MAX_COMPLEX_FEATURES
@@ -379,6 +381,36 @@ def _auto_takes_masked(dtype):
     weighted one as weights, both on ``csrc/lasso_grad_packed.cu`` and
     ``csrc/grad_dict_packed.cu``)."""
     return dtype in (torch.bfloat16, torch.float32)
+
+
+# Where 'auto' sends masked solves above 128 features to csrc/grad_wide.cu
+# (inside the gate): the data types and the widths N where the card
+# measured the wide route faster than the composition (PERF.md §6 rows
+# 6-7; in turns, tools/grad_wide_turns.py and its --rule grid, chip_smoke.py
+# phases 12, 15b and 15c). f32 at N >= 256: 0.47-0.69x the composition a
+# gradient (100,000 x 256 and x 1,024, 20,000 x 1,024, the corner F =
+# 1,152 at N = 1,024), 0.71x a masked DL outer iteration with 256 atoms;
+# below, the launches' fixed cost outweighs the products: at N = 64
+# 1.38-4.33x (config 3's 20,000 x 64 with 256 atoms, and 100,000 rows), at
+# N = 128 0.88-2.72x (a win only at F = 10,112). bf16 at 0.87-1.06x at
+# 100,000 x 1,024, F = 256, and 1.75-1.95x at its corner (F = 2,432), so
+# bf16 keeps the composition.
+_AUTO_WIDE_DTYPES = (torch.float32,)
+_AUTO_WIDE_MIN_N = 256
+
+
+def _auto_width(n, f, dtype):
+    """Whether ``use_kernel='auto'`` takes the masked-gradient kernels for F
+    features (or K atoms) at N columns of ``dtype`` data: always on the
+    fused route (F <= ``cuda_lasso.GRAD_MAX_FEATURES``); on the wide route
+    (``csrc/grad_wide.cu``) for ``_AUTO_WIDE_DTYPES`` at N >=
+    ``_AUTO_WIDE_MIN_N`` inside the TPU kernels' gate
+    (``cuda_lasso.grad_fits``). The streamed and sharded solves decide
+    through the same ``_kernel_mode``s."""
+    if f <= cuda_lasso.GRAD_MAX_FEATURES:
+        return True
+    return (dtype in _AUTO_WIDE_DTYPES and n >= _AUTO_WIDE_MIN_N
+            and cuda_lasso.grad_fits(n, f, dtype.itemsize))
 
 
 def _kernel_mask(mask, y, auto, reduce=None):

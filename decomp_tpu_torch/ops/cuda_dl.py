@@ -35,18 +35,23 @@ block sums the 128 shares in one fixed order; ``bcd_cluster_plan`` says
 how). ``csrc/dl_bcd.cu``, the first design (one block, d in shared memory,
 up to K x N = 53,248), is on no route: only the private
 ``_bcd_shared_launch`` reaches it, for timing. For ``masked_grad_dict``
-f32 or bf16 data launch ``csrc/grad_dict_packed.cu`` (the statistics
-chain of ``csrc/wgmma_chain.cuh`` on ``wgmma``: bf16x6 limb products for
-f32, one bf16 pass a product for bf16) for 1 <= K <=
-``GRAD_DICT_MAX_ATOMS``: a packed mask on its bits instance, a dense mask,
-i.e. a weighted one, in the data's dtype on its weighted instance. The
+f32 or bf16 data (bf16x6 limb products on ``wgmma`` for f32, one bf16
+pass a product for bf16) launch, on the route ``cuda_lasso.grad_route``
+names from K alone, for 1 <= K <= ``cuda_lasso.GRAD_MAX_FEATURES``
+``csrc/grad_dict_packed.cu`` (the statistics chain of
+``csrc/wgmma_chain.cuh``: a packed mask on its bits instance, a dense
+mask, i.e. a weighted one, in the data's dtype on its weighted instance)
+and above it, up to the TPU kernel's gate (``cuda_lasso.grad_fits``),
+``csrc/grad_wide.cu`` (the residual E to device memory once, then G = x^T
+E in row-chunk partials). The
 GRAD_DICT variant of ``csrc/mu_kl_stats.cu``, its first design, is on no
 route: only the private ``_grad_dict_dense_mma_launch`` reaches it, for
 timing. On a CPU tensor it runs its ``*_plain`` twin (a
 packed mask unpacked to my's dtype first). It never falls back from one to
 the other. Each wrapper counts its kernel launches in ``.launches``, and
 per route: ``bcd_sweep`` in ``.register_launches`` and ``.cluster_launches``,
-``masked_grad_dict`` in ``.packed_launches`` and ``.dense_launches``.
+``masked_grad_dict`` in ``.packed_launches``, ``.dense_launches`` and
+``.wide_launches``.
 
 Not ported: the TPU kernels' alignment padding (``pallas_bcd.py:44-79``,
 ``pallas_lasso.py:58-132``): the CUDA kernels mask ragged K and N
@@ -60,10 +65,12 @@ import collections
 import torch
 
 from decomp_tpu_torch.ops import cuda_mu
-from decomp_tpu_torch.ops.cuda_lasso import (GRAD_MAX_FEATURES,
-                                             check_masked_grad_args,
+from decomp_tpu_torch.ops.cuda_lasso import (check_masked_grad_args,
                                              check_packed_grad_args,
-                                             grad_limb_count, grad_tile)
+                                             check_weighted_grad_args,
+                                             check_wide_args, grad_limb_count,
+                                             grad_route, grad_tile,
+                                             grad_width, wide_operands)
 from decomp_tpu_torch.ops.cuda_mu import (_I, _P, _c_function, _f32, _launch,
                                           _runs_plain, _work_dtype)
 from decomp_tpu_torch.utils.dtypes import real_dtype
@@ -94,9 +101,10 @@ _BCD_CLUSTER_SLOTS = 128
 # of the SM's 65,536 registers: K <= 256 and N <= 64.
 BCD_REG_MAX_ATOMS = 256
 BCD_REG_MAX_CHANNELS = 64
-# Largest K of masked_grad_dict's kernel: its rank tile (KP in
-# csrc/nmf_common.cuh), as for masked_grad_rows.
-GRAD_DICT_MAX_ATOMS = GRAD_MAX_FEATURES
+# csrc/grad_wide.cu's dictionary grid, (128-column N tiles) x (128-atom K
+# chunks) x (row chunks): the chunks aim at two waves of the H100's 132 SMs
+# (one block each), in whole 32-row stages.
+_WIDE_DICT_BLOCKS = 2 * 132
 # masked_grad_dict's kernel runs (64-column tile) x (row chunk) blocks and
 # writes one K x N partial per chunk: the chunks aim at 4 waves of the
 # H100's 132 SMs in all. A function of the shape only, so the summation
@@ -376,10 +384,13 @@ def masked_grad_dict(my, mask, x, d):
 
     ``mask`` is dense, in my's shape and dtype (a weighted mask), or the
     bits of a 0/1 mask from ``cuda_mu.pack_mask`` (int32). On a CUDA tensor
-    (f32 or bf16 data) both launch ``csrc/grad_dict_packed.cu``, its
+    (f32 or bf16 data) K <= 128 launches ``csrc/grad_dict_packed.cu``, its
     instance by the dtype and the mask's form: a packed mask counts in
     ``.packed_launches``, a dense one (the weights streamed beside my) in
-    ``.dense_launches``; ``.launches`` counts both. On a CPU tensor a
+    ``.dense_launches``; K above 128, up to the gate
+    (``cuda_lasso.grad_fits``), launches ``csrc/grad_wide.cu`` on either
+    form, counted in ``.wide_launches``; ``.launches`` counts all three.
+    On a CPU tensor a
     packed mask is unpacked to my's dtype for the twin, which then gives
     the dense mask's bits."""
     packed = mask.dtype == torch.int32
@@ -389,7 +400,10 @@ def masked_grad_dict(my, mask, x, d):
         if packed:
             mask = cuda_mu.unpack_mask(mask, my.shape[1], my.dtype)
         return masked_grad_dict_plain(my, mask, x, d)
-    if packed:
+    if grad_route(d.shape[0]) == "wide":
+        g = _grad_dict_wide_launch(my, mask, x, d)
+        masked_grad_dict.wide_launches += 1
+    elif packed:
         g = _grad_dict_packed_launch(my, mask, x, d)
         masked_grad_dict.packed_launches += 1
     else:
@@ -402,6 +416,7 @@ def masked_grad_dict(my, mask, x, d):
 masked_grad_dict.launches = 0
 masked_grad_dict.packed_launches = 0
 masked_grad_dict.dense_launches = 0
+masked_grad_dict.wide_launches = 0
 
 
 def grad_dict_packed_rows(m: int, n: int) -> int:
@@ -414,13 +429,28 @@ def grad_dict_packed_rows(m: int, n: int) -> int:
     return cuda_mu.kl_packed_block_rows(m, n)
 
 
+def grad_wide_dict_rows(m: int, n: int, k: int) -> int:
+    """Rows per partial of ``csrc/grad_wide.cu``'s dictionary gradient: as
+    many chunks as make (128-column N tiles) x (128-atom K chunks) x chunks
+    about ``_WIDE_DICT_BLOCKS`` blocks, in whole 32-row stages (17 chunks
+    of 5,888 rows at 100,000 x 1,024, K = 256; 4 of 4,096 at 16,384 x
+    128, K = 10,112). A function of the shape alone, so the summation
+    order, and every bit of G, is."""
+    tiles = -(-n // 128) * (grad_width(k) // 128)
+    chunks = max(1, -(-_WIDE_DICT_BLOCKS // tiles))
+    rows = -(-m // chunks)
+    return -(-rows // 32) * 32
+
+
 def _split_rows(x, kt):
-    """x (M, K) as ``csrc/grad_dict_packed.cu`` streams it: (M, 3 kt) bf16,
+    """x (M, K) as the f32 dictionary kernels stream it: (M, 3 kt) bf16,
     row m = [limb 0 of x[m] | limb 1 | limb 2] in ``cuda_mu.split_bf16x3``'s
     round-to-nearest limbs, each zero past K: ``cuda_mu.column_limbs(x^T,
-    kt)``. On a CUDA tensor the kernel's own split launch writes it (the
-    card's check of its layout; the main path runs it inside
-    ``masked_grad_dict``); on a CPU tensor ``column_limbs``."""
+    kt)``, kt = ``cuda_lasso.grad_width(K)``. On a CUDA tensor the split
+    launch that both f32 dictionary kernels run (``split_rows`` of
+    ``csrc/sm90_common.cuh``, through ``csrc/grad_dict_packed.cu``'s entry)
+    writes it: the card's check of its layout; the main path runs it
+    inside ``masked_grad_dict``. On a CPU tensor ``column_limbs``."""
     if _runs_plain(x):
         return cuda_mu.column_limbs(x.T, kt)
     m, k = x.shape
@@ -455,11 +485,41 @@ def _grad_dict_weighted_launch(my, w, x, d):
     (``masked_grad_dict``'s dense route), launches as
     ``_grad_dict_packed_launch``'s with the weights (16-byte-aligned rows,
     as my's) for the bits."""
-    check_masked_grad_args(my, w, x, d)
+    check_weighted_grad_args(my, w, x, d)
     with torch.cuda.device(my.device):
         w_t, ld_w = cuda_mu._tma_rows(w.contiguous())
         return _grad_dict_chain(my, x, d, "grad_dict_weighted_launch", w_t,
                                 ld_w)
+
+
+def _grad_dict_wide_launch(my, mask, x, d):
+    """Launch ``csrc/grad_wide.cu``'s dictionary gradient
+    (``masked_grad_dict``'s wide route) on f32 or bf16 ``my`` with the
+    packed mask or the weights: x's limbs (f32), E, the row chunks'
+    partials of G = x^T E and their fixed-order sum. d's limbs go to the
+    kernel as ``cuda_mu.column_limbs(d, grad_width(K), limbs)``, made once
+    per call (d changes every outer iteration); G (K, N) f32."""
+    check_wide_args(my, mask, x, d)
+    m, n = my.shape
+    k = d.shape[0]
+    kp = grad_width(k)
+    rows = grad_wide_dict_rows(m, n, k)
+    fn = _c_function("grad_wide", "grad_wide_dict_launch",
+                     (_I, _I, _P, _I, _P, _I, _P, _I, _P) + (_I,) * 5
+                     + (_P, _P, _I, _P, _P, _P))
+    with torch.cuda.device(my.device):
+        my_t, ld_my, mask_t, ld_mask, weighted, x_t, ld_x, xl, e = \
+            wide_operands(my, mask, x)
+        d_limbs = cuda_mu.column_limbs(d, kp, grad_limb_count(my.dtype))
+        part = _f32(-(-m // rows) * k * n, my.device)
+        out = _f32(k * n, my.device)
+        _launch("masked_grad_dict (grad_wide_dict_launch)", fn, my.device,
+                grad_limb_count(my.dtype), weighted, my_t.data_ptr(), ld_my,
+                mask_t.data_ptr(), ld_mask, x_t.data_ptr(), ld_x,
+                d_limbs.data_ptr(), m, n, k, kp, rows,
+                0 if xl is None else xl.data_ptr(), e.data_ptr(), ld_my,
+                part.data_ptr(), out.data_ptr())
+    return out.view(k, n)
 
 
 def _grad_dict_chain(my, x, d, entry, mask, ld_mask):

@@ -48,18 +48,23 @@ On a CUDA tensor a wrapper launches its kernel (``solve_rows``: f32
 with 1 <= F <= ``SOLVE_MAX_FEATURES``, or complex64 with 1 <= Fc <=
 ``SOLVE_MAX_COMPLEX_FEATURES``, on ``csrc/lasso_fista_tma.cu`` for
 ``hi_lo=True`` and ``csrc/lasso_fista.cu`` for ``hi_lo=False``;
-``masked_grad_rows``, 1 <= F <= ``GRAD_MAX_FEATURES``, f32 or bf16 data
-on ``csrc/lasso_grad_packed.cu``, on wgmma, whose f32 products run as
-bf16x6 limb products and whose bf16 products as one bf16 pass (a's limbs
-from ``grad_limbs``: three, or one for bf16): a packed mask on its bits
-instance, a dense mask, i.e. a weighted one, in the data's dtype on its
-weighted instance) and raises on anything else. On a CPU
+``masked_grad_rows``, f32 or bf16 data at 1 <= F <= ``GRAD_MAX_FEATURES``
+at any N and at wider F inside the TPU kernel's gate, ``grad_fits``, on
+wgmma, whose f32 products run as bf16x6 limb
+products and whose bf16 products as one bf16 pass (a's limbs from
+``grad_limbs``: three, or one for bf16), on the route ``grad_route`` names
+from F alone: for 1 <= F <= ``GRAD_MAX_FEATURES`` ``csrc/lasso_grad_packed.cu``
+(a packed mask on its bits instance, a dense mask, i.e. a weighted one, in
+the data's dtype on its weighted instance), above it ``csrc/grad_wide.cu``
+(the residual E to device memory once, then g = E a^T; bits or weights
+alike) and raises on anything else. On a CPU
 tensor it runs its ``*_plain`` twin (a packed mask unpacked to my's dtype
 first). It never falls back from one to the other. Each wrapper counts
 its kernel launches in ``.launches``; ``solve_rows`` counts its complex-mode launches
 in ``.complex_launches`` and its launches of the 'high' kernel in
 ``.tma_launches`` as well; ``masked_grad_rows`` counts each route, in
-``.packed_launches`` and ``.dense_launches`` (the weighted instance). The
+``.packed_launches`` and ``.dense_launches`` (the weighted instance) for
+the fused kernel and ``.wide_launches`` for the wide one. The
 'high' kernel gives, row for row, the bits of ``csrc/lasso_fista.cu``'s
 'high' path, which ``_solve_rows_mma`` still launches for comparison;
 ``csrc/lasso_grad.cu``, the first design of the dense-mask gradient
@@ -67,9 +72,10 @@ in ``.complex_launches`` and its launches of the 'high' kernel in
 private ``_grad_dense_mma_launch`` reaches it, for timing.
 
 Not ported: the TPU kernels' VMEM calibrations and 128-alignment padding
-(``default_block_rows``, ``fits_vmem``, ``auto_wins``,
-``kernel_alignment``, ``pad2``, ``pad_alpha``): the CUDA kernels mask
-ragged rows and features themselves.
+(``default_block_rows``, ``auto_wins``, ``kernel_alignment``, ``pad2``,
+``pad_alpha``): the CUDA kernels mask ragged rows and features themselves.
+``grad_fits`` keeps ``pallas_lasso.fits_vmem``'s gate, after
+``kernel_alignment``'s padding, as the port's own predicate.
 """
 
 import torch
@@ -85,9 +91,14 @@ from decomp_tpu_torch.utils.exceptions import (DecompError, DtypeError,
 SOLVE_MAX_FEATURES = 1024
 # Largest complex Fc of its complex mode: 2 Fc reals.
 SOLVE_MAX_COMPLEX_FEATURES = SOLVE_MAX_FEATURES // 2
-# Largest F of masked_grad_rows' kernel: its rank tile (KP in
-# csrc/nmf_common.cuh).
+# Largest F of masked_grad_rows' fused kernel (csrc/lasso_grad_packed.cu):
+# its rank tile (KP in csrc/nmf_common.cuh); wider F takes the wide route.
 GRAD_MAX_FEATURES = 128
+# The masked gradients' gate, the TPU kernels' (pallas_lasso.py:72
+# fits_vmem): F and N padded to 128, f_pad n_pad itemsize 2 < 10 MiB. Its
+# corners: F <= 1,152 f32 and 2,432 bf16 at N = 1,024; 10,112 and 20,352
+# at N <= 128.
+GRAD_GATE_BYTES = 10 * 2**20
 # Rows per block of solve_rows' kernels: 32 up to F = 512, 16 above.
 _WIDE_STRIPE_MAX_F = 512
 # The 'high' kernel's tiles: 512 output columns by 16 deep.
@@ -550,9 +561,50 @@ def masked_grad_rows_plain(my, mask, x, a, *, block_rows=None):
     return g
 
 
-def check_masked_grad_args(my, mask, x, a):
-    """Refuse what ``masked_grad_rows``' kernel does not take, before any
-    launch."""
+def grad_fits(n: int, f: int, itemsize: int) -> bool:
+    """Whether the masked-gradient kernels take F features (or K atoms) at
+    N columns of ``itemsize``-byte data: the TPU kernels' gate
+    (``pallas_lasso.fits_vmem`` after ``kernel_alignment``'s padding), the
+    port's own copy, ``f_pad n_pad itemsize 2 < 10 MiB`` with F and N
+    rounded up to 128."""
+    f_pad, n_pad = -(-f // 128) * 128, -(-n // 128) * 128
+    return f_pad * n_pad * itemsize * 2 < GRAD_GATE_BYTES
+
+
+def grad_route(f: int) -> str:
+    """Which kernel the masked gradients launch for F features (K atoms):
+    ``'fused'`` (``csrc/lasso_grad_packed.cu``, ``csrc/grad_dict_packed.cu``)
+    for F <= ``GRAD_MAX_FEATURES``, ``'wide'`` (``csrc/grad_wide.cu``) above.
+    A function of F alone: no shape moves to another route on a failure."""
+    return "fused" if f <= GRAD_MAX_FEATURES else "wide"
+
+
+def grad_width(f: int) -> int:
+    """The width of an operand's limbs at F features (``grad_limbs``,
+    ``cuda_mu.column_limbs``): the fused kernels' tile (``grad_tile``: 64
+    or 128), or on the wide route F rounded up to 128."""
+    return grad_tile(f) if grad_route(f) == "fused" else -(-f // 128) * 128
+
+
+def check_grad_width(n: int, f: int, dtype):
+    """Refuse F (or K) below 1, or on the wide route (``grad_route``)
+    outside the gate (``grad_fits``) at N columns of ``dtype`` data. The
+    fused route takes 1 <= F <= ``GRAD_MAX_FEATURES`` at any N."""
+    if f < 1 or (grad_route(f) == "wide"
+                 and not grad_fits(n, f, dtype.itemsize)):
+        raise ShapeError(
+            f"the masked-gradient kernels take F (or K) from 1 to "
+            f"{GRAD_MAX_FEATURES} at any N, and above it where the padded "
+            f"working set f_pad n_pad itemsize 2 is below 10 MiB (the TPU "
+            f"kernels' gate, grad_fits: F and N rounded up to 128; up to "
+            f"1,152 f32 or 2,432 bf16 features at N = 1,024), got F={f}, "
+            f"N={n}, {dtype}")
+
+
+def _check_grad_tensors(my, mask, x, a, first):
+    """The checks of a dense (weighted) mask's launches: devices, 2-D
+    shapes, one dtype (bf16 or f32), fitting shapes, and F: 1 .. 128 for
+    the first designs (``first``), else ``check_grad_width``'s."""
     named = (("my", my), ("mask", mask), ("x", x), ("a", a))
     for name, t in named:
         if t.device != my.device:
@@ -569,12 +621,27 @@ def check_masked_grad_args(my, mask, x, a):
     if mask.shape != my.shape or x.shape != (m, f) or a.shape != (f, n):
         raise ShapeError(f"mask {tuple(mask.shape)}, x {tuple(x.shape)} and "
                          f"a {tuple(a.shape)} do not fit my {tuple(my.shape)}")
-    if not 1 <= f <= GRAD_MAX_FEATURES:
-        raise ShapeError(f"the masked-gradient kernel takes 1 <= F <= "
-                         f"{GRAD_MAX_FEATURES} features, got {f} (wider "
-                         "dictionaries: use_kernel=False)")
+    if first and not 1 <= f <= GRAD_MAX_FEATURES:
+        raise ShapeError(f"the first design of the masked-gradient kernel "
+                         f"takes 1 <= F <= {GRAD_MAX_FEATURES} features, got "
+                         f"{f}")
+    check_grad_width(n, f, my.dtype)
     if max(m, n) >= 2 ** 31:
         raise ShapeError(f"my's sides must be < 2^31, got {tuple(my.shape)}")
+
+
+def check_masked_grad_args(my, mask, x, a):
+    """Refuse what the first designs of the dense-mask gradients
+    (``csrc/lasso_grad.cu``, ``csrc/mu_kl_stats.cu``'s GRAD_DICT, on no
+    route) do not take, before any launch: F above 128 among it."""
+    _check_grad_tensors(my, mask, x, a, first=True)
+
+
+def check_weighted_grad_args(my, w, x, a):
+    """Refuse what the weighted routes (the fused kernels' weighted
+    instances, ``csrc/grad_wide.cu``) do not take, before any launch: F
+    (or K) that ``check_grad_width`` refuses among it."""
+    _check_grad_tensors(my, w, x, a, first=False)
 
 
 def masked_grad_rows(my, mask, x, a, *, a_limbs=None):
@@ -584,10 +651,12 @@ def masked_grad_rows(my, mask, x, a, *, a_limbs=None):
 
     ``mask`` is dense, in my's shape and dtype (a weighted mask), or the
     bits of a 0/1 mask from ``cuda_mu.pack_mask`` (int32). On a CUDA tensor
-    (f32 or bf16 data) both launch ``csrc/lasso_grad_packed.cu``, its
+    (f32 or bf16 data) F <= 128 launches ``csrc/lasso_grad_packed.cu``, its
     instance by the dtype and the mask's form: a packed mask counts in
     ``.packed_launches``, a dense one (the weights streamed beside my) in
-    ``.dense_launches``; ``.launches`` counts both. Both read a as
+    ``.dense_launches``; F above 128, up to the gate (``grad_fits``),
+    launches ``csrc/grad_wide.cu`` on either form, counted in
+    ``.wide_launches``; ``.launches`` counts all three. All read a as
     ``a_limbs``, ``grad_limbs(a)`` made once by a caller that keeps a for
     many calls, or here when None. On a CPU tensor a packed mask is
     unpacked to my's dtype for the twin, which then gives the dense mask's
@@ -599,7 +668,10 @@ def masked_grad_rows(my, mask, x, a, *, a_limbs=None):
         if packed:
             mask = cuda_mu.unpack_mask(mask, my.shape[1], my.dtype)
         return masked_grad_rows_plain(my, mask, x, a)
-    if packed:
+    if grad_route(a.shape[0]) == "wide":
+        g = _grad_wide_rows_launch(my, mask, x, a, a_limbs)
+        masked_grad_rows.wide_launches += 1
+    elif packed:
         g = _grad_packed_launch(my, mask, x, a, a_limbs)
         masked_grad_rows.packed_launches += 1
     else:
@@ -612,6 +684,7 @@ def masked_grad_rows(my, mask, x, a, *, a_limbs=None):
 masked_grad_rows.launches = 0
 masked_grad_rows.packed_launches = 0
 masked_grad_rows.dense_launches = 0
+masked_grad_rows.wide_launches = 0
 
 
 def grad_takes_packed(my):
@@ -630,32 +703,36 @@ def grad_limb_count(dtype) -> int:
 
 
 def grad_tile(f: int) -> int:
-    """The packed kernel's feature tile at F features: 64 or 128; F
-    outside 1 .. ``GRAD_MAX_FEATURES`` is refused."""
+    """The fused kernels' feature tile at F features: 64 or 128; F
+    outside 1 .. ``GRAD_MAX_FEATURES`` (the wide route's, ``grad_route``)
+    is refused."""
     if not 1 <= f <= GRAD_MAX_FEATURES:
-        raise ShapeError(f"the masked-gradient kernel takes 1 <= F <= "
-                         f"{GRAD_MAX_FEATURES} features, got {f} (wider "
-                         "dictionaries: use_kernel=False)")
+        raise ShapeError(f"the fused masked-gradient kernels take 1 <= F <= "
+                         f"{GRAD_MAX_FEATURES} features, got {f} (wider F: "
+                         "the wide route, grad_route)")
     return 64 if f <= 64 else 128
 
 
 def grad_limbs(a):
-    """a (F, N) as the packed kernel reads it: (N, L KT) bf16 with KT =
-    ``grad_tile(F)`` and L = ``grad_limb_count(a.dtype)``, row n = [limb 0
-    of a[:, n] | limb 1 | limb 2] in ``cuda_mu.split_bf16x3``'s
+    """a (F, N) as the masked-gradient kernels read it: (N, L W) bf16 with
+    W = ``grad_width(F)`` (the fused tile, 64 or 128, or F rounded up to
+    128 on the wide route) and L = ``grad_limb_count(a.dtype)``, row n =
+    [limb 0 of a[:, n] | limb 1 | limb 2] in ``cuda_mu.split_bf16x3``'s
     round-to-nearest limbs, or for bf16 a (one limb) a[:, n] itself, each
     zero past F. A solve makes it once for its fixed a
-    (``cuda_mu.column_limbs``)."""
-    return cuda_mu.column_limbs(a, grad_tile(a.shape[0]),
-                                grad_limb_count(a.dtype))
+    (``cuda_mu.column_limbs``). F that ``check_grad_width`` refuses is
+    refused."""
+    f, n = a.shape
+    check_grad_width(n, f, a.dtype)
+    return cuda_mu.column_limbs(a, grad_width(f), grad_limb_count(a.dtype))
 
 
 def check_packed_grad_args(my, packed, x, a, a_limbs=None):
-    """Refuse what ``csrc/lasso_grad_packed.cu`` (and, for the dictionary
-    gradient, ``csrc/grad_dict_packed.cu``) does not take, before any
-    launch: a packed mask of another shape or device, data other than all
-    f32 or all bf16 (mixed dtypes, f64), F outside 1 ..
-    ``GRAD_MAX_FEATURES``, ``a_limbs`` other than ``grad_limbs(a)``'s
+    """Refuse what the packed routes (``csrc/lasso_grad_packed.cu``,
+    ``csrc/grad_dict_packed.cu`` and ``csrc/grad_wide.cu``) do not take,
+    before any launch: a packed mask of another shape or device, data other
+    than all f32 or all bf16 (mixed dtypes, f64), F (or K) that
+    ``check_grad_width`` refuses, ``a_limbs`` other than ``grad_limbs(a)``'s
     shape."""
     cuda_mu._check_packed(my, packed)
     if my.dtype not in (torch.float32, torch.bfloat16):
@@ -675,6 +752,7 @@ def check_packed_grad_args(my, packed, x, a, a_limbs=None):
     if x.shape != (m, f) or a.shape != (f, n):
         raise ShapeError(f"x {tuple(x.shape)} and a {tuple(a.shape)} do not "
                          f"fit my {tuple(my.shape)}")
+    check_grad_width(n, f, my.dtype)
     if max(m, n) >= 2 ** 31:
         raise ShapeError(f"my's sides must be < 2^31, got {tuple(my.shape)}")
     _check_a_limbs(my, a, a_limbs)
@@ -682,7 +760,7 @@ def check_packed_grad_args(my, packed, x, a, a_limbs=None):
 
 def _check_a_limbs(my, a, a_limbs):
     """``a_limbs``, where given, must have ``grad_limbs(a)``'s layout."""
-    want = (my.shape[1], grad_limb_count(my.dtype) * grad_tile(a.shape[0]))
+    want = (my.shape[1], grad_limb_count(my.dtype) * grad_width(a.shape[0]))
     if a_limbs is not None and (
             a_limbs.dtype != torch.bfloat16 or a_limbs.device != my.device
             or tuple(a_limbs.shape) != want or not a_limbs.is_contiguous()):
@@ -708,7 +786,7 @@ def _grad_weighted_launch(my, w, x, a, a_limbs):
     bf16 ``my`` and the dense mask ``w`` in my's dtype (``masked_grad_rows``'
     dense route): the weights stream beside my, each with 16-byte-aligned
     rows; g in the data's dtype."""
-    check_masked_grad_args(my, w, x, a)
+    check_weighted_grad_args(my, w, x, a)
     _check_a_limbs(my, a, a_limbs)
     with torch.cuda.device(my.device):
         w_t, ld_w = cuda_mu._tma_rows(w.contiguous())
@@ -736,6 +814,66 @@ def _grad_rows_chain(my, x, a, a_limbs, entry, mask, ld_mask):
                 grad_limb_count(my.dtype), grad_tile(f), my_t.data_ptr(),
                 ld_my, mask.data_ptr(), ld_mask, xc.data_ptr(),
                 a_limbs.data_ptr(), m, n, f, g.data_ptr())
+    return g
+
+
+def check_wide_args(my, mask, x, a, a_limbs=None):
+    """The checks of ``csrc/grad_wide.cu``'s launches (F or K on the wide
+    route): a packed mask's, or a weighted one's."""
+    if mask.dtype == torch.int32:
+        check_packed_grad_args(my, mask, x, a, a_limbs)
+    else:
+        check_weighted_grad_args(my, mask, x, a)
+        _check_a_limbs(my, a, a_limbs)
+
+
+def wide_operands(my, mask, x):
+    """What ``csrc/grad_wide.cu`` reads beside b's limbs, on my's device:
+    (my, ld_my, the mask (the bits, or the weights with 16-byte-aligned
+    rows), its row stride, weighted (0 / 1), x (f32 contiguous; bf16 with
+    16-byte-aligned rows), ld_x, x's limbs' scratch (f32: (M, 3 Kp) bf16,
+    else None), E's scratch (M, ld_my) in my's dtype)."""
+    m, k = x.shape
+    my_t, ld_my = cuda_mu._tma_rows(my.contiguous())
+    if mask.dtype == torch.int32:
+        mask_t = mask.contiguous()
+        if mask_t.data_ptr() % 16:
+            mask_t = mask_t.clone()
+        ld_mask, weighted = mask_t.shape[1], 0
+    else:
+        (mask_t, ld_mask), weighted = cuda_mu._tma_rows(mask.contiguous()), 1
+    if my.dtype == torch.float32:
+        x_t, ld_x = x.contiguous(), k
+        xl = torch.empty((m, 3 * grad_width(k)), dtype=torch.bfloat16,
+                         device=my.device)
+    else:
+        (x_t, ld_x), xl = cuda_mu._tma_rows(x.contiguous()), None
+    e = torch.empty((m, ld_my), dtype=my.dtype, device=my.device)
+    return my_t, ld_my, mask_t, ld_mask, weighted, x_t, ld_x, xl, e
+
+
+def _grad_wide_rows_launch(my, mask, x, a, a_limbs):
+    """Launch ``csrc/grad_wide.cu``'s rows gradient (``masked_grad_rows``'
+    wide route) on f32 or bf16 ``my`` with the packed mask or the weights:
+    x's limbs (f32), E, then g = E a^T; g (M, F) in the data's dtype."""
+    check_wide_args(my, mask, x, a, a_limbs)
+    m, n = my.shape
+    f = a.shape[0]
+    if a_limbs is None:
+        a_limbs = grad_limbs(a)
+    fn = _c_function("grad_wide", "grad_wide_rows_launch",
+                     (_I, _I, _P, _I, _P, _I, _P, _I, _P) + (_I,) * 4
+                     + (_P, _P, _I, _P, _P))
+    with torch.cuda.device(my.device):
+        my_t, ld_my, mask_t, ld_mask, weighted, x_t, ld_x, xl, e = \
+            wide_operands(my, mask, x)
+        g = torch.empty((m, f), dtype=my.dtype, device=my.device)
+        _launch("masked_grad_rows (grad_wide_rows_launch)", fn, my.device,
+                grad_limb_count(my.dtype), weighted, my_t.data_ptr(), ld_my,
+                mask_t.data_ptr(), ld_mask, x_t.data_ptr(), ld_x,
+                a_limbs.data_ptr(), m, n, f, grad_width(f),
+                0 if xl is None else xl.data_ptr(), e.data_ptr(), ld_my,
+                g.data_ptr())
     return g
 
 

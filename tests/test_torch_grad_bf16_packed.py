@@ -197,12 +197,17 @@ def test_all_bf16_is_taken(f):
     (dict(my=_F32), texc.DtypeError),
     (dict(my=torch.float64, x=torch.float64, a=torch.float64),
      texc.DtypeError),
-    (dict(f=129), texc.ShapeError),
+    # just past the gate (grad_fits) at N = 40, bf16
+    (dict(f=20353), texc.ShapeError),
     (dict(limbs=(40, 3 * 64)), texc.ShapeError),
 ])
 def test_bf16_refusals(change, error):
     """What the bf16 instances do not take is refused before any launch:
-    mixed dtypes, f64, F = 129, a's limbs in the f32 (three-limb) shape."""
+    mixed dtypes, f64, F just past the gate, a's limbs in the f32
+    (three-limb) shape."""
+    if change.get("f", 4) > 4:
+        assert cuda_lasso.grad_fits(40, change["f"] - 1, 2)
+        assert not cuda_lasso.grad_fits(40, change["f"], 2)
     my, mask, x, a = _bf16(_inputs(5, 20, 40, change.get("f", 4)))
     my, x, a = (t.to(change.get(k, _BF16))
                 for k, t in (("my", my), ("x", x), ("a", a)))

@@ -162,14 +162,17 @@ def test_route_by_the_masks_form(on_card, packed):
 
 def test_packed_route_refuses_before_any_launch():
     """What csrc/grad_dict_packed.cu does not take raises before a build or
-    a launch: mixed f32 and bf16 data, K above 128, a packed mask of
-    another shape."""
+    a launch: mixed f32 and bf16 data, K just past the gate (grad_fits), a
+    packed mask of another shape."""
     my, mask, x, d = _inputs(4, 40, 70, 8)
     bits = cuda_mu.pack_mask(mask)
     bf = torch.bfloat16
     with pytest.raises(texc.DtypeError):
         cuda_dl._grad_dict_packed_launch(my.to(bf), bits, x, d.to(bf))
-    wide_x, wide_d = torch.zeros((40, 129)), torch.zeros((129, 70))
+    # just past the gate at N = 70, f32
+    assert cuda_lasso.grad_fits(70, 10112, 4)
+    assert not cuda_lasso.grad_fits(70, 10113, 4)
+    wide_x, wide_d = torch.zeros((40, 10113)), torch.zeros((10113, 70))
     with pytest.raises(texc.ShapeError):
         cuda_dl._grad_dict_packed_launch(my, bits, wide_x, wide_d)
     with pytest.raises(texc.ShapeError):

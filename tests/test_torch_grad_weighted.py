@@ -182,7 +182,8 @@ def no_build(monkeypatch):
     (dict(mask=torch.int32), texc.DtypeError),
     (dict(shape=(20, 39)), texc.ShapeError),
     (dict(device="meta"), texc.DecompError),
-    (dict(f=129), texc.ShapeError),
+    # just past the gate (grad_fits) at N = 40, f32
+    (dict(f=10113), texc.ShapeError),
     (dict(f=0), texc.ShapeError),
 ])
 @pytest.mark.parametrize("launch", ["rows", "dict"])
@@ -190,8 +191,11 @@ def test_weighted_launch_refusals(no_build, launch, change, error):
     """What the weighted instances do not take is refused before any
     launch: f64, mixed dtypes (x, or the weights, in another dtype than
     my), a mask of another shape or on another device, F or K outside
-    1 .. 128."""
+    1 .. the gate (grad_fits)."""
     f = change.get("f", 4)
+    if f > 4:
+        assert cuda_lasso.grad_fits(40, f - 1, 4)
+        assert not cuda_lasso.grad_fits(40, f, 4)
     my, mask, x, a = (_t(v) for v in _inputs(3, 20, 40, max(f, 1),
                                              "uniform"))
     if f == 0:

@@ -95,7 +95,8 @@ def test_wrapper_refuses_a_packed_mask_on_another_device():
     (dict(my=torch.float64), texc.DtypeError),
     (dict(x=torch.float64), texc.DtypeError),
     (dict(a=torch.bfloat16), texc.DtypeError),
-    (dict(f=129), texc.ShapeError),
+    # just past the gate (grad_fits) at N = 40, f32
+    (dict(f=10113), texc.ShapeError),
     (dict(x_rows=19), texc.ShapeError),
     (dict(limbs=(40, 3 * 128)), texc.ShapeError),
     (dict(limbs=(41, 3 * 64)), texc.ShapeError),
@@ -104,8 +105,12 @@ def test_wrapper_refuses_a_packed_mask_on_another_device():
 def test_packed_kernel_refusals(change, error):
     """What the packed kernel does not take is refused before any launch
     (the card's checks, run here on CPU tensors): data other than f32,
-    F > 128, shapes that do not fit, a's limbs not in grad_limbs' shape."""
+    F past the gate, shapes that do not fit, a's limbs not in grad_limbs'
+    shape."""
     f = change.get("f", 4)
+    if f > 4:
+        assert cuda_lasso.grad_fits(40, f - 1, 4)
+        assert not cuda_lasso.grad_fits(40, f, 4)
     my, mask, x, a = _packed_args(3, 20, 40, f, torch.float32)
     my, x, a = (t.to(change.get(k, torch.float32))
                 for k, t in (("my", my), ("x", x), ("a", a)))
