@@ -12,7 +12,8 @@ for sm_90a (one nvcc per source, all at once), and then:
    and ptxas' register-spill report, and fails where an instance of the
    wgmma chain (``csrc/kl_dense_packed.cu``, ``csrc/grad_dict_packed.cu``,
    ``csrc/mu_dense_packed.cu``, ``csrc/mu_masked_f32.cu``), of
-   ``csrc/lasso_grad_packed.cu``, of ``csrc/grad_wide.cu`` or of either
+   ``csrc/lasso_grad_packed.cu``, of ``csrc/grad_wide.cu``, of
+   ``csrc/mu_wide.cu`` or of either
    ``bcd_sweep`` kernel
    (``csrc/dl_bcd_sm90.cu``, ``csrc/dl_bcd_cluster.cu``) spills;
 2. holds the kernel ``mu_stats_dense`` against its plain PyTorch twin on
@@ -72,7 +73,23 @@ for sm_90a (one nvcc per source, all at once), and then:
    ``csrc/mu_stats_dense.cu``, finite nonnegative factors and a falling
    reconstruction error, with one kernel call against the twin, the kernel
    timed in turns with ``csrc/mu_stats_dense.cu`` on the same inputs and
-   once against the twin, and its passes from ``torch.profiler``;
+   once against the twin, and its passes from ``torch.profiler``; then
+   (4c) MU above rank 128 on its wide route (``csrc/mu_wide.cu``): each
+   instance (dense f32 and bf16 with f32 and bf16 x, inner_iter 1 and 3;
+   masked f32 and bf16 on a 0/1 mask's bits and on weights in [0.5, 1))
+   against its twin at 1,000 x 1,000, K = 256, 200 and 129 and a ragged
+   333 x 257, K = 129, and f32 at the gate's corners
+   (``cuda_mu.rank_fits``: K = 1,280 dense and 640 masked at N = 1,024;
+   10,624 and 6,272 at N = 128, on 512 rows), within GRAD_LIMIT of its
+   dtype with a bit-identical rerun and both calls counted in
+   ``.wide_launches``; each instance per call at 100,000 x 1,024, K = 256,
+   against its twin and beside its bound; and the path there:
+   ``nmf.solve(method='mu')`` on f32 and on bf16 data with f32 factors,
+   20 iterations at tol 0, each in ms an iteration in turns with
+   ``use_kernel=False``, ``nmf.masked_completion`` on planted rank-256
+   data with 30% missing, f32 (``mixed=False``) and bf16, to the held-out
+   stop at tol 1e-3 or 2,000 iterations, held-out error < 5e-2, and 5
+   iterations on weights, f32 and bf16, every launch on the wide route;
 5. solves a planted rank-10 problem (config 1) to convergence and
    restarts from it, every launch on ``csrc/mu_dense_packed.cu``, and
    times that kernel per call on it in turns with
@@ -362,8 +379,10 @@ where the package is absent. The line before the last is a JSON summary
 of the kernels (the eight, and ``solve_rows``' complex mode, the packed
 and weighted routes of ``masked_grad_rows`` and ``masked_grad_dict`` in
 f32 and in bf16, f32 dense MU's
-``csrc/mu_dense_packed.cu``, f32 masked MU's ``csrc/mu_masked_f32.cu``
-and the cluster route of ``bcd_sweep`` as entries of their own),
+``csrc/mu_dense_packed.cu``, f32 masked MU's ``csrc/mu_masked_f32.cu``,
+the wide routes of the masked gradients and of MU (``csrc/grad_wide.cu``,
+``csrc/mu_wide.cu``) and the cluster route of ``bcd_sweep`` as entries of
+their own),
 each with
 its bound: the larger of its bytes (each input
 read once, each output written once) over 3.35 TB/s and its operations
@@ -447,6 +466,18 @@ WIDE_TIME_SHAPES = (((100_000, 1024, 256), (torch.float32, torch.bfloat16)),
                     ((32768, 1024, 1152), (torch.float32,)),
                     ((20_000, 64, 256), (torch.float32, torch.bfloat16)),
                     ((16384, 128, 10112), (torch.float32,)))
+# Phase 4c's wide-rank MU (csrc/mu_wide.cu) against its twins, (M, N, K,
+# inner_iter): ragged shapes at K in {129, 200, 256} (masked: inner 1), and
+# the gate's corners in f32 (cuda_mu.rank_fits: K = 1,280 dense and 640
+# masked at N = 1,024; 10,624 and 6,272 at N <= 128, on few rows).
+WIDE_RANK_SHAPES = ((1000, 1000, 256, 1), (1000, 1000, 200, 3),
+                    (333, 257, 129, 1), (1000, 1000, 129, 3))
+WIDE_RANK_CORNERS = {"dense": ((2048, 1024, 1280), (512, 128, 10_624)),
+                     "masked": ((2048, 1024, 640), (512, 128, 6272))}
+# Phase 4c's path: 100,000 x 1,024 at rank 256, inside every gate; the
+# masked run's held-out stop (tol, iteration cap).
+WIDE_RANK_PATH = (100_000, 1024, 256)
+WIDE_RANK_STOP = (1e-3, 2000)
 # Config 2 (acc_ista, tol 1e-4, 'high'), measured on the H100: x of
 # solve_rows against its twin on config 2's inputs 6.8e-4 (their niter
 # agree on only ~56% of rows: config 2's unnormalised dictionary, L ~
@@ -511,7 +542,7 @@ SOURCES = ("mu_stats_dense", "mu_dense_tma", "mu_kl_stats", "mu_masked_packed",
            "kl_masked_packed", "kl_dense_packed", "lasso_fista",
            "lasso_fista_tma", "lasso_grad", "lasso_grad_packed", "dl_bcd",
            "dl_bcd_sm90", "dl_bcd_cluster", "grad_dict_packed",
-           "mu_dense_packed", "mu_masked_f32", "grad_wide")
+           "mu_dense_packed", "mu_masked_f32", "grad_wide", "mu_wide")
 # name -> (source, masked, the TPU kernel it replaces)
 NEW_KERNELS = {
     "mu_stats_masked": ("mu_masked_packed", True, "pallas_mu.py:522"),
@@ -2619,6 +2650,287 @@ def f32_dense_phase(nmf, nmf_mod, cuda_mu, dev, card, reset_counts,
           f"error {err0:.4f} -> {err1:.4f}", flush=True)
     del res, y, ys
     return launches, err_abs, kernel_ms, plain_ms, b
+
+
+def compare_wide_rank(cuda_mu, kind, args, inner=1, tag=""):
+    """Phase 4c: one instance of the wide-rank MU route (csrc/mu_wide.cu)
+    against its twin on ``args`` = (y or my, mask, x, d): ``kind`` dense
+    (``mu_stats_dense``, ``inner`` x updates), bits (``mu_stats_masked`` on
+    the mask's bits) or weights (on the dense mask), both calls counted in
+    ``.wide_launches``, a bit-identical rerun, every output within
+    GRAD_LIMIT of its dtype. Returns the outputs' max abs error."""
+    y, mask, x, d = args
+    if kind == "dense":
+        w = cuda_mu.mu_stats_dense
+
+        def call():
+            return w(y, x, d, EPS, inner_iter=inner)
+
+        ref = cuda_mu.mu_stats_dense_plain(y, x, d, EPS, inner_iter=inner)
+    else:
+        w = cuda_mu.mu_stats_masked
+        km = cuda_mu.pack_mask(mask) if kind == "bits" else mask
+        check(km is not None, "pack_mask refused a 0/1 mask")
+
+        def call():
+            return w(y, km, x, d, EPS)
+
+        ref = cuda_mu.mu_stats_masked_plain(y, mask, x, d, EPS)
+    before = w.wide_launches
+    out = call()
+    again = call()
+    torch.cuda.synchronize()
+    errs = [rel_fro(a, b) for a, b in zip(out, ref)]
+    same = all(torch.equal(a, b) for a, b in zip(out, again))
+    lim = GRAD_LIMIT[y.dtype]
+    tag = (f"{w.__name__} wide route, {kind} {y.shape[0]}x{y.shape[1]} "
+           f"K={d.shape[0]}{f' inner={inner}' if inner > 1 else ''} "
+           f"data={str(y.dtype)[6:]} x={str(x.dtype)[6:]}"
+           + (f", {tag}" if tag else ""))
+    print(f"kernel vs twin {tag}: rel_fro " + " ".join(
+        f"{nm}={e:.3e}" for nm, e in zip(
+            ("x_new", "numd", "gram" if kind == "dense" else "dend"), errs))
+        + f" (limit {lim:g}); bit-identical rerun: {same}", flush=True)
+    check(w.wide_launches == before + 2, f"{tag}: not on the wide route")
+    check(all(np.isfinite(errs)), f"{tag}: non-finite outputs")
+    check(max(errs) <= lim, f"{tag}: kernel disagrees with twin")
+    check(same, f"{tag}: two kernel runs differ")
+    return max_abs(out, ref)
+
+
+def wide_rank_inputs(gen, dev, m, n, k, ydt, xdt, kind):
+    """(y or my, mask, x, d) for phase 4c: y uniform in [0, 1), 30% of
+    the entries missing (masked kinds: my = mask y; weights: the observed
+    entries weighted in [0.5, 1)), x and d uniform in [0.1, 1.1)."""
+    args = stats_inputs(gen, dev, m, n, k, ydt, xdt, kind != "dense")
+    if kind == "dense":
+        y, x, d = args
+        return y, None, x, d
+    return weighted(gen, args) if kind == "weights" else args
+
+
+def wide_rank_bound(kind, m, n, k, ydt):
+    """(ms, by) of the TPU kernel's own work at one call: the data (and the
+    mask: bits or weights) read once, f32 x read and x_new written, d
+    read, the statistics written; dense 4MNK + 4MK^2, masked 12MNK
+    operations, as six bf16 passes at f32 (bf16x6: the wide route runs
+    every f32 product so, x G included) and one at bf16."""
+    from decomp_tpu_torch.ops.cuda_mu import packed_words
+
+    e = ydt.itemsize
+    if kind == "dense":
+        ops, stats, mask_b = 4.0 * m * n * k + 4.0 * m * k * k, k * n + k * k, 0
+    else:
+        ops, stats = 12.0 * m * n * k, 2 * k * n
+        mask_b = (e * m * n if kind == "weights"
+                  else 4 * m * packed_words(n))
+    nbytes = e * (m * n + k * n) + mask_b + 8 * m * k + 4 * stats
+    return bound(nbytes, (6.0 if ydt == torch.float32 else 1.0) * ops,
+                 torch.bfloat16)
+
+
+def wide_rank_phase(nmf, nmf_mod, cuda_mu, dev, card, reset_counts,
+                    read_counts):
+    """Phase 4c: MU above rank 128 on the wide route (csrc/mu_wide.cu).
+    Each instance against its twin (``compare_wide_rank``): dense f32 and
+    bf16 with f32 and bf16 x, masked f32 and bf16 on bits and on weights,
+    at WIDE_RANK_SHAPES, and f32 at the gate's corners (WIDE_RANK_CORNERS);
+    each instance per call at WIDE_RANK_PATH against its twin and beside
+    its bound (the kernels line's figures); then the path at 100,000 x
+    1,024, rank 256: ``nmf.solve(method='mu')`` dense, f32 and bf16 data
+    with f32 factors, 20 iterations at tol 0, each in ms an iteration in
+    turns with ``use_kernel=False`` (kernel, composition, composition,
+    kernel); ``nmf.masked_completion`` on planted rank-256 data with 30%
+    missing, f32 (``mixed=False``) and bf16 (``mixed=True``), to the
+    held-out stop (WIDE_RANK_STOP), held-out error < 5e-2; and
+    ``nmf.solve`` on weights in [0.5, 1), f32 and bf16, 5 iterations. Each
+    path under 'auto' where ``nmf._auto_rank`` takes its dtype and width,
+    else with use_kernel=True, every launch counted on the wide route.
+    Returns ({entry: (max_abs_err, ms, plain_ms, bound_ms, bound_by)},
+    {entry: launches})."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(426)
+    for ydt, xdts in ((f32, (f32,)), (bf16, (f32, bf16))):
+        for xdt in xdts:
+            for m, n, k, inner in WIDE_RANK_SHAPES:
+                compare_wide_rank(cuda_mu, "dense", wide_rank_inputs(
+                    gen, dev, m, n, k, ydt, xdt, "dense"), inner)
+                if inner == 1:
+                    for kind in ("bits", "weights"):
+                        compare_wide_rank(cuda_mu, kind, wide_rank_inputs(
+                            gen, dev, m, n, k, ydt, xdt, kind))
+    for kind, corners in WIDE_RANK_CORNERS.items():
+        for m, n, k in corners:
+            for sub in (("dense",) if kind == "dense"
+                        else ("bits", "weights")):
+                compare_wide_rank(cuda_mu, sub, wide_rank_inputs(
+                    gen, dev, m, n, k, f32, f32, sub), tag="the gate's corner")
+                torch.cuda.empty_cache()
+
+    m, n, k = WIDE_RANK_PATH
+    stats = {}
+    for kind in ("dense", "bits", "weights"):
+        for ydt in (f32, bf16):
+            args = wide_rank_inputs(gen, dev, m, n, k, ydt, f32, kind)
+            err = compare_wide_rank(cuda_mu, kind, args,
+                                    tag="the path's shape")
+            y, mask, x, d = args
+            if kind == "dense":
+                def call():
+                    return cuda_mu.mu_stats_dense(y, x, d, EPS)
+
+                def plain():
+                    return cuda_mu.mu_stats_dense_plain(y, x, d, EPS)
+            else:
+                km = cuda_mu.pack_mask(mask) if kind == "bits" else mask
+
+                def call():
+                    return cuda_mu.mu_stats_masked(y, km, x, d, EPS)
+
+                def plain():
+                    return cuda_mu.mu_stats_masked_plain(y, mask, x, d, EPS)
+            ms, p_ms = cuda_ms(call, 5), cuda_ms(plain, 2)
+            b = wide_rank_bound(kind, m, n, k, ydt)
+            entry = ("mu_stats_dense_wide" if kind == "dense"
+                     else "mu_stats_masked_wide"
+                     + ("_weighted" if kind == "weights" else ""))
+            entry += "" if ydt == f32 else "_bf16"
+            stats[entry] = (err, ms, p_ms) + b
+            print(f"{entry} {m}x{n} K={k} data={str(ydt)[6:]} x=float32: "
+                  f"{ms:.4f} ms per call, plain twin {p_ms:.3f} ms, bound "
+                  f"{b[0]:.4f} ms ({b[1]}), kernel at {b[0] / ms:.1%} of it; "
+                  f"max_abs_err {err:.3e} ({card})", flush=True)
+            del args, y, mask, x, d
+    torch.cuda.empty_cache()
+
+    def kernel_kw(dt, masked):
+        return ({} if nmf_mod._auto_rank("mu", n, k, dt, masked, f32)
+                else {"use_kernel": True})
+
+    launches = {}
+    g = torch.Generator(device=dev).manual_seed(43)
+    y = torch.rand((m, n), generator=g, device=dev)
+    rows = torch.arange(0, m, 256, device=dev)
+    for dt in (f32, bf16):
+        yy = y if dt == f32 else y.to(bf16)
+        ys = yy[rows].float()
+        kw = dict(rank=k, method="mu", tol=0.0, eps=EPS, random_seed=0,
+                  factor_dtype=None if dt == f32 else f32)
+        kkw = kernel_kw(dt, False)
+        nmf.solve(yy, maxiter=2, **kw, **kkw)   # warm-up
+        nmf.solve(yy, maxiter=2, use_kernel=False, **kw)
+        times, res = [], {}
+        for path in ("kernel", "composition", "composition", "kernel"):
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            r = nmf.solve(yy, maxiter=20, **kw,
+                          **(kkw if path == "kernel" else
+                             {"use_kernel": False}))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3 / 20)
+            want = 20 if path == "kernel" else 0
+            got = read_counts("mu_stats_dense", want)
+            check(cuda_mu.mu_stats_dense.wide_launches == want,
+                  f"wide dense path {dt}: {path} run launched "
+                  f"{cuda_mu.mu_stats_dense.wide_launches} wide, expected "
+                  f"{want}")
+            if path not in res:
+                res[path] = r
+                if path == "kernel":
+                    launches["mu_stats_dense_wide"
+                             + ("" if dt == f32 else "_bf16")] = got
+        rk, rc = res["kernel"], res["composition"]
+        for name, t in (("x", rk.x), ("d", rk.d)):
+            check(bool(torch.isfinite(t).all()) and bool((t >= 0).all()),
+                  f"wide dense path {dt}: {name} not finite and nonnegative")
+        d0, x0 = nmf_mod._init_factors(
+            torch.Generator(device=dev).manual_seed(0), yy, None, None, k,
+            f32)
+        err0 = float(torch.linalg.vector_norm(ys - x0[rows] @ d0)
+                     / torch.linalg.vector_norm(ys))
+        del d0, x0
+        err1 = float(torch.linalg.vector_norm(ys - rk.x[rows] @ rk.d)
+                     / torch.linalg.vector_norm(ys))
+        check(err1 < err0 and rk.niter == 20, f"wide dense path {dt}: "
+              f"reconstruction error {err1}, niter {rk.niter}")
+        k_ms, c_ms = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
+        print(f"wide dense path nmf.solve(method='mu') {m}x{n} "
+              f"{str(dt)[6:]} data, f32 factors, rank {k}, "
+              f"{'auto' if not kkw else 'use_kernel=True'}: kernel path "
+              f"{k_ms:.4f} ms an iteration ({times[0]:.4f}, {times[3]:.4f}), "
+              f"use_kernel=False {c_ms:.4f} ms ({times[1]:.4f}, "
+              f"{times[2]:.4f}) in turns, kernel / composition "
+              f"{k_ms / c_ms:.3f} ({card}); sampled relative reconstruction "
+              f"error {err0:.4f} -> {err1:.4f}; d against the composition run "
+              f"{rel_fro(rk.d, rc.d):.3e}, x {rel_fro(rk.x, rc.x):.3e}",
+              flush=True)
+        del res, rk, rc, yy, ys
+    del y
+
+    g = torch.Generator(device=dev).manual_seed(44)
+    y = (torch.rand((m, k), generator=g, device=dev)
+         @ torch.rand((k, n), generator=g, device=dev))
+    mask = (torch.rand((m, n), generator=g, device=dev) >= 0.3).float()
+    miss = 1.0 - mask
+    tol, cap = WIDE_RANK_STOP
+    for mixed in (False, True):
+        dt = bf16 if mixed else f32
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = nmf.masked_completion(y, mask, rank=k, tol=tol, maxiter=cap,
+                                    random_seed=4, mixed=mixed,
+                                    **kernel_kw(dt, True))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_counts("mu_stats_masked", res.niter)
+        check(cuda_mu.mu_stats_masked.wide_launches == res.niter,
+              f"wide masked completion {dt}: "
+              f"{cuda_mu.mu_stats_masked.wide_launches} of {res.niter} "
+              "launches on the wide route")
+        launches["mu_stats_masked_wide" + ("_bf16" if mixed else "")] = got
+        ho = float(res.aux["heldout_rel_err"])
+        true_err = float(torch.linalg.vector_norm(miss * (res.x @ res.d - y))
+                         / torch.linalg.vector_norm(miss * y))
+        print(f"wide masked completion nmf.masked_completion(mixed={mixed}) "
+              f"{m}x{n} planted rank {k}, 30% missing ({str(dt)[6:]} data, "
+              f"f32 factors): converged={res.converged} after {res.niter} "
+              f"iterations in {wall:.3f} s ({wall * 1e3 / res.niter:.4f} ms "
+              f"an iteration; {card}); held-out relative error {ho:.4e}, "
+              f"true error on the missing entries {true_err:.4e}; "
+              f"mu_stats_masked launches {got}, all on the wide route",
+              flush=True)
+        check(ho < 5e-2, f"wide masked completion {dt}: held-out relative "
+              f"error {ho} >= 5e-2")
+        for name, t in (("x", res.x), ("d", res.d)):
+            check(bool(torch.isfinite(t).all()) and bool((t >= 0).all()),
+                  f"wide masked completion {dt}: {name} not finite and "
+                  "nonnegative")
+        del res
+    w = mask * (0.5 + 0.5 * torch.rand((m, n), generator=g, device=dev))
+    for dt in (f32, bf16):
+        torch.cuda.synchronize()
+        reset_counts()
+        res = nmf.solve(y.to(dt), mask=w.to(dt), rank=k, method="mu",
+                        tol=0.0, maxiter=5, random_seed=0, use_kernel=True,
+                        factor_dtype=None if dt == f32 else f32)
+        torch.cuda.synchronize()
+        got = read_counts("mu_stats_masked", 5)
+        check(cuda_mu.mu_stats_masked.wide_launches == 5
+              and cuda_mu.mu_stats_masked.dense_launches == 0,
+              f"weighted wide path {dt}: not every launch on the wide route")
+        check(bool(torch.isfinite(res.d).all()), f"weighted wide path {dt}: "
+              "non-finite d")
+        launches["mu_stats_masked_wide_weighted"
+                 + ("" if dt == f32 else "_bf16")] = got
+        print(f"weighted wide path nmf.solve(mask=weights in [0.5, 1)) "
+              f"{m}x{n} rank {k} {str(dt)[6:]} data: 5 launches, all on the "
+              f"wide route ({card})", flush=True)
+        del res
+    del y, mask, miss, w
+    torch.cuda.empty_cache()
+    return stats, launches
 
 
 def planted_config1(dev):
@@ -4750,6 +5062,8 @@ def main():
         cuda_mu.mu_stats_masked.f32_launches = 0
         cuda_mu.mu_stats_dense.tma_launches = 0
         cuda_mu.mu_stats_dense.packed_launches = 0
+        cuda_mu.mu_stats_dense.wide_launches = 0
+        cuda_mu.mu_stats_masked.wide_launches = 0
         cuda_mu.kl_stats_dense.packed_launches = 0
         cuda_mu.kl_stats_dense.mu_kl_launches = 0
         cuda_lasso.solve_rows.complex_launches = 0
@@ -4817,7 +5131,8 @@ def main():
         print(f"built decomp_tpu_torch/csrc/{s}.cu with nvcc for sm_90a; "
               f"register spills: {spills or 'none'}", flush=True)
         if s in ("kl_dense_packed", "grad_dict_packed", "mu_dense_packed",
-                 "mu_masked_f32", "lasso_grad_packed", "grad_wide"):
+                 "mu_masked_f32", "lasso_grad_packed", "grad_wide",
+                 "mu_wide"):
             check(not spills, f"{s}.cu: a wgmma kernel's instance spills")
         if s == "dl_bcd_sm90":
             check(not spills, f"{s}.cu: d, held in registers, spills")
@@ -5079,6 +5394,11 @@ def main():
     f32_path = f32_dense_phase(nmf, nmf_mod, cuda_mu, dev, card,
                                reset_counts, read_counts)
     t_phase = phase("4b f32 dense path", t_phase)
+
+    # Phase 4c: MU above rank 128 on the wide route (csrc/mu_wide.cu).
+    wide_rank_stats, wide_rank_launches = wide_rank_phase(
+        nmf, nmf_mod, cuda_mu, dev, card, reset_counts, read_counts)
+    t_phase = phase("4c wide-rank MU", t_phase)
 
     # Phase 5: a converging run (planted rank 10, 1% noise) and a restart.
     rng = np.random.default_rng(0)
@@ -5631,6 +5951,7 @@ def main():
         + stats_bound("mu_stats_masked", m4, n4, k4, f32, f32, packed=True))
     stats.update(lasso_stats)
     stats.update(dl_stats)
+    stats.update(wide_rank_stats)
     main_launches = {"mu_stats_dense": launches,
                      "mu_stats_dense_packed": f32_path[0],
                      "mu_stats_masked": launches4,
@@ -5647,6 +5968,7 @@ def main():
                      "masked_grad_dict_packed_bf16": launches_gd[bf16][1],
                      "masked_grad_dict_weighted": launches_gd_w[f32][1],
                      "masked_grad_dict_weighted_bf16": launches_gd_w[bf16][1]}
+    main_launches.update(wide_rank_launches)
     for which, runs_ in (("", launches_wide), ("_weighted", launches_wide_w)):
         for dt, (rows_n, dict_n) in runs_.items():
             sfx = f"_wide{which}{'' if dt == f32 else '_bf16'}"
@@ -5675,7 +5997,12 @@ def main():
                    ("masked_grad_rows", "pallas_lasso.py:159"),
                    ("masked_grad_dict", "pallas_lasso.py:225"))
                   for r in ("wide", "wide_bf16", "wide_weighted",
-                            "wide_weighted_bf16")}}
+                            "wide_weighted_bf16")},
+               **{f"{name}{r}": ("mu_wide", rep_) for name, rep_, rs in (
+                   ("mu_stats_dense_wide", "pallas_mu.py:438", ("", "_bf16")),
+                   ("mu_stats_masked_wide", "pallas_mu.py:522",
+                    ("", "_bf16", "_weighted", "_weighted_bf16")))
+                  for r in rs}}
     entries = []
     for name, (source, replaces) in kernels.items():
         err, ms, p_ms, b_ms, b_by = stats[name]

@@ -111,12 +111,14 @@ def solve_streaming(
         ``kl_stats_dense`` or ``kl_stats_masked`` (a 0/1 mask as bits from
         ``cuda_mu.pack_mask`` where the route takes bits). 'auto' engages
         them on CUDA chunks when every condition of ``nmf.solve``'s gate
-        holds (rank <= ``cuda_mu.KERNEL_MAX_RANK``, bf16 or f32 data,
+        holds (the rank by ``nmf._auto_rank``, bf16 or f32 data,
         factors in the data's dtype or f32, 'kl-mu' without
         ``factor_dtype``, ``inner_iter == 1`` unless dense 'mu', no
         ``record_objective``); True forces them, raising ``DecompError``
-        that names the first unmet condition, and runs the plain twins on
-        CPU chunks. The host-array path refuses True.
+        that names the first unmet condition (``ShapeError`` for a rank
+        past ``cuda_mu.kernel_takes_rank``: MU above 128 inside the TPU
+        kernels' gate, KL up to 128), and runs the plain twins on CPU
+        chunks. The host-array path refuses True.
     kernel_block_rows : rows per partial of the chunk kernels (see
         ``nmf.solve``).
     hbm_cache_chunks : loader mode: the first this many chunks are loaded
@@ -233,7 +235,8 @@ def solve_streaming(
         use_k = _chunk_kernel_gate(
             use_kernel, on_cuda=dev.type == "cuda", method=method,
             mixed=mixed, record_objective=record_objective, rank=rank,
-            y_dtype=y_dtype, fdt=fdt, masked=masked, inner_iter=inner_iter)
+            n=n_channels, y_dtype=y_dtype, fdt=fdt, masked=masked,
+            inner_iter=inner_iter)
         src = _LoaderChunks(y_loader, mask_loader, n_samples, chunk_rows,
                             dev, y_dtype)
         reserve = None
@@ -541,15 +544,21 @@ def _kernel_chunk(method, ch, xc_prev, db, eps, block_rows, inner_iter):
 
 
 def _chunk_kernel_gate(use_kernel, *, on_cuda, method, mixed, record_objective,
-                       rank, y_dtype, fdt, masked, inner_iter):
+                       rank, n, y_dtype, fdt, masked, inner_iter):
     """Whether loader mode runs each chunk through its ``cuda_mu`` kernel
     (``decomp_tpu``'s ``_chunk_kernel_gate``, in the terms of
     ``nmf.solve``'s gate). 'auto' engages the kernels on CUDA chunks when
-    every condition holds; False keeps the composition; True forces the
-    kernels (the twins on CPU chunks), raising ``DecompError`` that names
-    the first unmet condition."""
+    every condition holds, the rank by ``nmf._auto_rank``; False keeps the
+    composition; True forces the kernels (the twins on CPU chunks),
+    raising ``DecompError`` that names the first unmet condition, and
+    ``ShapeError`` for a rank the kernels do not take at N columns
+    (``cuda_mu.kernel_takes_rank``)."""
     if use_kernel is False:
         return False
+    rank_ok = (_nmf._auto_rank(method, n, rank, y_dtype, masked, fdt)
+               if use_kernel == "auto"
+               else cuda_mu.kernel_takes_rank(method, n, rank, y_dtype,
+                                              masked))
     reqs = (
         (method == "mu" or not mixed,
          "method must be 'mu', or 'kl-mu' without factor_dtype (the KL "
@@ -561,18 +570,17 @@ def _chunk_kernel_gate(use_kernel, *, on_cuda, method, mixed, record_objective,
          "inner_iter > 1 is supported by the chunk kernels only for dense "
          "method='mu' (the masked and KL denominators need fresh data "
          "passes)"),
-        (rank <= cuda_mu.KERNEL_MAX_RANK,
-         f"rank must be <= {cuda_mu.KERNEL_MAX_RANK}, got {rank}"),
         (y_dtype in (torch.bfloat16, torch.float32),
          f"the data must be bfloat16 or float32, got {y_dtype}"),
         (fdt in (y_dtype, torch.float32),
          f"the factors must be in the data's dtype or float32, got {fdt}"),
     )
     if use_kernel == "auto":
-        return on_cuda and all(cond for cond, _ in reqs)
+        return on_cuda and rank_ok and all(cond for cond, _ in reqs)
     for cond, why in reqs:
         if not cond:
             raise DecompError(f"use_kernel=True: {why}")
+    cuda_mu.check_rank(method, n, rank, y_dtype, masked)
     return True
 
 

@@ -101,10 +101,6 @@ _BCD_CLUSTER_SLOTS = 128
 # of the SM's 65,536 registers: K <= 256 and N <= 64.
 BCD_REG_MAX_ATOMS = 256
 BCD_REG_MAX_CHANNELS = 64
-# csrc/grad_wide.cu's dictionary grid, (128-column N tiles) x (128-atom K
-# chunks) x (row chunks): the chunks aim at two waves of the H100's 132 SMs
-# (one block each), in whole 32-row stages.
-_WIDE_DICT_BLOCKS = 2 * 132
 # masked_grad_dict's kernel runs (64-column tile) x (row chunk) blocks and
 # writes one K x N partial per chunk: the chunks aim at 4 waves of the
 # H100's 132 SMs in all. A function of the shape only, so the summation
@@ -430,16 +426,12 @@ def grad_dict_packed_rows(m: int, n: int) -> int:
 
 
 def grad_wide_dict_rows(m: int, n: int, k: int) -> int:
-    """Rows per partial of ``csrc/grad_wide.cu``'s dictionary gradient: as
-    many chunks as make (128-column N tiles) x (128-atom K chunks) x chunks
-    about ``_WIDE_DICT_BLOCKS`` blocks, in whole 32-row stages (17 chunks
-    of 5,888 rows at 100,000 x 1,024, K = 256; 4 of 4,096 at 16,384 x
-    128, K = 10,112). A function of the shape alone, so the summation
-    order, and every bit of G, is."""
-    tiles = -(-n // 128) * (grad_width(k) // 128)
-    chunks = max(1, -(-_WIDE_DICT_BLOCKS // tiles))
-    rows = -(-m // chunks)
-    return -(-rows // 32) * 32
+    """Rows per partial of ``csrc/grad_wide.cu``'s dictionary gradient:
+    ``cuda_mu.wide_dict_rows`` at K rounded up to 128 (17 chunks of 5,888
+    rows at 100,000 x 1,024, K = 256; 4 of 4,096 at 16,384 x 128, K =
+    10,112). A function of the shape alone, so the summation order, and
+    every bit of G, is."""
+    return cuda_mu.wide_dict_rows(m, n, grad_width(k))
 
 
 def _split_rows(x, kt):

@@ -696,10 +696,8 @@ def grad_takes_packed(my):
             or my.device.type == "cpu")
 
 
-def grad_limb_count(dtype) -> int:
-    """The bf16 limbs of an operand in the packed gradient kernels: 3 for
-    f32 data (bf16x6 products), 1 for bf16 data (the data itself)."""
-    return 1 if dtype == torch.bfloat16 else 3
+# The bf16 limbs of an operand in the packed and wide gradient kernels.
+grad_limb_count = cuda_mu.limb_count
 
 
 def grad_tile(f: int) -> int:

@@ -26,9 +26,16 @@ and stored in ``x``'s dtype; the statistics use ``x_new`` cast to
 
 On a CUDA tensor a wrapper launches its kernel and raises on anything it
 does not take (bf16 or f32 data, ``d`` and a dense ``mask`` in the data's
-dtype, 1 <= K <= 128; ``x`` in the data's dtype, or f32 for the MU
-kernels). The routes, by dtype and by the mask's form:
+dtype, 1 <= K <= 128 on the fused kernels, and for MU above 128 inside the
+TPU kernels' gate, ``rank_fits``; ``x`` in the data's dtype, or f32 for the
+MU kernels). The routes, by rank (``rank_route``), dtype and the mask's
+form:
 
+- above rank 128, ``mu_stats_dense`` and ``mu_stats_masked`` (bits or
+  weights alike) to ``csrc/mu_wide.cu``, whose f32 products run as
+  bf16x6 limb products and bf16 ones in one pass on the wide products of
+  ``csrc/wide_common.cuh``, counted in ``.wide_launches``; the KL
+  kernels refuse such ranks;
 - ``mu_stats_dense``: bf16 data to ``csrc/mu_dense_tma.cu``
   (``dense_route``), f32 data to ``csrc/mu_dense_packed.cu``, whose f32
   products run as bf16x6 limb products on ``wgmma`` (the chain of
@@ -55,13 +62,16 @@ wrapper runs its ``*_plain`` twin (unpacking a packed mask first). It
 never falls back from one to the other. Each wrapper counts its kernel
 launches in ``.launches``; the masked ones also per route, in
 ``.packed_launches`` and ``.dense_launches`` (``mu_stats_masked`` counts
-its f32 route, ``csrc/mu_masked_f32.cu``, in ``.f32_launches`` and its
-bf16 one in ``.packed_launches``), ``kl_stats_dense`` in
-``.packed_launches`` and ``.mu_kl_launches``, and ``mu_stats_dense`` in
-``.tma_launches`` and ``.packed_launches``.
+its f32 route, ``csrc/mu_masked_f32.cu``, in ``.f32_launches``, its bf16
+one in ``.packed_launches`` and its wide one in ``.wide_launches``),
+``kl_stats_dense`` in ``.packed_launches`` and ``.mu_kl_launches``, and
+``mu_stats_dense`` in ``.tma_launches``, ``.packed_launches`` and
+``.wide_launches``.
 
-Not ported: ``calibrated_tpu``, ``fits_vmem`` and ``default_block_rows``,
-which encode TPU v5e VMEM calibrations.
+Not ported: ``calibrated_tpu`` and the v5e VMEM calibrations as gates of
+the port's own kernels. ``rank_fits`` keeps ``fits_vmem``'s gate, at
+``default_block_rows``' stripe, as the limit of the ranks the wide route
+must take (``kernel_takes_rank``).
 """
 
 import ctypes
@@ -73,8 +83,22 @@ import torch
 from decomp_tpu_torch.ops import _build
 from decomp_tpu_torch.utils.exceptions import DecompError, DtypeError, ShapeError
 
-# Largest rank the kernel takes (its rank tile, KP in the CUDA source).
+# Largest rank the fused kernels take (their rank tile, KP in the CUDA
+# sources); above it MU takes the wide route (csrc/mu_wide.cu) up to the
+# TPU kernels' gate, rank_fits.
 KERNEL_MAX_RANK = 128
+# The TPU kernels' gate (pallas_mu.py:82 fits_vmem, :113
+# default_block_rows): the VMEM a stripe's residents take, per 128-padded
+# column, under 15.7 MiB, at the stripe that halves from 128 rows while the
+# streamed stripes pass a 10 MiB budget. Its corners: dense / masked MU at
+# N <= 128 up to K = 10,624 / 6,272 in f32 and 12,800 / 7,040 in bf16; at
+# N = 1,024 up to 1,280 / 640 and 1,536 / 768.
+_TPU_GATE_BYTES = int(15.7 * 1024 * 1024)
+_TPU_STRIPE_BUDGET = 10 * 1024 * 1024
+# csrc/mu_wide.cu's and csrc/grad_wide.cu's statistics grid, (128-column N
+# tiles) x (128-row K chunks) x (row chunks): the chunks aim at two waves of
+# the H100's 132 SMs (one block each), in whole 32-row stages.
+_WIDE_DICT_BLOCKS = 2 * 132
 # The row chunks of the statistics pass aim at this many partials.
 _TARGET_CHUNKS = 128
 _MIN_CHUNK_ROWS = 256
@@ -116,6 +140,83 @@ _KL_RESIDENT = 132
 # took 1.157 ms a call against 1.201 for 4 and 1.294 for 2, in turns; at
 # K = 128 they tie).
 _MASKED_F32_WAVES = 8
+
+
+def _tpu_block_rows(n_pad, k_pad, itemsize, masked):
+    """``pallas_mu.default_block_rows``: 128 rows, halved (down to 8) while
+    the streamed stripes pass the 10 MiB budget."""
+    block = 128
+    streams = 2 if masked else 1
+    while (block > 8
+           and block * n_pad * itemsize * 2 * streams > _TPU_STRIPE_BUDGET):
+        block //= 2
+    return block
+
+
+def rank_fits(n: int, k: int, itemsize: int, masked: bool,
+              kl_masked: bool = False, kl_dense: bool = False) -> bool:
+    """Whether the TPU kernels take rank K at N columns of
+    ``itemsize``-byte data: ``pallas_mu.fits_vmem`` at the stripe
+    ``'auto'`` uses, with N and K rounded up to 128, the port's own copy.
+    ``masked``: the masked kernels' shape (two streams, two K x N
+    statistics), and for the KL kernels as ``decomp_tpu``'s gate passes it
+    (any KL); ``kl_masked`` / ``kl_dense``: the KL kernels' heavier
+    residents. The limit of the ranks the wide route must take."""
+    n_pad, k_pad = -(-n // 128) * 128, -(-k // 128) * 128
+    stripe = _tpu_block_rows(n_pad, k_pad, itemsize,
+                             masked or kl_dense or kl_masked)
+    stat_bytes = (32 if kl_masked else 24 if kl_dense else
+                  16 if masked else 8)
+    per_col = (k_pad * (itemsize + stat_bytes)
+               + stripe * itemsize * (2 if masked else 1))
+    return per_col * n_pad <= _TPU_GATE_BYTES
+
+
+def rank_route(k: int) -> str:
+    """Which kernels MU runs at rank K: ``'fused'`` (the routes of
+    ``dense_route`` and ``mu_stats_masked``'s mask forms) for K <=
+    ``KERNEL_MAX_RANK``, ``'wide'`` (``csrc/mu_wide.cu``) above. A
+    function of K alone: no shape moves to another route on a failure."""
+    return "fused" if k <= KERNEL_MAX_RANK else "wide"
+
+
+def kernel_takes_rank(method, n, k, dtype, masked) -> bool:
+    """Whether the kernels of ``method`` take rank K at N columns of
+    ``dtype`` data: K from 1 to ``KERNEL_MAX_RANK`` at any N (the fused
+    kernels, MU and KL); above it MU on the wide route inside the gate,
+    ``rank_fits``; KL-MU not yet. The predicate of ``nmf.solve``'s,
+    the sharded solve's and loader mode's ``use_kernel``."""
+    if k < 1:
+        return False
+    if rank_route(k) == "fused":
+        return True
+    return method == "mu" and rank_fits(n, k, dtype.itemsize, masked)
+
+
+def check_rank(method, n, k, dtype, masked):
+    """Raise ``ShapeError`` where ``kernel_takes_rank`` is False."""
+    if not kernel_takes_rank(method, n, k, dtype, masked):
+        raise ShapeError(
+            f"the {method} kernels take rank 1 to {KERNEL_MAX_RANK} at any "
+            f"N" + (", and MU above it where the TPU kernels' gate takes it "
+                    "(rank_fits: N and K rounded up to 128; at N = 1,024 up "
+                    "to 1,280 dense and 640 masked in f32)"
+                    if method == "mu" else "")
+            + f"; got rank {k}, N={n}, {dtype}"
+            + (", masked" if masked else ""))
+
+
+def wide_dict_rows(m: int, n: int, kp: int) -> int:
+    """Rows per partial of the wide routes' statistics pass (``wide_dict``
+    of ``csrc/wide_common.cuh``) over an M x N E and kp (a multiple of 128)
+    rows of G: as many chunks as make (128-column N tiles) x (kp / 128) x
+    chunks about ``_WIDE_DICT_BLOCKS`` blocks, in whole 32-row stages. A
+    function of the shape alone, so the summation order, and every bit of
+    the statistics, is."""
+    tiles = -(-n // 128) * (kp // 128)
+    chunks = max(1, -(-_WIDE_DICT_BLOCKS // tiles))
+    rows = -(-m // chunks)
+    return -(-rows // 32) * 32
 
 
 def validate_block_rows(block_rows):
@@ -264,10 +365,13 @@ def _row_chunks(m, block_rows):
 
 
 def _check_kernel_args(y, x, d, inner_iter, block_rows, *, mask=None,
-                       wide_x=True):
+                       wide_x=True, gate=None):
     """Refuse what the kernels do not take, before any launch. ``mask``:
     the masked kernels' mask, which must match ``y``; ``wide_x``: whether
-    the kernel takes f32 ``x`` with bf16 ``y`` (the MU kernels do)."""
+    the kernel takes f32 ``x`` with bf16 ``y`` (the MU kernels do);
+    ``gate``: None for the fused kernels (1 <= K <= ``KERNEL_MAX_RANK``,
+    any N), ``'dense'`` or ``'masked'`` for the wide route (``check_rank``:
+    inside the TPU kernels' gate)."""
     named = (("y", y), ("x", x), ("d", d))
     if mask is not None:
         named += (("mask", mask),)
@@ -286,7 +390,9 @@ def _check_kernel_args(y, x, d, inner_iter, block_rows, *, mask=None,
     if mask is not None and mask.shape != y.shape:
         raise ShapeError(f"mask {tuple(mask.shape)} does not match y "
                          f"{tuple(y.shape)}")
-    if not 1 <= k <= KERNEL_MAX_RANK:
+    if gate is not None:
+        check_rank("mu", n, k, y.dtype, gate == "masked")
+    elif not 1 <= k <= KERNEL_MAX_RANK:
         raise ShapeError(f"the kernel takes 1 <= rank <= {KERNEL_MAX_RANK}, "
                          f"got {k}")
     if y.dtype not in (torch.bfloat16, torch.float32):
@@ -415,18 +521,24 @@ def mu_stats_dense(y, x, d, eps, *, block_rows=None, inner_iter=1):
     docstring. ``block_rows``: rows per partial of the kernel's statistics
     pass (on CPU: rows per upcast chunk of the twin).
 
-    On the card the route follows the data's dtype (``dense_route``):
-    bf16 ``y`` launches ``csrc/mu_dense_tma.cu`` (TMA ring, wgmma; its
-    chunks are whole 64-row stages, so ``block_rows`` is rounded up to a
-    multiple of 64) and counts it in ``.tma_launches``; f32 ``y`` launches
+    On the card the route follows the rank (``rank_route``) and the data's
+    dtype (``dense_route``): above rank 128 ``csrc/mu_wide.cu``
+    (``_dense_wide_launch``; f32 data as bf16x6, bf16 in one limb; its
+    chunks whole 32-row stages), counted in ``.wide_launches``; else bf16
+    ``y`` launches ``csrc/mu_dense_tma.cu`` (TMA ring, wgmma; its chunks
+    are whole 64-row stages, so ``block_rows`` is rounded up to a multiple
+    of 64) and counts it in ``.tma_launches``, and f32 ``y`` launches
     ``csrc/mu_dense_packed.cu`` (bf16x6 on wgmma; whole 32-row stages) and
-    counts it in ``.packed_launches``. ``.launches`` counts both."""
+    counts it in ``.packed_launches``. ``.launches`` counts all three."""
     validate_block_rows(block_rows)
     route = dense_route(y.dtype, y.device)
     if route == "plain":
         return mu_stats_dense_plain(y, x, d, eps, block_rows=block_rows,
                                     inner_iter=inner_iter)
-    if route == "tma":
+    if rank_route(d.shape[0]) == "wide":
+        out = _dense_wide_launch(y, x, d, eps, block_rows, inner_iter)
+        mu_stats_dense.wide_launches += 1
+    elif route == "tma":
         out = _dense_tma_launch(y, x, d, eps, block_rows, inner_iter)
         mu_stats_dense.tma_launches += 1
     else:
@@ -556,6 +668,109 @@ def _dense_mma_launch(y, x, d, eps, block_rows=None, inner_iter=1):
 mu_stats_dense.launches = 0
 mu_stats_dense.tma_launches = 0
 mu_stats_dense.packed_launches = 0
+mu_stats_dense.wide_launches = 0
+
+
+def limb_count(dtype) -> int:
+    """The bf16 limbs of an operand of the wgmma kernels that take f32 and
+    bf16 data alike (the packed gradients, the wide routes): 3 for f32
+    data (bf16x6 products), 1 for bf16 data (the data itself)."""
+    return 1 if dtype == torch.bfloat16 else 3
+
+
+def _wide_fns():
+    """``csrc/mu_wide.cu``'s C entries, by name, with their signatures."""
+    sigs = {
+        "prep": (_I, _P, _I, _I, _I, _I, _P, _P, _P),
+        "rows": (_I, _P, _I, _P, _I, _I, _I, _I, _P, _I),
+        "xrows": (_I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _F, _P, _I, _P),
+        "resid": (_I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I),
+        "xresid": (_I, _P, _P, _I, _I, _I, _P, _P, _F, _P, _I, _P),
+        "dict": (_I, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P),
+    }
+    return {name: _c_function("mu_wide", f"mu_wide_{name}_launch", args + (_P,))
+            for name, args in sigs.items()}
+
+
+def _wide_chunk_rows(m, n, kp, block_rows):
+    """Rows per partial of a wide statistics product over M x N:
+    ``wide_dict_rows``, or ``block_rows`` rounded up to whole 32-row
+    stages."""
+    if block_rows is None:
+        return wide_dict_rows(m, n, kp)
+    return -(-block_rows // _KL_STAGE_ROWS) * _KL_STAGE_ROWS
+
+
+def _wide_prep(fns, x, kp, limbs, second):
+    """x in f32 (M, kp) and cdt(x)'s limbs (M, limbs kp), each zero past K,
+    by ``csrc/mu_wide.cu``'s prep launch; ``second``: also a second limb
+    buffer with zero pads (the dense x update's). Returns (xf, [xl, ...])."""
+    m, k = x.shape
+    xf = _f32((m, kp), x.device)
+    xls = [torch.empty((m, limbs * kp), dtype=torch.bfloat16,
+                       device=x.device) for _ in range(1 + second)]
+    _launch("mu_stats (wide prep)", fns["prep"], x.device, limbs,
+            x.data_ptr(), _is_bf16(x), m, k, kp, xf.data_ptr(),
+            xls[0].data_ptr(), xls[1].data_ptr() if second else 0)
+    return xf, xls
+
+
+def _wide_stat(fns, limbs, e, ld_e, xl, m, n, k, kp, rows, part, out):
+    """out (K, N) f32 = x^T E by the wide statistics product and its
+    fixed-order reduction (``part``: the chunks' partials)."""
+    _launch("mu_stats (wide statistics)", fns["dict"], e.device, limbs,
+            e.data_ptr(), ld_e, xl.data_ptr(), m, n, k, kp, rows,
+            part.data_ptr(), out.data_ptr())
+
+
+def _dense_wide_launch(y, x, d, eps, block_rows, inner_iter):
+    """Launch ``csrc/mu_wide.cu``'s dense MU (``mu_stats_dense``'s route
+    above rank 128) on f32 or bf16 ``y`` and ``d``, x in the data's dtype or
+    f32: the prep, num = y d^T, ``inner_iter`` x updates against G's limbs
+    (G = cdt(``gram_rows(d)``), formed here as ``pallas_mu.py:453`` forms
+    it), then numd and gram, each with its reduction. Refuses what the
+    route does not take before any build or launch."""
+    m, n = y.shape
+    k = d.shape[0]
+    kp = -(-k // 128) * 128
+    rows_n = _wide_chunk_rows(m, n, kp, block_rows)
+    rows_g = _wide_chunk_rows(m, k, kp, block_rows)
+    _check_kernel_args(y, x, d, inner_iter, min(rows_n, rows_g),
+                       gate="dense")
+    limbs = limb_count(y.dtype)
+    fns = _wide_fns()
+    with torch.cuda.device(y.device):
+        y_t, ld_y = _tma_rows(y)
+        d_l = column_limbs(d, kp, limbs)
+        g_l = column_limbs(gram_rows(d).to(y.dtype), kp, limbs)
+        xf, xls = _wide_prep(fns, x, kp, limbs, True)
+        num = _f32((m, kp), y.device)
+        _launch("mu_stats_dense (wide num)", fns["rows"], y.device, limbs,
+                y_t.data_ptr(), ld_y, d_l.data_ptr(), m, n, k, kp,
+                num.data_ptr(), kp)
+        x_new = torch.empty_like(x)
+        cur = 0
+        for it in range(int(inner_iter)):
+            last = it == int(inner_iter) - 1
+            _launch("mu_stats_dense (wide x update)", fns["xresid"],
+                    y.device, limbs, xls[cur].data_ptr(), g_l.data_ptr(), m,
+                    k, kp, xf.data_ptr(), num.data_ptr(), float(eps),
+                    x_new.data_ptr() if last else 0, _is_bf16(x),
+                    xls[1 - cur].data_ptr())
+            cur = 1 - cur
+        del num, g_l
+        xl = xls[cur]
+        part = _f32(max(-(-m // rows_n) * k * n, -(-m // rows_g) * k * k),
+                    y.device)
+        out = _f32(k * n + k * k, y.device)
+        numd, gram = out.split((k * n, k * k))
+        _wide_stat(fns, limbs, y_t, ld_y, xl, m, n, k, kp, rows_n, part,
+                   numd)
+        # gram's E is cdt(x_new): f32 x_new itself at three limbs, its one
+        # bf16 limb at one.
+        e_g = xf if limbs == 3 else xl
+        _wide_stat(fns, limbs, e_g, kp, xl, m, k, k, kp, rows_g, part, gram)
+    return x_new, numd.view(k, n), gram.view(k, k)
 
 
 def mu_stats_masked(my, mask, x, d, eps, *, block_rows=None):
@@ -575,7 +790,7 @@ def mu_stats_masked(my, mask, x, d, eps, *, block_rows=None):
     mask's bits."""
     return _route_masked(mu_stats_masked, mu_stats_masked_plain,
                          _packed_launch, my, mask, x, d, eps, block_rows,
-                         masked_packed_route)
+                         masked_packed_route, _masked_wide_launch)
 
 
 def masked_packed_route(dtype):
@@ -587,10 +802,13 @@ def masked_packed_route(dtype):
 
 
 def _route_masked(wrapper, plain, packed_launch, my, mask, x, d, eps,
-                  block_rows, packed_route=lambda dtype: "packed_launches"):
+                  block_rows, packed_route=lambda dtype: "packed_launches",
+                  wide_launch=None):
     """The routes of a masked wrapper (``mu_stats_masked`` or
-    ``kl_stats_masked``) by the mask's form: on the CPU its twin ``plain``
-    (a packed mask unpacked to ``my``'s dtype first); on the card
+    ``kl_stats_masked``) by the rank and the mask's form: on the CPU its
+    twin ``plain`` (a packed mask unpacked to ``my``'s dtype first); on the
+    card above rank 128 ``wide_launch`` on either form (MU only; KL's
+    kernels refuse such ranks), counted in ``.wide_launches``;
     ``packed_launch`` for the bits of a 0/1 mask, counted in the counter
     ``packed_route(my.dtype)`` names, and the dense-mask kernel of
     ``csrc/mu_kl_stats.cu`` for a dense mask, counted in
@@ -603,6 +821,11 @@ def _route_masked(wrapper, plain, packed_launch, my, mask, x, d, eps,
         if packed:
             mask = unpack_mask(mask, my.shape[1], my.dtype)
         return plain(my, mask, x, d, eps, block_rows=block_rows)
+    if wide_launch is not None and rank_route(d.shape[0]) == "wide":
+        out = wide_launch(my, mask, x, d, eps, block_rows)
+        wrapper.wide_launches += 1
+        wrapper.launches += 1
+        return out
     if packed:
         out = packed_launch(my, mask, x, d, eps, block_rows)
         route = packed_route(my.dtype)
@@ -618,6 +841,68 @@ mu_stats_masked.launches = 0
 mu_stats_masked.packed_launches = 0
 mu_stats_masked.f32_launches = 0
 mu_stats_masked.dense_launches = 0
+mu_stats_masked.wide_launches = 0
+
+
+def _masked_wide_launch(my, mask, x, d, eps, block_rows):
+    """Launch ``csrc/mu_wide.cu``'s masked MU (``mu_stats_masked``'s route
+    above rank 128) on f32 or bf16 ``my`` with the packed mask (int32 bits)
+    or the weights (a dense mask in my's dtype), x in the data's dtype or
+    f32: the prep, E1 = cdt(mask (x d)), num = my d^T, den = E1 d^T with
+    the x update, E2 = cdt(mask (x_new d)), then numd and dend, each with
+    its reduction. One E buffer serves E1 and E2, one limb buffer x's and
+    x_new's limbs. Refuses what the route does not take before any build
+    or launch."""
+    m, n = my.shape
+    k = d.shape[0]
+    kp = -(-k // 128) * 128
+    rows = _wide_chunk_rows(m, n, kp, block_rows)
+    packed = mask.dtype == torch.int32
+    if packed:
+        _check_packed(my, mask)
+        _check_kernel_args(my, x, d, 1, rows, gate="masked")
+    else:
+        _check_kernel_args(my, x, d, 1, rows, mask=mask, gate="masked")
+    limbs = limb_count(my.dtype)
+    fns = _wide_fns()
+    with torch.cuda.device(my.device):
+        my_t, ld_my = _tma_rows(my)
+        if packed:
+            mask_t = mask.contiguous()
+            if mask_t.data_ptr() % 16:
+                mask_t = mask_t.clone()
+            ld_mask = mask_t.shape[1]
+        else:
+            mask_t, ld_mask = _tma_rows(mask)
+        d_l = column_limbs(d, kp, limbs)
+        xf, (xl,) = _wide_prep(fns, x, kp, limbs, False)
+        e = torch.empty((m, ld_my), dtype=my.dtype, device=my.device)
+
+        def resid():
+            _launch("mu_stats_masked (wide reconstruction)", fns["resid"],
+                    my.device, limbs, int(not packed), xl.data_ptr(),
+                    d_l.data_ptr(), mask_t.data_ptr(), ld_mask, m, n, k, kp,
+                    e.data_ptr(), ld_my)
+
+        resid()
+        num = _f32((m, kp), my.device)
+        _launch("mu_stats_masked (wide num)", fns["rows"], my.device, limbs,
+                my_t.data_ptr(), ld_my, d_l.data_ptr(), m, n, k, kp,
+                num.data_ptr(), kp)
+        x_new = torch.empty_like(x)
+        _launch("mu_stats_masked (wide x update)", fns["xrows"], my.device,
+                limbs, e.data_ptr(), ld_my, d_l.data_ptr(), m, n, k, kp,
+                xf.data_ptr(), num.data_ptr(), float(eps), x_new.data_ptr(),
+                _is_bf16(x), xl.data_ptr())
+        del num, xf
+        resid()
+        part = _f32(-(-m // rows) * k * n, my.device)
+        out = _f32(2 * k * n, my.device)
+        numd, dend = out.split((k * n, k * n))
+        _wide_stat(fns, limbs, my_t, ld_my, xl, m, n, k, kp, rows, part,
+                   numd)
+        _wide_stat(fns, limbs, e, ld_my, xl, m, n, k, kp, rows, part, dend)
+    return x_new, numd.view(k, n), dend.view(k, n)
 
 
 def packed_words(n: int) -> int:

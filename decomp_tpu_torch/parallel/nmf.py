@@ -216,7 +216,8 @@ def _prepare(y, d, rank, x, mesh, row_axis, col_axis, method, mask,
                       and y.dtype in (torch.bfloat16, torch.float32)
                       and (method == "mu" or factor_dtype is None)
                       and fdt in (y.dtype, torch.float32)
-                      and rank <= cuda_mu.KERNEL_MAX_RANK)
+                      and _nmf._auto_rank(method, y.shape[1], rank, y.dtype,
+                                          mask is not None, fdt))
     use_kernel = bool(use_kernel)
     if use_kernel and col_axis is not None:
         raise DecompError("use_kernel=True requires col_axis=None (row-only "
@@ -228,6 +229,9 @@ def _prepare(y, d, rank, x, mesh, row_axis, col_axis, method, mask,
     if use_kernel and method != "mu" and factor_dtype is not None:
         raise DecompError(f"use_kernel=True with method={method!r} does not "
                           "support factor_dtype")
+    if use_kernel:
+        cuda_mu.check_rank(method, y.shape[1], rank, y.dtype,
+                           mask is not None)
 
     if stop not in ("rel_change", "heldout"):
         raise DecompError(f"stop must be 'rel_change' or 'heldout', got "

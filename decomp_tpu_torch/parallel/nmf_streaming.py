@@ -201,7 +201,7 @@ def _prepare(y, d, rank, x, mesh, row_axis, method, mask, chunk_rows,
     mixed = factor_dtype is not None
     use_k = _ns._chunk_kernel_gate(
         use_kernel, on_cuda=dev.type == "cuda", method=method, mixed=mixed,
-        record_objective=record_objective, rank=rank, y_dtype=dtype,
-        fdt=fdt, masked=masked, inner_iter=inner_iter)
+        record_objective=record_objective, rank=rank, n=n_channels,
+        y_dtype=dtype, fdt=fdt, masked=masked, inner_iter=inner_iter)
     return dict(src=src, d=d, x=x, rank=rank, fdt=fdt, mixed=mixed,
                 use_k=use_k, inner_iter=inner_iter)

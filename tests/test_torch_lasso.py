@@ -15,7 +15,6 @@ import torch
 import decomp_tpu
 import decomp_tpu_torch
 from decomp_tpu_torch.models import nmf as tnmf
-from decomp_tpu_torch.ops import cuda_lasso
 from decomp_tpu_torch.utils import convert
 from decomp_tpu_torch.utils import exceptions as texc
 from problems import planted_lasso, random_mask, rel_err
@@ -190,46 +189,9 @@ def test_jax_state_carries_into_the_port():
 
 
 # The kernel path on the CPU (use_kernel=True runs the twins) against
-# decomp_tpu's Pallas path in interpret mode, f32. Whole-solve kernel: the
-# rows whose niter agree (>= 90%) within 1e-4 and x within 1e-3, the limits
-# of tests/test_torch_lasso_kernels.py (measured: niter equal on >= 90.6%
-# of rows, those rows within 4.0e-6, all rows within 5.7e-6). Masked
-# kernel: fixed budget, 1e-5 relative after 30 iterations.
-@pytest.mark.parametrize("precision", ["highest", "high"])
-@pytest.mark.parametrize("method", ["ista", "fista", "acc_ista",
-                                    "parallel_cd"])
-def test_whole_kernel_path_matches_pallas(method, precision):
-    rng = np.random.default_rng(50)
-    m, f, n = 96, 128, 80
-    a = (rng.normal(size=(f, n)) / np.sqrt(n)).astype(np.float32)
-    xt = rng.normal(size=(m, f)) * (rng.random((m, f)) < 0.1)
-    y = (xt @ a + 0.01 * rng.normal(size=(m, n))).astype(np.float32)
-    alpha = (np.linspace(0.02, 0.08, f).astype(np.float32)
-             if method == "fista" else 0.05)
-    kw = dict(method=method, tol=1e-5, maxiter=300, per_problem=True,
-              precision=precision)
-    rj = decomp_tpu.lasso.solve(y, a, alpha, use_pallas=True,
-                                _pallas_interpret=True, **kw)
-    before = cuda_lasso.solve_rows.launches
-    rt = tl.solve(_t(y), _t(a), _t(alpha), use_kernel=True, **kw)
-    assert cuda_lasso.solve_rows.launches == before   # CPU: the twin ran
-    same = rt.niter.numpy() == np.asarray(rj.niter)
-    assert same.mean() >= 0.9
-    assert rel_err(rt.x.numpy()[same], np.asarray(rj.x)[same]) < 1e-4
-    assert rel_err(rt.x.numpy(), rj.x) < 1e-3
-    # ista and parallel_cd leave a few rows unconverged at 300 iterations
-    np.testing.assert_array_equal(rt.converged.numpy()[same],
-                                  np.asarray(rj.converged)[same])
-    assert rt.converged.float().mean() >= 0.9
-    # fixed budget (tol <= 0): every row runs maxiter
-    kw.update(tol=0.0, maxiter=37)
-    rj = decomp_tpu.lasso.solve(y, a, alpha, use_pallas=True,
-                                _pallas_interpret=True, **kw)
-    rt = tl.solve(_t(y), _t(a), _t(alpha), use_kernel=True, **kw)
-    assert (rt.niter == 37).all() and not rt.converged.any()
-    assert rel_err(rt.x.numpy(), rj.x) < 1e-5
-
-
+# decomp_tpu's Pallas path in interpret mode, f32. Masked kernel: fixed
+# budget, 1e-5 relative after 30 iterations. The whole-solve kernel's
+# test is in tests/test_torch_lasso_whole.py.
 @pytest.mark.parametrize("precision", ["highest", "high"])
 @pytest.mark.parametrize("method", ["ista", "fista", "acc_ista",
                                     "parallel_cd"])
@@ -269,52 +231,8 @@ def _split_np(v):
     return np.asarray(v.re) + 1j * np.asarray(v.im)
 
 
-# Complex64 through the kernel path on the CPU (use_kernel=True runs the
-# complex twin) against the JAX package's split kernel path, solve_split(
-# use_pallas=True) in interpret mode, and against the port's own complex
-# composition: the criteria of the real case above, at tol 1e-4 (at 1e-5
-# the 'high' runs' bf16x3 sums, 1.5e-5 apart in x, are as large as tol).
-# Measured: niter equal on >= 96.9% of rows against Pallas (>= 93.7%
-# against the composition), those rows within 4.0e-6 (1.6e-5), all rows
-# within 2.0e-5 (2.6e-5); the fixed budget within 3.7e-6.
-@pytest.mark.parametrize("precision", ["highest", "high"])
-@pytest.mark.parametrize("method", ["ista", "fista", "acc_ista",
-                                    "parallel_cd"])
-def test_complex_kernel_path_matches_pallas(method, precision):
-    from decomp_tpu.ops import complex_split as cs
-
-    y, a = _complex_batch(51)
-    f = a.shape[0]
-    alpha = (np.linspace(0.02, 0.08, f).astype(np.float32)
-             if method == "fista" else 0.05)
-    kw = dict(method=method, tol=1e-4, maxiter=300, per_problem=True,
-              precision=precision)
-    rj = decomp_tpu.lasso.solve_split(cs.from_numpy(y), cs.from_numpy(a),
-                                      alpha, use_pallas=True,
-                                      _pallas_interpret=True, **kw)
-    before = (cuda_lasso.solve_rows.launches,
-              cuda_lasso.solve_rows.complex_launches)
-    rt = tl.solve(_t(y), _t(a), _t(alpha), use_kernel=True, **kw)
-    rc = tl.solve(_t(y), _t(a), _t(alpha), use_kernel=False, **kw)
-    assert before == (cuda_lasso.solve_rows.launches,
-                      cuda_lasso.solve_rows.complex_launches)  # the twin
-    assert rt.x.dtype == torch.complex64 and rt.x.shape == (64, f)
-    xj = _split_np(rj.x)
-    for ref_x, ref_nit in ((xj, np.asarray(rj.niter)),
-                           (rc.x.numpy(), rc.niter.numpy())):
-        same = rt.niter.numpy() == ref_nit
-        assert same.mean() >= 0.9
-        assert rel_err(rt.x.numpy()[same], ref_x[same]) < 1e-4
-        assert rel_err(rt.x.numpy(), ref_x) < 1e-3
-    assert rt.converged.float().mean() >= 0.9
-    # fixed budget (tol <= 0): every row runs maxiter
-    kw.update(tol=0.0, maxiter=37)
-    rj = decomp_tpu.lasso.solve_split(cs.from_numpy(y), cs.from_numpy(a),
-                                      alpha, use_pallas=True,
-                                      _pallas_interpret=True, **kw)
-    rt = tl.solve(_t(y), _t(a), _t(alpha), use_kernel=True, **kw)
-    assert (rt.niter == 37).all() and not rt.converged.any()
-    assert rel_err(rt.x.numpy(), _split_np(rj.x)) < 1e-5
+# The complex kernel path's test against the JAX package's split kernel
+# path is in tests/test_torch_lasso_complex_kernel.py.
 
 
 @pytest.mark.parametrize("method", ["ista", "fista", "acc_ista"])

@@ -221,13 +221,16 @@ def test_f32_launch_refuses_before_any_launch(monkeypatch, case, exc):
 def test_wrapper_refuses_before_any_launch(monkeypatch, case, exc):
     """mu_stats_masked on the card's path (its data taken as the card's)
     refuses what the f32 kernel does not take before a build or a launch,
-    and counts nothing."""
+    and counts nothing. Rank 129 takes the wide route, which refuses it
+    past the TPU kernels' gate: at N = 2,816 (cuda_mu.rank_fits)."""
     monkeypatch.setattr(cuda_mu, "_c_function", _no_launch)
     monkeypatch.setattr(cuda_mu, "_runs_plain", lambda t: False)
     w = cuda_mu.mu_stats_masked
     before = (w.launches, w.f32_launches)
     k = 129 if case == "rank 129" else 4
-    my, mask, x, d = _inputs(6, 40, 70, k)
+    n = 2816 if case == "rank 129" else 70
+    assert not cuda_mu.rank_fits(n, k, 4, True) or k < 129
+    my, mask, x, d = _inputs(6, 40, n, k)
     bits = cuda_mu.pack_mask(mask)
     if case == "packed mask of another shape":
         bits = torch.zeros((40, 8), dtype=torch.int32)

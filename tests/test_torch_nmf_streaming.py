@@ -297,16 +297,16 @@ def test_kernel_gate_refusals():
     for extra, match in cases:
         with pytest.raises(texc.DecompError, match=match):
             tnmf.solve_streaming(yt, d0, x=x0, **{**kw, **extra})
-    xr, dr = _init(3, m, n, 129, np.float32)
+    xr, dr = _init(3, m, n, 10_625, np.float32)
     with pytest.raises(texc.DecompError, match="rank"):
         tnmf.solve_streaming(yt, dr, x=xr, dtype=torch.float32, **kw)
     assert not tns._chunk_kernel_gate(
         "auto", on_cuda=False, method="mu", mixed=False,
-        record_objective=False, rank=4, y_dtype=torch.float32,
+        record_objective=False, rank=4, n=n, y_dtype=torch.float32,
         fdt=torch.float32, masked=False, inner_iter=1)
     assert tns._chunk_kernel_gate(
         "auto", on_cuda=True, method="mu", mixed=True,
-        record_objective=False, rank=128, y_dtype=torch.bfloat16,
+        record_objective=False, rank=128, n=n, y_dtype=torch.bfloat16,
         fdt=torch.float32, masked=True, inner_iter=1)
     with pytest.raises(texc.DecompError, match="jit_loader"):
         tnmf.solve_streaming(y, d0, x=x0, use_kernel=True, device="cpu")
