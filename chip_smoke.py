@@ -90,6 +90,21 @@ for sm_90a (one nvcc per source, all at once), and then:
    data with 30% missing, f32 (``mixed=False``) and bf16, to the held-out
    stop at tol 1e-3 or 2,000 iterations, held-out error < 5e-2, and 5
    iterations on weights, f32 and bf16, every launch on the wide route;
+   and (4d) KL-MU above rank 128 on the same route's KL entries: each
+   instance (dense f32 and bf16; masked f32 on bits and on weights, bf16
+   on a dense 0/1 mask and on weights) against its twin at 1,000 x 1,000,
+   K = 256 and 200, and a ragged 333 x 257, K = 129, with eps = EPS and
+   eps = 0, f32 on log-normal my, x and d over six decades at 65,536 x
+   1,024, K = 200, and f32 at the KL gate's corners (K = 4,480 dense and
+   3,456 masked at N = 128 on 4,096 rows; 512 and 384 at N = 1,024 on
+   32,768), within LIMIT (X_BF16_LIMIT for bf16 x_new) with a
+   bit-identical rerun and both calls counted in ``.wide_launches``; each
+   instance per call at 100,000 x 1,024, K = 256, against its twin and
+   beside its bound; and the path there: ``nmf.solve(method='kl-mu')``,
+   f32, dense and with 30% missing, 20 iterations at tol 0, each in ms
+   an iteration in turns with ``use_kernel=False``, the KL objective
+   falling, and 5 iterations each of bf16 data (dense, a 0/1 mask) and
+   of weights (f32, bf16), every launch on the wide route;
 5. solves a planted rank-10 problem (config 1) to convergence and
    restarts from it, every launch on ``csrc/mu_dense_packed.cu``, and
    times that kernel per call on it in turns with
@@ -380,8 +395,9 @@ of the kernels (the eight, and ``solve_rows``' complex mode, the packed
 and weighted routes of ``masked_grad_rows`` and ``masked_grad_dict`` in
 f32 and in bf16, f32 dense MU's
 ``csrc/mu_dense_packed.cu``, f32 masked MU's ``csrc/mu_masked_f32.cu``,
-the wide routes of the masked gradients and of MU (``csrc/grad_wide.cu``,
-``csrc/mu_wide.cu``) and the cluster route of ``bcd_sweep`` as entries of
+the wide routes of the masked gradients, of MU and of KL-MU
+(``csrc/grad_wide.cu``, ``csrc/mu_wide.cu``) and the cluster route of
+``bcd_sweep`` as entries of
 their own),
 each with
 its bound: the larger of its bytes (each input
@@ -478,6 +494,15 @@ WIDE_RANK_CORNERS = {"dense": ((2048, 1024, 1280), (512, 128, 10_624)),
 # masked run's held-out stop (tol, iteration cap).
 WIDE_RANK_PATH = (100_000, 1024, 256)
 WIDE_RANK_STOP = (1e-3, 2000)
+# Phase 4d's wide-rank KL-MU (csrc/mu_wide.cu's KL entries) against its
+# twins, (M, N, K): K = 256 and 200, and a ragged 333 x 257 at 129 (also
+# with eps = 0); log-normal data at 65,536 x 1,024, K = 200; the KL gate's
+# f32 corners (cuda_mu.rank_fits with kl_dense / kl_masked), (M, N) ->
+# (dense K, masked K on bits, on weights).
+KL_WIDE_SHAPES = ((1000, 1000, 256), (1000, 1000, 200), (333, 257, 129))
+KL_WIDE_LOGNORMAL = (65536, 1024, 200)
+KL_WIDE_CORNERS = {(4096, 128): (4480, 3456, 3456),
+                   (32768, 1024): (512, 384, 384)}
 # Config 2 (acc_ista, tol 1e-4, 'high'), measured on the H100: x of
 # solve_rows against its twin on config 2's inputs 6.8e-4 (their niter
 # agree on only ~56% of rows: config 2's unnormalised dictionary, L ~
@@ -2933,6 +2958,261 @@ def wide_rank_phase(nmf, nmf_mod, cuda_mu, dev, card, reset_counts,
     return stats, launches
 
 
+def compare_kl_wide(cuda_mu, kind, args, eps=EPS, tag=""):
+    """Phase 4d: one instance of the wide-rank KL-MU route (csrc/mu_wide.cu's
+    KL entries) against its twin on ``args`` = (my, mask, x, d): ``kind``
+    dense (``kl_stats_dense``), bits (``kl_stats_masked`` on the mask's
+    bits), 0/1 (on the dense 0/1 mask) or weights, both calls counted in
+    ``.wide_launches``, a bit-identical rerun, x_new within LIMIT of its
+    dtype (X_BF16_LIMIT where bf16) and the statistics within LIMIT.
+    Returns the outputs' max abs error."""
+    y, mask, x, d = args
+    if kind == "dense":
+        w = cuda_mu.kl_stats_dense
+
+        def call():
+            return w(y, x, d, eps)
+
+        ref = cuda_mu.kl_stats_dense_plain(y, x, d, eps)
+    else:
+        w = cuda_mu.kl_stats_masked
+        km = cuda_mu.pack_mask(mask) if kind == "bits" else mask
+        check(km is not None, "pack_mask refused a 0/1 mask")
+
+        def call():
+            return w(y, km, x, d, eps)
+
+        ref = cuda_mu.kl_stats_masked_plain(y, mask, x, d, eps)
+    before = w.wide_launches
+    out = call()
+    again = call()
+    torch.cuda.synchronize()
+    errs = [rel_fro(a, b) for a, b in zip(out, ref)]
+    same = all(torch.equal(a, b) for a, b in zip(out, again))
+    limits = [X_BF16_LIMIT if x.dtype == torch.bfloat16 else LIMIT[y.dtype]]
+    limits += [LIMIT[y.dtype]] * 2
+    tag = (f"{w.__name__} wide route, {kind} {y.shape[0]}x{y.shape[1]} "
+           f"K={d.shape[0]} {str(y.dtype)[6:]} eps={eps:g}"
+           + (f", {tag}" if tag else ""))
+    print(f"kernel vs twin {tag}: rel_fro " + " ".join(
+        f"{nm}={e:.3e} (limit {lim:g})" for nm, e, lim in zip(
+            ("x_new", "numd", "xsum" if kind == "dense" else "dend"), errs,
+            limits))
+        + f"; bit-identical rerun: {same}", flush=True)
+    check(w.wide_launches == before + 2, f"{tag}: not on the wide route")
+    check(all(np.isfinite(errs)), f"{tag}: non-finite outputs")
+    check(all(e <= lim for e, lim in zip(errs, limits)),
+          f"{tag}: kernel disagrees with twin")
+    check(same, f"{tag}: two kernel runs differ")
+    return max_abs(out, ref)
+
+
+def kl_wide_inputs(gen, dev, m, n, k, dt, kind, lognormal=False):
+    """(my, mask, x, d) for phase 4d, all in ``dt`` (the KL kernels take x
+    in the data's dtype): ``stats_inputs``' uniform data (30% missing),
+    weighted in [0.5, 1) for ``weights``, or ``lognormal_inputs``' six
+    decades; dense: my = y, no mask."""
+    if lognormal:
+        args = lognormal_inputs(gen, dev, m, n, k,
+                                0.0 if kind == "dense" else 0.3)
+    else:
+        args = stats_inputs(gen, dev, m, n, k, dt, dt, True)
+        if kind == "dense":   # y itself: no entry missing
+            args = (torch.rand((m, n), generator=gen, device=dev).to(dt),
+                    None) + args[2:]
+    if kind == "weights":
+        args = weighted(gen, args)
+    return tuple(None if t is None else t.to(dt) for t in args)
+
+
+def kl_wide_bound(kind, m, n, k, ydt):
+    """(ms, by) of the TPU kernel's own work at one call: my (and the mask:
+    bits or a dense mask in the data's dtype) read once, x read and x_new
+    written, d read, the statistics written; dense 8MNK and masked 12MNK
+    operations, at f32 six bf16 passes each (bf16x6), the two products with
+    a 0/1 mask (mask d^T, x_new^T mask) at three; at bf16 one."""
+    from decomp_tpu_torch.ops.cuda_mu import packed_words
+
+    e = ydt.itemsize
+    masked = kind != "dense"
+    mask_b = (4 * m * packed_words(n) if kind == "bits"
+              else e * m * n if masked else 0)
+    nbytes = (e * (m * n + k * n + 2 * m * k) + mask_b
+              + 4 * (2 * k * n if masked else k * n + k))
+    ops = (12.0 if masked else 8.0) * m * n * k
+    if ydt == torch.float32:
+        ops = 6.0 * ops - (12.0 * m * n * k if kind == "bits" else 0.0)
+    return bound(nbytes, ops, torch.bfloat16)
+
+
+def kl_wide_phase(nmf, nmf_mod, cuda_mu, dev, card, reset_counts,
+                  read_counts):
+    """Phase 4d: KL-MU above rank 128 on the wide route (csrc/mu_wide.cu's
+    KL entries). Each instance against its twin (``compare_kl_wide``):
+    dense f32 and bf16, masked f32 on bits and on weights, masked bf16 on a
+    dense 0/1 mask and on weights, at KL_WIDE_SHAPES with eps = EPS and at
+    the ragged one with eps = 0, f32 on log-normal my, x and d at
+    KL_WIDE_LOGNORMAL, and f32 at the KL gate's corners (KL_WIDE_CORNERS);
+    each instance per call at WIDE_RANK_PATH against its twin and beside
+    its bound (the kernels line's figures); then the path there:
+    ``nmf.solve(method='kl-mu')``, f32, dense and with 30% missing (the
+    mask as bits), 20 iterations at tol 0, each in ms an iteration in
+    turns with ``use_kernel=False`` (kernel, composition, composition,
+    kernel), the KL objective falling; and 5 iterations each of bf16 data
+    (dense and a 0/1 mask) and of weights in [0.5, 1) (f32 and bf16). Each
+    path under 'auto' where ``nmf._auto_rank`` takes it, else with
+    use_kernel=True, every launch counted on the wide route. Returns
+    ({entry: (max_abs_err, ms, plain_ms, bound_ms, bound_by)}, {entry:
+    launches})."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(427)
+    kinds = {f32: ("dense", "bits", "weights"),
+             bf16: ("dense", "0/1", "weights")}
+    for dt, ks in kinds.items():
+        for m, n, k in KL_WIDE_SHAPES:
+            for kind in ks:
+                compare_kl_wide(cuda_mu, kind, kl_wide_inputs(
+                    gen, dev, m, n, k, dt, kind))
+        m, n, k = KL_WIDE_SHAPES[-1]
+        for kind in ks:
+            compare_kl_wide(cuda_mu, kind, kl_wide_inputs(
+                gen, dev, m, n, k, dt, kind), eps=0.0)
+    m, n, k = KL_WIDE_LOGNORMAL
+    for kind in ("dense", "bits"):
+        compare_kl_wide(cuda_mu, kind, kl_wide_inputs(
+            gen, dev, m, n, k, f32, kind, lognormal=True),
+            tag="log-normal, six decades")
+        torch.cuda.empty_cache()
+    for (m, n), ks in KL_WIDE_CORNERS.items():
+        for kind, k in zip(("dense", "bits", "weights"), ks):
+            compare_kl_wide(cuda_mu, kind, kl_wide_inputs(
+                gen, dev, m, n, k, f32, kind), tag="the gate's corner")
+            torch.cuda.empty_cache()
+
+    m, n, k = WIDE_RANK_PATH
+    stats = {}
+    for dt, ks in kinds.items():
+        for kind in ks:
+            args = kl_wide_inputs(gen, dev, m, n, k, dt, kind)
+            err = compare_kl_wide(cuda_mu, kind, args, tag="the path's shape")
+            y, mask, x, d = args
+            if kind == "dense":
+                def call():
+                    return cuda_mu.kl_stats_dense(y, x, d, EPS)
+
+                def plain():
+                    return cuda_mu.kl_stats_dense_plain(y, x, d, EPS)
+            else:
+                km = cuda_mu.pack_mask(mask) if kind == "bits" else mask
+
+                def call():
+                    return cuda_mu.kl_stats_masked(y, km, x, d, EPS)
+
+                def plain():
+                    return cuda_mu.kl_stats_masked_plain(y, mask, x, d, EPS)
+            ms, p_ms = cuda_ms(call, 5), cuda_ms(plain, 2)
+            b = kl_wide_bound(kind, m, n, k, dt)
+            entry = ("kl_stats_dense_wide" if kind == "dense"
+                     else "kl_stats_masked_wide"
+                     + ("_weighted" if kind == "weights" else ""))
+            entry += "" if dt == f32 else "_bf16"
+            stats[entry] = (err, ms, p_ms) + b
+            print(f"{entry} {m}x{n} K={k} {str(dt)[6:]} ({kind}): "
+                  f"{ms:.4f} ms per call, plain twin {p_ms:.3f} ms, bound "
+                  f"{b[0]:.4f} ms ({b[1]}), kernel at {b[0] / ms:.1%} of it; "
+                  f"max_abs_err {err:.3e} ({card})", flush=True)
+            del args, y, mask, x, d
+    torch.cuda.empty_cache()
+
+    def kernel_kw(dt, masked):
+        return ({} if nmf_mod._auto_rank("kl-mu", n, k, dt, masked, dt)
+                else {"use_kernel": True})
+
+    launches = {}
+    g = torch.Generator(device=dev).manual_seed(45)
+    y = torch.rand((m, n), generator=g, device=dev)
+    mask = (torch.rand((m, n), generator=g, device=dev) >= 0.3).float()
+    eps_t = torch.tensor(EPS, dtype=f32)
+    for name, mk in (("kl_stats_dense", None), ("kl_stats_masked", mask)):
+        w = getattr(cuda_mu, name)
+        my = y if mk is None else mk * y
+        kw = dict(rank=k, mask=mk, method="kl-mu", tol=0.0, eps=EPS,
+                  random_seed=0)
+        kkw = kernel_kw(f32, mk is not None)
+        d0, x0 = nmf_mod._init_factors(
+            torch.Generator(device=dev).manual_seed(0), my, None, None, k)
+        obj0 = float(nmf_mod._kl_objective(my, x0, d0, mk, eps_t))
+        del d0, x0
+        nmf.solve(y, maxiter=2, **kw, **kkw)   # warm-up
+        nmf.solve(y, maxiter=2, use_kernel=False, **kw)
+        times, res = [], {}
+        for path in ("kernel", "composition", "composition", "kernel"):
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            r = nmf.solve(y, maxiter=20, **kw,
+                          **(kkw if path == "kernel" else
+                             {"use_kernel": False}))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3 / 20)
+            want = 20 if path == "kernel" else 0
+            got = read_counts(name, want)
+            check(w.wide_launches == want, f"wide KL path {name}: {path} "
+                  f"run launched {w.wide_launches} wide, expected {want}")
+            if path not in res:
+                res[path] = r
+                if path == "kernel":
+                    launches[name + "_wide"] = got
+        rk, rc = res["kernel"], res["composition"]
+        obj1 = float(nmf_mod._kl_objective(my, rk.x, rk.d, mk, eps_t))
+        check(rk.niter == 20 and np.isfinite(obj1) and obj1 < obj0,
+              f"wide KL path {name}: KL objective {obj0} -> {obj1}, niter "
+              f"{rk.niter}")
+        for nm, t in (("x", rk.x), ("d", rk.d)):
+            check(bool(torch.isfinite(t).all()) and bool((t >= 0).all()),
+                  f"wide KL path {name}: {nm} not finite and nonnegative")
+        k_ms, c_ms = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
+        print(f"wide KL path nmf.solve(method='kl-mu') {m}x{n} f32, rank "
+              f"{k}, {'30% missing' if mk is not None else 'dense'}, "
+              f"{'auto' if not kkw else 'use_kernel=True'}: kernel path "
+              f"{k_ms:.4f} ms an iteration ({times[0]:.4f}, {times[3]:.4f}), "
+              f"use_kernel=False {c_ms:.4f} ms ({times[1]:.4f}, "
+              f"{times[2]:.4f}) in turns, kernel / composition "
+              f"{k_ms / c_ms:.3f} ({card}); KL objective {obj0:.6e} -> "
+              f"{obj1:.6e}; d against the composition run "
+              f"{rel_fro(rk.d, rc.d):.3e}, x {rel_fro(rk.x, rc.x):.3e}; "
+              f"{name} launches {launches[name + '_wide']}, all on the wide "
+              "route", flush=True)
+        del res, rk, rc, r, my
+    w8 = mask * (0.5 + 0.5 * torch.rand((m, n), generator=g, device=dev))
+    for dt, mk, entry in ((bf16, None, "kl_stats_dense_wide_bf16"),
+                          (bf16, mask, "kl_stats_masked_wide_bf16"),
+                          (f32, w8, "kl_stats_masked_wide_weighted"),
+                          (bf16, w8, "kl_stats_masked_wide_weighted_bf16")):
+        name = "kl_stats_dense" if mk is None else "kl_stats_masked"
+        w = getattr(cuda_mu, name)
+        yy = y.to(dt)
+        torch.cuda.synchronize()
+        reset_counts()
+        res = nmf.solve(yy, mask=None if mk is None else mk.to(dt), rank=k,
+                        method="kl-mu", tol=0.0, maxiter=5, random_seed=0,
+                        **kernel_kw(dt, mk is not None))
+        torch.cuda.synchronize()
+        launches[entry] = read_counts(name, 5)
+        check(w.wide_launches == 5, f"{entry} path: {w.wide_launches} of 5 "
+              "launches on the wide route")
+        check(bool(torch.isfinite(res.d).all()), f"{entry} path: non-finite d")
+        what = ("dense" if mk is None else "a 0/1 mask" if mk is mask
+                else "weights in [0.5, 1)")
+        print(f"{entry} path nmf.solve(method='kl-mu') {m}x{n} rank {k} "
+              f"{str(dt)[6:]} data, {what}: 5 launches, all on the wide "
+              f"route ({card})", flush=True)
+        del res, yy
+    del y, mask, w8
+    torch.cuda.empty_cache()
+    return stats, launches
+
+
 def planted_config1(dev):
     """BASELINE config 1 as benchmarks/run_configs.py:112-118 (and phase 5)
     make it: 1000 x 500, planted rank 10, 0.01 noise, f32 on the card."""
@@ -5066,6 +5346,8 @@ def main():
         cuda_mu.mu_stats_masked.wide_launches = 0
         cuda_mu.kl_stats_dense.packed_launches = 0
         cuda_mu.kl_stats_dense.mu_kl_launches = 0
+        cuda_mu.kl_stats_dense.wide_launches = 0
+        cuda_mu.kl_stats_masked.wide_launches = 0
         cuda_lasso.solve_rows.complex_launches = 0
         cuda_lasso.solve_rows.tma_launches = 0
         for w in (cuda_lasso.masked_grad_rows, cuda_dl.masked_grad_dict):
@@ -5399,6 +5681,13 @@ def main():
     wide_rank_stats, wide_rank_launches = wide_rank_phase(
         nmf, nmf_mod, cuda_mu, dev, card, reset_counts, read_counts)
     t_phase = phase("4c wide-rank MU", t_phase)
+
+    # Phase 4d: KL-MU above rank 128 on the wide route (csrc/mu_wide.cu).
+    kl_wide_stats, kl_wide_launches = kl_wide_phase(
+        nmf, nmf_mod, cuda_mu, dev, card, reset_counts, read_counts)
+    wide_rank_stats.update(kl_wide_stats)
+    wide_rank_launches.update(kl_wide_launches)
+    t_phase = phase("4d wide-rank KL-MU", t_phase)
 
     # Phase 5: a converging run (planted rank 10, 1% noise) and a restart.
     rng = np.random.default_rng(0)
@@ -6001,6 +6290,9 @@ def main():
                **{f"{name}{r}": ("mu_wide", rep_) for name, rep_, rs in (
                    ("mu_stats_dense_wide", "pallas_mu.py:438", ("", "_bf16")),
                    ("mu_stats_masked_wide", "pallas_mu.py:522",
+                    ("", "_bf16", "_weighted", "_weighted_bf16")),
+                   ("kl_stats_dense_wide", "pallas_mu.py:603", ("", "_bf16")),
+                   ("kl_stats_masked_wide", "pallas_mu.py:678",
                     ("", "_bf16", "_weighted", "_weighted_bf16")))
                   for r in rs}}
     entries = []

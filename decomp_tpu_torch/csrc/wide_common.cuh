@@ -1,8 +1,8 @@
 // The three products of the wide routes on Hopper (sm_90a), shared by
 // grad_wide.cu (the masked gradients above 128 features) and mu_wide.cu
-// (masked and dense MU above rank 128): f32 data with every f32 product
-// as bf16x6 limb products (L = 3 limbs an operand), bf16 data with each
-// product one bf16 pass (L = 1), on wgmma.
+// (masked and dense MU and KL-MU above rank 128): f32 data with every f32
+// product as bf16x6 limb products (L = 3 limbs an operand), bf16 data with
+// each product one bf16 pass (L = 1), on wgmma.
 //
 //   wide_resid: R = x b, a persistent 128 x 128-tile kernel; x's limbs (M x
 //       L kp) and b's (N x L kp: row n = the limbs of column n of b, each

@@ -60,34 +60,42 @@ _PRECISIONS = ("default", "high", "highest", "bfloat16", "tensorfloat32",
 # Rows per chunk where a product upcasts compute-dtype data or a sum runs
 # over all of y: bounds the temporaries to a chunk instead of all of y.
 _CHUNK_ROWS = 8192
-# Where 'auto' sends MU above rank 128 to csrc/mu_wide.cu (inside the TPU
-# kernels' gate, cuda_mu.rank_fits): the (data, factor) dtypes and the
-# widths N from which the card measured one solver iteration on the wide
-# route no slower than on the composition (PERF.md §6 rows 1-2; in turns
-# on an H100 at rank 256, tools/mu_wide_turns.py, and at the gate's
-# corners). bf16 data with f32 factors (factor_dtype): 0.08-0.41x at every
-# N from 64 to 4,096 and at every corner, dense or masked: the mixed
+# Where 'auto' sends MU and KL-MU above rank 128 to csrc/mu_wide.cu (inside
+# the TPU kernels' gate, cuda_mu.rank_fits): the (method, data, factor)
+# dtypes and the widths N from which the card measured one solver
+# iteration on the wide route no slower than on the composition (PERF.md
+# §6 rows 1-4; in turns on an H100 at rank 256, tools/mu_wide_turns.py and
+# tools/kl_wide_turns.py, and at the gates' corners). MU: bf16 data with
+# f32 factors (factor_dtype): 0.08-0.41x at every N from 64 to 4,096 and
+# at every corner, dense or masked: the mixed
 # composition upcasts each product's operands. f32: 0.56-0.95x from N =
 # 256 to 4,096 and at the corners at N = 1,024; at N = 64 and 128
 # 0.99-1.32x (0.71x only at the dense corner, K = 10,624), where the
 # route's 7-9 launches outweigh the products. bf16 data with bf16
 # factors: 1.5-3.7x, so the composition (plain bf16 products) stays.
-_AUTO_WIDE_RANK_MIN_N = {(torch.bfloat16, torch.float32): 1,
-                         (torch.float32, torch.float32): 256}
+# KL-MU (the KL kernels take no factor_dtype): f32 0.55-0.82x from N =
+# 256 to 1,024 and at the KL gate's corners there, dense, on a 0/1 mask
+# and on weights; at N = 64 1.19-1.21x, at N = 128 0.91-0.95x at K = 256
+# but 1.21-1.42x at the corner (K = 4,480 / 3,456). bf16: 1.27-3.63x
+# (cuBLAS's bf16 products; once 0.90x, where the composition's two turns
+# read 1.59 and 0.61 ms), so bf16 stays on the composition.
+_AUTO_WIDE_RANK_MIN_N = {("mu", torch.bfloat16, torch.float32): 1,
+                         ("mu", torch.float32, torch.float32): 256,
+                         ("kl-mu", torch.float32, torch.float32): 256}
 
 
 def _auto_rank(method, n, rank, dtype, masked, fdt):
     """Whether ``use_kernel='auto'`` takes the kernels of ``method`` at
     ``rank`` with N columns of ``dtype`` data and ``fdt`` factors: always up
-    to ``cuda_mu.KERNEL_MAX_RANK`` (the fused kernels); above it MU on the
-    wide route (``csrc/mu_wide.cu``) inside the gate
-    (``cuda_mu.kernel_takes_rank``) for the (data, factor) dtypes of
-    ``_AUTO_WIDE_RANK_MIN_N`` at N at least its value. ``use_kernel=True``
+    to ``cuda_mu.KERNEL_MAX_RANK`` (the fused kernels); above it the wide
+    route (``csrc/mu_wide.cu``) inside the gate
+    (``cuda_mu.kernel_takes_rank``) for the (method, data, factor) dtypes
+    of ``_AUTO_WIDE_RANK_MIN_N`` at N at least its value. ``use_kernel=True``
     takes every rank ``kernel_takes_rank`` takes. The sharded solve and
     loader mode decide through the same two."""
     if cuda_mu.rank_route(rank) == "fused":
         return rank >= 1
-    min_n = _AUTO_WIDE_RANK_MIN_N.get((dtype, fdt))
+    min_n = _AUTO_WIDE_RANK_MIN_N.get((method, dtype, fdt))
     return (min_n is not None and n >= min_n
             and cuda_mu.kernel_takes_rank(method, n, rank, dtype, masked))
 
@@ -187,13 +195,13 @@ def solve(
         update and the d statistics in one ``ops.cuda_mu`` call: on a
         CUDA tensor the hand-written kernel, on a CPU tensor its plain
         twin. 'auto' engages it for a CUDA ``y`` of dtype bf16 or f32 with
-        rank <= 128 (above it, 'mu' where ``_auto_rank`` says the card
-        measured the wide route no slower), factors in y's dtype or f32
-        ('kl-mu': y's dtype only), and ``inner_iter == 1`` unless dense
-        'mu'; it is False on CPU, for 'hals' and with ``minibatch``, which
-        run compositions. True takes 'mu' up to the TPU kernels' gate
-        (``cuda_mu.rank_fits``) and 'kl-mu' up to rank 128, and raises
-        ``ShapeError`` past them, before any launch.
+        rank <= 128 (above it, where ``_auto_rank`` says the card measured
+        the wide route no slower), factors in y's dtype or f32 ('kl-mu':
+        y's dtype only), and ``inner_iter == 1`` unless dense 'mu'; it is
+        False on CPU, for 'hals' and with ``minibatch``, which run
+        compositions. True takes 'mu' and 'kl-mu' up to the TPU kernels'
+        gate (``cuda_mu.kernel_takes_rank``, ``cuda_mu.rank_fits``), and
+        raises ``ShapeError`` past it, before any launch.
     kernel_block_rows : rows per partial of the kernel's statistics pass
         (on CPU, rows per chunk of the twin); a positive multiple of 8.
     check_every : evaluate the stopping rule every this many iterations.

@@ -116,8 +116,8 @@ def solve_streaming(
         ``factor_dtype``, ``inner_iter == 1`` unless dense 'mu', no
         ``record_objective``); True forces them, raising ``DecompError``
         that names the first unmet condition (``ShapeError`` for a rank
-        past ``cuda_mu.kernel_takes_rank``: MU above 128 inside the TPU
-        kernels' gate, KL up to 128), and runs the plain twins on CPU
+        past ``cuda_mu.kernel_takes_rank``: MU and KL above 128 inside the
+        TPU kernels' gate), and runs the plain twins on CPU
         chunks. The host-array path refuses True.
     kernel_block_rows : rows per partial of the chunk kernels (see
         ``nmf.solve``).

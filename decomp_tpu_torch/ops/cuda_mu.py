@@ -26,16 +26,15 @@ and stored in ``x``'s dtype; the statistics use ``x_new`` cast to
 
 On a CUDA tensor a wrapper launches its kernel and raises on anything it
 does not take (bf16 or f32 data, ``d`` and a dense ``mask`` in the data's
-dtype, 1 <= K <= 128 on the fused kernels, and for MU above 128 inside the
-TPU kernels' gate, ``rank_fits``; ``x`` in the data's dtype, or f32 for the
+dtype, 1 <= K <= 128 on the fused kernels, and above 128 inside the TPU
+kernels' gate, ``rank_fits``; ``x`` in the data's dtype, or f32 for the
 MU kernels). The routes, by rank (``rank_route``), dtype and the mask's
 form:
 
-- above rank 128, ``mu_stats_dense`` and ``mu_stats_masked`` (bits or
-  weights alike) to ``csrc/mu_wide.cu``, whose f32 products run as
-  bf16x6 limb products and bf16 ones in one pass on the wide products of
-  ``csrc/wide_common.cuh``, counted in ``.wide_launches``; the KL
-  kernels refuse such ranks;
+- above rank 128, all four wrappers (the masked ones on bits or weights
+  alike) to ``csrc/mu_wide.cu``, whose f32 products run as bf16x6 limb
+  products and bf16 ones in one pass on the wide products of
+  ``csrc/wide_common.cuh``, counted in ``.wide_launches``;
 - ``mu_stats_dense``: bf16 data to ``csrc/mu_dense_tma.cu``
   (``dense_route``), f32 data to ``csrc/mu_dense_packed.cu``, whose f32
   products run as bf16x6 limb products on ``wgmma`` (the chain of
@@ -64,9 +63,9 @@ launches in ``.launches``; the masked ones also per route, in
 ``.packed_launches`` and ``.dense_launches`` (``mu_stats_masked`` counts
 its f32 route, ``csrc/mu_masked_f32.cu``, in ``.f32_launches``, its bf16
 one in ``.packed_launches`` and its wide one in ``.wide_launches``),
-``kl_stats_dense`` in ``.packed_launches`` and ``.mu_kl_launches``, and
-``mu_stats_dense`` in ``.tma_launches``, ``.packed_launches`` and
-``.wide_launches``.
+``kl_stats_dense`` in ``.packed_launches``, ``.mu_kl_launches`` and
+``.wide_launches``, and ``mu_stats_dense`` in ``.tma_launches``,
+``.packed_launches`` and ``.wide_launches``.
 
 Not ported: ``calibrated_tpu`` and the v5e VMEM calibrations as gates of
 the port's own kernels. ``rank_fits`` keeps ``fits_vmem``'s gate, at
@@ -84,21 +83,27 @@ from decomp_tpu_torch.ops import _build
 from decomp_tpu_torch.utils.exceptions import DecompError, DtypeError, ShapeError
 
 # Largest rank the fused kernels take (their rank tile, KP in the CUDA
-# sources); above it MU takes the wide route (csrc/mu_wide.cu) up to the
-# TPU kernels' gate, rank_fits.
+# sources); above it MU and KL-MU take the wide route (csrc/mu_wide.cu) up
+# to the TPU kernels' gate, rank_fits.
 KERNEL_MAX_RANK = 128
 # The TPU kernels' gate (pallas_mu.py:82 fits_vmem, :113
 # default_block_rows): the VMEM a stripe's residents take, per 128-padded
 # column, under 15.7 MiB, at the stripe that halves from 128 rows while the
 # streamed stripes pass a 10 MiB budget. Its corners: dense / masked MU at
 # N <= 128 up to K = 10,624 / 6,272 in f32 and 12,800 / 7,040 in bf16; at
-# N = 1,024 up to 1,280 / 640 and 1,536 / 768.
+# N = 1,024 up to 1,280 / 640 and 1,536 / 768. Dense / masked KL at N <=
+# 128 up to 4,480 / 3,456 in f32 and 4,864 / 3,712 in bf16; at N = 1,024
+# up to 512 / 384 in either.
 _TPU_GATE_BYTES = int(15.7 * 1024 * 1024)
 _TPU_STRIPE_BUDGET = 10 * 1024 * 1024
 # csrc/mu_wide.cu's and csrc/grad_wide.cu's statistics grid, (128-column N
 # tiles) x (128-row K chunks) x (row chunks): the chunks aim at two waves of
 # the H100's 132 SMs (one block each), in whole 32-row stages.
 _WIDE_DICT_BLOCKS = 2 * 132
+# csrc/mu_wide.cu's column sums of x_new (dense KL's xsum): (128-column
+# groups) x (row chunks) blocks of 128 threads, about this many, in whole
+# 32-row chunks.
+_WIDE_SUM_BLOCKS = 8 * 132
 # The row chunks of the statistics pass aim at this many partials.
 _TARGET_CHUNKS = 128
 _MIN_CHUNK_ROWS = 256
@@ -173,23 +178,29 @@ def rank_fits(n: int, k: int, itemsize: int, masked: bool,
 
 
 def rank_route(k: int) -> str:
-    """Which kernels MU runs at rank K: ``'fused'`` (the routes of
-    ``dense_route`` and ``mu_stats_masked``'s mask forms) for K <=
-    ``KERNEL_MAX_RANK``, ``'wide'`` (``csrc/mu_wide.cu``) above. A
-    function of K alone: no shape moves to another route on a failure."""
+    """Which kernels MU and KL-MU run at rank K: ``'fused'`` (the routes
+    of ``dense_route``, ``kl_dense_route`` and the masked wrappers' mask
+    forms) for K <= ``KERNEL_MAX_RANK``, ``'wide'`` (``csrc/mu_wide.cu``)
+    above. A function of K alone: no shape moves to another route on a
+    failure."""
     return "fused" if k <= KERNEL_MAX_RANK else "wide"
 
 
 def kernel_takes_rank(method, n, k, dtype, masked) -> bool:
     """Whether the kernels of ``method`` take rank K at N columns of
     ``dtype`` data: K from 1 to ``KERNEL_MAX_RANK`` at any N (the fused
-    kernels, MU and KL); above it MU on the wide route inside the gate,
-    ``rank_fits``; KL-MU not yet. The predicate of ``nmf.solve``'s,
-    the sharded solve's and loader mode's ``use_kernel``."""
+    kernels, MU and KL); above it the wide route inside the gate,
+    ``rank_fits``, with the flags ``decomp_tpu``'s solve passes it (KL:
+    the masked shape, and the KL kernels' residents, dense or masked). The
+    predicate of ``nmf.solve``'s, the sharded solve's and loader mode's
+    ``use_kernel``."""
     if k < 1:
         return False
     if rank_route(k) == "fused":
         return True
+    if method == "kl-mu":
+        return rank_fits(n, k, dtype.itemsize, True, kl_masked=masked,
+                         kl_dense=not masked)
     return method == "mu" and rank_fits(n, k, dtype.itemsize, masked)
 
 
@@ -198,11 +209,11 @@ def check_rank(method, n, k, dtype, masked):
     if not kernel_takes_rank(method, n, k, dtype, masked):
         raise ShapeError(
             f"the {method} kernels take rank 1 to {KERNEL_MAX_RANK} at any "
-            f"N" + (", and MU above it where the TPU kernels' gate takes it "
-                    "(rank_fits: N and K rounded up to 128; at N = 1,024 up "
-                    "to 1,280 dense and 640 masked in f32)"
-                    if method == "mu" else "")
-            + f"; got rank {k}, N={n}, {dtype}"
+            f"N, and above it where the TPU kernels' gate takes it "
+            f"(rank_fits: N and K rounded up to 128; at N = 1,024 in f32 up "
+            f"to 1,280 dense and 640 masked for MU, 512 dense and 384 "
+            f"masked for KL-MU; at N <= 128 up to 10,624 / 6,272 for MU, "
+            f"4,480 / 3,456 for KL-MU); got rank {k}, N={n}, {dtype}"
             + (", masked" if masked else ""))
 
 
@@ -215,6 +226,17 @@ def wide_dict_rows(m: int, n: int, kp: int) -> int:
     the statistics, is."""
     tiles = -(-n // 128) * (kp // 128)
     chunks = max(1, -(-_WIDE_DICT_BLOCKS // tiles))
+    rows = -(-m // chunks)
+    return -(-rows // 32) * 32
+
+
+def wide_sum_rows(m: int, kp: int) -> int:
+    """Rows per partial of the wide route's column sums of x_new (dense
+    KL's xsum) over M rows and kp (a multiple of 128) columns: as many
+    chunks as make (kp / 128) x chunks about ``_WIDE_SUM_BLOCKS`` blocks,
+    in whole 32-row chunks. A function of the shape alone, so the
+    summation order, and every bit of xsum, is."""
+    chunks = max(1, -(-_WIDE_SUM_BLOCKS // (kp // 128)))
     rows = -(-m // chunks)
     return -(-rows // 32) * 32
 
@@ -365,13 +387,13 @@ def _row_chunks(m, block_rows):
 
 
 def _check_kernel_args(y, x, d, inner_iter, block_rows, *, mask=None,
-                       wide_x=True, gate=None):
+                       wide_x=True, gate=None, method="mu"):
     """Refuse what the kernels do not take, before any launch. ``mask``:
     the masked kernels' mask, which must match ``y``; ``wide_x``: whether
     the kernel takes f32 ``x`` with bf16 ``y`` (the MU kernels do);
     ``gate``: None for the fused kernels (1 <= K <= ``KERNEL_MAX_RANK``,
-    any N), ``'dense'`` or ``'masked'`` for the wide route (``check_rank``:
-    inside the TPU kernels' gate)."""
+    any N), ``'dense'`` or ``'masked'`` for the wide route (``check_rank``
+    of ``method``, 'mu' or 'kl-mu': inside the TPU kernels' gate)."""
     named = (("y", y), ("x", x), ("d", d))
     if mask is not None:
         named += (("mask", mask),)
@@ -391,7 +413,7 @@ def _check_kernel_args(y, x, d, inner_iter, block_rows, *, mask=None,
         raise ShapeError(f"mask {tuple(mask.shape)} does not match y "
                          f"{tuple(y.shape)}")
     if gate is not None:
-        check_rank("mu", n, k, y.dtype, gate == "masked")
+        check_rank(method, n, k, y.dtype, gate == "masked")
     elif not 1 <= k <= KERNEL_MAX_RANK:
         raise ShapeError(f"the kernel takes 1 <= rank <= {KERNEL_MAX_RANK}, "
                          f"got {k}")
@@ -687,6 +709,11 @@ def _wide_fns():
         "resid": (_I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I),
         "xresid": (_I, _P, _P, _I, _I, _I, _P, _P, _F, _P, _I, _P),
         "dict": (_I, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P),
+        "kl_resid": (_I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _I),
+        "kl_xrows": (_I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _F, _P, _I,
+                     _P),
+        "expand": (_I, _P, _I, _I, _I, _P, _I),
+        "colsum": (_P, _I, _I, _I, _I, _P, _P),
     }
     return {name: _c_function("mu_wide", f"mu_wide_{name}_launch", args + (_P,))
             for name, args in sigs.items()}
@@ -789,8 +816,8 @@ def mu_stats_masked(my, mask, x, d, eps, *, block_rows=None):
     unpacked to ``my``'s dtype for the twin, which then gives the dense
     mask's bits."""
     return _route_masked(mu_stats_masked, mu_stats_masked_plain,
-                         _packed_launch, my, mask, x, d, eps, block_rows,
-                         masked_packed_route, _masked_wide_launch)
+                         _packed_launch, _masked_wide_launch, my, mask, x, d,
+                         eps, block_rows, masked_packed_route)
 
 
 def masked_packed_route(dtype):
@@ -801,14 +828,14 @@ def masked_packed_route(dtype):
     return "f32_launches" if dtype == torch.float32 else "packed_launches"
 
 
-def _route_masked(wrapper, plain, packed_launch, my, mask, x, d, eps,
-                  block_rows, packed_route=lambda dtype: "packed_launches",
-                  wide_launch=None):
+def _route_masked(wrapper, plain, packed_launch, wide_launch, my, mask, x,
+                  d, eps, block_rows,
+                  packed_route=lambda dtype: "packed_launches"):
     """The routes of a masked wrapper (``mu_stats_masked`` or
     ``kl_stats_masked``) by the rank and the mask's form: on the CPU its
     twin ``plain`` (a packed mask unpacked to ``my``'s dtype first); on the
-    card above rank 128 ``wide_launch`` on either form (MU only; KL's
-    kernels refuse such ranks), counted in ``.wide_launches``;
+    card above rank 128 ``wide_launch`` on either form, counted in
+    ``.wide_launches``;
     ``packed_launch`` for the bits of a 0/1 mask, counted in the counter
     ``packed_route(my.dtype)`` names, and the dense-mask kernel of
     ``csrc/mu_kl_stats.cu`` for a dense mask, counted in
@@ -821,7 +848,7 @@ def _route_masked(wrapper, plain, packed_launch, my, mask, x, d, eps,
         if packed:
             mask = unpack_mask(mask, my.shape[1], my.dtype)
         return plain(my, mask, x, d, eps, block_rows=block_rows)
-    if wide_launch is not None and rank_route(d.shape[0]) == "wide":
+    if rank_route(d.shape[0]) == "wide":
         out = wide_launch(my, mask, x, d, eps, block_rows)
         wrapper.wide_launches += 1
         wrapper.launches += 1
@@ -1127,16 +1154,23 @@ def kl_stats_dense(my, x, d, eps, *, block_rows=None):
     docstring. ``dsum``, the row sums of ``d`` in f32, is formed here,
     outside the kernel (``pallas_mu.py:618``).
 
-    On a CUDA tensor f32 data launch ``csrc/kl_dense_packed.cu`` (bf16x6
-    products on ``wgmma``; ``block_rows`` is rounded up to whole 32-row
-    stages) and count it in ``.packed_launches``; bf16 data launch the
-    KL_DENSE kernel of ``csrc/mu_kl_stats.cu`` and count it in
-    ``.mu_kl_launches``; ``.launches`` counts both."""
+    On a CUDA tensor the route follows the rank (``rank_route``) and the
+    data's dtype (``kl_dense_route``): above rank 128 ``csrc/mu_wide.cu``
+    (``_kl_dense_wide_launch``; f32 data as bf16x6, bf16 in one limb; its
+    chunks whole 32-row stages), counted in ``.wide_launches``; else f32
+    data launch ``csrc/kl_dense_packed.cu`` (bf16x6 products on ``wgmma``;
+    ``block_rows`` is rounded up to whole 32-row stages) and count it in
+    ``.packed_launches``, and bf16 data launch the KL_DENSE kernel of
+    ``csrc/mu_kl_stats.cu`` and count it in ``.mu_kl_launches``;
+    ``.launches`` counts all three."""
     validate_block_rows(block_rows)
     route = kl_dense_route(my.dtype, my.device)
     if route == "plain":
         return kl_stats_dense_plain(my, x, d, eps, block_rows=block_rows)
-    if route == "packed":
+    if rank_route(d.shape[0]) == "wide":
+        out = _kl_dense_wide_launch(my, x, d, eps, block_rows)
+        kl_stats_dense.wide_launches += 1
+    elif route == "packed":
         out = _kl_dense_packed_launch(my, x, d, eps, block_rows)
         kl_stats_dense.packed_launches += 1
     else:
@@ -1149,6 +1183,55 @@ def kl_stats_dense(my, x, d, eps, *, block_rows=None):
 kl_stats_dense.launches = 0
 kl_stats_dense.packed_launches = 0
 kl_stats_dense.mu_kl_launches = 0
+kl_stats_dense.wide_launches = 0
+
+
+def _kl_dense_wide_launch(my, x, d, eps, block_rows):
+    """Launch ``csrc/mu_wide.cu``'s dense KL-MU (``kl_stats_dense``'s route
+    above rank 128) on f32 or bf16 ``my``, ``x`` and ``d``: the prep, E1 =
+    cdt(my / (x d + eps)), num = E1 d^T with the x update against dsum
+    (``_dsum``, formed here as ``pallas_mu.py:618`` forms it), E2 over E1's
+    buffer, numd with its reduction, and xsum from the f32 x_new's row-chunk
+    partials and their reduction. Refuses what the route does not take
+    before any build or launch."""
+    m, n = my.shape
+    k = d.shape[0]
+    kp = -(-k // 128) * 128
+    rows = _wide_chunk_rows(m, n, kp, block_rows)
+    _check_kernel_args(my, x, d, 1, rows, wide_x=False, gate="dense",
+                       method="kl-mu")
+    limbs = limb_count(my.dtype)
+    fns = _wide_fns()
+    with torch.cuda.device(my.device):
+        my_t, ld_my = _tma_rows(my)
+        d_l = column_limbs(d, kp, limbs)
+        dsum = _dsum(d)
+        xf, (xl,) = _wide_prep(fns, x, kp, limbs, False)
+        e = torch.empty((m, ld_my), dtype=my.dtype, device=my.device)
+
+        def ratio():
+            _launch("kl_stats_dense (wide ratio)", fns["kl_resid"],
+                    my.device, limbs, xl.data_ptr(), d_l.data_ptr(),
+                    my_t.data_ptr(), ld_my, m, n, k, kp, float(eps),
+                    e.data_ptr(), ld_my)
+
+        ratio()
+        x_new = torch.empty_like(x)
+        _launch("kl_stats_dense (wide x update)", fns["kl_xrows"], my.device,
+                limbs, e.data_ptr(), ld_my, d_l.data_ptr(), m, n, k, kp,
+                xf.data_ptr(), dsum.data_ptr(), float(eps), x_new.data_ptr(),
+                _is_bf16(x), xl.data_ptr())
+        ratio()
+        part = _f32(-(-m // rows) * k * n, my.device)
+        numd = _f32((k, n), my.device)
+        _wide_stat(fns, limbs, e, ld_my, xl, m, n, k, kp, rows, part, numd)
+        sum_rows = wide_sum_rows(m, kp)
+        xpart = _f32(-(-m // sum_rows) * k, my.device)
+        xsum = _f32((1, k), my.device)
+        _launch("kl_stats_dense (wide xsum)", fns["colsum"], my.device,
+                xf.data_ptr(), m, k, kp, sum_rows, xpart.data_ptr(),
+                xsum.data_ptr())
+    return x_new, numd, xsum
 
 
 def kl_dense_block_rows(m: int, n: int, block_rows=None) -> int:
@@ -1235,20 +1318,92 @@ def kl_stats_masked(my, mask, x, d, eps, *, block_rows=None):
     docstring.
 
     ``mask`` is either dense, in ``my``'s shape, or the bits of a 0/1
-    mask from ``pack_mask`` (int32). On a CUDA tensor a packed mask
-    launches ``csrc/kl_masked_packed.cu`` (f32 ``my`` only; its products
-    are bf16x6 on the tensor cores) and counts it in ``.packed_launches``;
-    a dense mask launches the masked KL kernel of ``csrc/mu_kl_stats.cu``
-    and counts it in ``.dense_launches``; ``.launches`` counts both. On a
-    CPU tensor a packed mask is unpacked to ``my``'s dtype for the twin,
-    which then gives the dense mask's bits."""
+    mask from ``pack_mask`` (int32). On a CUDA tensor above rank 128 either
+    form launches ``csrc/mu_wide.cu`` (``_kl_masked_wide_launch``; f32 data
+    as bf16x6, bf16 in one limb), counted in ``.wide_launches``; at rank
+    128 or less a packed mask launches ``csrc/kl_masked_packed.cu`` (f32
+    ``my`` only; its products are bf16x6 on the tensor cores) and counts
+    it in ``.packed_launches``, and a dense mask launches the masked KL
+    kernel of ``csrc/mu_kl_stats.cu`` and counts it in
+    ``.dense_launches``; ``.launches`` counts all three. On a CPU tensor a
+    packed mask is unpacked to ``my``'s dtype for the twin, which then
+    gives the dense mask's bits."""
     return _route_masked(kl_stats_masked, kl_stats_masked_plain,
-                         _kl_packed_launch, my, mask, x, d, eps, block_rows)
+                         _kl_packed_launch, _kl_masked_wide_launch, my, mask,
+                         x, d, eps, block_rows)
 
 
 kl_stats_masked.launches = 0
 kl_stats_masked.packed_launches = 0
 kl_stats_masked.dense_launches = 0
+kl_stats_masked.wide_launches = 0
+
+
+def _kl_masked_wide_launch(my, mask, x, d, eps, block_rows):
+    """Launch ``csrc/mu_wide.cu``'s masked KL-MU (``kl_stats_masked``'s
+    route above rank 128) on f32 or bf16 ``my``, ``x`` and ``d`` with the
+    packed mask (int32 bits) or the weights (a dense mask in my's dtype):
+    the prep, E1 = cdt(my / (x d + eps)), num = E1 d^T, the mask as E (the
+    weights as they are; the bits expanded to 0/1 over E1's buffer), den =
+    mask d^T with the x update, dend = x_new^T mask, then E2 over the same
+    buffer and numd, each statistic with its reduction. One M x N buffer
+    serves E1, the expanded bits and E2. Refuses what the route does not
+    take before any build or launch."""
+    m, n = my.shape
+    k = d.shape[0]
+    kp = -(-k // 128) * 128
+    rows = _wide_chunk_rows(m, n, kp, block_rows)
+    packed = mask.dtype == torch.int32
+    if packed:
+        _check_packed(my, mask)
+        _check_kernel_args(my, x, d, 1, rows, wide_x=False, gate="masked",
+                           method="kl-mu")
+    else:
+        _check_kernel_args(my, x, d, 1, rows, mask=mask, wide_x=False,
+                           gate="masked", method="kl-mu")
+    limbs = limb_count(my.dtype)
+    fns = _wide_fns()
+    with torch.cuda.device(my.device):
+        my_t, ld_my = _tma_rows(my)
+        d_l = column_limbs(d, kp, limbs)
+        xf, (xl,) = _wide_prep(fns, x, kp, limbs, False)
+        e = torch.empty((m, ld_my), dtype=my.dtype, device=my.device)
+
+        def ratio():
+            _launch("kl_stats_masked (wide ratio)", fns["kl_resid"],
+                    my.device, limbs, xl.data_ptr(), d_l.data_ptr(),
+                    my_t.data_ptr(), ld_my, m, n, k, kp, float(eps),
+                    e.data_ptr(), ld_my)
+
+        ratio()
+        num = _f32((m, kp), my.device)
+        _launch("kl_stats_masked (wide num)", fns["rows"], my.device, limbs,
+                e.data_ptr(), ld_my, d_l.data_ptr(), m, n, k, kp,
+                num.data_ptr(), kp)
+        if packed:
+            bits = mask.contiguous()
+            if bits.data_ptr() % 16:
+                bits = bits.clone()
+            _launch("kl_stats_masked (wide mask)", fns["expand"], my.device,
+                    limbs, bits.data_ptr(), bits.shape[1], m, n, e.data_ptr(),
+                    ld_my)
+            mask_e, ld_mask = e, ld_my
+        else:
+            mask_e, ld_mask = _tma_rows(mask)
+        x_new = torch.empty_like(x)
+        _launch("kl_stats_masked (wide x update)", fns["xrows"], my.device,
+                limbs, mask_e.data_ptr(), ld_mask, d_l.data_ptr(), m, n, k,
+                kp, xf.data_ptr(), num.data_ptr(), float(eps),
+                x_new.data_ptr(), _is_bf16(x), xl.data_ptr())
+        del num, xf
+        part = _f32(-(-m // rows) * k * n, my.device)
+        out = _f32(2 * k * n, my.device)
+        numd, dend = out.split((k * n, k * n))
+        _wide_stat(fns, limbs, mask_e, ld_mask, xl, m, n, k, kp, rows, part,
+                   dend)
+        ratio()
+        _wide_stat(fns, limbs, e, ld_my, xl, m, n, k, kp, rows, part, numd)
+    return x_new, numd.view(k, n), dend.view(k, n)
 
 
 def kl_takes_packed(my):

@@ -187,7 +187,9 @@ def test_gate_corners(n, itemsize, masked):
     assert cuda_mu.kernel_takes_rank("mu", n, k, dt, masked)
     assert not cuda_mu.kernel_takes_rank("mu", n, k + 1, dt, masked)
     assert cuda_mu.kernel_takes_rank("kl-mu", n, 128, dt, masked)
-    assert not cuda_mu.kernel_takes_rank("kl-mu", n, 129, dt, masked)
+    assert cuda_mu.kernel_takes_rank("kl-mu", n, 129, dt, masked) == (
+        cuda_mu.rank_fits(n, 129, itemsize, True, kl_masked=masked,
+                          kl_dense=not masked))
     assert [cuda_mu.rank_route(v) for v in (1, 128, 129, k)] == [
         "fused", "fused", "wide", "wide" if k > 128 else "fused"]
 
@@ -195,10 +197,10 @@ def test_gate_corners(n, itemsize, masked):
 @pytest.fixture
 def on_card(monkeypatch):
     """The MU and KL wrappers as if their data lay on the card: each MU
-    launch runs its route's own argument checks, is recorded (wrapper,
-    route, mask dtype) and replaced by the twin (a packed mask unpacked
-    first); the KL launches run their real checks, and no library is
-    built or called."""
+    launch and each KL wide launch runs its route's own argument checks,
+    is recorded (wrapper, route, mask dtype) and replaced by the twin (a
+    packed mask unpacked first); the fused KL launches run their real
+    checks, and no library is built or called."""
     calls = []
     card_route = cuda_mu.dense_route
 
@@ -213,19 +215,30 @@ def on_card(monkeypatch):
                                                 inner_iter=inner_iter)
         return run
 
-    def masked(route, gate):
+    def masked(route, gate, method="mu"):
+        kw = {"wide_x": False, "method": method} if method != "mu" else {}
+        name = "mu_stats_masked" if method == "mu" else "kl_stats_masked"
+        plain = (cuda_mu.mu_stats_masked_plain if method == "mu"
+                 else cuda_mu.kl_stats_masked_plain)
+
         def run(my, mask, x, d, eps, block_rows=None):
             if mask.dtype == torch.int32:
                 cuda_mu._check_packed(my, mask)
-                cuda_mu._check_kernel_args(my, x, d, 1, 256, gate=gate)
+                cuda_mu._check_kernel_args(my, x, d, 1, 256, gate=gate, **kw)
             else:
                 cuda_mu._check_kernel_args(my, x, d, 1, 256, mask=mask,
-                                           gate=gate)
-            calls.append(("mu_stats_masked", route, mask.dtype))
+                                           gate=gate, **kw)
+            calls.append((name, route, mask.dtype))
             if mask.dtype == torch.int32:
                 mask = cuda_mu.unpack_mask(mask, my.shape[1], my.dtype)
-            return cuda_mu.mu_stats_masked_plain(my, mask, x, d, eps)
+            return plain(my, mask, x, d, eps)
         return run
+
+    def kl_dense(my, x, d, eps, block_rows=None):
+        cuda_mu._check_kernel_args(my, x, d, 1, 256, wide_x=False,
+                                   gate="dense", method="kl-mu")
+        calls.append(("kl_stats_dense", "wide", None))
+        return cuda_mu.kl_stats_dense_plain(my, x, d, eps)
 
     weighted = masked("dense", None)
 
@@ -250,12 +263,18 @@ def on_card(monkeypatch):
     monkeypatch.setattr(cuda_mu, "_masked_f32_launch", masked("f32", None))
     monkeypatch.setattr(cuda_mu, "_masked_bf16_launch", masked("bf16", None))
     monkeypatch.setattr(cuda_mu, "_masked_launch", dense_mask)
+    monkeypatch.setattr(cuda_mu, "_kl_dense_wide_launch", kl_dense)
+    monkeypatch.setattr(cuda_mu, "_kl_masked_wide_launch",
+                        masked("wide", "masked", "kl-mu"))
     for w, names in ((cuda_mu.mu_stats_dense, ("launches", "tma_launches",
                                                "packed_launches",
                                                "wide_launches")),
                      (cuda_mu.mu_stats_masked, ("launches", "packed_launches",
                                                 "f32_launches",
                                                 "dense_launches",
+                                                "wide_launches")),
+                     (cuda_mu.kl_stats_dense, ("launches", "wide_launches")),
+                     (cuda_mu.kl_stats_masked, ("launches",
                                                 "wide_launches"))):
         for name in names:
             monkeypatch.setattr(w, name, 0)
@@ -357,22 +376,30 @@ def test_past_the_gate_refused_or_composed(on_card, dtype, masked):
 
 
 @pytest.mark.parametrize("masked", [False, True])
-def test_kl_kernels_still_refuse_rank_129(on_card, masked):
-    """The KL kernels take rank 128 at most until their own wide route:
-    the wrappers on the card and nmf.solve(method='kl-mu',
-    use_kernel=True) raise ShapeError at K = 129, before any launch."""
+def test_kl_kernels_take_rank_129(on_card, masked):
+    """The KL kernels take rank 129 on their wide route: the wrappers on
+    the card and nmf.solve(method='kl-mu', use_kernel=True) at K = 129
+    reach the wide launch (the mask as its bits), counted in
+    .wide_launches, and give the twin's function."""
     kind = "binary" if masked else "dense"
     y, mask, x, d = _port_args(kind, 6, 12, 40, 129, _F32)
-    with pytest.raises(texc.ShapeError):
-        if masked:
-            cuda_mu.kl_stats_masked(y, mask, x, d, EPS)
-        else:
-            cuda_mu.kl_stats_dense(y, x, d, EPS)
+    name = "kl_stats_masked" if masked else "kl_stats_dense"
+    w = getattr(cuda_mu, name)
+    mdt = torch.int32 if masked else None
     dense_mask = cuda_mu.unpack_mask(mask, 40, _F32) if masked else None
-    with pytest.raises(texc.ShapeError):
-        tnmf.solve(y, d, x=x, mask=dense_mask, method="kl-mu", tol=0.0,
-                   maxiter=2, use_kernel=True)
-    assert on_card == []
+    if masked:
+        out = w(y, mask, x, d, EPS)
+        ref = cuda_mu.kl_stats_masked_plain(y, dense_mask, x, d, EPS)
+    else:
+        out = w(y, x, d, EPS)
+        ref = cuda_mu.kl_stats_dense_plain(y, x, d, EPS)
+    assert on_card == [(name, "wide", mdt)]
+    assert (w.wide_launches, w.launches) == (1, 1)
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    del on_card[:]
+    res = tnmf.solve(y, d, x=x, mask=dense_mask, method="kl-mu", tol=0.0,
+                     maxiter=2, use_kernel=True)
+    assert res.niter == 2 and on_card == [(name, "wide", mdt)] * 2
 
 
 @pytest.mark.parametrize("kind", _KINDS)
@@ -483,14 +510,19 @@ def test_auto_rule_for_wide_ranks(n, k, dtype, fdt, masked):
     kernels; above it MU takes the wide route inside the gate for the
     (data, factor) dtypes and widths where the card measured it no slower
     than the composition (nmf._AUTO_WIDE_RANK_MIN_N: f32 from N = 256, bf16
-    data with f32 factors at every N), else the composition; KL-MU never
-    above 128. Loader mode's gate follows the same rule."""
-    min_n = tnmf._AUTO_WIDE_RANK_MIN_N.get((dtype, fdt))
-    assert tnmf._AUTO_WIDE_RANK_MIN_N[_F32, _F32] == 256
+    data with f32 factors at every N), else the composition; KL-MU by its
+    own entries, inside its own gate. Loader mode's gate follows the same
+    rule."""
+    min_n = tnmf._AUTO_WIDE_RANK_MIN_N.get(("mu", dtype, fdt))
+    assert tnmf._AUTO_WIDE_RANK_MIN_N["mu", _F32, _F32] == 256
     want = k <= 128 or (min_n is not None and n >= min_n
                         and cuda_mu.rank_fits(n, k, dtype.itemsize, masked))
     assert tnmf._auto_rank("mu", n, k, dtype, masked, fdt) is want
-    assert tnmf._auto_rank("kl-mu", n, k, dtype, masked, fdt) is (k <= 128)
+    min_kl = tnmf._AUTO_WIDE_RANK_MIN_N.get(("kl-mu", dtype, fdt))
+    want_kl = k <= 128 or (min_kl is not None and n >= min_kl
+                           and cuda_mu.kernel_takes_rank("kl-mu", n, k, dtype,
+                                                         masked))
+    assert tnmf._auto_rank("kl-mu", n, k, dtype, masked, fdt) is want_kl
     got = tns._chunk_kernel_gate(
         "auto", on_cuda=True, method="mu", mixed=dtype != fdt,
         record_objective=False, rank=k, n=n, y_dtype=dtype, fdt=fdt,
