@@ -13,7 +13,7 @@ for sm_90a (one nvcc per source, all at once), and then:
    wgmma chain (``csrc/kl_dense_packed.cu``, ``csrc/grad_dict_packed.cu``,
    ``csrc/mu_dense_packed.cu``, ``csrc/mu_masked_f32.cu``), of
    ``csrc/lasso_grad_packed.cu``, of ``csrc/grad_wide.cu``, of
-   ``csrc/mu_wide.cu`` or of either
+   ``csrc/mu_wide.cu``, of ``csrc/lasso_fista_wide.cu`` or of either
    ``bcd_sweep`` kernel
    (``csrc/dl_bcd_sm90.cu``, ``csrc/dl_bcd_cluster.cu``) spills;
 2. holds the kernel ``mu_stats_dense`` against its plain PyTorch twin on
@@ -171,6 +171,17 @@ for sm_90a (one nvcc per source, all at once), and then:
    weights on the weighted instances; also against f64), each within the
    limit of its dtype with a bit-identical rerun, every call counted on
    the wide route;
+9b. holds ``solve_rows`` above 1,024 features, its wide route
+   (``csrc/lasso_fista_wide.cu``: a thread-block cluster a group of 16
+   row slots, 'high' as bf16x3 and 'highest' as bf16x6), against its twin
+   as phase 9 holds the narrow kernels, at 300 x 1,025, 1,000 x 1,408
+   (the momentum gate's corner), 1,000 x 1,536 (ista alone, the gate
+   without momentum), 7 x 1,152 and 4,229 x 1,152, and in the complex mode
+   at 300 x 513, 1,000 x 640 and 7 x 640 complex features, within
+   SOLVE_LIMITS with a bit-identical rerun, every call counted on
+   ``.wide_launches``; and 'highest' on a dictionary whose features span
+   three decades against f64 (within 4x the full-f32 twin's error, where
+   bf16x3 is not);
 10. drives batch lasso at BASELINE config 2, ``lasso.solve`` on 10,000
     problems of 256 channels over 512 features (acc_ista, precision
     'high', per-problem stopping, tol 1e-4), and checks one
@@ -191,6 +202,18 @@ for sm_90a (one nvcc per source, all at once), and then:
     prints the time to tol, the marginal per solve over a chain of 6 and
     the bound, and checks that ``lasso.solve_streaming`` takes the same
     kernel once per chunk;
+10d. drives batch lasso on the wide route at config 2's recipe over
+    1,408 features (704 channels; F = 2N at the momentum gate's corner)
+    and over 640 complex features (320 channels), acc_ista, 'high',
+    per-problem stopping, tol 1e-4: one ``solve_rows`` launch each on
+    ``csrc/lasso_fista_wide.cu``, every row converged, the KKT
+    conditions, the agreement with the 'highest' kernel run and the
+    composition run, the time to tol, the marginal per solve over a chain
+    of 6 beside the bound, the slot waste and ``solve_rows`` per call
+    against its twin on the path's inputs; ``lasso.solve_streaming`` on
+    the wide route once a chunk; and ``dictionary_learning.solve(
+    use_kernel=True)`` with 1,152 atoms, its inner coding on the wide
+    route in the fixed budget, once an outer iteration;
 11. drives the masked lasso, ``lasso.solve(mask=...)`` at 100,000 x
     1,024, F = 128, 30% missing, 50 FISTA iterations in f32 and in bf16,
     and checks one ``masked_grad_rows`` launch per iteration (f32 and
@@ -456,6 +479,19 @@ SOLVE_LIMITS = {"nit_eq": 0.94, "eq_rows": 5e-5, "all_rows": 5e-4,
 # 5.99e-6, all rows within 5.36e-5, and the fixed budget within 1.19e-4
 # for x and z (an acc_ista restart that flips in one row); 'highest' gave
 # the twin's bits at Fc = 100 and 512. A margin of 4x or more.
+# Phase 9b's wide route of solve_rows (csrc/lasso_fista_wide.cu), (M, F,
+# N): a ragged F just past the narrow kernels, the momentum gate's corner,
+# the gate without momentum (ista alone), fewer rows than one cluster's 16
+# slots, and a queue ragged past six rounds of 44 clusters' slots (4,229 =
+# 6 x 704 + 5); complex (M, Fc, Nc): just past 512, the gate's 640, 7 rows.
+# Held to SOLVE_LIMITS: no kernel has bits to match above 1,024 features.
+WIDE_SOLVE_SHAPES = ((300, 1025, 700), (1000, 1408, 704), (1000, 1536, 768),
+                     (7, 1152, 576), (4229, 1152, 576))
+WIDE_SOLVE_COMPLEX = ((300, 513, 350), (1000, 640, 320), (7, 640, 320))
+# Phase 9b's log-normal check of 'highest' (bf16x6) against f64: 37 ista
+# steps at 1,000 x 1,152 on a dictionary whose features span three decades
+# (the Gram six); x within 4x the full-f32 twin's own error against f64.
+WIDE_F64_SHAPE = (1000, 1152, 576)
 # masked_grad_rows against its twin (measured on the H100: 4.6e-7 f32,
 # 5.6e-5 bf16, where the residual is rounded to bf16 before the second
 # product and a one-ulp f32 difference flips a rounding); 4x margin. The
@@ -524,6 +560,35 @@ C2_KKT_LIMIT = 4.0
 C2C_TWIN_LIMIT = 4e-3
 C2C_X_LIMIT = 3e-2
 C2C_KKT_LIMIT = 4.0
+# Phase 10d: config 2's recipe at the wide route's corners, (M, F, N):
+# 10,000 problems over 1,408 features (F = 2N, the momentum gate's corner),
+# and over 640 complex features, held to the KKT limits above and to x
+# limits of their own. Measured on an H100 80GB HBM3 at 700 W over seeds 1
+# to 5 (tools/solve_wide_turns.py): two runs of f32 accuracy stop a
+# relative change of 1e-4 apart on dictionaries with L ~ 4,100 (config 2's
+# ~1,400), so config 2's x limits do not carry over. Real: x of the
+# lasso.solve run against the 'highest' kernel run and the composition run
+# at most 9.40e-3 ('highest' against the composition 4.53e-3), solve_rows
+# against its twin 4.51e-3 (niter equal on 56-58% of rows). Complex: x
+# against those runs at most 2.38e-2 ('highest' against the composition
+# 1.46e-2), against the twin 1.21e-2 (niter equal on 98%). Limits with a
+# margin of 2x or more. Stopping noise hides a kernel's precision at tol
+# 1e-4; what the limits do catch, a stopping fault (the twin at tol 1e-3)
+# lands 0.30 to 0.50 away, and a Gram cut to one bf16 limb diverges. The
+# products' precision is held on the same inputs in the fixed budget
+# (WIDE_PATH_FIXED_ITERS iterations): within 1.9e-4 of the twin, under
+# SOLVE_LIMITS, while the twin on a one-limb Gram lands 0.12 away.
+C2W_SHAPE = (10_000, 1408, 704)
+C2WC_SHAPE = (10_000, 640, 320)
+C2W_TWIN_LIMIT = 1e-2
+C2W_X_LIMIT = 2e-2
+C2WC_TWIN_LIMIT = 3e-2
+C2WC_X_LIMIT = 5e-2
+WIDE_PATH_FIXED_ITERS = 50
+# Phase 10d's dictionary learning with 1,152 atoms against the composition
+# (d and x after 2 outer iterations; measured 1.33e-6 d, 1.83e-6 x over
+# three seeds on the H100).
+WIDE_DL_LIMIT = 2e-5
 # The masked lasso's x, kernel path against composition path after 50
 # iterations (measured 7.1e-8 f32; 2.7e-3 bf16, where the composition
 # rounds each product to bf16 and the kernel forms the residual in f32).
@@ -567,7 +632,8 @@ SOURCES = ("mu_stats_dense", "mu_dense_tma", "mu_kl_stats", "mu_masked_packed",
            "kl_masked_packed", "kl_dense_packed", "lasso_fista",
            "lasso_fista_tma", "lasso_grad", "lasso_grad_packed", "dl_bcd",
            "dl_bcd_sm90", "dl_bcd_cluster", "grad_dict_packed",
-           "mu_dense_packed", "mu_masked_f32", "grad_wide", "mu_wide")
+           "mu_dense_packed", "mu_masked_f32", "grad_wide", "mu_wide",
+           "lasso_fista_wide")
 # name -> (source, masked, the TPU kernel it replaces)
 NEW_KERNELS = {
     "mu_stats_masked": ("mu_masked_packed", True, "pallas_mu.py:522"),
@@ -1298,6 +1364,103 @@ def compare_solve_rows(cl, gen, dev, m, f, n, complex_=False):
                 check(kept, f"{tag}: the row that resumed done moved")
 
 
+def compare_solve_rows_wide(cl, gen, dev, m, f, n, complex_=False):
+    """Phase 9b: solve_rows' wide route (csrc/lasso_fista_wide.cu) against
+    its twin at M x F (F > 1,024 reals) as ``compare_solve_rows`` holds the
+    narrow kernels: every method that the gate takes at F, both precisions
+    and step forms, exact mode (tol 1e-4, 300 iterations) and the fixed
+    budget (37), a row that resumes done, a rerun with 16 rows a block
+    given (the default) that must give the same bits, and the fixed mode
+    against the exact mode at tol 0; every call counted on
+    ``.wide_launches`` (and, complex, ``.complex_launches``)."""
+    yah, gram, step = rows_problem(gen, dev, m, f, n, complex_)
+    x0, t0, d0, n0 = rows_start(m, f, dev, yah.dtype)
+    ramp = torch.linspace(0.5, 1.0, f, device=dev)
+    reals = 2 * f if complex_ else f
+    w = cl.solve_rows
+    for method, (mom, rst) in LASSO_METHODS.items():
+        if not cl.solve_fits(reals, mom, group=complex_):
+            continue
+        for hi_lo in (False, True):
+            for vec in (False, True):
+                s = step * ramp if vec else step
+                args = (yah, gram, x0, x0, t0, d0, n0, s, 0.05 * s)
+                kw = dict(momentum=mom, restart=rst, hi_lo=hi_lo)
+                tag = (f"wide solve_rows {m}x{f}{'c' if complex_ else ''} "
+                       f"{method} {'high' if hi_lo else 'highest'} "
+                       f"{'per-feature' if vec else 'scalar'} step")
+                before = (w.wide_launches, w.complex_launches, w.launches)
+                out = w(*args, 1e-4, maxiter=300, **kw)
+                again = w(*args, 1e-4, maxiter=300, block_rows=16, **kw)
+                ref = cl.solve_rows_plain(*args, 1e-4, maxiter=300, **kw)
+                fixed = w(*args, 0.0, maxiter=37, fixed=True, **kw)
+                exact0 = w(*args, 0.0, maxiter=37, **kw)
+                fref = cl.solve_rows_plain(*args, 0.0, maxiter=37,
+                                           fixed=True, **kw)
+                torch.cuda.synchronize()
+                got = (w.wide_launches - before[0],
+                       w.complex_launches - before[1],
+                       w.launches - before[2])
+                check(got == (4, 4 if complex_ else 0, 4),
+                      f"{tag}: launches (wide, complex, all) {got}")
+                compare_rows_exact(out, ref, tag, share=m >= 16)
+                err_fixed = max(rel_fro(fixed[0], fref[0]),
+                                rel_fro(fixed[1], fref[1]))
+                same = same_bits(out, again)
+                fixed_is_exact = same_bits(fixed, exact0)
+                kept = (torch.equal(out[0][5], x0[5])
+                        and int(out[4][5, 0]) == 9)
+                print(f"  fixed budget: rel_fro x, z {err_fixed:.3e} (limit "
+                      f"{SOLVE_LIMITS['fixed']:.0e}); bit-identical rerun "
+                      f"(16 rows a block given) {same}; fixed mode == exact "
+                      f"mode at tol 0 {fixed_is_exact}; done row kept "
+                      f"{kept}", flush=True)
+                check(err_fixed <= SOLVE_LIMITS["fixed"],
+                      f"{tag}: fixed-budget kernel disagrees with twin")
+                check(same, f"{tag}: two kernel runs differ")
+                check(fixed_is_exact, f"{tag}: fixed mode differs from exact "
+                      "mode at tol 0")
+                check(kept, f"{tag}: the row that resumed done moved")
+
+
+def wide_highest_f64(cl, gen, dev):
+    """Phase 9b: the wide route's 'highest' (bf16x6) on a log-normal
+    dictionary against f64: 37 fixed ista steps at WIDE_F64_SHAPE on a
+    whose features span three decades, x of the kernel and of the full-f32
+    twin against an f64 run of the same steps; the kernel within 4x the
+    twin's error (a two-limb product, 'high', is printed beside it)."""
+    m, f, n = WIDE_F64_SHAPE
+    scale = 10.0 ** (3.0 * torch.rand((f, 1), generator=gen, device=dev)
+                     - 1.5)
+    a = torch.randn((f, n), generator=gen, device=dev) * scale / n ** 0.5
+    xt = torch.randn((m, f), generator=gen, device=dev) / scale.T * (
+        torch.rand((m, f), generator=gen, device=dev) < 0.1)
+    y = xt @ a + 0.01 * torch.randn((m, n), generator=gen, device=dev)
+    gram, yah = a @ a.T, y @ a.T
+    g64, yah64 = a.double() @ a.double().T, y.double() @ a.double().T
+    step = 1.0 / float(torch.linalg.matrix_norm(g64, 2))
+    thr = 1e-3 * step
+    x = torch.zeros((m, f), dtype=torch.float64, device=dev)
+    for _ in range(37):
+        u = x - step * (x @ g64 - yah64)
+        x = torch.sign(u) * torch.clamp(u.abs() - thr, min=0.0)
+    x0, t0, d0, n0 = rows_start(m, f, dev)
+    x0[5], d0[5], n0[5] = 0.0, 0.0, 0
+    args = (yah, gram, x0, x0, t0, d0, n0, step, thr, 0.0)
+    kw = dict(momentum=False, restart=False, maxiter=37, fixed=True)
+    errs = {}
+    for name, fn, hi_lo in (("highest", cl.solve_rows, False),
+                            ("high", cl.solve_rows, True),
+                            ("twin", cl.solve_rows_plain, False)):
+        errs[name] = rel_fro(fn(*args, hi_lo=hi_lo, **kw)[0], x)
+    print(f"wide solve_rows {m}x{f}, log-normal features over three "
+          f"decades, 37 ista steps, x against f64: 'highest' (bf16x6) "
+          f"{errs['highest']:.3e}, full-f32 twin {errs['twin']:.3e} (limit "
+          f"4x), 'high' (bf16x3) {errs['high']:.3e}", flush=True)
+    check(errs["highest"] <= 4 * errs["twin"], "wide 'highest' is no f32 "
+          "product on log-normal data")
+
+
 def grad_inputs(gen, dev, m, n, f, dt):
     """my = mask * y, mask (30% missing), x and a for masked_grad_rows."""
     mask = (torch.rand((m, n), generator=gen, device=dev) >= 0.3).to(dt)
@@ -1486,16 +1649,17 @@ def wide_times(module, name, gen, dev, card):
     return out
 
 
-def config2_data():
+def config2_data(m=10_000, f=512, n=256, seed=1):
     """BASELINE config 2 as bench.py:157-163 makes it (numpy, seed 1):
     10,000 problems, 512 features, 256 channels, 5%-sparse truth, 0.01
-    noise; returns (y, a) as f32 arrays and the generator, which config 3
-    continues."""
-    rng = np.random.default_rng(1)
-    a = rng.normal(size=(512, 256)).astype(np.float32)
-    x_true = (rng.normal(size=(10_000, 512))
-              * (rng.random((10_000, 512)) < 0.05)).astype(np.float32)
-    y = x_true @ a + 0.01 * rng.normal(size=(10_000, 256)).astype(np.float32)
+    noise, or its recipe at M problems over F features and N channels
+    (and another seed); returns (y, a) as f32 arrays and the generator,
+    which config 3 continues."""
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=(f, n)).astype(np.float32)
+    x_true = (rng.normal(size=(m, f))
+              * (rng.random((m, f)) < 0.05)).astype(np.float32)
+    y = x_true @ a + 0.01 * rng.normal(size=(m, n)).astype(np.float32)
     return y.astype(np.float32), a, rng
 
 
@@ -1644,13 +1808,13 @@ def config2_phase(lasso, dev, card, reset_counts, read_counts):
     return launches, y, a
 
 
-def config2_complex_data():
+def config2_complex_data(m=10_000, f=512, c=256, seed=1):
     """The JAX package's config-2-complex as
     ``benchmarks/bench_split_complex.py:56-63`` makes it (numpy, seed 1):
     10,000 problems, 512 complex features, 256 complex channels, 5%-sparse
-    truth, 0.01 noise; returns (y, a) as complex64 arrays."""
-    rng = np.random.default_rng(1)
-    m, f, c = 10_000, 512, 256
+    truth, 0.01 noise, or its recipe at M x F over C channels (and another
+    seed); returns (y, a) as complex64 arrays."""
+    rng = np.random.default_rng(seed)
     a = (rng.normal(size=(f, c))
          + 1j * rng.normal(size=(f, c))).astype(np.complex64)
     xt = ((rng.normal(size=(m, f)) + 1j * rng.normal(size=(m, f)))
@@ -1759,6 +1923,211 @@ def config2_complex_phase(lasso, cl, dev, card, reset_counts, read_counts):
           "config-2-complex: solve_streaming did not take the kernel, or "
           "its rows disagree with the batch run's")
     return launches, y, a
+
+
+def one_limb(gram):
+    """``gram`` rounded to one bf16 limb (real and imaginary parts): the
+    twin's 'high' products on it are those of a kernel that drops the
+    hi.lo product."""
+    def cut(t):
+        return t.bfloat16().float()
+    return (torch.complex(cut(gram.real), cut(gram.imag)) if gram.is_complex()
+            else cut(gram))
+
+
+def wide_dl_data(dev, seed=28):
+    """Phase 10d's dictionary learning problem (torch, on ``dev``): 2,000 x
+    64 data over 1,152 unit atoms, 1%-sparse truth, 0.01 noise; returns
+    (y, d0) with a normal initial dictionary."""
+    k, n, m = 1152, 64, 2000
+    g = torch.Generator(device=dev).manual_seed(seed)
+    d_true = torch.nn.functional.normalize(
+        torch.randn((k, n), generator=g, device=dev), dim=1)
+    xs = torch.randn((m, k), generator=g, device=dev) * (
+        torch.rand((m, k), generator=g, device=dev) < 0.01)
+    y = xs @ d_true + 0.01 * torch.randn((m, n), generator=g, device=dev)
+    return y, torch.randn((k, n), generator=g, device=dev)
+
+
+def wide_config2_phase(lasso, dl, cl, dev, card, reset_counts, read_counts):
+    """Phase 10d: ``lasso.solve`` on the wide route of solve_rows
+    (csrc/lasso_fista_wide.cu) at config 2's recipe over 1,408 features
+    and over 640 complex features (acc_ista, 'high', per_problem, tol
+    1e-4, alpha 0.1): one launch each on the wide route, every row
+    converged, the KKT conditions, the agreement with the 'highest' kernel
+    run and the composition run, the time to tol, the marginal per solve
+    over a chain of 6 beside the bound, the slot waste, and solve_rows per
+    call against its twin on the path's inputs, to tol and in the fixed
+    budget, each limit beside a control that must fail it; then
+    ``lasso.solve_streaming`` (one launch a chunk) and
+    ``dictionary_learning.solve(use_kernel=True)`` with 1,152 atoms (its
+    inner coding on the wide route in the fixed budget) against the same
+    solve on the composition. Returns the
+    kernels line's entries {name: (max_abs_err, ms, plain_ms, bound_ms,
+    bound_by)} and the main runs' launches."""
+    from decomp_tpu_torch.ops import cuda_dl
+    from decomp_tpu_torch.ops.spectral import spectral_norm_psd
+
+    stats, launches = {}, {}
+    cfg = dict(tol=1e-4, maxiter=4000, method="acc_ista", per_problem=True)
+    for complex_ in (False, True):
+        y_np, a_np = (config2_complex_data(*C2WC_SHAPE) if complex_
+                      else config2_data(*C2W_SHAPE)[:2])
+        y, a = (torch.from_numpy(v).to(dev) for v in (y_np, a_np))
+        m, f = y.shape[0], a.shape[0]
+        reals = 2 * f if complex_ else f
+        name = "solve_rows_wide" + ("_complex" if complex_ else "")
+        tag = (f"wide {'config-2-complex' if complex_ else 'config 2'} "
+               f"{m} x {f}{'c' if complex_ else ''}")
+        x_limit, kkt_limit, twin_limit = (
+            (C2WC_X_LIMIT, C2C_KKT_LIMIT, C2WC_TWIN_LIMIT) if complex_
+            else (C2W_X_LIMIT, C2_KKT_LIMIT, C2W_TWIN_LIMIT))
+
+        def solve(**kw):
+            return lasso.solve(y, a, 0.1, **cfg, **kw)
+
+        solve(precision="high")   # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        ms, res = event_ms(lambda: solve(precision="high"))
+        launches[name] = read_counts("solve_rows", 1)
+        w = cl.solve_rows
+        check((w.wide_launches, w.complex_launches, w.tma_launches)
+              == (1, int(complex_), 0),
+              f"{tag}: the launch did not go to lasso_fista_wide.cu")
+        waste = slot_waste(w, res.niter)
+        highest_ms, top = event_ms(lambda: solve(precision="highest",
+                                                 use_kernel=True))
+        comp_ms, comp = event_ms(lambda: solve(use_kernel=False))
+        marg = marginal_ms(lambda: solve(precision="high"), repeats=2)
+        nit = res.niter.double()
+        sum_nit = int(nit.sum())
+        b_ms, b_by = solve_rows_bound(m, reals, sum_nit, True)
+        lip = float(spectral_norm_psd(a @ a.conj().T))
+        kkt = kkt_residual(res.x, y, a, 0.1, lip, 1e-4)
+        kkt_comp = kkt_residual(comp.x, y, a, 0.1, lip, 1e-4)
+        err_top, err_comp = rel_fro(res.x, top.x), rel_fro(res.x, comp.x)
+        err_tc = rel_fro(top.x, comp.x)
+        print(f"{tag} features x {y.shape[1]} channels, acc_ista, precision "
+              f"'high', per_problem, tol 1e-4 ({card}): time to tol "
+              f"{ms:.3f} ms, marginal per solve (chain of 6) {marg:.3f} ms, "
+              f"bound of its solve_rows {b_ms:.3f} ms ({b_by}); niter "
+              f"min/median/max {int(nit.min())}/{int(nit.median())}/"
+              f"{int(nit.max())}, sum {sum_nit}; converged rows "
+              f"{int(res.converged.sum())}/{m}; solve_rows launches "
+              f"{launches[name]} (lasso_fista_wide.cu 1; slot waste "
+              f"{waste:.4f})", flush=True)
+        print(f"  precision 'highest' (bf16x6) {highest_ms:.3f} ms (niter "
+              f"sum {int(top.niter.double().sum())}), use_kernel=False "
+              f"{comp_ms:.3f} ms (max niter {int(comp.niter.max())}) "
+              f"({card}); rel_fro x vs 'highest' {err_top:.3e}, vs "
+              f"composition {err_comp:.3e} (limit {x_limit:.0e}); 'highest' "
+              f"vs composition {err_tc:.3e}; KKT "
+              f"residual / (L tol |x|) max {float(kkt.max()):.3f}, median "
+              f"{float(kkt.median()):.3f} (composition max "
+              f"{float(kkt_comp.max()):.3f}; limit {kkt_limit})", flush=True)
+        check(bool(res.converged.all()), f"{tag}: not every row converged")
+        check(res.x.shape == (m, f) and res.x.dtype == y.dtype
+              and bool(torch.isfinite(torch.view_as_real(res.x) if complex_
+                                      else res.x).all()),
+              f"{tag}: x is not finite or has the wrong shape or dtype")
+        check(err_top <= x_limit and err_comp <= x_limit,
+              f"{tag}: x disagrees with the 'highest' or composition run")
+        check(float(kkt.max()) <= kkt_limit,
+              f"{tag}: the KKT conditions do not hold")
+        # solve_rows per call on the path's inputs, against its twin.
+        ah = a.conj().T
+        gram, yah = a @ ah, y @ ah
+        step = 1.0 / float(spectral_norm_psd(gram))
+        x0 = torch.zeros((m, f), dtype=y.dtype, device=dev)
+        ones, zeros = (torch.ones((m, 1), device=dev),
+                       torch.zeros((m, 1), device=dev))
+        n0 = torch.zeros((m, 1), dtype=torch.int32, device=dev)
+        args = (yah, gram, x0, x0, ones, zeros, n0, step, 0.1 * step, 1e-4)
+        kw = dict(momentum=True, restart=True, maxiter=4000, hi_lo=True)
+        k_ms, got = event_ms(lambda: w(*args, **kw))
+        p_ms, ref = event_ms(lambda: cl.solve_rows_plain(*args, **kw))
+        err = rel_fro(got[0], ref[0])
+        eq = float((got[4] == ref[4]).float().mean())
+        # A stopping fault (the twin at tol 1e-3) must fail both x limits.
+        early = cl.solve_rows_plain(*args[:-1], 1e-3, **kw)
+        early_twin, early_x = rel_fro(early[0], ref[0]), rel_fro(early[0],
+                                                                 comp.x)
+        # The fixed budget on the same inputs: no row stops, so no stopping
+        # noise hides the products' precision; the twin on a one-limb Gram
+        # (a kernel that drops the hi.lo product) must fail the limit.
+        fargs = args[:-1] + (0.0,)
+        fkw = dict(kw, maxiter=WIDE_PATH_FIXED_ITERS, fixed=True)
+        fixed = w(*fargs, **fkw)
+        fref = cl.solve_rows_plain(*fargs, **fkw)
+        ctl = cl.solve_rows_plain(yah, one_limb(gram), *fargs[2:], **fkw)
+        err_fixed, err_ctl = (max(rel_fro(o[0], fref[0]), rel_fro(o[1], fref[1]))
+                              for o in (fixed, ctl))
+        print(f"  solve_rows per call {k_ms:.3f} ms, plain twin {p_ms:.3f} "
+              f"ms ({card}); niter equal on {eq:.4f} of rows, rel_fro x "
+              f"{err:.3e} (limit {twin_limit:.0e}); the twin at tol 1e-3 "
+              f"{early_twin:.3e} from the twin, {early_x:.3e} from the "
+              f"composition run (must exceed the limits); "
+              f"{WIDE_PATH_FIXED_ITERS} fixed-budget iterations: rel_fro x, z "
+              f"{err_fixed:.3e} (limit {SOLVE_LIMITS['fixed']:.0e}), the twin "
+              f"on a one-limb Gram {err_ctl:.3e} (must exceed the limit)",
+              flush=True)
+        check(err <= twin_limit, f"{tag}: solve_rows disagrees with twin")
+        check(early_twin > twin_limit and early_x > x_limit, f"{tag}: the "
+              "x limits do not tell a stopping fault from the twin")
+        check(err_fixed <= SOLVE_LIMITS["fixed"],
+              f"{tag}: fixed-budget solve_rows disagrees with twin")
+        check(err_ctl > SOLVE_LIMITS["fixed"], f"{tag}: the fixed-budget "
+              "limit does not tell a one-limb Gram from the twin")
+        stats[name] = (max_abs(got[:1], ref[:1]), k_ms, p_ms,
+                       *solve_rows_bound(m, reals, int(got[4].double().sum()),
+                                         True))
+        del gram, yah, args, fargs, got, ref, early, top, comp, fixed, fref
+        del ctl
+        # solve_streaming: one wide launch a chunk of host rows.
+        reset_counts()
+        st = lasso.solve_streaming(y_np[:2000], a_np, 0.1, chunk_rows=1000,
+                                   precision="high", **cfg)
+        read_counts("solve_rows", 2)
+        err_st = rel_fro(torch.from_numpy(st.x), res.x[:2000].cpu())
+        print(f"  solve_streaming of its first 2,000 rows in 2 chunks: "
+              f"solve_rows launches 2 (wide {w.wide_launches}); rel_fro x vs "
+              f"the batch run {err_st:.3e} (limit {x_limit:.0e})", flush=True)
+        check(w.wide_launches == 2 and err_st <= x_limit,
+              f"{tag}: solve_streaming did not take the wide route, or its "
+              "rows disagree with the batch run's")
+        del y, a, res
+    # Dictionary learning with 1,152 atoms: the inner coding in solve_rows'
+    # fixed budget on the wide route, once an outer iteration; d and x
+    # against the same solve on the composition.
+    y, d0 = wide_dl_data(dev)
+
+    def solve_dl(kernel):
+        return dl.solve(y, d0, 0.05, maxiter=2, lasso_iter=8, lasso_tol=0.0,
+                        use_kernel=kernel)
+
+    reset_counts()
+    res = solve_dl(True)
+    torch.cuda.synchronize()
+    w, sweeps = cl.solve_rows, cuda_dl.bcd_sweep.launches
+    read_counts({"solve_rows": 2, "bcd_sweep": sweeps})
+    wide_n = w.wide_launches
+    comp = solve_dl(False)
+    unit = float((res.d.norm(dim=1) - 1).abs().max())
+    err_d, err_x = rel_fro(res.d, comp.d), rel_fro(res.x, comp.x)
+    print(f"dictionary_learning.solve {y.shape[0]} x {y.shape[1]}, "
+          f"{d0.shape[0]} atoms, use_kernel=True, 2 outer iterations x 8 "
+          f"inner at lasso_tol 0: solve_rows launches {w.launches} (wide "
+          f"{wide_n}), bcd_sweep {sweeps}; atoms' norms within {unit:.2e} of "
+          f"1; rel_fro vs use_kernel=False d {err_d:.3e}, x {err_x:.3e} "
+          f"(limit {WIDE_DL_LIMIT:.0e})", flush=True)
+    check(wide_n == 2 and bool(torch.isfinite(res.d).all())
+          and unit <= UNIT_LIMIT,
+          "wide dictionary learning: the inner coding left the wide route, "
+          "or the atoms are not finite unit vectors")
+    check(err_d <= WIDE_DL_LIMIT and err_x <= WIDE_DL_LIMIT,
+          "wide dictionary learning: d or x disagrees with the composition")
+    return stats, launches
 
 
 def lasso_crossover(lasso, gen, dev, card):
@@ -5350,6 +5719,7 @@ def main():
         cuda_mu.kl_stats_masked.wide_launches = 0
         cuda_lasso.solve_rows.complex_launches = 0
         cuda_lasso.solve_rows.tma_launches = 0
+        cuda_lasso.solve_rows.wide_launches = 0
         for w in (cuda_lasso.masked_grad_rows, cuda_dl.masked_grad_dict):
             w.packed_launches = 0
             w.dense_launches = 0
@@ -5416,6 +5786,9 @@ def main():
                  "mu_masked_f32", "lasso_grad_packed", "grad_wide",
                  "mu_wide"):
             check(not spills, f"{s}.cu: a wgmma kernel's instance spills")
+        if s == "lasso_fista_wide":
+            check(not spills, f"{s}.cu: an instance of the wide solve "
+                  "spills")
         if s == "dl_bcd_sm90":
             check(not spills, f"{s}.cu: d, held in registers, spills")
         if s == "dl_bcd_cluster":
@@ -6029,6 +6402,17 @@ def main():
     wide_checks(cuda_lasso, "masked_grad_rows", gen, dev)
     t_phase = phase("9 lasso kernels vs twins", t_phase)
 
+    # Phase 9b: solve_rows above 1,024 features, the wide route
+    # (csrc/lasso_fista_wide.cu), against its twin; 'highest' (bf16x6) on
+    # log-normal data against f64.
+    for m_, f_, n_ in WIDE_SOLVE_SHAPES:
+        compare_solve_rows_wide(cuda_lasso, gen, dev, m_, f_, n_)
+    for m_, f_, n_ in WIDE_SOLVE_COMPLEX:
+        compare_solve_rows_wide(cuda_lasso, gen, dev, m_, f_, n_,
+                                complex_=True)
+    wide_highest_f64(cuda_lasso, gen, dev)
+    t_phase = phase("9b wide solve_rows vs twin", t_phase)
+
     # Phase 10: batch lasso at BASELINE config 2.
     launches2, y2, a2 = config2_phase(lasso, dev, card, reset_counts,
                                       read_counts)
@@ -6041,6 +6425,13 @@ def main():
     launches2c, y2c, a2c = config2_complex_phase(
         lasso, cuda_lasso, dev, card, reset_counts, read_counts)
     t_phase = phase("10c config-2-complex", t_phase)
+
+    # Phase 10d: batch lasso on the wide route, config 2's recipe over
+    # 1,408 features and 640 complex features.
+    wide_stats, wide_launches = wide_config2_phase(
+        lasso, dictionary_learning, cuda_lasso, dev, card, reset_counts,
+        read_counts)
+    t_phase = phase("10d wide batch lasso", t_phase)
 
     # Phase 11: the masked lasso.
     launches_grad, launches_grad_w = masked_lasso_phase(
@@ -6239,6 +6630,7 @@ def main():
         (errs_abs["mu_stats_masked_f32"],) + times["mu_stats_masked_f32"]
         + stats_bound("mu_stats_masked", m4, n4, k4, f32, f32, packed=True))
     stats.update(lasso_stats)
+    stats.update(wide_stats)
     stats.update(dl_stats)
     stats.update(wide_rank_stats)
     main_launches = {"mu_stats_dense": launches,
@@ -6258,6 +6650,7 @@ def main():
                      "masked_grad_dict_weighted": launches_gd_w[f32][1],
                      "masked_grad_dict_weighted_bf16": launches_gd_w[bf16][1]}
     main_launches.update(wide_rank_launches)
+    main_launches.update(wide_launches)
     for which, runs_ in (("", launches_wide), ("_weighted", launches_wide_w)):
         for dt, (rows_n, dict_n) in runs_.items():
             sfx = f"_wide{which}{'' if dt == f32 else '_bf16'}"
@@ -6272,6 +6665,9 @@ def main():
                "solve_rows": ("lasso_fista_tma", "pallas_fista.py:349"),
                "solve_rows_complex": ("lasso_fista_tma",
                                       "pallas_fista.py:349 (group_fc)"),
+               "solve_rows_wide": ("lasso_fista_wide", "pallas_fista.py:349"),
+               "solve_rows_wide_complex": ("lasso_fista_wide",
+                                           "pallas_fista.py:349 (group_fc)"),
                **{f"masked_grad_rows_{r}": ("lasso_grad_packed",
                                             "pallas_lasso.py:159")
                   for r in ("packed", "packed_bf16", "weighted",

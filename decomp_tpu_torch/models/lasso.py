@@ -44,6 +44,19 @@ _PRECISIONS = ("default", "high", "highest", "bfloat16", "tensorfloat32",
 # measured width (64 to 512 complex features), and under 'highest' up to
 # 256; at 512 its full-f32 products lose to the composition.
 _AUTO_COMPLEX_HIGHEST_MAX_FEATURES = 256
+# Above 1,024 reals, up to the TPU kernel's gate, 'auto' takes the wide
+# route (csrc/lasso_fista_wide.cu) for f32 and complex64 at both
+# precisions: measured on an H100 (PERF.md §6 row 5, tools/
+# solve_wide_turns.py; 10,000 problems, acc_ista, tol 1e-4, against the
+# composition in turns) 0.359x / 0.515x ('high' / 'highest') at 1,408
+# features over N = F / 2, 0.242x / 0.344x at F / 4, 0.404x / 0.576x at
+# 1,152; complex64 at 640 features 0.413x / 0.544x at F / 2, 0.286x /
+# 0.369x at F / 4; without momentum (ista) at the gate's 1,536 features
+# 0.055x / 0.077x. Small batches, where a few clusters run the whole solve:
+# 7, 64 and 1,000 problems over 1,152 features 0.082x-0.124x / 0.104x-
+# 0.223x, over 640 complex features 0.074x-0.115x / 0.107x-0.177x. No
+# batch size measured favours the composition, so the rule has no gate
+# by M.
 
 
 def solve(
@@ -103,8 +116,10 @@ def solve(
         (n_samples,). Methods ista / fista / acc_ista / parallel_cd.
     use_kernel : True / False / 'auto'. The kernel path: unmasked with
         ``per_problem=True``, the whole solve in one
-        ``cuda_lasso.solve_rows`` call (float32 with F <= 1024, or
-        complex64 with F <= 512 through the kernel's complex mode; a
+        ``cuda_lasso.solve_rows`` call (float32, or complex64 through the
+        kernel's complex mode, up to the TPU kernel's gate
+        ``cuda_lasso.solve_fits``: 1,408 features with momentum, 1,536
+        without, 640 complex features; a
         gradient method, scalar or per-feature alpha, no
         ``record_objective``, precision 'highest' or 'high'); masked (real
         data only), the gradient in one
@@ -116,11 +131,13 @@ def solve(
         contract holds (the masked kernel: bf16 or f32 data with a 0/1 or
         weighted mask at F <= 128, and above it, up to the TPU kernel's
         gate ``cuda_lasso.grad_fits``, f32 data at N >= 256 on the wide
-        route, ``_auto_width``; f32 and F <= 1024 for the whole solve,
-        complex64 under 'high' and F <= 512, or under 'highest' and F <=
-        256); it is False on the CPU.
+        route, ``_auto_width``; the whole solve by ``_auto_whole_width``:
+        f32 and F <= 1024, complex64 under 'high' and F <= 512, or under
+        'highest' and F <= 256, and above 1,024 reals inside the gate);
+        it is False on the CPU.
     kernel_block_rows : rows per stripe of the whole-solve kernel, 16 or
-        32 (32 only at F <= 512); default by F. Results do not depend on it.
+        32 (32 only at F <= 512; the wide route's clusters hold 16); default
+        by F. Results do not depend on it.
     return_state : momentum methods also return ``aux={"z", "t"}``; passing
         them back (``momentum_state=(z, t)`` or ``state=``) with ``x=``
         resumes the exact trajectory.
@@ -312,14 +329,8 @@ def _kernel_mode(use_kernel, y, mask, method, dtype, n_features, per_problem,
             ok = (dtype in (torch.bfloat16, torch.float32)
                   and _auto_width(y.shape[1], n_features, dtype))
             return "masked" if ok else None
-        if dtype == torch.complex64:
-            max_f = (cuda_lasso.SOLVE_MAX_COMPLEX_FEATURES
-                     if precision == "high"
-                     else _AUTO_COMPLEX_HIGHEST_MAX_FEATURES)
-        else:
-            max_f = (cuda_lasso.SOLVE_MAX_FEATURES
-                     if dtype == torch.float32 else 0)
-        ok = (per_problem and n_features <= max_f
+        ok = (per_problem
+              and _auto_whole_width(dtype, n_features, precision, method)
               and not record_objective
               and precision in ("highest", "high")
               and alpha.dim() <= 1)
@@ -352,12 +363,15 @@ def _kernel_mode(use_kernel, y, mask, method, dtype, n_features, per_problem,
     if dtype not in (torch.float32, torch.complex64):
         raise DecompError("the whole-solve kernel requires float32 inputs, "
                           f"got {dtype}")
-    if (dtype.is_complex
-            and n_features > cuda_lasso.SOLVE_MAX_COMPLEX_FEATURES):
+    momentum = method in ("fista", "acc_ista")
+    if dtype.is_complex and not cuda_lasso.solve_fits(
+            2 * n_features, momentum, precision == "high", group=True):
+        edge = cuda_lasso.solve_max_features(momentum, precision == "high",
+                                             group=True)
         raise DecompError(
-            "the whole-solve kernel takes at most "
-            f"{cuda_lasso.SOLVE_MAX_COMPLEX_FEATURES} complex features "
-            f"({cuda_lasso.SOLVE_MAX_FEATURES} reals), got {n_features}")
+            f"the whole-solve kernel takes at most {edge // 2} complex "
+            f"features ({edge} reals, the TPU kernel's gate, "
+            f"cuda_lasso.solve_fits), got {n_features}")
     if record_objective:
         raise DecompError("the whole-solve kernel cannot record per-"
                           "iteration objectives (iterations never leave the "
@@ -370,6 +384,31 @@ def _kernel_mode(use_kernel, y, mask, method, dtype, n_features, per_problem,
                           "feature alpha (per-sample weights take the "
                           "composition path)")
     return "whole"
+
+
+def _auto_whole_width(dtype, f, precision, method):
+    """Whether ``use_kernel='auto'`` takes the whole-solve kernel for F
+    features of ``dtype`` data at ``precision``: f32 on the narrow route
+    (F <= ``cuda_lasso.SOLVE_MAX_FEATURES``), complex64 there under 'high'
+    and under 'highest' up to ``_AUTO_COMPLEX_HIGHEST_MAX_FEATURES``; above
+    1,024 reals, inside the TPU kernel's gate (``cuda_lasso.solve_fits``),
+    on the wide route (``csrc/lasso_fista_wide.cu``), which the card
+    measured faster than the composition at every width, precision, method
+    and batch size it was timed at (the turns above). The streamed and sharded solves decide through the same
+    ``_kernel_mode``."""
+    if dtype == torch.float32:
+        reals, narrow_max = f, cuda_lasso.SOLVE_MAX_FEATURES
+    elif dtype == torch.complex64:
+        reals = 2 * f
+        narrow_max = (cuda_lasso.SOLVE_MAX_COMPLEX_FEATURES
+                      if precision == "high"
+                      else _AUTO_COMPLEX_HIGHEST_MAX_FEATURES)
+    else:
+        return False
+    if cuda_lasso.solve_route(reals) == "narrow":
+        return f <= narrow_max
+    return cuda_lasso.solve_fits(reals, method in ("fista", "acc_ista"),
+                                 precision == "high", group=dtype.is_complex)
 
 
 def _auto_takes_masked(dtype):

@@ -23,7 +23,10 @@ maxiter``, bit-identical to the exact mode at ``tol = 0``. ``hi_lo=True``
 into a high half, the f32 value with its low 16 bits cleared (exact in
 bf16), and a low half, the bf16 rounding of the remainder; the products
 hi.hi + hi.lo + lo.hi are summed in f32 and lo.lo is dropped
-(``pallas_fista.py:123-130``, ``:159-182``). ``hi_lo=False`` is full f32.
+(``pallas_fista.py:123-130``, ``:159-182``). ``hi_lo=False`` is full f32
+(on the wide route above 1,024 reals, bf16x6: three round-to-nearest bf16
+limbs of each operand, ``cuda_mu.split_bf16x3``, and the six products
+whose limb indices add up to at most 2).
 
 Complex data (``group_fc``, ``pallas_fista.py:192-205``): complex64 yah,
 gram, x0 and z0 run ``solve_rows``' complex mode. A row of Fc complex
@@ -47,7 +50,10 @@ mask is dense, in my's shape, or the bits of a 0/1 mask
 On a CUDA tensor a wrapper launches its kernel (``solve_rows``: f32
 with 1 <= F <= ``SOLVE_MAX_FEATURES``, or complex64 with 1 <= Fc <=
 ``SOLVE_MAX_COMPLEX_FEATURES``, on ``csrc/lasso_fista_tma.cu`` for
-``hi_lo=True`` and ``csrc/lasso_fista.cu`` for ``hi_lo=False``;
+``hi_lo=True`` and ``csrc/lasso_fista.cu`` for ``hi_lo=False``; above, up to
+the TPU kernel's gate ``solve_fits``, on ``csrc/lasso_fista_wide.cu`` at
+either precision, 'highest' as bf16x6 there (``solve_route`` names the
+route from F alone);
 ``masked_grad_rows``, f32 or bf16 data at 1 <= F <= ``GRAD_MAX_FEATURES``
 at any N and at wider F inside the TPU kernel's gate, ``grad_fits``, on
 wgmma, whose f32 products run as bf16x6 limb
@@ -61,8 +67,8 @@ alike) and raises on anything else. On a CPU
 tensor it runs its ``*_plain`` twin (a packed mask unpacked to my's dtype
 first). It never falls back from one to the other. Each wrapper counts
 its kernel launches in ``.launches``; ``solve_rows`` counts its complex-mode launches
-in ``.complex_launches`` and its launches of the 'high' kernel in
-``.tma_launches`` as well; ``masked_grad_rows`` counts each route, in
+in ``.complex_launches``, its launches of the 'high' kernel in
+``.tma_launches`` and of the wide one in ``.wide_launches`` as well; ``masked_grad_rows`` counts each route, in
 ``.packed_launches`` and ``.dense_launches`` (the weighted instance) for
 the fused kernel and ``.wide_launches`` for the wide one. The
 'high' kernel gives, row for row, the bits of ``csrc/lasso_fista.cu``'s
@@ -75,7 +81,8 @@ Not ported: the TPU kernels' VMEM calibrations and 128-alignment padding
 (``default_block_rows``, ``auto_wins``, ``kernel_alignment``, ``pad2``,
 ``pad_alpha``): the CUDA kernels mask ragged rows and features themselves.
 ``grad_fits`` keeps ``pallas_lasso.fits_vmem``'s gate, after
-``kernel_alignment``'s padding, as the port's own predicate.
+``kernel_alignment``'s padding, and ``solve_fits`` ``pallas_fista.fits_vmem``'s
+after the solvers' padding, as the port's own predicates.
 """
 
 import torch
@@ -86,11 +93,18 @@ from decomp_tpu_torch.ops.cuda_mu import (_F, _I, _P, _c_function, _launch,
 from decomp_tpu_torch.utils.exceptions import (DecompError, DtypeError,
                                                ShapeError)
 
-# Largest F that solve_rows' kernels take: a block's rows stay on chip in
-# f32 (csrc/lasso_fista.cu, csrc/lasso_fista_tma.cu).
+# Largest F of solve_rows' narrow kernels (csrc/lasso_fista.cu,
+# csrc/lasso_fista_tma.cu: a block's rows stay on chip in f32); wider F, up
+# to the TPU kernel's gate (solve_fits), takes the wide route
+# (csrc/lasso_fista_wide.cu).
 SOLVE_MAX_FEATURES = 1024
-# Largest complex Fc of its complex mode: 2 Fc reals.
+# Largest complex Fc of the narrow kernels' complex mode: 2 Fc reals.
 SOLVE_MAX_COMPLEX_FEATURES = SOLVE_MAX_FEATURES // 2
+# The whole solve's gate, the TPU kernel's (pallas_fista.py:64-120): its
+# VMEM budget and calibration, at the 16-row stripe that the TPU's
+# default_block_rows falls back to.
+_SOLVE_VMEM_LIMIT = int(15.5 * 1024 * 1024)
+_SOLVE_CALIBRATION = 1.6
 # Largest F of masked_grad_rows' fused kernel (csrc/lasso_grad_packed.cu):
 # its rank tile (KP in csrc/nmf_common.cuh); wider F takes the wide route.
 GRAD_MAX_FEATURES = 128
@@ -116,9 +130,59 @@ def split_hi_lo(v):
     return hi_f.to(torch.bfloat16), (v - hi_f).to(torch.bfloat16)
 
 
+def _solve_resident_bytes(f_pad, momentum, hi_lo, block_rows, group):
+    """``pallas_fista._resident_bytes``: the TPU kernel's VMEM residents
+    (the Gram, the step and threshold rows, the stripe's planes) times its
+    calibration."""
+    planes = 3 + (2 if momentum else 0) + (2 if group else 0)
+    per_row = planes * 2 * 4 * f_pad + 6 * 4
+    extra = 2 * block_rows * f_pad * 2 if hi_lo else 0
+    raw = 4 * f_pad * f_pad + block_rows * per_row + extra + 2 * 4 * f_pad
+    return int(raw * _SOLVE_CALIBRATION)
+
+
+def solve_fits(f: int, momentum: bool = True, hi_lo: bool = False,
+               group: bool = False) -> bool:
+    """Whether ``solve_rows`` takes F reals (2 Fc in the complex mode,
+    ``group``): the TPU kernel's gate, the port's own copy of
+    ``pallas_fista.fits_vmem`` applied after the JAX callers' padding (F up
+    to a multiple of 128, ``lasso.py:804``; in the complex mode Fc, then
+    doubled, ``lasso.py:904``). ``fits_vmem`` with its default stripe
+    asks whether the 16-row stripe fits (``default_block_rows`` halves the
+    stripe until it fits or reaches 16, and the residents grow with it).
+    Its edges: 1,408 reals with momentum, 1,536 without, 640 complex
+    features, at either precision."""
+    if group:
+        f_pad = 2 * (-(-f // 256) * 128)
+    else:
+        f_pad = -(-f // 128) * 128
+    return (_solve_resident_bytes(f_pad, momentum, hi_lo, 16, group)
+            <= _SOLVE_VMEM_LIMIT)
+
+
+def solve_max_features(momentum: bool = True, hi_lo: bool = False,
+                       group: bool = False) -> int:
+    """The largest F (reals) that ``solve_fits`` takes."""
+    step = 256 if group else 128
+    f = step
+    while solve_fits(f + step, momentum, hi_lo, group):
+        f += step
+    return f
+
+
+def solve_route(f: int) -> str:
+    """Which kernel ``solve_rows`` launches for F reals: ``'narrow'``
+    (``csrc/lasso_fista_tma.cu`` at 'high', ``csrc/lasso_fista.cu`` at
+    'highest') for F <= ``SOLVE_MAX_FEATURES``, ``'wide'``
+    (``csrc/lasso_fista_wide.cu``, both precisions) above. A function of F
+    alone: no shape moves to another route on a failure."""
+    return "narrow" if f <= SOLVE_MAX_FEATURES else "wide"
+
+
 def stripe_rows(block_rows, f: int) -> int:
     """Rows per stripe of ``solve_rows``' kernel at F features: 16, or 32
-    at F <= 512 (the default there); anything else is refused."""
+    at F <= 512 (the default there); anything else is refused. The wide
+    route's clusters hold 16 row slots."""
     rows = block_rows or (32 if f <= _WIDE_STRIPE_MAX_F else 16)
     if rows not in (16, 32) or (rows == 32 and f > _WIDE_STRIPE_MAX_F):
         raise DecompError(f"kernel_block_rows must be 16, or 32 at F <= "
@@ -180,9 +244,10 @@ def _pairs_of_embedding(emb):
     again = embed_gram(from_pairs(pairs).T)
     if not torch.equal(again.view(torch.int32),
                        emb.contiguous().view(torch.int32)):
-        raise DecompError("group=True at precision 'high' takes the "
-                          "embed_gram of a complex Gram ([[Re, Im], [-Im, "
-                          "Re]] blocks); pass complex64 operands instead")
+        raise DecompError("group=True at precision 'high', or above "
+                          f"{SOLVE_MAX_FEATURES} reals, takes the embed_gram "
+                          "of a complex Gram ([[Re, Im], [-Im, Re]] "
+                          "blocks); pass complex64 operands instead")
     return pairs
 
 
@@ -321,9 +386,12 @@ def solve_rows_plain(yah, gram, x0, z0, t0, done0, nit0, stepsz, thresh, tol,
 
 
 def check_solve_rows_args(yah, gram, x0, z0, t0, done0, nit0, maxiter,
-                          block_rows, pairs=False):
-    """Refuse what ``solve_rows``' kernels do not take, before any launch.
-    ``pairs``: gram is the complex mode's ``pair_gram`` (F / 2, F)."""
+                          block_rows, pairs=False, *, momentum=True,
+                          hi_lo=False, group=False):
+    """Refuse what ``solve_rows``' kernels do not take, before any launch:
+    among it F past the TPU kernel's gate (``solve_fits`` for ``momentum``,
+    ``hi_lo`` and the complex mode, ``group``). ``pairs``: gram is the
+    complex mode's ``pair_gram`` (F / 2, F)."""
     if yah.dim() != 2:
         raise ShapeError(f"yah must be 2-D, got {tuple(yah.shape)}")
     m, f = yah.shape
@@ -340,9 +408,16 @@ def check_solve_rows_args(yah, gram, x0, z0, t0, done0, nit0, maxiter,
     for name, t in (("t0", t0), ("done0", done0), ("nit0", nit0)):
         if t.device != yah.device or t.numel() != m:
             raise ShapeError(f"{name} must hold {m} entries on {yah.device}")
-    if not 1 <= f <= SOLVE_MAX_FEATURES:
-        raise ShapeError(f"the whole-solve kernel takes 1 <= F <= "
-                         f"{SOLVE_MAX_FEATURES} features, got {f}")
+    group = group or pairs
+    if f < 1 or (solve_route(f) == "wide"
+                 and not solve_fits(f, momentum, hi_lo, group)):
+        edge = solve_max_features(momentum, hi_lo, group)
+        what = (f"reals ({edge // 2} complex features) in the complex mode"
+                if group else "features with momentum" if momentum
+                else "features without momentum")
+        raise ShapeError(f"the whole-solve kernels take 1 <= F <= {edge} "
+                         f"{what} (the TPU kernel's gate, solve_fits), got "
+                         f"F={f}")
     if m >= 2 ** 31 or int(maxiter) >= 2 ** 31:
         raise ShapeError("M and maxiter must be < 2^31")
     return stripe_rows(block_rows, f)
@@ -363,25 +438,32 @@ def solve_rows(yah, gram, x0, z0, t0, done0, nit0, stepsz, thresh, tol, *,
     (M, F), (M, 1), (M, 1), (M, 1)), x and z in yah's dtype, done f32 0/1
     and niter int32.
 
-    On the card, ``hi_lo=True`` launches ``csrc/lasso_fista_tma.cu``
-    (counted in ``.tma_launches``; each block's slot-iterations of the last
-    such launch stay in ``.slot_iters``) and ``hi_lo=False``
-    ``csrc/lasso_fista.cu``; ``.launches`` counts both.
+    On the card, F <= ``SOLVE_MAX_FEATURES`` reals launch
+    ``csrc/lasso_fista_tma.cu`` at ``hi_lo=True`` (counted in
+    ``.tma_launches``) and ``csrc/lasso_fista.cu`` at ``hi_lo=False``;
+    wider F, up to the TPU kernel's gate (``solve_fits``), launches
+    ``csrc/lasso_fista_wide.cu`` at either precision (``.wide_launches``).
+    ``.launches`` counts all three, ``.complex_launches`` those of the
+    complex mode; each block's (or, on the wide route, each cluster's)
+    slot-iterations of the last launch of the persistent kernels stay in
+    ``.slot_iters``.
     """
     if int(maxiter) < 0:
         raise ValueError(f"maxiter must be >= 0, got {maxiter}")
     kw = dict(momentum=momentum, restart=restart, maxiter=maxiter,
               hi_lo=hi_lo, fixed=fixed, block_rows=block_rows)
     if yah.is_complex():
-        if not hi_lo or _runs_plain(yah):
+        wide = solve_route(2 * yah.shape[-1]) == "wide"
+        if _runs_plain(yah) or not (hi_lo or wide):
             return _complex_call(solve_rows, yah, gram, x0, z0, t0, done0,
                                  nit0, stepsz, thresh, tol, **kw)
-        # The 'high' kernel reads the pair Gram, not the embedding.
+        # The 'high' and the wide kernels read the pair Gram, not the
+        # embedding.
         yah, gram, x0, z0, step, thr = _complex_pairs(
             yah, gram, x0, z0, stepsz, thresh, embed=False)
-        x, z, t, done, nit = _solve_rows_tma(yah, gram, x0, z0, t0, done0,
-                                             nit0, step, thr, tol, group=True,
-                                             **kw)
+        x, z, t, done, nit = _solve_rows_card(yah, gram, x0, z0, t0, done0,
+                                              nit0, step, thr, tol,
+                                              group=True, pairs=True, **kw)
         return from_pairs(x), from_pairs(z), t, done, nit
     stripe_rows(block_rows, yah.shape[-1])
     if group and yah.shape[-1] % 2:
@@ -390,11 +472,30 @@ def solve_rows(yah, gram, x0, z0, t0, done0, nit0, stepsz, thresh, tol, *,
     if _runs_plain(yah):
         return solve_rows_plain(yah, gram, x0, z0, t0, done0, nit0, stepsz,
                                 thresh, tol, group=group, **kw)
-    if hi_lo:
-        if group:
-            check_solve_rows_args(yah, gram, x0, z0, t0, done0, nit0,
-                                  maxiter, block_rows)
-            gram = _pairs_of_embedding(gram)
+    return _solve_rows_card(yah, gram, x0, z0, t0, done0, nit0, stepsz,
+                            thresh, tol, group=group, **kw)
+
+
+def _solve_rows_card(yah, gram, x0, z0, t0, done0, nit0, stepsz, thresh, tol,
+                     *, group=False, pairs=False, **kw):
+    """``solve_rows`` on f32 operands on the card: the route of F
+    (``solve_route``) and, on the narrow one, of the precision.
+    ``pairs``: the complex mode's gram is already ``pair_gram``'s, else in
+    the complex mode the embedding, which the 'high' and the wide kernels
+    read as its pairs. The persistent kernels' launchers count their
+    launches; ``csrc/lasso_fista.cu``'s is counted here."""
+    f = yah.shape[-1]
+    wide = solve_route(f) == "wide"
+    if group and not pairs and (wide or kw["hi_lo"]):
+        check_solve_rows_args(yah, gram, x0, z0, t0, done0, nit0,
+                              kw["maxiter"], kw["block_rows"],
+                              momentum=kw["momentum"], hi_lo=kw["hi_lo"],
+                              group=True)
+        gram = _pairs_of_embedding(gram)
+    if wide:
+        return _solve_rows_wide(yah, gram, x0, z0, t0, done0, nit0, stepsz,
+                                thresh, tol, group=group, **kw)
+    if kw["hi_lo"]:
         return _solve_rows_tma(yah, gram, x0, z0, t0, done0, nit0, stepsz,
                                thresh, tol, group=group, **kw)
     out = _solve_rows_mma(yah, gram, x0, z0, t0, done0, nit0, stepsz, thresh,
@@ -407,6 +508,7 @@ def solve_rows(yah, gram, x0, z0, t0, done0, nit0, stepsz, thresh, tol, *,
 solve_rows.launches = 0
 solve_rows.complex_launches = 0
 solve_rows.tma_launches = 0
+solve_rows.wide_launches = 0
 solve_rows.slot_iters = None
 
 
@@ -434,25 +536,28 @@ def stage_rows(f: int, group: bool = False):
             for c in range(0, f, _TILE_COLS)]
 
 
-def tile_images(b_rows, group=False):
-    """The stage images that ``csrc/lasso_fista_tma.cu`` copies into its
-    ring, one bulk copy a stage: ``b_rows`` (N, F) f32 holds row n of the
-    product's B^T (B(k, n) = b_rows[n, k]; N = F), or with ``group`` the
-    pair Gram (N = F / 2). Returns them as one flat bf16 tensor: for each
-    chunk c of 512 output columns (``stage_rows(F, group)[c]`` rows from
-    row 512 c, or 256 c) and each depth step s (k = 16 s ..), the hi then
-    the lo tile of ``split_hi_lo``, 16 values a row with the two 8-element
-    halves swapped on rows with bit 2 set (the kernels' bank-conflict
-    swizzle), zeros past the matrix."""
+def tile_images(b_rows, group=False, limbs=2):
+    """The stage images that ``csrc/lasso_fista_tma.cu`` and
+    ``csrc/lasso_fista_wide.cu`` copy into their rings, one bulk copy a
+    stage: ``b_rows`` (N, F) f32 holds row n of the product's B^T (B(k, n)
+    = b_rows[n, k]; N = F), or with ``group`` the pair Gram (N = F / 2).
+    Returns them as one flat bf16 tensor: for each chunk c of 512 output
+    columns (``stage_rows(F, group)[c]`` rows from row 512 c, or 256 c) and
+    each depth step s (k = 16 s ..), the tile of each limb, 16 values a row
+    with the two 8-element halves swapped on rows with bit 2 set (the
+    kernels' bank-conflict swizzle), zeros past the matrix. ``limbs``: 2,
+    the hi then the lo of ``split_hi_lo`` ('high'), or 3, the limbs of
+    ``cuda_mu.split_bf16x3`` (the wide kernel's 'highest')."""
     n, k = b_rows.shape
     nks, dev = -(-k // _KD), b_rows.device
     first = _TILE_COLS // 2 if group else _TILE_COLS
-    halves = split_hi_lo(b_rows)
+    parts = (split_hi_lo(b_rows) if limbs == 2
+             else tuple(cuda_mu.split_bf16x3(b_rows)))
     images = []
     for c, rows in enumerate(stage_rows(k, group)):
         swap = ((torch.arange(rows, device=dev) >> 2) & 1).bool()
         tiles = []
-        for h in halves:
+        for h in parts:
             p = torch.zeros((rows, nks * _KD), dtype=torch.bfloat16,
                             device=dev)
             part = h[c * first:c * first + rows]
@@ -469,9 +574,9 @@ def _solve_rows_tma(yah, gram, x0, z0, t0, done0, nit0, stepsz, thresh, tol,
     """Launch ``csrc/lasso_fista_tma.cu`` ('high'): f32 operands, and for
     ``group`` the complex mode with gram as ``pair_gram`` (F / 2, F). One
     persistent block per SM (at most one per ``rows`` rows)."""
-    del hi_lo
     rows = check_solve_rows_args(yah, gram, x0, z0, t0, done0, nit0, maxiter,
-                                 block_rows, pairs=group)
+                                 block_rows, pairs=group, momentum=momentum,
+                                 hi_lo=hi_lo)
     m, f = yah.shape
     dev = yah.device
     fn = _c_function("lasso_fista_tma", "lasso_solve_rows_tma_launch",
@@ -504,6 +609,49 @@ def _solve_rows_tma(yah, gram, x0, z0, t0, done0, nit0, stepsz, thresh, tol,
     return x, z, t, done, nit
 
 
+def _solve_rows_wide(yah, gram, x0, z0, t0, done0, nit0, stepsz, thresh,
+                     tol, *, momentum, restart, maxiter, hi_lo=True,
+                     fixed=False, block_rows=None, group=False):
+    """Launch ``csrc/lasso_fista_wide.cu`` (either precision): f32 operands,
+    and for ``group`` the complex mode with gram as ``pair_gram`` (F / 2,
+    F). One cluster of ceil(F / 512) blocks per 16 rows, at most as many
+    clusters as the card's SMs hold; counted in ``solve_rows.launches``
+    and ``.wide_launches``. Its C entry takes any 1 <= F <= 1,536, so that
+    the route can be timed against the narrow kernels at F <= 1,024."""
+    check_solve_rows_args(yah, gram, x0, z0, t0, done0, nit0, maxiter,
+                          block_rows, pairs=group, momentum=momentum,
+                          hi_lo=hi_lo)
+    m, f = yah.shape
+    dev = yah.device
+    fn = _c_function("lasso_fista_wide", "lasso_solve_rows_wide_launch",
+                     (_I,) * 6 + (_P,) * 9 + (_F,) + (_I,) * 3 + (_P,) * 8)
+    with torch.cuda.device(dev):
+        step = _feature_vector(stepsz, f, dev)
+        thr = _feature_vector(thresh, f, dev)
+        limbs = 2 if hi_lo else 3
+        gimg = tile_images(gram if group else gram.T, group, limbs)
+        t0c, d0c, n0c = _row_state(t0, done0, nit0, m)
+        x0c, z0c, yahc = x0.contiguous(), z0.contiguous(), yah.contiguous()
+        x, z, t, done, nit = _outputs(m, f, dev)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        clusters = min(sms // -(-f // _TILE_COLS), -(-m // 16))
+        queue = torch.zeros(1, dtype=torch.int32, device=dev)
+        slot_iters = torch.zeros(clusters, dtype=torch.int64, device=dev)
+        _launch("solve_rows (wide)", fn, dev, limbs, int(momentum),
+                int(restart), int(fixed), int(group), clusters,
+                yahc.data_ptr(), gimg.data_ptr(), x0c.data_ptr(),
+                z0c.data_ptr(), t0c.data_ptr(), d0c.data_ptr(),
+                n0c.data_ptr(), step.data_ptr(), thr.data_ptr(), float(tol),
+                m, f, int(maxiter), x.data_ptr(), z.data_ptr(), t.data_ptr(),
+                done.data_ptr(), nit.data_ptr(), queue.data_ptr(),
+                slot_iters.data_ptr())
+    solve_rows.launches += 1
+    solve_rows.wide_launches += 1
+    solve_rows.complex_launches += int(bool(group))
+    solve_rows.slot_iters = slot_iters
+    return x, z, t, done, nit
+
+
 def _solve_rows_mma(yah, gram, x0, z0, t0, done0, nit0, stepsz, thresh, tol,
                     *, momentum, restart, maxiter, hi_lo=True, fixed=False,
                     block_rows=None, group=False):
@@ -518,7 +666,8 @@ def _solve_rows_mma(yah, gram, x0, z0, t0, done0, nit0, stepsz, thresh, tol,
         return _complex_call(_solve_rows_mma, yah, gram, x0, z0, t0, done0,
                              nit0, stepsz, thresh, tol, **kw)
     rows = check_solve_rows_args(yah, gram, x0, z0, t0, done0, nit0, maxiter,
-                                 block_rows)
+                                 block_rows, momentum=momentum, hi_lo=hi_lo,
+                                 group=group)
     m, f = yah.shape
     dev = yah.device
     fn = _c_function("lasso_fista", "lasso_solve_rows_launch",

@@ -448,15 +448,16 @@ def test_errors_match_jax_types(kw):
 
 def test_port_refusals():
     """What the port refuses beyond the JAX package's contract: the
-    complex kernel path's limits (complex64 only, Fc <= 512, unmasked, no
-    objective curve), and kernel options where no kernel runs."""
+    complex kernel path's limits (complex64 only, Fc <= 640, the TPU
+    kernel's gate, unmasked, no objective curve), and kernel options where
+    no kernel runs."""
     y, a, _ = planted_lasso(seed=19, complex_=True)
     kw = dict(use_kernel=True, per_problem=True)
     with pytest.raises(texc.DecompError, match="complex64"):
         tl.solve(_t(y), _t(a), ALPHA, **kw)                # complex128
     y64, a64 = _t(y.astype(np.complex64)), _t(a.astype(np.complex64))
-    wide = torch.zeros((513, a.shape[1]), dtype=torch.complex64)
-    with pytest.raises(texc.DecompError, match="at most 512 complex"):
+    wide = torch.zeros((641, a.shape[1]), dtype=torch.complex64)
+    with pytest.raises(texc.DecompError, match="at most 640 complex"):
         tl.solve(y64, wide, ALPHA, **kw)
     with pytest.raises(texc.DecompError, match="objectives"):
         tl.solve(y64, a64, ALPHA, record_objective=True, **kw)
@@ -480,8 +481,9 @@ def test_port_refusals():
 def test_auto_takes_complex_where_the_card_measured_it_faster():
     """use_kernel='auto' on a CUDA tensor (a stand-in: the gate reads only
     ``is_cuda``): complex64 runs the whole-solve kernel under 'high' up to
-    512 features and under 'highest' up to 256 (PERF.md §6); real f32
-    up to 1,024 features; never complex128."""
+    512 features and under 'highest' up to 256 (PERF.md §6), and under
+    both from 513 to the TPU kernel's gate, 640, on the wide route; real
+    f32 up to the gate (1,408 features with momentum); never complex128."""
     card = SimpleNamespace(is_cuda=True)
     alpha = torch.tensor(0.1)
 
@@ -493,11 +495,14 @@ def test_auto_takes_complex_where_the_card_measured_it_faster():
     assert mode(c64, 512) == "whole" and mode(c64, 64) == "whole"
     assert mode(c64, 256, "highest") == "whole"
     assert mode(c64, 257, "highest") is None
-    assert mode(c64, 513) is None
+    assert mode(c64, 513) == "whole" and mode(c64, 640, "highest") == "whole"
+    assert mode(c64, 641) is None
     assert mode(c64, 512, per_problem=False) is None
     assert mode(torch.complex128, 64) is None
     assert mode(torch.float32, 1024, "highest") == "whole"
-    assert mode(torch.float32, 1025) is None
+    assert mode(torch.float32, 1025) == "whole"
+    assert mode(torch.float32, 1408) == "whole"
+    assert mode(torch.float32, 1409) is None
     cpu = SimpleNamespace(is_cuda=False)
     assert tl._kernel_mode("auto", cpu, None, "acc_ista", c64, 64, True,
                            False, "high", alpha) is None

@@ -446,11 +446,14 @@ def test_kernel_range_checks_need_no_card():
     run on CPU tensors."""
     m = 4
     z = torch.zeros
-    for f in (1025, 2048):
-        with pytest.raises(texc.ShapeError, match="1 <= F <= 1024"):
+    # Past the TPU kernel's gate (solve_fits): 1,408 features with
+    # momentum, 1,536 without.
+    for f, momentum, edge in ((1409, True, 1408), (1537, False, 1536),
+                              (2048, True, 1408), (2048, False, 1536)):
+        with pytest.raises(texc.ShapeError, match=f"1 <= F <= {edge}"):
             cuda_lasso.check_solve_rows_args(
                 z((m, f)), z((f, f)), z((m, f)), z((m, f)), z(m), z(m), z(m),
-                10, None)
+                10, None, momentum=momentum)
     with pytest.raises(texc.DecompError, match="kernel_block_rows"):
         cuda_lasso.check_solve_rows_args(
             z((m, 600)), z((600, 600)), z((m, 600)), z((m, 600)), z(m), z(m),

@@ -331,8 +331,9 @@ def test_range_checks_need_no_card():
     assert cuda_lasso.check_solve_rows_args(
         z((m, 8)), z((4, 8)), z((m, 8)), z((m, 8)), z(m), z(m), z(m), 10,
         None, pairs=True) == 32
-    for f in (1026, 2048):
-        with pytest.raises(texc.ShapeError, match="1 <= F <= 1024"):
+    # The complex mode's gate: 640 complex features (1,280 reals).
+    for f in (1282, 2048):
+        with pytest.raises(texc.ShapeError, match="1 <= F <= 1280 reals"):
             cuda_lasso.check_solve_rows_args(
                 z((m, f)), z((f // 2, f)), z((m, f)), z((m, f)), z(m), z(m),
                 z(m), 10, None, pairs=True)
