@@ -83,7 +83,8 @@ for sm_90a (one nvcc per source, all at once), and then:
    10,624 and 6,272 at N = 128, on 512 rows), within GRAD_LIMIT of its
    dtype with a bit-identical rerun and both calls counted in
    ``.wide_launches``; each instance per call at 100,000 x 1,024, K = 256,
-   against its twin and beside its bound; and the path there:
+   against its twin and beside its bound, the masked ones with their six
+   launches from ``torch.profiler``; and the path there:
    ``nmf.solve(method='mu')`` on f32 and on bf16 data with f32 factors,
    20 iterations at tol 0, each in ms an iteration in turns with
    ``use_kernel=False``, ``nmf.masked_completion`` on planted rank-256
@@ -3123,6 +3124,36 @@ def wide_rank_bound(kind, m, n, k, ydt):
                  torch.bfloat16)
 
 
+def wide_masked_passes(cuda_mu, args, kind, card):
+    """The masked wide route's six launches at one call (csrc/mu_wide.cu):
+    the prep reads x and writes cdt(x)'s limbs; E1 and E2 (wide_resid, two
+    launches) each read the limbs and the mask and write E; the x update
+    (mask_xupd) reads my, E1 and x and writes x_new and its limbs; the
+    statistics (mask_stats) read my, E2 and x_new's limbs and write the
+    partials; the reduction reads them and writes numd and dend. Each
+    beside its bytes, and the products beside their bf16 MMA rate."""
+    my, mask, x, d = args
+    km = cuda_mu.pack_mask(mask) if kind == "bits" else mask
+    (m, n), k = my.shape, d.shape[0]
+    e, kp = my.element_size(), -(-k // 128) * 128
+    limbs = cuda_mu.limb_count(my.dtype)
+    xl = 2 * limbs * m * kp
+    mask_b = 4 * km.numel() if kind == "bits" else e * m * n
+    chunks = -(-m // cuda_mu.wide_mstats_rows(m, n, kp))
+    part = 4 * chunks * 2 * k * n
+    prod = 2.0 * m * n * k * (6 if limbs == 3 else 1)
+    nbytes = {"prep_x": 4 * m * k + xl,
+              "wide_resid": 2 * (xl + mask_b + e * m * n),
+              "mask_xupd": 2 * e * m * n + 8 * m * k + xl,
+              "mask_stats": 2 * e * m * n + xl + part,
+              "reduce_kernel": part + 8 * k * n}
+    ops = {"wide_resid": 2 * prod, "mask_xupd": 2 * prod,
+           "mask_stats": 2 * prod}
+    pass_times(lambda: cuda_mu.mu_stats_masked(my, km, x, d, EPS), nbytes,
+               f"masked wide {kind} {m}x{n} K={k} {str(my.dtype)[6:]}", card,
+               ops=ops)
+
+
 def wide_rank_phase(nmf, nmf_mod, cuda_mu, dev, card, reset_counts,
                     read_counts):
     """Phase 4c: MU above rank 128 on the wide route (csrc/mu_wide.cu).
@@ -3194,6 +3225,8 @@ def wide_rank_phase(nmf, nmf_mod, cuda_mu, dev, card, reset_counts,
                   f"{ms:.4f} ms per call, plain twin {p_ms:.3f} ms, bound "
                   f"{b[0]:.4f} ms ({b[1]}), kernel at {b[0] / ms:.1%} of it; "
                   f"max_abs_err {err:.3e} ({card})", flush=True)
+            if kind != "dense":
+                wide_masked_passes(cuda_mu, args, kind, card)
             del args, y, mask, x, d
     torch.cuda.empty_cache()
 

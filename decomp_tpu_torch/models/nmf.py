@@ -71,8 +71,12 @@ _CHUNK_ROWS = 8192
 # composition upcasts each product's operands. f32: 0.56-0.95x from N =
 # 256 to 4,096 and at the corners at N = 1,024; at N = 64 and 128
 # 0.99-1.32x (0.71x only at the dense corner, K = 10,624), where the
-# route's 7-9 launches outweigh the products. bf16 data with bf16
-# factors: 1.5-3.7x, so the composition (plain bf16 products) stays.
+# route's 7-9 launches outweigh the products. Masked f32 on the six
+# launches of its merged passes: 0.44-0.66x from N = 256, 0.71-1.02x
+# at N = 64 and 128, 0.97x on bits and 1.01x on weights at N = 128's
+# corner; the key holds no mask, and dense stays above 1x there, so the
+# rule stays. bf16 data with bf16 factors: 1.1-3.7x, so the composition
+# (plain bf16 products) stays.
 # KL-MU (the KL kernels take no factor_dtype): f32 0.55-0.82x from N =
 # 256 to 1,024 and at the KL gate's corners there, dense, on a 0/1 mask
 # and on weights; at N = 64 1.19-1.21x, at N = 128 0.91-0.95x at K = 256

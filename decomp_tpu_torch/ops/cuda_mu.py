@@ -100,6 +100,10 @@ _TPU_STRIPE_BUDGET = 10 * 1024 * 1024
 # tiles) x (128-row K chunks) x (row chunks): the chunks aim at two waves of
 # the H100's 132 SMs (one block each), in whole 32-row stages.
 _WIDE_DICT_BLOCKS = 2 * 132
+# csrc/mu_wide.cu's masked statistics pass (mask_stats): 64-column N tiles
+# and 64-row stages, on the same aim of blocks.
+_MSTATS_N_TILE = 64
+_MSTATS_STAGE_ROWS = 64
 # csrc/mu_wide.cu's column sums of x_new (dense KL's xsum): (128-column
 # groups) x (row chunks) blocks of 128 threads, about this many, in whole
 # 32-row chunks.
@@ -217,6 +221,13 @@ def check_rank(method, n, k, dtype, masked):
             + (", masked" if masked else ""))
 
 
+def _chunk_rows(m: int, chunks: int, stage: int) -> int:
+    """Rows per chunk of M rows cut into ``chunks`` (at least one), in
+    whole ``stage``-row stages."""
+    rows = -(-m // max(1, chunks))
+    return -(-rows // stage) * stage
+
+
 def wide_dict_rows(m: int, n: int, kp: int) -> int:
     """Rows per partial of the wide routes' statistics pass (``wide_dict``
     of ``csrc/wide_common.cuh``) over an M x N E and kp (a multiple of 128)
@@ -225,9 +236,7 @@ def wide_dict_rows(m: int, n: int, kp: int) -> int:
     function of the shape alone, so the summation order, and every bit of
     the statistics, is."""
     tiles = -(-n // 128) * (kp // 128)
-    chunks = max(1, -(-_WIDE_DICT_BLOCKS // tiles))
-    rows = -(-m // chunks)
-    return -(-rows // 32) * 32
+    return _chunk_rows(m, -(-_WIDE_DICT_BLOCKS // tiles), 32)
 
 
 def wide_sum_rows(m: int, kp: int) -> int:
@@ -236,9 +245,7 @@ def wide_sum_rows(m: int, kp: int) -> int:
     chunks as make (kp / 128) x chunks about ``_WIDE_SUM_BLOCKS`` blocks,
     in whole 32-row chunks. A function of the shape alone, so the
     summation order, and every bit of xsum, is."""
-    chunks = max(1, -(-_WIDE_SUM_BLOCKS // (kp // 128)))
-    rows = -(-m // chunks)
-    return -(-rows // 32) * 32
+    return _chunk_rows(m, -(-_WIDE_SUM_BLOCKS // (kp // 128)), 32)
 
 
 def validate_block_rows(block_rows):
@@ -714,6 +721,10 @@ def _wide_fns():
                      _P),
         "expand": (_I, _P, _I, _I, _I, _P, _I),
         "colsum": (_P, _I, _I, _I, _I, _P, _P),
+        "mxupd": (_I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _I, _F, _P,
+                  _P),
+        "mstats": (_I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P),
+        "reduce": (_P, _LL, _I, _P),
     }
     return {name: _c_function("mu_wide", f"mu_wide_{name}_launch", args + (_P,))
             for name, args in sigs.items()}
@@ -728,17 +739,19 @@ def _wide_chunk_rows(m, n, kp, block_rows):
     return -(-block_rows // _KL_STAGE_ROWS) * _KL_STAGE_ROWS
 
 
-def _wide_prep(fns, x, kp, limbs, second):
-    """x in f32 (M, kp) and cdt(x)'s limbs (M, limbs kp), each zero past K,
-    by ``csrc/mu_wide.cu``'s prep launch; ``second``: also a second limb
-    buffer with zero pads (the dense x update's). Returns (xf, [xl, ...])."""
+def _wide_prep(fns, x, kp, limbs, second, with_xf=True):
+    """x in f32 (M, kp; unless not ``with_xf``: None) and cdt(x)'s limbs
+    (M, limbs kp), each zero past K, by ``csrc/mu_wide.cu``'s prep launch;
+    ``second``: also a second limb buffer with zero pads (the dense x
+    update's). Returns (xf, [xl, ...])."""
     m, k = x.shape
-    xf = _f32((m, kp), x.device)
+    xf = _f32((m, kp), x.device) if with_xf else None
     xls = [torch.empty((m, limbs * kp), dtype=torch.bfloat16,
                        device=x.device) for _ in range(1 + second)]
     _launch("mu_stats (wide prep)", fns["prep"], x.device, limbs,
-            x.data_ptr(), _is_bf16(x), m, k, kp, xf.data_ptr(),
-            xls[0].data_ptr(), xls[1].data_ptr() if second else 0)
+            x.data_ptr(), _is_bf16(x), m, k, kp,
+            xf.data_ptr() if with_xf else 0, xls[0].data_ptr(),
+            xls[1].data_ptr() if second else 0)
     return xf, xls
 
 
@@ -871,19 +884,35 @@ mu_stats_masked.dense_launches = 0
 mu_stats_masked.wide_launches = 0
 
 
+def wide_mstats_rows(m: int, n: int, kp: int) -> int:
+    """Rows per partial of the masked wide route's statistics pass
+    (``mask_stats`` of ``csrc/mu_wide.cu``: (64-column N tiles) x (kp /
+    128 K chunks) x (row chunks) blocks) over an M x N my and kp (a
+    multiple of 128): the chunks that bring the grid nearest
+    ``_WIDE_DICT_BLOCKS`` blocks, in whole 64-row stages. A function of the
+    shape alone, so the summation order, and every bit of numd and dend,
+    is."""
+    tiles = -(-n // _MSTATS_N_TILE) * (kp // 128)
+    return _chunk_rows(m, (_WIDE_DICT_BLOCKS + tiles // 2) // tiles,
+                       _MSTATS_STAGE_ROWS)
+
+
 def _masked_wide_launch(my, mask, x, d, eps, block_rows):
     """Launch ``csrc/mu_wide.cu``'s masked MU (``mu_stats_masked``'s route
     above rank 128) on f32 or bf16 ``my`` with the packed mask (int32 bits)
     or the weights (a dense mask in my's dtype), x in the data's dtype or
-    f32: the prep, E1 = cdt(mask (x d)), num = my d^T, den = E1 d^T with
-    the x update, E2 = cdt(mask (x_new d)), then numd and dend, each with
-    its reduction. One E buffer serves E1 and E2, one limb buffer x's and
-    x_new's limbs. Refuses what the route does not take before any build
-    or launch."""
+    f32, in six launches: the prep (cdt(x)'s limbs), E1 = cdt(mask (x d)),
+    the x update (num = my d^T and den = E1 d^T in one pass, x_new in its
+    epilogue), E2 = cdt(mask (x_new d)), the statistics (numd and dend in
+    one pass, each row chunk's partials) and their reduction. One E buffer
+    serves E1 and E2, one limb buffer x's and x_new's limbs; the chunks are
+    ``wide_mstats_rows`` (or ``block_rows`` in whole 64-row stages).
+    Refuses what the route does not take before any build or launch."""
     m, n = my.shape
     k = d.shape[0]
     kp = -(-k // 128) * 128
-    rows = _wide_chunk_rows(m, n, kp, block_rows)
+    rows = (wide_mstats_rows(m, n, kp) if block_rows is None else
+            -(-block_rows // _MSTATS_STAGE_ROWS) * _MSTATS_STAGE_ROWS)
     packed = mask.dtype == torch.int32
     if packed:
         _check_packed(my, mask)
@@ -902,7 +931,7 @@ def _masked_wide_launch(my, mask, x, d, eps, block_rows):
         else:
             mask_t, ld_mask = _tma_rows(mask)
         d_l = column_limbs(d, kp, limbs)
-        xf, (xl,) = _wide_prep(fns, x, kp, limbs, False)
+        _, (xl,) = _wide_prep(fns, x, kp, limbs, False, with_xf=False)
         e = torch.empty((m, ld_my), dtype=my.dtype, device=my.device)
 
         def resid():
@@ -912,23 +941,21 @@ def _masked_wide_launch(my, mask, x, d, eps, block_rows):
                     e.data_ptr(), ld_my)
 
         resid()
-        num = _f32((m, kp), my.device)
-        _launch("mu_stats_masked (wide num)", fns["rows"], my.device, limbs,
-                my_t.data_ptr(), ld_my, d_l.data_ptr(), m, n, k, kp,
-                num.data_ptr(), kp)
         x_new = torch.empty_like(x)
-        _launch("mu_stats_masked (wide x update)", fns["xrows"], my.device,
-                limbs, e.data_ptr(), ld_my, d_l.data_ptr(), m, n, k, kp,
-                xf.data_ptr(), num.data_ptr(), float(eps), x_new.data_ptr(),
-                _is_bf16(x), xl.data_ptr())
-        del num, xf
+        _launch("mu_stats_masked (wide x update)", fns["mxupd"], my.device,
+                limbs, my_t.data_ptr(), ld_my, e.data_ptr(), ld_my,
+                d_l.data_ptr(), m, n, k, kp, x.data_ptr(), _is_bf16(x),
+                float(eps), x_new.data_ptr(), xl.data_ptr())
         resid()
-        part = _f32(-(-m // rows) * k * n, my.device)
+        chunks = -(-m // rows)
+        part = _f32(chunks * 2 * k * n, my.device)
+        _launch("mu_stats_masked (wide statistics)", fns["mstats"],
+                my.device, limbs, my_t.data_ptr(), ld_my, e.data_ptr(),
+                ld_my, xl.data_ptr(), m, n, k, kp, rows, part.data_ptr())
         out = _f32(2 * k * n, my.device)
+        _launch("mu_stats_masked (wide reduction)", fns["reduce"], my.device,
+                part.data_ptr(), 2 * k * n, chunks, out.data_ptr())
         numd, dend = out.split((k * n, k * n))
-        _wide_stat(fns, limbs, my_t, ld_my, xl, m, n, k, kp, rows, part,
-                   numd)
-        _wide_stat(fns, limbs, e, ld_my, xl, m, n, k, kp, rows, part, dend)
     return x_new, numd.view(k, n), dend.view(k, n)
 
 

@@ -15,6 +15,8 @@ data. The same numpy inputs, made from a seed, go through both packages.
 The CUDA kernels themselves run only on the card (``chip_smoke.py`` phase
 4c, ``tools/mu_wide_turns.py``)."""
 
+import contextlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -533,15 +535,20 @@ def test_auto_rule_for_wide_ranks(n, k, dtype, fdt, masked):
 def _emulate(kind, y, mask, x, d, limbs):
     """The wide route's f32 arithmetic in plain torch, in its sum order:
     the wide_resid products (64-deep chunks, the big and the small chains
-    added chunk by chunk), the wide_rows products over 32-column stages
-    and the wide_dict products over 32-row stages of each row chunk
-    (cuda_mu.wide_dict_rows), the chunks' partials summed in order."""
+    added chunk by chunk); dense: num by wide_rows over 32-column stages,
+    the statistics by wide_dict over 32-row stages of each row chunk
+    (cuda_mu.wide_dict_rows); masked: num and den by the merged x update
+    over 32-column stages, numd and dend by the merged statistics pass
+    over 32-row units (two to a 64-row stage) of each row chunk
+    (cuda_mu.wide_mstats_rows, whole 64-row stages); the chunks' partials
+    summed in order."""
     m, n = y.shape
     k = d.shape[0]
     kp = _round128(k)
 
     def stat(e, xn):
-        rows = cuda_mu.wide_dict_rows(m, e.shape[1], kp)
+        rows = (cuda_mu.wide_dict_rows(m, e.shape[1], kp) if kind == "dense"
+                else cuda_mu.wide_mstats_rows(m, n, kp))
         g = None
         for c0 in range(0, m, rows):
             sl = slice(c0, c0 + rows)
@@ -558,6 +565,70 @@ def _emulate(kind, y, mask, x, d, limbs):
     last = (stat(xn, xn) if kind == "dense"
             else stat(mask * _wide_prod(xn, d, limbs), xn))
     return xn, stat(y, xn), last
+
+
+@pytest.mark.parametrize("kind", ["bits", "weights"])
+@pytest.mark.parametrize("dtype", [_F32, _BF16])
+def test_masked_wide_launch_plan(monkeypatch, dtype, kind):
+    """_masked_wide_launch with csrc/mu_wide.cu's C entries stubbed (no
+    library built; each launch recorded): six launches in order, the prep
+    (no f32 copy of x), E1, the merged x update, E2, the merged
+    statistics and the reduction, on bits and on weights, f32 and bf16
+    data; no M x kp f32 num buffer; the statistics' chunks from
+    wide_mstats_rows in whole 64-row stages, their partials 2 K N a
+    chunk, reduced into numd and dend."""
+    m, n, k = 300, 70, 200
+    kp = 256
+    calls, allocs = [], []
+    real_f32 = cuda_mu._f32
+
+    def f32(shape, device):
+        allocs.append(shape)
+        return real_f32(shape, device)
+
+    monkeypatch.setattr(cuda_mu, "_c_function",
+                        lambda source, name, argtypes: name)
+    monkeypatch.setattr(cuda_mu, "_launch",
+                        lambda label, fn, device, *a: calls.append((fn, a)))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(cuda_mu, "_f32", f32)
+    y, mask, x, d = _port_args("binary" if kind == "bits" else "weighted",
+                               12, m, n, k, dtype)
+    x_new, numd, dend = cuda_mu._masked_wide_launch(y, mask, x, d, EPS, None)
+    assert [c[0] for c in calls] == [
+        "mu_wide_prep_launch", "mu_wide_resid_launch", "mu_wide_mxupd_launch",
+        "mu_wide_resid_launch", "mu_wide_mstats_launch",
+        "mu_wide_reduce_launch"]
+    (_, prep), (_, e1), (_, xupd), (_, e2), (_, st), (_, red) = calls
+    limbs = 3 if dtype == _F32 else 1
+    assert prep[:5] == (limbs, x.data_ptr(), 0, m, k) and prep[6] == 0
+    assert e1 == e2 and e1[:2] == (limbs, int(kind == "weights"))
+    assert xupd[6:10] == (m, n, k, kp) and xupd[10] == x.data_ptr()
+    rows = cuda_mu.wide_mstats_rows(m, n, kp)
+    chunks = -(-m // rows)
+    assert rows % 64 == 0 and st[6:11] == (m, n, k, kp, rows)
+    assert red[1:3] == (2 * k * n, chunks)
+    assert allocs == [chunks * 2 * k * n, 2 * k * n]
+    assert (m, kp) not in allocs
+    assert x_new.shape == x.shape and x_new.dtype == x.dtype
+    assert numd.shape == dend.shape == (k, n)
+
+
+@pytest.mark.parametrize("m,n,kp", [(100_000, 1024, 256), (100_000, 64, 256),
+                                    (32_768, 1024, 640), (4096, 128, 6272),
+                                    (300, 70, 256), (7, 1, 128)])
+def test_wide_mstats_rows(m, n, kp):
+    """The masked statistics pass's row chunks: whole 64-row stages, every
+    chunk holding rows, the grid of (64-column N tiles) x (kp / 128) x
+    chunks at most 1.5 times the two waves it aims at (unless one chunk is
+    all), and a function of the shape alone."""
+    rows = cuda_mu.wide_mstats_rows(m, n, kp)
+    chunks = -(-m // rows)
+    tiles = -(-n // 64) * (kp // 128)
+    assert rows % 64 == 0 and (chunks - 1) * rows < m
+    assert chunks == 1 or tiles * chunks <= 1.5 * 264
+    assert rows == cuda_mu.wide_mstats_rows(m, n, kp)
 
 
 @pytest.mark.parametrize("kind", ["dense", "binary"])

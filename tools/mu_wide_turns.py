@@ -4,7 +4,9 @@ as bf16x6, bf16 data in one limb; the mask as bits or as weights), against
 its twins, and one solver iteration in turns with the composition that
 ``use_kernel='auto'`` runs where it does not take the route.
 
-1. Builds mu_wide.cu and prints ptxas' register and spill lines.
+1. Builds mu_wide.cu and prints ptxas' register and spill lines under
+   each kernel's name (``mask_xupd<3>``, ``mask_stats<1>``, ...), and its
+   performance warnings.
 2. Holds each instance (dense f32, dense bf16 with f32 and with bf16 x,
    masked f32 and bf16 on bits and on weights) to its twin (relative
    Frobenius of x_new and of each statistic, limit 2e-6 f32, 2.5e-4 bf16,
@@ -24,12 +26,19 @@ its twins, and one solver iteration in turns with the composition that
    path's launches per call are timed apart by torch.profiler at 100,000 x
    1,024, K = 256. These turns are the data behind ``nmf._auto_rank``.
 
+``--masked`` keeps steps 2 and 3 to the masked instances; ``--path``
+instead times each masked instance at one call at 100,000 x 1,024, K =
+256, with its launches from torch.profiler (through the public wrappers
+only: the script times the route of whichever tree it stands in, so a
+parent tree's route is timed by a copy of it in that tree).
+
 Run from the repository root on the card's machine:
 
-    python3 tools/mu_wide_turns.py [--check-only]
+    python3 tools/mu_wide_turns.py [--check-only | --masked | --path]
 """
 
 import os
+import re
 import subprocess
 import sys
 
@@ -49,6 +58,8 @@ CORNERS = {(F32, False): ((1024, 1280), (128, 10_624)),
            (BF16, False): ((1024, 1536), (128, 12_800)),
            (BF16, True): ((1024, 768), (128, 7040))}
 WIDTHS = (64, 128, 256, 512, 1024, 4096)
+# The masked path's shape (chip_smoke.py's WIDE_RANK_PATH).
+PATH = (100_000, 1024, 256)
 HBM = 3.35e12
 PEAK = 989e12
 
@@ -181,28 +192,94 @@ def turns(g, dev, m, n, k, dt, kind, card, profile=False, fdt=F32):
         launches(kstep, x, d, kind, m, n, k, dt, card)
 
 
-def launches(kstep, x, d, kind, m, n, k, dt, card, calls=5):
+def launch_name(key):
+    """A profiled kernel's name without its namespaces and arguments:
+    ``mask_xupd<3>``, ``wide_resid<3, MaskedResid<3, false, false>>``."""
+    key = key.replace("(anonymous namespace)::", "").replace("void ", "", 1)
+    return key.split("(")[0][:60]
+
+
+def launches(kstep, x, d, kind, m, n, k, dt, card):
     """Each launch of one kernel-path iteration, timed apart by
     torch.profiler (csrc/mu_wide.cu's kernels by name, torch's own where
     the wrapper or the epilogue launches them)."""
+    split(lambda: kstep((x, d), 0),
+          f"{kind} iteration {m}x{n} K={k} {str(dt)[6:]}", card)
+
+
+def kernel_name(mangled):
+    """A kernel's name from its mangled one, roughly: the template and its
+    first argument (``mask_xupd<3>``), past the anonymous namespace."""
+    rest = mangled[3:] if mangled.startswith("_ZN") else mangled[2:]
+    parts = []
+    while rest[:1].isdigit():
+        n = re.match(r"\d+", rest).group(0)
+        parts.append(rest[len(n):len(n) + int(n)])
+        rest = rest[len(n) + int(n):]
+    name = next((p for p in parts if "GLOBAL__N" not in p), mangled[:40])
+    arg = re.match(r"ILi(\d+)E", rest)
+    return name + (f"<{arg.group(1)}>" if arg else "")
+
+
+def ptxas_lines(log):
+    """ptxas' register and spill lines of each kernel in a build log, each
+    under its kernel's name (``kernel_name``), and its warnings."""
+    out = []
+    for ln in open(log).read().splitlines():
+        if "Performance Loss" in ln:
+            out.append("warning in " + kernel_name(ln.split("'")[-2])
+                       + ": " + ln.split(": ", 1)[1][:110])
+        elif "entry function" in ln:
+            out.append("kernel " + kernel_name(ln.split("'")[1]))
+        elif "registers" in ln or "spill" in ln:
+            out.append("  " + ln.strip())
+    return "\n".join(out)
+
+
+def masked_path(g, dev, card, reps=10):
+    """Each masked instance (f32 and bf16 data on bits and on weights, f32
+    x) at one call at PATH, ``reps`` calls timed by CUDA events, beside the
+    TPU kernel's bound, and its launches timed apart by torch.profiler.
+    Uses only the public wrappers, so it times any tree's route."""
+    m, n, k = PATH
+    for dt in (F32, BF16):
+        for kind in ("bits", "weights"):
+            y, mask, x, d = inputs(g, dev, m, n, k, dt, F32, True,
+                                   kind == "weights")
+            km = cuda_mu.pack_mask(mask) if kind == "bits" else mask
+
+            def call():
+                return cuda_mu.mu_stats_masked(y, km, x, d, EPS)
+
+            ms = cuda_ms(call, reps)
+            b, by = bound_ms(kind, m, n, k, dt)
+            print(f"masked path {kind} {m}x{n} K={k} {str(dt)[6:]} data, "
+                  f"float32 x: {ms:.4f} ms a call ({reps} calls); the TPU "
+                  f"kernel's bound {b:.4f} ms ({by}), at {b / ms:.1%} of it "
+                  f"({card})", flush=True)
+            split(call, f"call, {kind} {str(dt)[6:]}", card)
+            del y, mask, x, d, km
+            torch.cuda.empty_cache()
+
+
+def split(call, tag, card, calls=5):
+    """The launches of ``call`` timed apart by torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
-    kstep((x, d), 0)
+    call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
-            kstep((x, d), 0)
+            call()
         torch.cuda.synchronize()
     parts = []
     for e in prof.key_averages():
         if not str(e.device_type).endswith("CUDA"):
             continue
-        name = e.key.split("::")[-1].split("(")[0][:48]
         parts.append((e.self_device_time_total / calls / 1e3, e.count // calls,
-                      name))
+                      launch_name(e.key)))
     total = sum(p[0] for p in parts)
-    print(f"  launches of one {kind} iteration {m}x{n} K={k} {str(dt)[6:]} "
-          f"({total:.4f} ms of device time): "
+    print(f"  launches of one {tag} ({total:.4f} ms of device time): "
           + ", ".join(f"{nm} x{c} {ms:.4f} ms"
                       for ms, c, nm in sorted(parts)[::-1])
           + f" ({card})", flush=True)
@@ -217,23 +294,28 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    log = open(str(_build.build("mu_wide")) + ".log").read()
-    print("\n".join(ln for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln), flush=True)
+    print(ptxas_lines(str(_build.build("mu_wide")) + ".log"), flush=True)
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(26)
+    if "--path" in sys.argv:
+        masked_path(g, dev, card)
+        return 0
+    masked_only = "--masked" in sys.argv
+    kinds = ("bits", "weights") if masked_only else ("dense", "bits",
+                                                      "weights")
     ok = True
     for dt, xdts in ((F32, (F32,)), (BF16, (F32, BF16))):
         for xdt in xdts:
             for m, n, k in ((333, 257, 129), (1000, 1000, 200),
                             (1000, 1000, 256)):
-                for inner in (1, 3):
-                    ok &= check(g, dev, m, n, k, dt, xdt, "dense", inner)
+                if not masked_only:
+                    for inner in (1, 3):
+                        ok &= check(g, dev, m, n, k, dt, xdt, "dense", inner)
                 for kind in ("bits", "weights"):
                     ok &= check(g, dev, m, n, k, dt, xdt, kind)
     if "--check-only" not in sys.argv:
         for dt in (F32, BF16):
-            for kind in ("dense", "bits", "weights"):
+            for kind in kinds:
                 for n in WIDTHS:
                     if cuda_mu.rank_fits(n, 256, dt.itemsize, kind != "dense"):
                         turns(g, dev, 100_000, n, 256, dt, kind, card,
